@@ -6,19 +6,26 @@
 1. Builds the port's CUDA kernels from sketchtpu_torch/csrc.
 2. Holds every kernel against its plain PyTorch twin on the card at the
    main path's shapes (sketch size 1000 -> s64 = 16, k = 17..29 step 2),
-   and times both with CUDA events.
-3. Drives the main path (`sketch` of 8 synthetic 2 Mb assemblies, then
+   and times both with CUDA events, beside the least time the card could
+   take (bound: operations at the table rate, or bytes at 3.35 TB/s).
+3. Drives the two paths through the port's CLI and checks them against
+   `python -m sketchtpu.cli` on its NumPy host oracle (run as a separate
+   process): the dense path (`sketch` of 8 synthetic 2 Mb assemblies, then
    dense `dist` self and ref-vs-query: -k 17, --ani, --exact, f32
-   core/accessory) through the port's CLI, and checks the result against
-   `python -m sketchtpu.cli` on its NumPy host oracle: .skd/.skm and the
-   exact dist outputs byte for byte, f32 core/accessory within 1e-5.
-4. Runs dense dist on 8192 samples derived from those sketches (33.5 M
-   pairs) and reports pairs per second with the card's name and power limit.
+   core/accessory; .skd/.skm and the exact outputs byte for byte, f32
+   core/accessory within 1e-5) and the kNN path (`dist --knn 3`, self and
+   cross, -k 17, --ani, core/accessory, each with and without completeness;
+   byte for byte).
+4. Dense path at scale: dense dist on 8192 samples derived from those
+   sketches (33.5 M pairs).
+5. kNN path at scale: `dist -k 17 --knn 50` over 100,000 derived samples
+   and core/accessory `dist --knn 50` over the first 50,000, with the
+   selection and values of 512 random rows checked against full rows.
 
-Every kernel launch on the main path (phases 3 and 4) is counted; the run
-fails if a kernel was never launched there. Any failure exits non-zero.
-The second-to-last stdout line is the kernels' JSON record, the last one
-{"ok": true, "device": {...}}.
+Each path's kernel launches are counted from 0 over its phases; the run
+fails if a kernel of a path was never launched there. Any failure exits
+non-zero. The second-to-last stdout line is the kernels' JSON record, the
+last one {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ SKETCH_SIZE = 1000
 S64 = 16
 ATOL = 1e-5
 N_SCALE = 8192
+N_KNN = 100_000  # phase 5: single-k kNN samples
+N_KNN_CA = 50_000  # phase 5: core/accessory kNN samples (the first ones)
+KNN = 50
+CHECK_ROWS = 512
 SEED = 20261016
 
 SOURCES = {
@@ -45,9 +56,36 @@ SOURCES = {
                  "sketchtpu/dist/pallas_kernels.py:136"),
     "coreacc": ("sketchtpu_torch/csrc/coreacc.cu",
                 "sketchtpu/dist/coreacc_pallas.py:100"),
+    "knn_keys": ("sketchtpu_torch/csrc/knn_scan.cu",
+                 "sketchtpu/dist/pallas_kernels.py:47"),
+    "samebits_full": ("sketchtpu_torch/csrc/samebits.cu",
+                      "sketchtpu/dist/pallas_kernels.py:265"),
     "nthash_bin": ("sketchtpu_torch/csrc/nthash_bin.cu",
                    "sketchtpu/hash/nthash_jax.py:227"),
 }
+DENSE_PATH = ("samebits", "coreacc", "nthash_bin")
+KNN_PATH = ("knn_keys", "coreacc")
+# no CLI path calls K4: the JAX package calls samebits_pallas only in its
+# tests; the port's samebits engine hook (dist/api.py) reaches it only past
+# 32767 bins
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
+# the 32-bit non-tensor rate, which bounds the 32-bit integer logic and
+# popcount operations of these kernels from below
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+# 32-bit operations per pair and 64-bin chunk of a samebits count: the
+# JAX kernels' own cost estimate (pallas_kernels.py:128), two u32 words x
+# (BBITS xor + BBITS and + popcount + add)
+SB_OPS = 2 * (2 * 14 + 2)
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations at PEAK_OPS or bytes
+    (each input read once, each output written once) at PEAK_BYTES."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def check(cond, msg: str) -> None:
@@ -97,21 +135,27 @@ def derived_words(n: int, seed: int):
 
 
 def phase2_samebits(words, results):
+    """K1 (int16 strip, triangle skip) and K4 (int32 full matrix)."""
     import torch
 
-    from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_ref
+    from sketchtpu_torch.dist.samebits_kernels import (
+        samebits,
+        samebits_full,
+        samebits_ref,
+    )
 
     b = words[:, 0]
-    worst = 0
-    times = {}
-    for label, a, kw in (
-        ("int16 tri row0=4096", b[4096:6144], dict(out_dtype=torch.int16,
-                                                    tri=True, row0=4096)),
-        ("int32", b[:2048], dict(out_dtype=torch.int32)),
+    w_bytes = b.shape[1] * 8
+    for name, label, a, fn, kw in (
+        ("samebits", "K1 int16 tri row0=4096", b[4096:6144], samebits,
+         dict(out_dtype=torch.int16, tri=True, row0=4096)),
+        ("samebits_full", "K4 int32", b[:2048], samebits_full, {}),
     ):
-        got = samebits(a, b, **kw)
+        got = fn(a, b, **kw)
+        worst = 0
         for r0 in (0, a.shape[0] - 256):
-            want = samebits_ref(a[r0 : r0 + 256], b, out_dtype=kw["out_dtype"])
+            want = samebits_ref(a[r0 : r0 + 256], b,
+                                out_dtype=kw.get("out_dtype", torch.int32))
             blk = got[r0 : r0 + 256]
             if kw.get("tri"):
                 rows = kw["row0"] + r0 + torch.arange(256, device=b.device)
@@ -119,16 +163,21 @@ def phase2_samebits(words, results):
             else:
                 read = torch.ones_like(blk, dtype=torch.bool)
             err = (blk[read].long() - want[read].long()).abs().max().item()
-            check(err == 0, f"samebits {label}: kernel != twin (max {err})")
+            check(err == 0, f"{name} {label}: kernel != twin (max {err})")
             worst = max(worst, err)
-        ms = cuda_ms(lambda: samebits(a, b, **kw), reps=10)
+        ms = cuda_ms(lambda: fn(a, b, **kw), reps=10)
         plain = cuda_ms(lambda: samebits_ref(a, b, **kw), reps=2, warmup=0)
-        times[label] = (ms, plain)
-        print(f"phase2 samebits {label} {tuple(a.shape[:1]) + (b.shape[0],)}: "
-              f"equal to twin; kernel {ms:.4f} ms, twin {plain:.2f} ms, "
-              f"{a.shape[0] * b.shape[0] / ms / 1e6:.3f} G pair/s")
-    ms, plain = times["int16 tri row0=4096"]
-    results["samebits"] = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain)
+        na, nb = a.shape[0], b.shape[0]
+        # the triangle skip computes only pairs with column > row
+        pairs = (sum(max(0, nb - 1 - (kw["row0"] + i)) for i in range(na))
+                 if kw.get("tri") else na * nb)
+        bd = bound(pairs * S64 * SB_OPS,
+                   (na + nb) * w_bytes + na * nb * got.element_size())
+        print(f"phase2 {name} {label} ({na}, {nb}): equal to twin; kernel "
+              f"{ms:.4f} ms, twin {plain:.2f} ms, bound {bd['bound_ms']:.4f} "
+              f"ms ({bd['bound_by']}), {na * nb / ms / 1e6:.3f} G pair/s")
+        results[name] = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain,
+                             library_ms=None, **bd)
 
 
 def phase2_coreacc(words, results):
@@ -168,8 +217,53 @@ def phase2_coreacc(words, results):
               f"{a.shape[0] * b.shape[0] / ms / 1e6:.3f} G pair/s")
     print(f"phase2 coreacc beta==0 discontinuity pairs: {jumps}")
     ms, plain = times["plain"]
+    na, nb = a.shape[0], b.shape[0]
+    bd = bound(na * nb * len(KMERS) * S64 * SB_OPS,
+               (na + nb) * a.shape[1] * a.shape[2] * 8 + na * nb * 8)
+    print(f"phase2 coreacc bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     results["coreacc"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
-                              beta0_pairs=jumps)
+                              beta0_pairs=jumps, library_ms=None, **bd)
+
+
+def phase2_knn_keys(words, results):
+    """K3 at the kNN scan's tile (2048 rows x 8192 columns): a self tile
+    across the diagonal, both key modes, bit-equal to the twin."""
+    import torch
+
+    from sketchtpu_torch.dist.knn_kernels import (
+        Completeness,
+        knn_keys,
+        knn_keys_ref,
+    )
+
+    plane = words[:, 0]
+    a, b = plane[4096:6144], plane[:8192]
+    comp = torch.linspace(0.6, 1.0, plane.shape[0], device=plane.device)
+    comp = comp[torch.randperm(plane.shape[0], device=plane.device)]
+    modes = {
+        "plain": None,
+        "completeness": Completeness(comp[4096:6144].contiguous(), comp, 0.64,
+                                     S64),
+    }
+    na, nb = a.shape[0], b.shape[0]
+    for label, c in modes.items():
+        kw = dict(row0=4096, col0=0, nb_real=plane.shape[0],
+                  exclude_self=True, comp=c)
+        got = knn_keys(a, b, **kw)
+        want = knn_keys_ref(a, b, **kw)
+        check(torch.equal(got, want), f"knn_keys {label}: kernel != twin")
+        check(int((got == -1).sum()) == 2048, f"knn_keys {label}: self pairs")
+        ms = cuda_ms(lambda: knn_keys(a, b, **kw), reps=10)
+        plain = cuda_ms(lambda: knn_keys_ref(a, b, **kw), reps=2, warmup=0)
+        bd = bound(na * nb * S64 * SB_OPS,
+                   (na + nb) * a.shape[1] * 8 + na * nb * got.element_size())
+        print(f"phase2 knn_keys {label} ({na}, {nb}) {got.dtype}: equal to "
+              f"twin; kernel {ms:.4f} ms, twin {plain:.2f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+              f"{na * nb / ms / 1e6:.3f} G pair/s")
+        if label == "plain":
+            results["knn_keys"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                       library_ms=None, **bd)
 
 
 def phase2_nthash(results):
@@ -200,16 +294,24 @@ def phase2_nthash(results):
         plain += cuda_ms(lambda: nthash_bin_ref(seq_d, k, tf, tr, True,
                                                 starts_d, nbins),
                          reps=1, warmup=0)
+    # per window and k: k taps of two 64-bit table XORs (4 u32 ops)
+    bd = bound(seq.size * sum(KMERS) * 4,
+               len(KMERS) * (seq.size + starts.size * nbins * 8))
     print(f"phase2 nthash_bin 8 x 2 Mb + 20 Mb ({seq.size} bases), 7 k: "
           f"equal to twin; kernel {ms:.3f} ms, twin {plain:.2f} ms for all "
-          f"k, {seq.size * len(KMERS) / ms / 1e6:.3f} G base-k/s")
-    results["nthash_bin"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain)
+          f"k, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+          f"{seq.size * len(KMERS) / ms / 1e6:.3f} G base-k/s")
+    results["nthash_bin"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                 library_ms=None, **bd)
 
 
 # --- phase 3: main path against the host oracle ----------------------------
 
 DIST_MODES = {"k17": ["-k", "17"], "ani": ["-k", "17", "--ani"],
               "exact": ["--exact"], "coreacc": []}
+KNN_MODES = {"knn_k17": ["-k", "17", "--knn", "3"],
+             "knn_ani": ["-k", "17", "--ani", "--knn", "3"],
+             "knn_coreacc": ["--knn", "3"]}
 
 
 def host_env() -> dict:
@@ -221,21 +323,49 @@ def host_env() -> dict:
     return env
 
 
-def main_path_commands(prefix: Path, rfile: Path, rfile_q: Path):
+def sketch_commands(prefix: Path, rfile: Path, rfile_q: Path):
     p = str(prefix)
     kmers = ",".join(map(str, KMERS))
-    cmds = [
+    return [
         ["sketch", "-f", str(rfile), "-o", f"{p}db", "-k", kmers,
          "-s", str(SKETCH_SIZE), "--quiet"],
         ["sketch", "-f", str(rfile_q), "-o", f"{p}q", "-k", kmers,
          "-s", str(SKETCH_SIZE), "--quiet"],
     ]
-    for name, flags in DIST_MODES.items():
-        cmds.append(["dist", f"{p}db", *flags, "-o", f"{p}self_{name}.txt",
-                     "--quiet"])
-        cmds.append(["dist", f"{p}db", f"{p}q", *flags, "-o",
-                     f"{p}cross_{name}.txt", "--quiet"])
+
+
+def dist_commands(prefix: Path, modes: dict, comp: tuple | None = None):
+    """Self and cross `dist` of every mode on the phase 3 databases; with
+    comp (ref, query completeness files) a `<mode>_comp` run of each too."""
+    p = str(prefix)
+    cmds = []
+    for name, flags in modes.items():
+        runs = [(name, [], [])]
+        if comp is not None:
+            ref = ["--ref-completeness-file", str(comp[0])]
+            runs.append((f"{name}_comp", ref,
+                         ref + ["--query-completeness-file", str(comp[1])]))
+        for label, self_comp, cross_comp in runs:
+            cmds.append(["dist", f"{p}db", *flags, *self_comp, "-o",
+                         f"{p}self_{label}.txt", "--quiet"])
+            cmds.append(["dist", f"{p}db", f"{p}q", *flags, *cross_comp, "-o",
+                         f"{p}cross_{label}.txt", "--quiet"])
     return cmds
+
+
+def run_port_and_host(cli_main, port_cmds, host_cmds):
+    """(port seconds, host seconds) of each command: the port in this
+    process, the host oracle in a new process each."""
+    port_s, host_s = [], []
+    for argv in port_cmds:
+        t0 = time.time()
+        check(cli_main(argv) == 0, f"port {' '.join(argv)} failed")
+        port_s.append(time.time() - t0)
+    for argv in host_cmds:
+        t0 = time.time()
+        run([sys.executable, "-m", "sketchtpu.cli", *argv], env=host_env())
+        host_s.append(time.time() - t0)
+    return port_s, host_s
 
 
 def same_bytes(a: Path, b: Path) -> bool:
@@ -283,7 +413,8 @@ def coreacc_table(path: Path):
             np.array([[float(v) for v in r[2:]] for r in rows]))
 
 
-def phase3(cli_main):
+def phase3_dense(cli_main):
+    """The dense path: sketch, then dense dist, against the host oracle."""
     from sketchtpu_torch.synth import related_assemblies
 
     d = WORK / "p3"
@@ -291,15 +422,13 @@ def phase3(cli_main):
     lines = rfile.read_text().splitlines()
     rfile_q = d / "rfile_q.txt"
     rfile_q.write_text("\n".join(lines[5:]) + "\n")
-    port_s, host_s = [], []
-    for argv in main_path_commands(d / "port_", rfile, rfile_q):
-        t0 = time.time()
-        check(cli_main(argv) == 0, f"port {argv[0]} failed")
-        port_s.append(time.time() - t0)
-    for argv in main_path_commands(d / "host_", rfile, rfile_q):
-        t0 = time.time()
-        run([sys.executable, "-m", "sketchtpu.cli", *argv], env=host_env())
-        host_s.append(time.time() - t0)
+    port_s, host_s = run_port_and_host(
+        cli_main,
+        sketch_commands(d / "port_", rfile, rfile_q)
+        + dist_commands(d / "port_", DIST_MODES),
+        sketch_commands(d / "host_", rfile, rfile_q)
+        + dist_commands(d / "host_", DIST_MODES),
+    )
     mbk = 8 * 2.0 * len(KMERS)
     print(f"phase3 sketch 8 x 2 Mb x {len(KMERS)} k: port {port_s[0]:.3f} s "
           f"= {mbk / port_s[0]:.1f} Mbase-k/s end to end (parse, upload, "
@@ -320,7 +449,33 @@ def phase3(cli_main):
               f"byte-identical")
         compare_coreacc(f"phase3 {side} vs host", d / f"port_{side}_coreacc.txt",
                         d / f"host_{side}_coreacc.txt")
-    return d / "port_db"
+    return d
+
+
+def phase3_knn(cli_main, d: Path) -> None:
+    """The kNN path on phase 3's databases, against the host oracle: every
+    output byte for byte (the core/accessory selection is f32 on the card,
+    its values the f64 chain's; at 8 samples no f32 near-tie is expected)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    comp = (d / "comp.txt", d / "comp_q.txt")
+    for path, names in ((comp[0], range(8)), (comp[1], range(5, 8))):
+        path.write_text("".join(f"sample_{i:02d}\t{c:.3f}\n" for i, c in
+                                zip(names, rng.uniform(0.6, 1.0, 8))))
+    port_s, host_s = run_port_and_host(
+        cli_main, dist_commands(d / "port_", KNN_MODES, comp),
+        dist_commands(d / "host_", KNN_MODES, comp))
+    print(f"phase3 kNN {len(port_s)} commands: port {sum(port_s):.2f} s, "
+          f"host oracle {sum(host_s):.2f} s")
+    for side in ("self", "cross"):
+        for name in KNN_MODES:
+            for label in (name, f"{name}_comp"):
+                check(same_bytes(d / f"port_{side}_{label}.txt",
+                                 d / f"host_{side}_{label}.txt"),
+                      f"dist {side} {label} differs from the host oracle")
+        print(f"phase3 {side}: --knn 3 -k 17, --ani, core/acc, each with "
+              f"and without completeness, byte-identical")
 
 
 # --- phase 4: a database of the size users run -----------------------------
@@ -344,9 +499,9 @@ def scan_dist_file(path: Path, n_values: int) -> int:
     return lines
 
 
-def profile_dist(cli_main, argv, label: str) -> None:
+def profile_dist(cli_main, argv, label: str) -> float:
     """One more run of a dist command under torch.profiler: device time by
-    kernel against the host clock."""
+    kernel against the host clock. Returns the device's busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,11 +520,12 @@ def profile_dist(cli_main, argv, label: str) -> None:
     rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
                   reverse=True)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
-    print(f"phase4 profile {label}: wall {wall:.3f} s (profiler on), device "
+    print(f"{label} profile: wall {wall:.3f} s (profiler on), device "
           f"kernels + copies {busy_ms:.2f} ms = "
           f"{100 * busy_ms / 1e3 / wall:.2f}% of wall")
     for us, count, key in rows[:6]:
-        print(f"  {us / 1e3:10.3f} ms  x{count:<4d} {key[:90]}")
+        print(f"  {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+    return busy_ms / 1e3 / wall
 
 
 def phase4(cli_main, parent_db: Path, gpu: str) -> None:
@@ -395,7 +551,7 @@ def phase4(cli_main, parent_db: Path, gpu: str) -> None:
               f"kernels, host format, {out.stat().st_size / 1e9:.2f} GB "
               f"written), {gpu}")
         profile_dist(cli_main, ["dist", str(db), *flags, "-o", str(out),
-                                "--quiet"], f"dist {name} n={N_SCALE}")
+                                "--quiet"], f"phase4 dist {name} n={N_SCALE}")
         out.unlink()
     names = [f"derived_{i:05d}" for i in
              np.random.default_rng(SEED).choice(N_SCALE, 512, replace=False)]
@@ -411,6 +567,130 @@ def phase4(cli_main, parent_db: Path, gpu: str) -> None:
                     d / "subset_exact.txt")
 
 
+# --- phase 5: kNN at the size users run ------------------------------------
+
+def phase5_run(cli_main, parent_db: Path, gpu: str) -> Path:
+    """`dist -k 17 --knn 50` over N_KNN samples and core/accessory
+    `dist --knn 50` over the first N_KNN_CA (by --subset), each timed,
+    then once more under torch.profiler."""
+    from sketchtpu_torch.synth import derive_database
+
+    d = WORK / "p5"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    derive_database(str(parent_db), str(d / "db"), N_KNN, SEED + 5)
+    print(f"phase5 derived {N_KNN} samples x {len(KMERS)} k in "
+          f"{time.time() - t0:.1f} s (set-up)")
+    (d / "first.txt").write_text(
+        "".join(f"derived_{i:05d}\n" for i in range(N_KNN_CA)))
+    runs = (("k17", N_KNN, ["-k", "17"]),
+            ("coreacc", N_KNN_CA, ["--subset", str(d / "first.txt")]))
+    for name, n, flags in runs:
+        argv = ["dist", str(d / "db"), *flags, "--knn", str(KNN), "-o",
+                str(d / f"{name}.txt"), "--quiet"]
+        t0 = time.time()
+        check(cli_main(argv) == 0, f"phase5 {name} failed")
+        wall = time.time() - t0
+        print(f"phase5 dist --knn {KNN} {name} n={n}: {wall:.2f} s = "
+              f"{n * n / wall / 1e6:.1f} M scanned pairs/s end to end (load, "
+              f"upload, scan, selection, host f64 values, "
+              f"{(d / f'{name}.txt').stat().st_size / 1e6:.0f} MB written), "
+              f"{gpu}")
+        profile_dist(cli_main, argv, f"phase5 dist --knn {KNN} {name} n={n}")
+    return d
+
+
+def knn_lines(path: Path, n: int, rows):
+    """Lines of the given rows of a self kNN output over n samples, which
+    has KNN lines per row in row order: (len(rows), KNN) neighbour ids and
+    (len(rows), KNN, fields) values."""
+    import numpy as np
+
+    lines = path.read_bytes().split(b"\n")
+    check(lines[-1] == b"" and len(lines) - 1 == n * KNN,
+          f"{path.name}: {len(lines) - 1} lines, expected {n * KNN}")
+    fields = [ln.split(b"\t") for r in rows
+              for ln in lines[r * KNN : (r + 1) * KNN]]
+    names = np.array([int(f[0][8:]) for f in fields])
+    check((names == np.repeat(rows, KNN)).all(), f"{path.name}: row order")
+    cols = np.array([int(f[1][8:]) for f in fields]).reshape(len(rows), KNN)
+    vals = np.array([[float(v) for v in f[2:]] for f in fields])
+    return cols, vals.reshape(len(rows), KNN, -1)
+
+
+def phase5_check(d: Path) -> None:
+    """CHECK_ROWS seeded random rows of each phase 5 output against full
+    rows of samebits (K1) and the f64 chain on the host: single-k
+    neighbours in the host path's order (samebits descending, column
+    ascending) with its values; core/accessory values exactly, and
+    neighbour sets equal to the f64 selection except in rows whose
+    knn-th and next f64 core distances lie within 1e-6 (counted)."""
+    import numpy as np
+    import torch
+
+    from sketchtpu_torch.dist.jaccard_np import (
+        core_acc_from_jaccards,
+        jaccard_from_samebits,
+    )
+    from sketchtpu_torch.dist.samebits_kernels import samebits, to_device_words
+    from sketchtpu_torch.formats.skm import MultiSketch
+
+    ms = MultiSketch.load_metadata(str(d / "db"))
+    ms.read_sketch_data(str(d / "db"))
+    words = to_device_words(ms, torch.device("cuda"))
+    rng = np.random.default_rng(SEED)
+
+    rows = np.sort(rng.choice(N_KNN, CHECK_ROWS, replace=False))
+    cols, vals = knn_lines(d / "k17.txt", N_KNN, rows)
+    sb = samebits(words[torch.from_numpy(rows).cuda(), 0], words[:, 0],
+                  out_dtype=torch.int32).cpu().numpy().astype(np.int64)
+    key = (sb << 32) | (0xFFFFFFFF - np.arange(N_KNN))
+    key[np.arange(CHECK_ROWS), rows] = -1
+    top = np.argpartition(-key, KNN, axis=1)[:, :KNN]
+    top = np.take_along_axis(top, np.argsort(
+        -np.take_along_axis(key, top, 1), axis=1), 1)
+    check((cols == top).all(), "phase5 k17: neighbours differ")
+    j = jaccard_from_samebits(np.take_along_axis(sb, top, 1), ms.sketchsize64)
+    want = (1.0 - j).astype(np.float32)
+    check((vals[:, :, 0].astype(np.float32) == want).all(),
+          "phase5 k17: values differ")
+    print(f"phase5 k17: {CHECK_ROWS} rows' neighbours and values equal to "
+          f"full rows (K1) with the host's selection")
+
+    n = N_KNN_CA
+    rows = np.sort(rng.choice(n, CHECK_ROWS, replace=False))
+    cols, vals = knn_lines(d / "coreacc.txt", n, rows)
+    near, near_differ = 0, 0
+    for c0 in range(0, CHECK_ROWS, 64):
+        blk = rows[c0 : c0 + 64]
+        blk_t = torch.from_numpy(blk).cuda()
+        jaccs = np.empty((blk.size * n, len(KMERS)))
+        for ki in range(len(KMERS)):
+            sbk = samebits(words[blk_t, ki], words[:n, ki], out_dtype=torch.int32)
+            jaccs[:, ki] = jaccard_from_samebits(sbk.cpu().numpy().reshape(-1),
+                                                 ms.sketchsize64)
+        core, acc = core_acc_from_jaccards(jaccs, KMERS, ms.sketch_size)
+        core, acc = core.reshape(blk.size, n), acc.reshape(blk.size, n)
+        for i, r in enumerate(blk):
+            got_c = cols[c0 + i]
+            got_v = vals[c0 + i].astype(np.float32)
+            check((got_v[:, 0] == core[i, got_c]).all()
+                  and (got_v[:, 1] == acc[i, got_c]).all(),
+                  f"phase5 coreacc row {r}: values differ from the f64 chain")
+            ranked = core[i].copy()
+            ranked[r] = np.inf
+            order = np.argsort(ranked, kind="stable")[: KNN + 1]
+            tie = ranked[order[KNN]] - ranked[order[KNN - 1]] <= 1e-6
+            near += int(tie)
+            if set(got_c) != set(order[:KNN]):
+                check(tie, f"phase5 coreacc row {r}: neighbours differ")
+                near_differ += 1
+    print(f"phase5 coreacc: {CHECK_ROWS} rows' values equal to the f64 chain; "
+          f"neighbour sets equal to the f64 selection except {near_differ} "
+          f"rows, all among the {near} rows whose {KNN}th and next f64 core "
+          f"distances lie within 1e-6")
+
+
 def main() -> int:
     import torch
 
@@ -418,10 +698,11 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from sketchtpu_torch import _build
+    from sketchtpu_torch import _build, _native
     from sketchtpu_torch.cli import main as cli_main
     from sketchtpu_torch.dist.coreacc_kernels import coreacc
-    from sketchtpu_torch.dist.samebits_kernels import samebits
+    from sketchtpu_torch.dist.knn_kernels import knn_keys
+    from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_full
     from sketchtpu_torch.hash.nthash_torch import nthash_bin
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -441,25 +722,52 @@ def main() -> int:
         for ln in lib_path.with_suffix(".log").read_text().splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print("  ptxas:", ln.replace("ptxas info    :", "").strip())
+        t0 = time.time()
+        check(_native.get_lib() is not None, "the host helper did not build")
+        print(f"phase1 built the host helper (csrc/host/native.cpp) in "
+              f"{time.time() - t0:.1f} s")
 
         results: dict[str, dict] = {}
         words = derived_words(16384, SEED)
         phase2_samebits(words, results)
         phase2_coreacc(words, results)
+        phase2_knn_keys(words, results)
         del words
         phase2_nthash(results)
         torch.cuda.empty_cache()
 
         wrappers = {"samebits": samebits, "coreacc": coreacc,
+                    "knn_keys": knn_keys, "samebits_full": samebits_full,
                     "nthash_bin": nthash_bin}
-        for fn in wrappers.values():
-            fn.launches = 0
-        parent = phase3(cli_main)
-        phase4(cli_main, parent, smi)
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        print(f"main-path launches: {launches}")
-        for name, count in launches.items():
-            check(count > 0, f"kernel {name} never launched on the main path")
+
+        def counted(path, kernels, *phases):
+            """Run a path's phases with every count at 0 before; its
+            launches just after, each of `kernels` at least once."""
+            for fn in wrappers.values():
+                fn.launches = 0
+            out = [phase() for phase in phases]
+            got = {name: fn.launches for name, fn in wrappers.items()}
+            print(f"{path} path launches: {got}")
+            for name in kernels:
+                check(got[name] > 0, f"kernel {name} never launched on the "
+                      f"{path} path")
+            return got, out
+
+        t0 = time.time()
+        dense, (p3, _) = counted(
+            "dense", DENSE_PATH, lambda: phase3_dense(cli_main),
+            lambda: phase4(cli_main, WORK / "p3" / "port_db", smi))
+        print(f"dense path phases 3-4: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        knn, (_, p5) = counted(
+            "kNN", KNN_PATH, lambda: phase3_knn(cli_main, p3),
+            lambda: phase5_run(cli_main, p3 / "port_db", smi))
+        print(f"kNN path phases 3, 5: {time.time() - t0:.1f} s")
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("sketchtpu", "jax")]
+        check(not loaded, f"the port's phases loaded {loaded[:5]}")
+        phase5_check(p5)
+        launches = {name: dense[name] + knn[name] for name in wrappers}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -470,7 +778,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

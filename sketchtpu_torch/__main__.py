@@ -1,4 +1,4 @@
-"""`python -m sketchtpu_torch` == sketchtpu's CLI on the port's engines."""
+"""`python -m sketchtpu_torch`: the port's CLI (cli.py)."""
 
 import sys
 

@@ -25,11 +25,13 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *NVCC_ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # keep a*b+c as two roundings, like the plain PyTorch twins, so the
-    # f32 core/accessory chain agrees with its twin to the last bit
+    # f32 chains agree with their twins to the last bit (no fast math:
+    # IEEE division and logf/expf)
     "--fmad=false",
     "-Xptxas", "-v",
 )
@@ -49,6 +51,10 @@ _SIGNATURES = {
     ),
     "stpu_nthash_bin": (
         _P, _LL, _I, _P, _P, _I, _P, _I, _ULL, _I, _P, _P,
+    ),
+    "stpu_knn_keys": (
+        _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _LL,
+        _I, _P, _P, _F, _F, _F, _F, _P,
     ),
 }
 
@@ -88,25 +94,49 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hash-keyed library unless it exists.
-    Returns its path; the compiler's report (registers, shared memory,
-    spills from -Xptxas -v) is kept next to it as a .log file."""
+    """Compile csrc/*.cu into the hash-keyed library unless it exists: one
+    nvcc per source, all started together, then one link. Returns its path;
+    the compiler's report (registers, shared memory, spills from
+    -Xptxas -v) is kept next to it as a .log file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    jobs = []
+    for src in (s for s in sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    link = [nvcc, *NVCC_ARCH, "-shared", "-o", str(tmp),
+            *[str(obj) for _, obj, _ in jobs]]
+    log, failed = [], None
+    try:
+        for cmd, _, proc in jobs:
+            text, _ = proc.communicate(timeout=900)
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0 and failed is None:
+                failed = f"nvcc failed ({proc.returncode}):\n{text[-4000:]}"
+        if failed is None:
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  timeout=300)
+            log.append(" ".join(link) + "\n" + proc.stdout)
+            if proc.returncode != 0:
+                failed = f"nvcc link failed ({proc.returncode}):\n{proc.stdout[-4000:]}"
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(log))
+    if failed is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        raise RuntimeError(failed)
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,100 @@
+"""ctypes loader for the host helper library, csrc/host/native.cpp.
+
+g++ compiles it at first use into `_build/` under a name keyed by a hash of
+the source, so a stale build is never loaded. If compilation fails, or
+SKETCHTPU_NO_NATIVE is set, get_lib() returns None and callers use their
+pure-Python implementations (identical output, slower).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+_SRC = _PKG / "csrc" / "host" / "native.cpp"
+_BUILD_DIR = _PKG / "_build"
+_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+
+# (restype, argtypes) of every entry point
+_SIGNATURES = {
+    "stpu_crc32c": (ctypes.c_uint32,
+                    [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32]),
+    "stpu_snappy_max_compressed": (ctypes.c_size_t, [ctypes.c_size_t]),
+    "stpu_snappy_compress": (ctypes.c_size_t,
+                             [ctypes.c_char_p, ctypes.c_size_t, _P,
+                              ctypes.c_size_t]),
+    "stpu_snappy_decompress": (ctypes.c_size_t,
+                               [ctypes.c_char_p, ctypes.c_size_t, _P,
+                                ctypes.c_size_t]),
+    "stpu_filter_bin_signs": (None,
+                              [_P, ctypes.c_size_t, ctypes.c_uint16,
+                               ctypes.c_uint64, _P, ctypes.c_size_t]),
+    "stpu_bin_signs": (None,
+                       [_P, ctypes.c_size_t, ctypes.c_uint64, _P,
+                        ctypes.c_size_t]),
+    "stpu_format_f32": (None, [_P, _I64, _P, _P]),
+    "stpu_parse_dna": (ctypes.c_int,
+                       [ctypes.c_char_p, _I64, ctypes.c_int, _P, ctypes.c_int,
+                        _P, _P, _P, _P, _P, _P]),
+    "stpu_format_dist_lines": (_I64,
+                               [ctypes.c_char_p, _P, ctypes.c_char_p, _P, _P,
+                                _P, _P, _P, _I64, _P, _I64]),
+}
+
+
+def _lib_path() -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h.update(_SRC.read_bytes())
+    return _BUILD_DIR / f"libsketchtpu_host_{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> bool:
+    # compile to a process-unique temp path and os.replace into place:
+    # concurrent processes on a fresh checkout must never CDLL a
+    # half-linked file or race g++ on the shared output
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
+    cmd = ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
+        return False
+
+
+def get_lib():
+    """Return the loaded native library, or None if unavailable."""
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if os.environ.get("SKETCHTPU_NO_NATIVE"):
+            return None
+        out = _lib_path()
+        if not out.exists() and not _build(out):
+            return None
+        try:
+            lib = ctypes.CDLL(str(out))
+        except OSError:
+            return None
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _lib = lib
+        return _lib

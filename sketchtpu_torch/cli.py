@@ -1,48 +1,156 @@
-"""Command line of the port: sketchtpu's CLI with this package's engines.
+"""Command line of the port: the subcommands and flags of the reference
+(sketchlib.rust src/cli.rs) that sketchtpu_torch serves, on its own engines.
 
-`sketchtpu.cli` imports every engine selector from `sketchtpu.runtime` at
-call time, so binding the port's selectors onto that module for the
-length of a call routes the whole command through the port, and the
-originals come back afterwards. Commands and flags whose engines are not
-ported yet are refused before anything runs.
+Subcommands: sketch, dist (dense and --knn), merge, append, delete, info.
+`inverted`, `info` on a .ski, `warmup`, --jax-profile and multi-process runs
+parse but are refused with NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
-import contextlib
+import argparse
+import logging
 import os
 import sys
+import time
 
-ROUTED = (
-    "select_backend",
-    "select_engine",
-    "select_coreacc_engine",
-    "select_dense_stream_engine",
-    "select_knn_engine",
-    "select_inverted_engine",
-)
+log = logging.getLogger("sketchtpu")
+
+DEFAULT_MINCOUNT = 5
+DEFAULT_MINQUAL = 20
+DEFAULT_SKETCHSIZE = 1000
 
 
-@contextlib.contextmanager
-def port_engines():
-    """Bind the port's selectors onto sketchtpu.runtime, then restore."""
-    import sketchtpu.runtime as jax_runtime
+def _add_common(p):
+    p.add_argument("-v", "--verbose", action="store_true", help="Show progress messages")
+    p.add_argument("--quiet", action="store_true", help="Don't show any messages")
+    p.add_argument("--jax-profile", metavar="DIR",
+                   help="Device profile of the run (not ported yet)")
 
-    from . import runtime
 
-    saved = {name: getattr(jax_runtime, name) for name in ROUTED}
-    try:
-        for name in ROUTED:
-            setattr(jax_runtime, name, getattr(runtime, name))
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(jax_runtime, name, fn)
+def _add_kmers(p):
+    p.add_argument(
+        "-k",
+        "--k-vals",
+        type=lambda s: [int(x) for x in s.split(",")],
+        help="K-mer list (comma separated k-mer values to sketch at)",
+    )
+    p.add_argument(
+        "--k-seq",
+        type=lambda s: [int(x) for x in s.split(",")],
+        help="K-mer linear sequence (start,end,step)",
+    )
+
+
+def _add_ranks(p):
+    p.add_argument("--process-id", type=int, default=None,
+                   help="Multi-process sharding: this process's rank (not "
+                   "ported yet)")
+    p.add_argument("--n-processes", type=int, default=None,
+                   help="Multi-process sharding: total process count (not "
+                   "ported yet)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="sketchtpu_torch",
+        description="Genome sketching and distances on PyTorch and CUDA",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    # --- sketch ---
+    p = sub.add_parser("sketch", help="Create sketches from input data")
+    p.add_argument("seq_files", nargs="*", help="List of input FASTA files")
+    p.add_argument("-f", dest="file_list", help="File listing input files")
+    p.add_argument("--concat-fasta", action="store_true")
+    p.add_argument("-o", dest="output", required=True, help="Output prefix")
+    _add_kmers(p)
+    p.add_argument("-s", "--sketch-size", type=int, default=DEFAULT_SKETCHSIZE)
+    p.add_argument("--seq-type", choices=["dna", "aa", "pdb"], default="dna")
+    p.add_argument("--convert-pdb", action="store_true",
+                   help="Input files are .pdb (with --seq-type pdb, not "
+                   "ported yet)")
+    p.add_argument("--level", choices=["level1", "level2", "level3"], default="level1")
+    p.add_argument("--single-strand", action="store_true")
+    p.add_argument("--min-count", type=int, default=DEFAULT_MINCOUNT)
+    p.add_argument("--min-qual", type=int, default=DEFAULT_MINQUAL)
+    p.add_argument("--threads", type=int, default=1)
+    _add_ranks(p)
+    _add_common(p)
+
+    # --- dist ---
+    p = sub.add_parser("dist", help="Calculate pairwise distances using sketches")
+    p.add_argument("ref_db")
+    p.add_argument("query_db", nargs="?")
+    p.add_argument("-o", dest="output")
+    p.add_argument("--knn", type=int)
+    p.add_argument("--subset")
+    p.add_argument("-k", dest="kmer", type=int)
+    p.add_argument("--ani", action="store_true")
+    p.add_argument(
+        "--exact",
+        action="store_true",
+        help="Dense multi-k core/accessory output (self AND ref-vs-"
+        "query): stream exact per-k samebits from the device and replay "
+        "the f64 chain on the host — byte-identical to the host "
+        "pipeline (the default large-run engine is f32, within ~1e-5). "
+        "Single-k and kNN outputs are already exact; no effect there",
+    )
+    p.add_argument("--threads", type=int, default=1)
+    p.add_argument("--ref-completeness-file")
+    p.add_argument("--query-completeness-file")
+    p.add_argument("--completeness-cutoff", type=float, default=0.64)
+    _add_ranks(p)
+    _add_common(p)
+
+    # --- not ported: parsed only to be refused ---
+    p = sub.add_parser("inverted", help="Inverted index commands (not ported yet)")
+    p.add_argument("rest", nargs=argparse.REMAINDER)
+    p = sub.add_parser("warmup", help="Kernel pre-compilation (not ported yet)")
+    p.add_argument("rest", nargs=argparse.REMAINDER)
+
+    # --- merge ---
+    p = sub.add_parser("merge", help="Merge two sketch databases")
+    p.add_argument("db1")
+    p.add_argument("db2")
+    p.add_argument("-o", dest="output", required=True)
+    _add_common(p)
+
+    # --- append ---
+    p = sub.add_parser("append", help="Sketch new genomes and append to a database")
+    p.add_argument("db")
+    p.add_argument("seq_files", nargs="*")
+    p.add_argument("-f", dest="file_list")
+    p.add_argument("-o", dest="output", required=True)
+    p.add_argument("--single-strand", action="store_true")
+    p.add_argument("--min-count", type=int, default=DEFAULT_MINCOUNT)
+    p.add_argument("--min-qual", type=int, default=DEFAULT_MINQUAL)
+    p.add_argument("--concat-fasta", action="store_true")
+    p.add_argument("--threads", type=int, default=1)
+    p.add_argument("--level", choices=["level1", "level2", "level3"], default="level1")
+    _add_common(p)
+
+    # --- delete ---
+    p = sub.add_parser("delete", help="Delete genome(s) from a database")
+    p.add_argument("db")
+    p.add_argument("samples", help="Input file with IDs to delete (one per line)")
+    p.add_argument("output_file")
+    _add_common(p)
+
+    # --- info ---
+    p = sub.add_parser("info", help="Print information about a .skm file")
+    p.add_argument("skm_file")
+    p.add_argument("--sample-info", action="store_true")
+    _add_common(p)
+
+    return parser
 
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for the parts of the CLI with no port."""
-    if args.command == "inverted":
+    if args.command == "inverted" or (
+        args.command == "info" and args.skm_file.endswith(".ski")
+    ):
         raise NotImplementedError(
             "inverted index commands are not ported yet (ROADMAP queue 1 "
             "item 6)"
@@ -64,10 +172,344 @@ def refuse_unported(args) -> None:
         )
 
 
-def main(argv=None) -> int:
-    from sketchtpu import cli
+def strip_sketch_extension(name: str) -> str:
+    if name.endswith((".skm", ".skd", ".ski")):
+        return name[:-4]
+    return name
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(cli.build_parser().parse_args(argv))
-    with port_engines():
-        return cli.main(argv)
+
+def _setup_logging(args):
+    level = logging.WARNING
+    if getattr(args, "quiet", False):
+        level = logging.ERROR
+    elif getattr(args, "verbose", False):
+        level = logging.INFO
+    logging.basicConfig(
+        stream=sys.stderr, level=level, format="%(asctime)s %(levelname)s %(message)s"
+    )
+
+
+def _level_num(level_str: str) -> int:
+    return int(level_str[-1])
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    _setup_logging(args)
+    start = time.time()
+
+    if args.command == "sketch":
+        _sketch_main(args, start)
+    elif args.command == "dist":
+        _dist_main(args, start)
+    elif args.command == "merge":
+        _merge_main(args)
+    elif args.command == "append":
+        _append_main(args)
+    elif args.command == "delete":
+        from .formats.skm import MultiSketch
+
+        ref_db = strip_sketch_extension(args.db)
+        with open(args.samples) as f:
+            ids = [line.rstrip("\n") for line in f if line.rstrip("\n")]
+        _delete_samples(MultiSketch.load_metadata(ref_db), ref_db,
+                        args.output_file, ids)
+    elif args.command == "info":
+        from .formats.skm import MultiSketch
+
+        ms = MultiSketch.load_metadata(strip_sketch_extension(args.skm_file))
+        print(ms.display_str() if args.sample_info else ms.debug_str())
+        return 0
+
+    if not args.quiet:
+        print(f"\U0001f9ec\U0001f58b️ sketchtpu done in {int(time.time() - start)}s", file=sys.stderr)
+    return 0
+
+
+def _sketch_main(args, start: float) -> None:
+    from .constants import num_bins
+    from .formats.skm import MultiSketch
+    from .ingest import inputs as io_inputs
+    from .progress import progress_printer
+    from .runtime import select_backend
+    from .sketchcore.pipeline import sketch_files
+    from .sketchcore.sketch import HashType
+
+    input_files = io_inputs.get_input_list(args.file_list, args.seq_files or None)
+    log.info("Parsed %d samples in input list", len(input_files))
+    kmers = io_inputs.parse_kmers(args.k_vals, args.k_seq)
+    seq_type = HashType(args.seq_type, _level_num(args.level))
+    _, sketch_bins, _ = num_bins(args.sketch_size)
+    log.info(
+        "Running sketching: k:%s; sketch_size:%s; seq:%s; threads:%s",
+        kmers, sketch_bins, seq_type.debug_str(), args.threads,
+    )
+    backend = select_backend(seq_type, len(input_files))
+    tick, finish = progress_printer(len(input_files), args.quiet, "Sketching ")
+    sketches = sketch_files(
+        args.output,
+        input_files,
+        args.concat_fasta,
+        kmers,
+        sketch_bins,
+        seq_type,
+        not args.single_strand,
+        args.min_count,
+        args.min_qual,
+        threads=args.threads,
+        backend=backend,
+        progress=tick,
+    )
+    finish()
+    elapsed = max(time.time() - start, 1e-9)
+    total_mb = sum(s.seq_length for s in sketches) / 1e6
+    log.info(
+        "Sketched %d samples (%.1f Mbases) in %.2fs "
+        "(%.1f samples/s, %.1f Mbase/s, %.1f Mbase-k/s)",
+        len(sketches), total_mb, elapsed, len(sketches) / elapsed,
+        total_mb / elapsed, total_mb * len(kmers) / elapsed,
+    )
+    MultiSketch(sketches, sketch_bins, kmers, seq_type).save_metadata(args.output)
+
+
+def _dist_main(args, start: float) -> None:
+    from .dist import api
+    from .dist import output as dist_output
+    from .formats.skm import MultiSketch
+    from .ingest import inputs as io_inputs
+    from .runtime import (
+        select_coreacc_engine,
+        select_dense_stream_engine,
+        select_engine,
+        select_knn_engine,
+    )
+
+    if args.ani and args.kmer is None:
+        # clap: `ani` requires `kmer` (cli.rs:212)
+        raise SystemExit("--ani requires -k (a single k-mer length)")
+    out = open(args.output, "w") if args.output else sys.stdout
+    ref_name = strip_sketch_extension(args.ref_db)
+    references = MultiSketch.load_metadata(ref_name)
+    log.info("Loading sketch data from %s.skd", ref_name)
+    if args.subset:
+        references.read_sketch_data_block(
+            ref_name, io_inputs.read_subset_names(args.subset)
+        )
+    else:
+        references.read_sketch_data(ref_name)
+    n = references.number_samples_loaded()
+    ref_comp = (
+        io_inputs.read_completeness_file(args.ref_completeness_file, references)
+        if args.ref_completeness_file
+        else None
+    )
+    dist_type = api.set_k(references, args.kmer, args.ani)
+    log.info("%s", dist_type.describe())
+    engine = select_engine(references)
+    names = [references.sketch_name(i) for i in range(n)]
+    cutoff = args.completeness_cutoff
+
+    def log_pair_rate(n_pairs):
+        el = max(time.time() - start, 1e-9)
+        log.info("Computed %d pairwise distances in %.2fs (%.3g pairs/s)",
+                 n_pairs, el, n_pairs / el)
+
+    if args.query_db is None and args.knn is None:
+        ca_engine = stream_engine = None
+        if dist_type.coreacc:
+            ca_engine = select_coreacc_engine(references, ref_comp, cutoff,
+                                              exact=args.exact)
+        else:
+            stream_engine = select_dense_stream_engine(references, dist_type)
+        if ca_engine is not None:
+            log.info("Using on-device core/accessory %s engine",
+                     "exact-stream" if args.exact else "tile")
+            ca_engine.stream_self_dense(out, names)
+        elif stream_engine is not None:
+            log.info("Using on-device dense streaming engine")
+            stream_engine.stream_self_dense(out, names, dist_type, ref_comp,
+                                            cutoff)
+        else:
+            d = api.self_dists_all(references, dist_type, ref_comp, cutoff,
+                                   engine=engine)
+            dist_output.write_dense_self(out, names, d, dist_type.coreacc)
+        log_pair_rate(n * (n - 1) // 2)
+    elif args.query_db is None:
+        nn = args.knn
+        if nn >= n:
+            log.warning("knn=%d is higher than number of samples=%d", nn, n)
+            nn = n - 1
+        knn_engine = select_knn_engine(references, dist_type)
+        if knn_engine is not None:
+            log.info("Using on-device kNN engine")
+            if dist_type.coreacc:
+                rows = knn_engine.self_knn_coreacc(
+                    nn, completeness_vec=ref_comp, completeness_cutoff=cutoff)
+            else:
+                rows = knn_engine.self_knn(
+                    nn, dist_type, completeness_vec=ref_comp,
+                    completeness_cutoff=cutoff)
+        else:
+            rows = api.self_dists_knn(references, nn, dist_type, ref_comp,
+                                      cutoff, engine=engine)
+        dist_output.write_sparse(out, names, names, rows, dist_type.coreacc)
+        log_pair_rate(n * n)
+    else:
+        query_name = strip_sketch_extension(args.query_db)
+        queries = MultiSketch.load_metadata(query_name)
+        queries.read_sketch_data(query_name)
+        q_comp = (
+            io_inputs.read_completeness_file(args.query_completeness_file, queries)
+            if args.query_completeness_file
+            else None
+        )
+        qnames = [queries.sketch_name(i)
+                  for i in range(queries.number_samples_loaded())]
+        if args.knn is not None:
+            nn = args.knn
+            if nn > n:
+                log.warning(
+                    "knn=%d is higher than number of reference samples=%d", nn, n
+                )
+                nn = n
+            knn_engine = select_knn_engine(references, dist_type)
+            if knn_engine is not None:
+                log.info("Using on-device kNN engine")
+                if dist_type.coreacc:
+                    rows = knn_engine.cross_knn_coreacc(
+                        queries, nn, ref_completeness_vec=ref_comp,
+                        query_completeness_vec=q_comp,
+                        completeness_cutoff=cutoff)
+                else:
+                    rows = knn_engine.cross_knn(
+                        queries, nn, dist_type, ref_completeness_vec=ref_comp,
+                        query_completeness_vec=q_comp,
+                        completeness_cutoff=cutoff)
+            else:
+                rows = api.cross_dists_knn(references, queries, nn, dist_type,
+                                           ref_comp, q_comp, cutoff,
+                                           engine=engine)
+            dist_output.write_sparse(out, qnames, names, rows,
+                                     dist_type.coreacc)
+        else:
+            ca_engine = stream_engine = None
+            if dist_type.coreacc:
+                # correction applies only when BOTH sides have values
+                # (jaccard.rs:36-42)
+                both = ref_comp is not None and q_comp is not None
+                ca_engine = select_coreacc_engine(
+                    references, ref_comp if both else None, cutoff,
+                    exact=args.exact)
+            else:
+                stream_engine = select_dense_stream_engine(references,
+                                                           dist_type)
+            if stream_engine is not None:
+                log.info("Using on-device dense streaming engine")
+                stream_engine.stream_cross_dense(
+                    out, names, qnames, queries, dist_type, ref_comp, q_comp,
+                    cutoff)
+            elif ca_engine is not None:
+                log.info("Using on-device core/accessory %s engine (cross)",
+                         "exact-stream" if args.exact else "tile")
+                ca_engine.stream_cross_dense(
+                    out, names, qnames, queries, rcomp=ref_comp,
+                    qcomp=q_comp, cutoff=cutoff)
+            else:
+                d = api.cross_dists_all(references, queries, dist_type,
+                                        ref_comp, q_comp, cutoff,
+                                        engine=engine)
+                dist_output.write_dense_cross(out, names, qnames, d,
+                                              dist_type.coreacc)
+        log_pair_rate(n * len(qnames))
+    if out is not sys.stdout:
+        out.close()
+
+
+def _merge_main(args) -> None:
+    from .formats import skd as skd_io
+    from .formats.skm import MultiSketch
+
+    db1 = strip_sketch_extension(args.db1)
+    db2 = strip_sketch_extension(args.db2)
+    sketches1 = MultiSketch.load_metadata(db1)
+    sketches2 = MultiSketch.load_metadata(db2)
+    diffs = sketches1.incompatibilities(sketches2)
+    if diffs:
+        raise SystemExit(
+            "Databases are not compatible for merging: " + "; ".join(diffs)
+        )
+    merged = sketches1.merge_sketches(sketches2)
+    merged.save_metadata(args.output)
+    with open(f"{args.output}.skd", "wb") as out_f:
+        skd_io.append_skd(f"{db1}.skd", out_f)
+        skd_io.append_skd(f"{db2}.skd", out_f)
+
+
+def _append_main(args) -> None:
+    from .formats import skd as skd_io
+    from .formats.skm import MultiSketch
+    from .ingest import inputs as io_inputs
+    from .runtime import select_backend
+    from .sketchcore.pipeline import sketch_files
+    from .sketchcore.sketch import HashType
+
+    input_files = io_inputs.get_input_list(args.file_list, args.seq_files or None)
+    db_metadata = MultiSketch.load_metadata(strip_sketch_extension(args.db))
+    if not db_metadata.append_compatibility(input_files):
+        raise SystemExit("Databases are not compatible for merging.")
+    kmers = db_metadata.kmer_lengths
+    sketch_size = db_metadata.sketch_size
+    seq_type = db_metadata.hash_type
+    if seq_type.kind == "aa":
+        seq_type = HashType("aa", _level_num(args.level))
+    db2_sketches = sketch_files(
+        args.output,
+        input_files,
+        args.concat_fasta,
+        kmers,
+        sketch_size,
+        seq_type,
+        not args.single_strand,
+        args.min_count,
+        args.min_qual,
+        threads=args.threads,
+        backend=select_backend(seq_type, len(input_files)),
+    )
+    db2_metadata = MultiSketch(db2_sketches, sketch_size, kmers, seq_type)
+    with open(f"{args.output}.skd", "ab") as out_f:
+        skd_io.append_skd(f"{strip_sketch_extension(args.db)}.skd", out_f)
+    db2_metadata.merge_sketches(db_metadata).save_metadata(args.output)
+
+
+def _delete_samples(ms, ref_db: str, output_file: str, ids: list[str]) -> None:
+    """Delete flow (lib.rs:879-908 + multisketch.rs:269-348): filter the
+    metadata, then rewrite the .skd keeping non-deleted positions. The
+    surviving sketches are re-indexed to their compacted .skd rows, so the
+    output equals a direct sketch of the remainder (the reference keeps the
+    old name_map and indices, leaving its output inconsistent)."""
+    from .formats import skd as skd_io
+
+    removed = set()
+    new_meta = []
+    for sketch in ms.sketch_metadata:
+        if sketch.name in ids:
+            removed.add(sketch.name)
+        else:
+            new_meta.append(sketch)
+    missing = [i for i in ids if i not in removed]
+    if missing:
+        raise SystemExit(
+            f"The following samples have not been found in the database: {missing!r}"
+        )
+    positions = {ms.name_map[i] for i in ids}
+    keep = [idx for idx in range(len(ms.sketch_metadata)) if idx not in positions]
+    for new_idx, sketch in enumerate(new_meta):
+        sketch.index = new_idx
+    ms.sketch_metadata = new_meta
+    ms.name_map = {s.name: s.index for s in new_meta}
+    ms.save_metadata(output_file)
+    data = skd_io.read_skd_batch(f"{ref_db}.skd", keep, ms.sample_stride)
+    with skd_io.SketchDataWriter(f"{output_file}.skd") as w:
+        for i in range(len(keep)):
+            w.write_sketch(data[i * ms.sample_stride : (i + 1) * ms.sample_stride])

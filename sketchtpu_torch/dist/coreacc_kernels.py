@@ -14,9 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sketchtpu.constants import BBITS
-
 from .. import _build
+from ..constants import BBITS
 from .samebits_kernels import _check_words, _tri_mask_, samebits_ref
 
 _MAX_GRID_Y = 65535

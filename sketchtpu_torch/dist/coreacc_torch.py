@@ -1,6 +1,6 @@
 """Dense core/accessory engines on the card.
 
-Port of sketchtpu/dist/coreacc_jax.py:
+Port of the JAX package's dist/coreacc_jax.py:
 - DeviceCoreAccEngine: the fused f32 kernel (K2) over (row block x all
   columns) tiles, within ~1e-5 of the f64 host chain;
 - DeviceCoreAccExactStreamEngine (`dist --exact`): per-k exact int16
@@ -14,9 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._native import get_lib
 from .._transfer import HostCopy
 from .coreacc_kernels import coreacc
+from .jaccard_np import core_acc_from_jaccards, jaccard_from_samebits
 from .jaccard_torch import cross_pairs, self_pairs, stream_strips, strip
+from .opipe import OutputPipeline
+from .output import (
+    _name_table,
+    emit_coreacc_cross_block,
+    emit_coreacc_self_block,
+)
 from .samebits_kernels import to_device_words
 
 
@@ -51,9 +59,6 @@ class DeviceCoreAccEngine:
         """Launch (tile x all columns) blocks over rows [lo, hi), each one
         before the previous is written by emit(block, r0, r1, tab_r, tab_q,
         pipe)."""
-        from sketchtpu._native import get_lib
-        from sketchtpu.dist.output import _name_table
-
         n = len(ref_names)
         lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
         starts = list(range(lo, hi, self.tile))
@@ -70,8 +75,6 @@ class DeviceCoreAccEngine:
         blocks = [(span(starts[0]), launch(*span(starts[0])))]
         pipe = None
         if tab_r is not None:
-            from sketchtpu.dist.opipe import OutputPipeline
-
             pipe = OutputPipeline(out)
         try:
             for nxt in starts[1:] + [None]:
@@ -97,8 +100,6 @@ class DeviceCoreAccEngine:
         """Ref-major rectangular core/acc output (cross_dists_all
         semantics); ref row blocks stream against the query words on the
         card. Completeness applies only when both sides have values."""
-        from sketchtpu.dist.output import emit_coreacc_cross_block
-
         nq = query_ms.number_samples_loaded()
         q = to_device_words(query_ms, self.device)
         comp_on = rcomp is not None and qcomp is not None
@@ -122,8 +123,6 @@ class DeviceCoreAccEngine:
         (tile x all-columns) blocks and streaming rows out; only pairs with
         column > row are computed. row_range restricts to a block of
         rows."""
-        from sketchtpu.dist.output import emit_coreacc_self_block
-
         n = len(names)
 
         def launch(r0: int, r1: int) -> HostCopy:
@@ -165,11 +164,6 @@ class DeviceCoreAccExactStreamEngine:
     def _core_acc(self, c_rows, c_cols, cutoff: float):
         """values() for stream_strips: the oracle's f64 chain over the
         per-k samebits of each pair."""
-        from sketchtpu.dist.jaccard_np import (
-            core_acc_from_jaccards,
-            jaccard_from_samebits,
-        )
-
         def values(sbs, rows, cols):
             c1 = c_rows[rows] if c_rows is not None else None
             c2 = c_cols[cols] if c_cols is not None else None

@@ -1,6 +1,6 @@
 """Exact samebits engines on the card (K1), single-k distances.
 
-Port of sketchtpu/dist/jaccard_jax.py: DeviceSamebitsEngine is the
+Port of the JAX package's dist/jaccard_jax.py: DeviceSamebitsEngine is the
 `engine` hook of the host distance functions (dist/api.py), and
 DeviceDenseStreamEngine streams (row block x all columns) int16 samebits
 strips while the host runs the oracle's f64 Jaccard/ANI/completeness chain
@@ -15,8 +15,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._native import get_lib
 from .._transfer import HostCopy
-from .samebits_kernels import samebits, words_to_device
+from .jaccard_np import ani_pois, jaccard_from_samebits
+from .opipe import OutputPipeline
+from .output import (
+    _name_table,
+    fmt_f32,
+    format_lines_bytes,
+    row_spans,
+    self_pair_indices,
+)
+from .samebits_kernels import samebits, samebits_full, words_to_device
 
 
 def strip(mat: torch.Tensor, r0: int, tile: int,
@@ -32,8 +42,6 @@ def strip(mat: torch.Tensor, r0: int, tile: int,
 
 def self_pairs(n: int):
     """pairs(i0, i1): (rows, cols) of the upper-triangle long form."""
-    from sketchtpu.dist.output import self_pair_indices
-
     return lambda i0, i1: self_pair_indices(i0, i1, n)
 
 
@@ -59,14 +67,6 @@ def stream_strips(out, ref_names, query_names, n: int,
     native helper, blocks are cut into tasks of about TASK_PAIRS pairs
     (pairs_per_row(r0) per row) that an OutputPipeline computes in
     parallel and writes in order."""
-    from sketchtpu._native import get_lib
-    from sketchtpu.dist.output import (
-        _name_table,
-        fmt_f32,
-        format_lines_bytes,
-        row_spans,
-    )
-
     lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
     starts = list(range(lo, hi, tile))
     if not starts:
@@ -88,8 +88,6 @@ def stream_strips(out, ref_names, query_names, n: int,
     pending = [(starts[0], dispatch(starts[0]))]
     pipe = None
     if tab_r is not None:
-        from sketchtpu.dist.opipe import OutputPipeline
-
         pipe = OutputPipeline(out)
     try:
         for nxt in starts[1:] + [None]:
@@ -122,10 +120,8 @@ class DeviceSamebitsEngine:
 
     def matrix(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
         """All-pairs samebits: a (na, W) u64, b (nb, W) u64 -> (na, nb)."""
-        out = samebits(
-            words_to_device(a, self.device), words_to_device(b, self.device),
-            out_dtype=torch.int32,
-        )
+        out = samebits_full(words_to_device(a, self.device),
+                            words_to_device(b, self.device))
         return out.cpu().numpy()
 
 
@@ -146,8 +142,6 @@ class DeviceDenseStreamEngine:
     def _distances(self, dist_type, c_rows, c_cols, cutoff: float):
         """values() for stream_strips: the oracle's f64 Jaccard (with
         completeness when both sides have it), ANI or 1 - J, as f32."""
-        from sketchtpu.dist.jaccard_np import ani_pois, jaccard_from_samebits
-
         def values(sbs, rows, cols):
             c1 = c_rows[rows] if c_rows is not None else None
             c2 = c_cols[cols] if c_cols is not None else None

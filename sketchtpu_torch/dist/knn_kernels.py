@@ -1,0 +1,182 @@
+"""K3, the kNN scan tile: the CUDA kernel csrc/knn_scan.cu and its plain
+PyTorch twin.
+
+Replaces sketchtpu/dist/pallas_kernels.py::samebits_pallas_chunked
+together with the key epilogue the JAX scans wrap around it in XLA
+(dist/knn_jax.py::_knn_scan_block_packed, _knn_scan_block_comp). The rows
+and columns are k-planes of (n, nk, W) sketch words, read in place through
+their row stride as K1 reads them; there is no chunk-group relayout.
+
+Keys (see csrc/knn_scan.cu): plain mode packs (samebits, column) into one
+int32 (or, past the int32 key's column range, int64); completeness mode
+packs (corrected f32 Jaccard, column) into one int64. Every key holds its
+column, so keys are unique and a descending top-k over them selects value
+descending, then column ascending. Invalid pairs are -1, below every valid
+key.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..constants import BBITS
+from .samebits_kernels import _check_words, samebits_ref
+
+_MAX_GRID_Y = 65535
+_TI = 64  # rows per block of knn_scan.cu
+INVALID = -1
+COLMASK64 = (1 << 32) - 1
+
+
+def pack_shift(s64: int) -> int:
+    """Bits of the column field of a plain int32 key: 31 minus the bits
+    samebits (<= s64*64) needs (_pack_shift of the JAX scan)."""
+    return 31 - int(s64 * 64).bit_length()
+
+
+def key_layout(s64: int, n_cols: int, comp: bool):
+    """(dtype, shift, colmask) of the keys for columns [0, n_cols): the
+    JAX scan's int32 packing while the column field holds every column,
+    else int64 with a 32-bit column field."""
+    shift = pack_shift(s64)
+    if not comp and n_cols <= (1 << shift) - 1:
+        return torch.int32, shift, (1 << shift) - 1
+    return torch.int64, 32, COLMASK64
+
+
+class Completeness:
+    """Completeness correction of a completeness-mode scan: c1 (rows) and
+    c2 (all columns) contiguous f32, applied where c1*c2 >= cutoff."""
+
+    def __init__(self, c1: torch.Tensor, c2: torch.Tensor, cutoff: float,
+                 s64: int):
+        self.c1, self.c2, self.cutoff = c1, c2, float(cutoff)
+        self.maxnbits = float(s64 * 64)
+        self.expected = float(int(s64 * 64) >> BBITS)
+
+
+def _ordered_bits(v: torch.Tensor) -> torch.Tensor:
+    """int32 whose signed order is the f32 order of v."""
+    b = v.view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def corrected_jaccard(sb: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                      comp: Completeness) -> torch.Tensor:
+    """The JAX completeness scan's f32 selection key, op for op."""
+    maxnbits, expected = comp.maxnbits, comp.expected
+    diff = torch.clamp_min(sb.to(torch.float32) - expected, 0.0)
+    j = diff * maxnbits / (maxnbits - expected) / maxnbits
+    prod = c1[:, None] * c2[None, :]
+    factor = prod / (c1[:, None] + c2[None, :] - prod)
+    return torch.where(prod >= comp.cutoff, torch.clamp(j / factor, max=1.0), j)
+
+
+def pack_keys(value: torch.Tensor, cols: torch.Tensor, dtype, shift: int,
+              colmask: int, valid: torch.Tensor,
+              invalid: int = INVALID) -> torch.Tensor:
+    """Keys of a (rows, cols) tile: value (int samebits, or f32 for the
+    int64 float keys) in the high field, colmask - col below it; `invalid`
+    where not valid."""
+    if value.dtype == torch.float32:
+        hi = _ordered_bits(value).to(torch.int64) * (1 << 32)
+    else:
+        hi = value.to(dtype) * (1 << shift)
+    key = hi + (colmask - cols).to(dtype)[None, :]
+    return key.masked_fill(~valid, invalid)
+
+
+def knn_keys_ref(a: torch.Tensor, b: torch.Tensor, *, row0: int = 0,
+                 col0: int = 0, nb_real: int | None = None,
+                 exclude_self: bool = False,
+                 comp: Completeness | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of knn_keys(): the same keys on any device."""
+    tr, tc = a.shape[0], b.shape[0]
+    s64 = a.shape[1] // BBITS
+    nb_real = col0 + tc if nb_real is None else nb_real
+    ncols = max(0, min(tc, nb_real - col0))
+    dtype, shift, colmask = key_layout(s64, nb_real, comp is not None)
+    sb = torch.zeros((tr, tc), dtype=torch.int32, device=a.device)
+    sb[:, :ncols] = samebits_ref(a, b[:ncols])
+    cols = col0 + torch.arange(tc, device=a.device)
+    valid = (cols < nb_real)[None, :].expand(tr, tc)
+    if exclude_self:
+        rows = row0 + torch.arange(tr, device=a.device)
+        valid = valid & (cols[None, :] != rows[:, None])
+    value = sb
+    if comp is not None:
+        c2 = torch.ones(tc, dtype=torch.float32, device=a.device)
+        c2[:ncols] = comp.c2[col0 : col0 + ncols]
+        value = corrected_jaccard(sb, comp.c1, c2, comp)
+    return pack_keys(value, cols, dtype, shift, colmask, valid)
+
+
+def knn_keys(a: torch.Tensor, b: torch.Tensor, *, row0: int = 0,
+             col0: int = 0, nb_real: int | None = None,
+             exclude_self: bool = False,
+             comp: Completeness | None = None) -> torch.Tensor:
+    """(tr, tc) selection keys of the rows a (tr, W) against the columns
+    b (tc, W) (k-planes of sketch words, rows contiguous, any row stride).
+
+    Row i has the global id row0 + i, column j the global id col0 + j.
+    Columns with id >= nb_real (default: all of b is real) are never read
+    and get -1, as does column == row with exclude_self. With comp
+    (comp.c1 (tr,) for these rows, comp.c2 (>= nb_real,) for all columns)
+    the keys are int64 corrected-Jaccard keys; otherwise int32 samebits
+    keys while nb_real fits the int32 column field, else int64. CUDA
+    tensors launch the kernel, CPU tensors run the twin."""
+    _check_words("a", a, 2)
+    _check_words("b", b, 2)
+    if a.shape[1] != b.shape[1] or a.device != b.device:
+        raise ValueError("a and b need the same width and device")
+    nb_real = col0 + b.shape[0] if nb_real is None else nb_real
+    if min(row0, col0) < 0 or nb_real < 0 or nb_real > COLMASK64:
+        raise ValueError(f"bad ids: row0={row0} col0={col0} nb_real={nb_real}")
+    if comp is not None:
+        if comp.c1.shape != (a.shape[0],) or comp.c2.shape[0] < nb_real:
+            raise ValueError("comp.c1 must hold tr values, comp.c2 nb_real")
+        for name, c in (("c1", comp.c1), ("c2", comp.c2)):
+            if (c.dtype != torch.float32 or c.dim() != 1
+                    or not c.is_contiguous() or c.device != a.device):
+                raise ValueError(f"comp.{name} must be contiguous 1-D f32 "
+                                 f"on {a.device}")
+    if a.device.type == "cpu":
+        return knn_keys_ref(a, b, row0=row0, col0=col0, nb_real=nb_real,
+                            exclude_self=exclude_self, comp=comp)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if a.shape[0] == 0 or b.shape[0] == 0:
+        dtype = key_layout(a.shape[1] // BBITS, nb_real, comp is not None)[0]
+        return torch.full((a.shape[0], b.shape[0]), INVALID, dtype=dtype,
+                          device=a.device)
+    out = _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp)
+    knn_keys.launches += 1
+    return out
+
+
+knn_keys.launches = 0
+
+
+def _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp):
+    s64 = a.shape[1] // BBITS
+    dtype, shift, colmask = key_layout(s64, nb_real, comp is not None)
+    tr, tc = a.shape[0], b.shape[0]
+    if tr > _MAX_GRID_Y * _TI:
+        raise ValueError(f"knn_keys: {tr} rows exceed one launch")
+    out = torch.empty((tr, tc), dtype=dtype, device=a.device)
+    ncols = max(0, min(tc, nb_real - col0))
+    err = _build.lib().stpu_knn_keys(
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+        out.data_ptr(), tc, tr, tc, ncols, s64, row0, col0,
+        int(exclude_self), shift, colmask, out.element_size(),
+        comp.c1.data_ptr() if comp is not None else None,
+        comp.c2[col0:].data_ptr() if comp is not None else None,
+        comp.cutoff if comp is not None else 0.0,
+        comp.expected if comp is not None else 0.0,
+        comp.maxnbits if comp is not None else 0.0,
+        comp.maxnbits - comp.expected if comp is not None else 0.0,
+        _build.stream_handle(a.device),
+    )
+    _build.check(err, "knn_keys")
+    return out

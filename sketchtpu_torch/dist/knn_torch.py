@@ -1,0 +1,356 @@
+"""Sparse kNN on the card (`dist --knn`): DeviceKnnEngine.
+
+Port of sketchtpu/dist/knn_jax.py::DeviceKnnEngine (self_knn, cross_knn,
+self_knn_coreacc, cross_knn_coreacc), without the precluster mixin. The
+database's sketch words live on the card once, as (n, nk, W). Each block
+of rows walks the column tiles; every tile's selection keys go to device
+memory and merge with the running per-row selection by torch.topk, the
+lax.top_k of the JAX scans. Only (rows, knn) results leave the card.
+
+Selection matches the host path (dist/api.py): a key holds its column,
+so keys are unique and the merge orders value descending, then column
+ascending, whatever the top-k's own tie order.
+- Single-k: K3 (knn_kernels.knn_keys) keys on samebits, which order
+  distances exactly; printed values are the host's f64 chain on the
+  selected samebits. With completeness the keys are the corrected f32
+  Jaccard, and the selected pairs' samebits are gathered exactly.
+- Core/accessory: K2 (coreacc_kernels.coreacc) gives the f32 (core, acc)
+  tile; the key is (-core, column), so f32 near-ties may select other
+  pairs than the f64 chain, but every printed value is the f64 chain's
+  for the selected pair (exact_ca_values).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constants import BBITS
+from .coreacc_kernels import coreacc
+from .coreacc_torch import _f32
+from .jaccard_np import ani_pois, core_acc_from_jaccards, jaccard_from_samebits
+from .knn_kernels import (
+    COLMASK64,
+    INVALID,
+    Completeness,
+    key_layout,
+    knn_keys,
+    pack_keys,
+)
+from .samebits_kernels import popcount64, to_device_words
+
+_NEG = -0x7FFFFFFF  # samebits of a missing candidate
+_NO_COL = 0x7FFFFFFF  # column of a missing candidate
+_I64_MIN = -(1 << 63)  # invalid core/acc key: below every (-core) key
+_PAIR_CHUNK = 1 << 16  # selected pairs per gather of their words
+
+
+class SparseKnnRows:
+    """Array-backed sparse kNN result from the device engine.
+
+    Iterating yields per-row item lists, identical to the host path's
+    output, while dist/output.write_sparse consumes the arrays directly via
+    as_arrays(). vals is (n, knn) f32 for Jaccard/ANI or (n, knn, 2) f32
+    for core/acc; valid is an optional (n, knn) bool emission mask (invalid
+    trailing entries are truncated from the per-row lists, as the host path
+    does)."""
+
+    def __init__(self, idx: np.ndarray, vals: np.ndarray,
+                 valid: np.ndarray | None):
+        self.idx = idx
+        self.vals = vals
+        self.valid = valid
+
+    def as_arrays(self):
+        return self.idx, self.vals, self.valid
+
+    def __len__(self):
+        return self.idx.shape[0]
+
+    def _row(self, r: int) -> list:
+        knn = self.idx.shape[1]
+        cols = range(knn)
+        if self.valid is not None:
+            cols = [c for c in cols if self.valid[r, c]]
+        if self.vals.ndim == 3:
+            return [
+                (int(self.idx[r, c]), np.float32(self.vals[r, c, 0]),
+                 np.float32(self.vals[r, c, 1]))
+                for c in cols
+            ]
+        return [(int(self.idx[r, c]), np.float32(self.vals[r, c])) for c in cols]
+
+    def __getitem__(self, r: int) -> list:
+        return self._row(r)
+
+    def __iter__(self):
+        for r in range(len(self)):
+            yield self._row(r)
+
+
+def rows_from_samebits(sb: np.ndarray, idx: np.ndarray, dist_type, s64: int,
+                       c1_rows: np.ndarray | None = None,
+                       c2_all: np.ndarray | None = None,
+                       cutoff: float = 0.64) -> SparseKnnRows:
+    """Exact f64 host post-processing of selected samebits -> sparse rows,
+    with the host path's values (api.self_dists_knn): 1 - J as f32, or
+    for ANI the similarity 1 - f32(1 - ANI). Entries with sb == _NEG are
+    missing candidates and are truncated. c1_rows (na,) / c2_all (n,)
+    apply the completeness correction (c2 gathered by the selected
+    columns)."""
+    na, knn = sb.shape
+    if c1_rows is not None:
+        c1 = np.repeat(np.asarray(c1_rows, dtype=np.float64), knn)
+        c2 = np.asarray(c2_all, dtype=np.float64)[
+            np.clip(idx, 0, len(c2_all) - 1).ravel()
+        ]
+        j = jaccard_from_samebits(sb.ravel(), s64, c1, c2, cutoff)
+    else:
+        j = jaccard_from_samebits(sb.ravel(), s64)
+    j = j.reshape(na, knn)
+    if dist_type.ani:
+        d = np.float32(1.0) - (1.0 - ani_pois(j, dist_type.k)).astype(np.float32)
+    else:
+        d = (1.0 - j).astype(np.float32)
+    return SparseKnnRows(idx, d, sb != _NEG)
+
+
+def pair_samebits(a_words: torch.Tensor, b_words: torch.Tensor,
+                  a_idx: torch.Tensor, b_idx: torch.Tensor) -> torch.Tensor:
+    """Exact samebits of the pairs (a_words[a_idx[m]], b_words[b_idx[m]])
+    at every k: a_words (na, nk, W), b_words (nb, nk, W) int64 sketch
+    words, a_idx / b_idx (m,) int64 on their device -> (m, nk) int32.
+    Port of knn_jax._gather_pair_samebits (an XLA program, not a kernel)
+    as PyTorch ops, in chunks of _PAIR_CHUNK pairs."""
+    m, nk, w = a_idx.numel(), a_words.shape[1], a_words.shape[2]
+    s64 = w // BBITS
+    out = torch.empty((m, nk), dtype=torch.int32, device=a_words.device)
+    for c0 in range(0, m, _PAIR_CHUNK):
+        ai, bi = a_idx[c0 : c0 + _PAIR_CHUNK], b_idx[c0 : c0 + _PAIR_CHUNK]
+        for ki in range(nk):
+            x = ~(a_words[ai, ki] ^ b_words[bi, ki]).view(-1, s64, BBITS)
+            acc = x[..., 0].clone()
+            for p in range(1, BBITS):
+                acc &= x[..., p]
+            out[c0 : c0 + ai.numel(), ki] = popcount64(acc).sum(-1).to(torch.int32)
+    return out
+
+
+def exact_ca_values(kmers, sketch_size: int, s64: int, idx: np.ndarray,
+                    core_f32: np.ndarray, acc_f32: np.ndarray,
+                    a_words: torch.Tensor, b_words: torch.Tensor,
+                    c1_rows=None, c2_all=None, cutoff: float = 0.64):
+    """Replace the f32 core/acc values of the selected pairs with the f64
+    chain's (api.self_dists_knn's Jaccard + completeness + regression) on
+    their exact per-k samebits (pair_samebits), then re-sort each row by
+    (f32 core, column), the host path's order; missing entries
+    (idx == _NO_COL) sort last. Result row i is row i of a_words. Returns
+    (core, acc, idx)."""
+    vr, vc = np.nonzero(idx != _NO_COL)
+    if vr.size:
+        dev = a_words.device
+        b_idx = idx[vr, vc].astype(np.int64)
+        sb = pair_samebits(a_words, b_words, torch.from_numpy(vr).to(dev),
+                           torch.from_numpy(b_idx).to(dev)).cpu().numpy()
+        c1 = c2 = None
+        if c1_rows is not None and c2_all is not None:
+            c1 = np.asarray(c1_rows, dtype=np.float64)[vr]
+            c2 = np.asarray(c2_all, dtype=np.float64)[b_idx]
+        jaccs = np.empty((vr.size, len(kmers)), dtype=np.float64)
+        for ki in range(len(kmers)):
+            jaccs[:, ki] = jaccard_from_samebits(sb[:, ki], s64, c1, c2, cutoff)
+        core_x, acc_x = core_acc_from_jaccards(jaccs, list(kmers), sketch_size)
+        core_f32 = core_f32.copy()
+        acc_f32 = acc_f32.copy()
+        core_f32[vr, vc] = core_x
+        acc_f32[vr, vc] = acc_x
+    # f32 bit patterns of non-negative floats (and +inf) order as the values
+    key = (core_f32.astype(np.float32).view(np.int32).astype(np.int64) << 32) \
+        | idx.astype(np.int64)
+    order = np.argsort(key, axis=1, kind="stable")
+    return (np.take_along_axis(core_f32, order, axis=1),
+            np.take_along_axis(acc_f32, order, axis=1),
+            np.take_along_axis(idx, order, axis=1))
+
+
+def _merge(carry: torch.Tensor, keys: torch.Tensor, knn: int):
+    """(values, positions) of the knn largest of [carry, keys] per row."""
+    return torch.topk(torch.cat([carry, keys], dim=1), knn, dim=1, sorted=True)
+
+
+def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
+             exclude_self: bool, comp_rows=None, comp_cols=None,
+             cutoff: float = 0.64, row_tile: int = 2048,
+             col_tile: int = 8192):
+    """Single-k selection: knn columns of the (nb, W) plane `cols` for every
+    row of the (na, W) plane `rows`, on their device. Row i and column j
+    have the ids i and j (a self scan passes the same plane twice, with
+    exclude_self). comp_rows (na,) / comp_cols (nb,) switch to the
+    completeness keys.
+    Row blocks of row_tile walk column tiles of col_tile; each tile's K3
+    keys merge into the running selection.
+
+    Returns (sb, idx) int32 (na, knn) numpy: the selected pairs' exact
+    samebits and columns, value descending then column ascending (the
+    JAX scans' (vals, idxs)); _NEG / _NO_COL where a row has fewer than
+    knn candidates."""
+    na, nb, dev = rows.shape[0], cols.shape[0], rows.device
+    comp_on = comp_rows is not None
+    dtype, shift, colmask = key_layout(rows.shape[1] // BBITS, nb, comp_on)
+    c1 = _f32(comp_rows, dev) if comp_on else None
+    c2 = _f32(comp_cols, dev) if comp_on else None
+    blocks = []
+    for r0 in range(0, na, row_tile):
+        r1 = min(r0 + row_tile, na)
+        comp = (Completeness(c1[r0:r1], c2, cutoff, rows.shape[1] // BBITS)
+                if comp_on else None)
+        carry = torch.full((r1 - r0, knn), INVALID, dtype=dtype, device=dev)
+        for c0 in range(0, nb, col_tile):
+            keys = knn_keys(rows[r0:r1], cols[c0 : c0 + col_tile], row0=r0,
+                            col0=c0, nb_real=nb, exclude_self=exclude_self,
+                            comp=comp)
+            carry = _merge(carry, keys, knn).values
+        blocks.append(carry)
+    keys = (torch.cat(blocks) if blocks
+            else torch.full((0, knn), INVALID, dtype=dtype, device=dev))
+    bad = keys < 0
+    idx = torch.where(bad, _NO_COL, colmask - (keys & colmask)).long()
+    if comp_on:
+        sb = torch.full(keys.shape, _NEG, dtype=torch.int32, device=dev)
+        vr, vc = torch.nonzero(~bad, as_tuple=True)
+        sb[vr, vc] = pair_samebits(rows[:, None], cols[:, None], vr,
+                                   idx[vr, vc])[:, 0]
+    else:
+        sb = torch.where(bad, _NEG, keys >> shift)
+    return (sb.to(torch.int32).cpu().numpy(),
+            idx.to(torch.int32).cpu().numpy())
+
+
+class DeviceKnnEngine:
+    """kNN over a reference sketch database held on the card."""
+
+    def __init__(self, ref_ms, device: torch.device, row_tile: int = 2048,
+                 col_tile: int = 8192):
+        self.ms = ref_ms
+        self.device = torch.device(device)
+        self.n = ref_ms.number_samples_loaded()
+        self.s64 = ref_ms.sketchsize64
+        self.kmers = tuple(ref_ms.kmer_lengths)
+        self.row_tile = row_tile
+        self.col_tile = col_tile
+        self._words = to_device_words(ref_ms, self.device)
+
+    # --- single-k (Jaccard / ANI) ---
+
+    def self_knn(self, knn: int, dist_type, completeness_vec=None,
+                 completeness_cutoff: float = 0.64):
+        """Self kNN (Jaccard or ANI). With completeness the card selects by
+        the corrected f32 Jaccard and the host recomputes exact values."""
+        comp = (np.asarray(completeness_vec, dtype=np.float64)
+                if completeness_vec is not None else None)
+        plane = self._words[:, dist_type.k_idx]
+        sb, idx = knn_scan(plane, plane, knn, exclude_self=True,
+                           comp_rows=comp, comp_cols=comp,
+                           cutoff=completeness_cutoff, row_tile=self.row_tile,
+                           col_tile=self.col_tile)
+        return rows_from_samebits(sb, idx, dist_type, self.s64, c1_rows=comp,
+                                  c2_all=comp, cutoff=completeness_cutoff)
+
+    def cross_knn(self, query_ms, knn: int, dist_type,
+                  ref_completeness_vec=None, query_completeness_vec=None,
+                  completeness_cutoff: float = 0.64):
+        """Cross kNN: rows = queries, neighbours among refs. Correction
+        applies only when BOTH sides have values (jaccard.rs:36-42)."""
+        q = to_device_words(query_ms, self.device)[:, dist_type.k_idx]
+        c1 = c2 = None
+        if ref_completeness_vec is not None and query_completeness_vec is not None:
+            c1 = np.asarray(query_completeness_vec, dtype=np.float64)
+            c2 = np.asarray(ref_completeness_vec, dtype=np.float64)
+        sb, idx = knn_scan(q, self._words[:, dist_type.k_idx], knn,
+                           exclude_self=False, comp_rows=c1, comp_cols=c2,
+                           cutoff=completeness_cutoff, row_tile=self.row_tile,
+                           col_tile=self.col_tile)
+        return rows_from_samebits(sb, idx, dist_type, self.s64, c1_rows=c1,
+                                  c2_all=c2, cutoff=completeness_cutoff)
+
+    # --- multi-k core/accessory ---
+
+    def _scan_coreacc(self, rows: torch.Tensor, knn: int, exclude_self: bool,
+                      c1=None, c2=None, cutoff: float = 0.64):
+        """Select knn columns by f32 core distance for every row of the
+        (na, nk, W) words `rows`. Returns (core, acc, idx) numpy (na, knn):
+        f32 values of the selection, core = inf and idx = _NO_COL where a
+        row has fewer than knn candidates."""
+        na, n = rows.shape[0], self.n
+        key_blocks, acc_blocks = [], []
+        for r0 in range(0, na, self.row_tile):
+            r1 = min(r0 + self.row_tile, na)
+            keys = torch.full((r1 - r0, knn), _I64_MIN, dtype=torch.int64,
+                              device=self.device)
+            accs = torch.zeros((r1 - r0, knn), dtype=torch.float32,
+                               device=self.device)
+            row_ids = torch.arange(r0, r1, device=self.device)
+            for c0 in range(0, n, self.col_tile):
+                c1_ = min(c0 + self.col_tile, n)
+                core, acc = coreacc(
+                    rows[r0:r1], self._words[c0:c1_], self.kmers,
+                    self.ms.sketch_size,
+                    c1[r0:r1] if c1 is not None else None,
+                    c2[c0:c1_] if c1 is not None else None, cutoff,
+                )
+                col_ids = torch.arange(c0, c1_, device=self.device)
+                valid = torch.ones_like(core, dtype=torch.bool)
+                if exclude_self:
+                    valid = col_ids[None, :] != row_ids[:, None]
+                tile = pack_keys(-core, col_ids, torch.int64, 32, COLMASK64,
+                                 valid, invalid=_I64_MIN)
+                keys, pos = _merge(keys, tile, knn)
+                accs = torch.gather(torch.cat([accs, acc], dim=1), 1, pos)
+            key_blocks.append(keys)
+            acc_blocks.append(accs)
+        if not key_blocks:
+            empty = np.zeros((0, knn))
+            return (empty.astype(np.float32), empty.astype(np.float32),
+                    empty.astype(np.int32))
+        keys = torch.cat(key_blocks)
+        bad = keys == _I64_MIN
+        hi = (keys >> 32).to(torch.int32)
+        neg_core = torch.where(hi < 0, hi ^ 0x7FFFFFFF, hi).view(torch.float32)
+        core = torch.where(bad, torch.inf, -neg_core)
+        idx = torch.where(bad, _NO_COL, COLMASK64 - (keys & COLMASK64))
+        return (core.cpu().numpy(), torch.cat(acc_blocks).cpu().numpy(),
+                idx.to(torch.int32).cpu().numpy())
+
+    def _coreacc_rows(self, rows: torch.Tensor, knn: int, exclude_self: bool,
+                      c1_rows=None, c2_all=None, cutoff: float = 0.64):
+        """Scan in f32 on the card, then the f64 chain's values with the
+        completeness values as given (f64), as the host path has them."""
+        c1 = c2 = None
+        if c1_rows is not None:
+            c1, c2 = _f32(c1_rows, self.device), _f32(c2_all, self.device)
+        core, acc, idx = self._scan_coreacc(rows, knn, exclude_self, c1, c2,
+                                            cutoff)
+        core, acc, idx = exact_ca_values(
+            self.kmers, self.ms.sketch_size, self.s64, idx, core, acc, rows,
+            self._words, c1_rows, c2_all, cutoff,
+        )
+        return SparseKnnRows(idx, np.stack([core, acc], axis=-1), idx != _NO_COL)
+
+    def self_knn_coreacc(self, knn: int, completeness_vec=None,
+                         completeness_cutoff: float = 0.64):
+        comp = (np.asarray(completeness_vec, dtype=np.float64)
+                if completeness_vec is not None else None)
+        return self._coreacc_rows(self._words, knn, True, comp, comp,
+                                  completeness_cutoff)
+
+    def cross_knn_coreacc(self, query_ms, knn: int, ref_completeness_vec=None,
+                          query_completeness_vec=None,
+                          completeness_cutoff: float = 0.64):
+        """Rows are queries. Like the reference (jaccard.rs:36-42), the
+        correction applies only when BOTH sides have completeness values."""
+        c1 = c2 = None
+        if ref_completeness_vec is not None and query_completeness_vec is not None:
+            c1 = np.asarray(query_completeness_vec, dtype=np.float64)
+            c2 = np.asarray(ref_completeness_vec, dtype=np.float64)
+        return self._coreacc_rows(to_device_words(query_ms, self.device), knn,
+                                  False, c1, c2, completeness_cutoff)

@@ -13,9 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sketchtpu.constants import BBITS
-
 from .. import _build
+from ..constants import BBITS
 
 _MAX_GRID_Y = 65535
 _TI = 64  # rows per block of samebits.cu
@@ -130,6 +129,32 @@ def samebits(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.int32,
 
 
 samebits.launches = 0
+
+
+def samebits_full(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4: the (na, nb) int32 samebits matrix of a (na, W) and b (nb, W).
+
+    Replaces sketchtpu/dist/pallas_kernels.py::samebits_pallas, which
+    computes K1's function with int32 output and no triangle; this is K1's
+    kernel at that setting, counted on its own. CUDA tensors launch the
+    kernel, CPU tensors run the twin."""
+    _check_words("a", a, 2)
+    _check_words("b", b, 2)
+    if a.shape[1] != b.shape[1] or a.device != b.device:
+        raise ValueError("a and b need the same width and device")
+    if a.device.type == "cpu":
+        return samebits_ref(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if a.shape[0] == 0 or b.shape[0] == 0:
+        return torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int32,
+                           device=a.device)
+    out = _launch_samebits(a, b, torch.int32, False, 0)
+    samebits_full.launches += 1
+    return out
+
+
+samebits_full.launches = 0
 
 
 def _launch_samebits(a, b, out_dtype, tri, row0) -> torch.Tensor:

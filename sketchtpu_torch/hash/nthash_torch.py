@@ -17,9 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sketchtpu.constants import SIGN_MOD, nt_tap_tables
-
 from .. import _build
+from ..constants import SIGN_MOD, nt_tap_tables
 
 MAX_K_CUDA = 512  # tap tables + sequence span stay within 48 KB of shared memory
 _I64_MAX = (1 << 63) - 1

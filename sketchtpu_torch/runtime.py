@@ -1,11 +1,12 @@
-"""Engine selection for the port, mirroring sketchtpu/runtime.py.
+"""Engine selection for the port, mirroring the JAX package's runtime.py.
 
 SKETCHTPU_TORCH_BACKEND picks one of three modes:
 - cuda (the default): the device engines, with the hand-written kernels on
   the card, at any size. Raises when torch sees no CUDA device.
 - cpu: the same engine code on CPU tensors, where every kernel wrapper runs
   its plain PyTorch twin (what the tests drive).
-- host: the NumPy oracle of the JAX package; every selector returns None.
+- host: this package's NumPy oracle (sketchcore/sketch.py, dist/api.py);
+  every selector returns None.
 
 A selector never falls back: an engine this port does not have yet raises
 NotImplementedError in cuda and cpu mode, naming its ROADMAP item. The
@@ -115,15 +116,15 @@ def select_dense_stream_engine(ms, dist_type):
 
 
 def select_knn_engine(ms, dist_type):
-    if device() is None:
+    """Sparse kNN engine (dist --knn): K3 keys for single-k, K2 tiles for
+    core/accessory, at any n; fewer than two k for core/accessory take the
+    host chain."""
+    dev = device()
+    if dev is None or (dist_type.coreacc and len(ms.kmer_lengths) < 2):
         return None
-    _unported("Sparse kNN (dist --knn, precluster --skd)", 4)
+    from .dist.knn_torch import DeviceKnnEngine
 
-
-def select_inverted_engine(inv):
-    if device() is None:
-        return None
-    _unported("The inverted index engine", 6)
+    return DeviceKnnEngine(ms, dev)
 
 
 def select_engine(ms):

@@ -13,12 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sketchtpu.constants import num_bins as num_bins_fn
-from sketchtpu.sketchcore.signs import densify, fill_usigs
-from sketchtpu.sketchcore.sketch import Sketch
-
 from .._transfer import HostCopy
+from ..constants import num_bins as num_bins_fn
 from ..hash.nthash_torch import nthash_bin, pack_group, tap_tables
+from .signs import densify, fill_usigs
+from .sketch import Sketch
 
 # bases and genomes per batch: bounds the device copy of the batch (one
 # byte per base) and its (genomes, nbins) minima table

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import numpy as np
 
-from sketchtpu.constants import BBITS
+from .constants import BBITS
 
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -70,7 +70,7 @@ def random_streams(lengths, seed: int, breaks_per_mb: int = 10):
     """DnaStreams of random bases with the given lengths and random breaks
     (record ends and N runs, about breaks_per_mb per Mb), as
     read_dna_sample would give for real assemblies."""
-    from sketchtpu.ingest.fastx import DnaStream
+    from .ingest.fastx import DnaStream
 
     rng = np.random.default_rng(seed)
     out = []
@@ -108,10 +108,10 @@ def derive_words(parents: np.ndarray, n: int, kmers, seed: int,
 def derive_database(parent_prefix: str, out_prefix: str, n: int,
                     seed: int) -> None:
     """Write out_prefix.skd/.skm: n samples derived (derive_words) from the
-    sketches of parent_prefix, through sketchtpu.formats."""
-    from sketchtpu.formats.skd import SketchDataWriter
-    from sketchtpu.formats.skm import MultiSketch
-    from sketchtpu.sketchcore.sketch import Sketch
+    sketches of parent_prefix."""
+    from .formats.skd import SketchDataWriter
+    from .formats.skm import MultiSketch
+    from .sketchcore.sketch import Sketch
 
     ms = MultiSketch.load_metadata(parent_prefix)
     ms.read_sketch_data(parent_prefix)

@@ -11,14 +11,23 @@ import numpy as np
 import pytest
 import torch
 
+from sketchtpu_torch.dist.api import DistType
 from sketchtpu_torch.dist.coreacc_kernels import coreacc, coreacc_ref
-from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_ref
+from sketchtpu_torch.dist.knn_kernels import Completeness, knn_keys, knn_keys_ref
+from sketchtpu_torch.dist.knn_torch import DeviceKnnEngine
+from sketchtpu_torch.dist.samebits_kernels import (
+    samebits,
+    samebits_full,
+    samebits_ref,
+)
+from sketchtpu_torch.formats.skm import MultiSketch
 from sketchtpu_torch.hash.nthash_torch import (
     nthash_bin,
     nthash_bin_ref,
     pack_group,
     tap_tables,
 )
+from sketchtpu_torch.sketchcore.sketch import HashType, Sketch
 from sketchtpu_torch.synth import derive_words, random_streams
 
 pytestmark = pytest.mark.gpu
@@ -110,3 +119,75 @@ def test_nthash_kernel_rejects_k_past_its_limit(cuda):
     starts = torch.zeros(1, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="limit"):
         nthash_bin(seq, 513, tf, tf, True, starts, 64)
+
+
+@pytest.mark.parametrize("na,nb", [(1, 1), (70, 130), (200, 333)])
+def test_samebits_full_kernel_matches_twin(cuda, na, nb):
+    w = _words(max(na, nb), 16, 5, cuda)
+    a, b = w[:na, 3], w[:nb, 0]
+    got = samebits_full(a, b)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, samebits_ref(a, b))
+
+
+@pytest.mark.parametrize("comp", [False, True])
+@pytest.mark.parametrize(
+    "tr,tc,row0,col0,nb_real",
+    [
+        (64, 64, 0, 0, 64),  # aligned, on the diagonal
+        (70, 131, 0, 0, 131),  # ragged tiles, diagonal inside
+        (33, 100, 120, 50, 400),  # off the diagonal, partly overlapping ids
+        (50, 190, 300, 0, 400),  # off the diagonal, no overlap
+        (45, 160, 10, 40, 157),  # nb_real inside the last tile
+        (20, 64, 0, 200, 210),  # a tile mostly past nb_real
+    ],
+)
+def test_knn_keys_kernel_matches_twin(cuda, comp, tr, tc, row0, col0,
+                                      nb_real):
+    w = _words(500, 16, 6, cuda)
+    a = w[row0 : row0 + tr, 2]  # strided k-plane, read in place
+    b = w[col0 : col0 + tc, 2]
+    c = None
+    if comp:
+        cv = torch.rand(500, device=cuda) * 0.5 + 0.5
+        c = Completeness(cv[row0 : row0 + tr].contiguous(), cv, 0.64, 16)
+    for excl in (False, True):
+        kw = dict(row0=row0, col0=col0, nb_real=nb_real, exclude_self=excl,
+                  comp=c)
+        got = knn_keys(a, b, **kw)
+        torch.cuda.synchronize()
+        want = knn_keys_ref(a, b, **kw)
+        assert got.dtype == want.dtype == (torch.int64 if comp else torch.int32)
+        assert torch.equal(got, want)
+
+
+def _engine_ms(n, kmers, seed):
+    s64 = 16
+    rng = np.random.default_rng(seed)
+    parents = rng.integers(0, 2**64, (4, len(kmers), s64, 14), dtype=np.uint64)
+    words = derive_words(parents, n, kmers, seed)
+    words[n - 3 :] = words[:3]  # exact ties
+    ms = MultiSketch([Sketch(name=f"g{i}", index=i) for i in range(n)],
+                     s64 * 64, list(kmers), HashType("dna"))
+    ms.sketch_bins = words.reshape(-1)
+    return ms
+
+
+@pytest.mark.parametrize("with_comp", [False, True])
+def test_knn_engine_on_card_matches_cpu_twins(cuda, with_comp):
+    kmers = (17, 21, 25, 29)
+    ms = _engine_ms(700, kmers, 7)
+    comp = (np.random.default_rng(8).uniform(0.6, 1.0, 700)
+            if with_comp else None)
+    kw = dict(row_tile=256, col_tile=300)
+    on_card = DeviceKnnEngine(ms, cuda, **kw)
+    on_cpu = DeviceKnnEngine(ms, torch.device("cpu"), **kw)
+    for dt in (DistType(k_idx=0, k=17.0), DistType(k_idx=2, k=25.0, ani=True)):
+        got = on_card.self_knn(10, dt, completeness_vec=comp)
+        want = on_cpu.self_knn(10, dt, completeness_vec=comp)
+        for g, w in zip(got.as_arrays(), want.as_arrays()):
+            np.testing.assert_array_equal(g, w)
+    got = on_card.self_knn_coreacc(10, completeness_vec=comp)
+    want = on_cpu.self_knn_coreacc(10, completeness_vec=comp)
+    for g, w in zip(got.as_arrays(), want.as_arrays()):
+        np.testing.assert_array_equal(g, w)

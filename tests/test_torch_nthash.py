@@ -1,7 +1,7 @@
 """ntHash bin minima: the port's twin (and its wrapper on CPU tensors)
 against the JAX hash_bin_kernel + combine_bin_minima and against the host
 oracle, bit-exact; and the port's sketch backend against the host
-sketches."""
+sketches. Each package parses the same files into its own streams."""
 
 import numpy as np
 import pytest
@@ -18,6 +18,7 @@ from sketchtpu.sketchcore.signs import bin_minima, signs_from_hashes
 from sketchtpu.sketchcore.sketch import sketch_dna_sample
 from sketchtpu.sketchcore.sketch_jax import DeviceSketchBackend, bin_magic
 from sketchtpu_torch.hash.nthash_torch import nthash_bin, pack_group, tap_tables
+from sketchtpu_torch.ingest import fastx as port_fastx
 from sketchtpu_torch.sketchcore.sketch_torch import (
     DeviceSketchBackend as TorchSketchBackend,
 )
@@ -27,19 +28,31 @@ NBINS = 1024
 
 
 @pytest.fixture(scope="module")
-def streams(tmp_path_factory):
+def both_streams(tmp_path_factory):
     """Parsed assemblies with N runs and several records each, plus a
-    genome shorter than most k."""
+    genome shorter than most k: (the JAX package's streams, the port's)."""
     rfile = related_assemblies(tmp_path_factory.mktemp("nthash"), 3, 20000,
                                seed=9, max_contigs=6)
-    out = [read_dna_sample([ln.split("\t")[1]])
-           for ln in rfile.read_text().splitlines()]
-    assert all(s.breaks.size > 1 for s in out)
+    paths = [ln.split("\t")[1] for ln in rfile.read_text().splitlines()]
     rng = np.random.default_rng(1)
     codes = rng.integers(0, 4, 60).astype(np.uint8)
-    out.append(DnaStream(codes=codes, breaks=np.array([12, 60]),
-                         acgt=np.bincount(codes, minlength=4)))
+    out = []
+    for read, stream_cls in ((read_dna_sample, DnaStream),
+                             (port_fastx.read_dna_sample, port_fastx.DnaStream)):
+        parsed = [read([p]) for p in paths]
+        assert all(s.breaks.size > 1 for s in parsed)
+        parsed.append(stream_cls(codes=codes, breaks=np.array([12, 60]),
+                                 acgt=np.bincount(codes, minlength=4)))
+        out.append(parsed)
+    for j, p in zip(*out):
+        np.testing.assert_array_equal(j.codes, p.codes)
+        np.testing.assert_array_equal(j.breaks, p.breaks)
     return out
+
+
+@pytest.fixture(scope="module")
+def streams(both_streams):
+    return both_streams[1]
 
 
 def _port(streams, k, rc):
@@ -52,8 +65,9 @@ def _port(streams, k, rc):
 
 @pytest.mark.parametrize("rc", [True, False])
 @pytest.mark.parametrize("k", [3, 17, 31, 64])
-def test_bin_minima_match_jax_and_oracle(streams, k, rc):
-    got = _port(streams, k, rc)
+def test_bin_minima_match_jax_and_oracle(both_streams, k, rc):
+    got = _port(both_streams[1], k, rc)
+    streams = both_streams[0]
     host = np.stack([
         bin_minima(signs_from_hashes(nthash_valid(s, k, rc)), NBINS)
         for s in streams
@@ -83,11 +97,12 @@ def test_window_longer_than_batch_gives_empty_bins(streams):
     assert (got == np.uint64(2**64 - 1)).all()
 
 
-def test_sketch_backend_matches_host(streams):
+def test_sketch_backend_matches_host(both_streams):
     kmers = [17, 21, 29]
+    streams = both_streams[0]
     names = [f"g{i}" for i in range(len(streams))]
     dev = TorchSketchBackend(torch.device("cpu")).sketch_dna_streams(
-        streams, names, kmers, 1024, True, 0
+        both_streams[1], names, kmers, 1024, True, 0
     )
     for s, name, d in zip(streams, names, dev):
         h = sketch_dna_sample(s, name, kmers, 1024, True, 0)
@@ -99,8 +114,8 @@ def test_sketch_backend_matches_host(streams):
 
 
 def test_sketch_backend_refuses_reads(streams):
-    reads = DnaStream(codes=streams[0].codes, breaks=streams[0].breaks,
-                      reads=True)
+    reads = port_fastx.DnaStream(codes=streams[0].codes,
+                                 breaks=streams[0].breaks, reads=True)
     with pytest.raises(NotImplementedError, match="item 5"):
         TorchSketchBackend(torch.device("cpu")).sketch_dna_streams(
             [reads], ["r"], [17], 1024, True, 2

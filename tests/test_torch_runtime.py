@@ -1,28 +1,30 @@
-"""The port's engine selection, CLI routing and kernel wrappers' dispatch:
-no GPU means no cuda mode, unported engines raise, a CUDA tensor goes to
-the kernel launcher (never the twin) and is counted, and the JAX CLI gets
-its own selectors back after a port run."""
+"""The port's engine selection, CLI refusals and kernel wrappers'
+dispatch: no GPU means no cuda mode, unported engines raise, a CUDA tensor
+goes to the kernel launcher (never the twin) and is counted; and the port
+imports nothing of the JAX package."""
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-import sketchtpu.runtime as jax_runtime
-from sketchtpu.dist.api import DistType
-from sketchtpu.sketchcore.sketch import HashType
 from sketchtpu_torch import cli as port_cli
 from sketchtpu_torch import runtime
-from sketchtpu_torch.dist import coreacc_kernels, samebits_kernels
+from sketchtpu_torch.dist import coreacc_kernels, knn_kernels, samebits_kernels
+from sketchtpu_torch.dist.api import DistType
+from sketchtpu_torch.formats.skm import MultiSketch
 from sketchtpu_torch.hash import nthash_torch
+from sketchtpu_torch.sketchcore.sketch import HashType, Sketch
+
+REPO = Path(__file__).resolve().parent.parent
 
 
-def _MS(bins: int = 256):
-    """A three-sample MultiSketch at k = 17, 21, 25 (zero sketch words)."""
-    from sketchtpu.formats.skm import MultiSketch
-    from sketchtpu.sketchcore.sketch import Sketch
-
+def _MS(bins: int = 256, kmers=(17, 21, 25)):
+    """A three-sample MultiSketch (zero sketch words)."""
     ms = MultiSketch([Sketch(name=f"g{i}", index=i) for i in range(3)], bins,
-                     [17, 21, 25], HashType("dna"))
+                     list(kmers), HashType("dna"))
     ms.sketch_bins = np.zeros(3 * ms.sample_stride, dtype=np.uint64)
     return ms
 
@@ -69,8 +71,6 @@ def test_unknown_mode_raises(monkeypatch):
 @pytest.mark.parametrize(
     "call,item",
     [
-        (lambda: runtime.select_knn_engine(_MS(), DistType()), "item 4"),
-        (lambda: runtime.select_inverted_engine(object()), "item 6"),
         (lambda: runtime.select_backend(HashType("aa", 1), 1), "item 7"),
     ],
 )
@@ -95,6 +95,7 @@ def test_cpu_mode_selects_device_engines(monkeypatch):
         DeviceCoreAccExactStreamEngine,
     )
     from sketchtpu_torch.dist.jaccard_torch import DeviceDenseStreamEngine
+    from sketchtpu_torch.dist.knn_torch import DeviceKnnEngine
 
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
     ms = _MS()
@@ -106,6 +107,20 @@ def test_cpu_mode_selects_device_engines(monkeypatch):
         DeviceDenseStreamEngine,
     )
     assert runtime.select_engine(ms) is not None
+    assert isinstance(runtime.select_knn_engine(ms, DistType()), DeviceKnnEngine)
+    assert isinstance(
+        runtime.select_knn_engine(ms, DistType(k_idx=1, k=21.0)),
+        DeviceKnnEngine,
+    )
+
+
+def test_knn_coreacc_with_one_k_routes_to_the_host_chain(monkeypatch):
+    """As in the JAX runtime: core/accessory needs two k, so the selector
+    steps aside and the host path raises its own error."""
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    ms = _MS(kmers=(17,))
+    assert runtime.select_knn_engine(ms, DistType()) is None
+    assert runtime.select_knn_engine(ms, DistType(k_idx=0, k=17.0)) is not None
 
 
 def test_int16_overflow_routes_to_the_host_chain(monkeypatch):
@@ -147,6 +162,38 @@ def test_coreacc_wrapper_launches_for_cuda_tensors(monkeypatch):
     assert len(calls) == 1
 
 
+def test_samebits_full_wrapper_launches_for_cuda_tensors(monkeypatch):
+    calls = []
+    monkeypatch.setattr(samebits_kernels, "samebits_ref", _refuse_twin)
+    monkeypatch.setattr(samebits_kernels, "_launch_samebits",
+                        lambda *a: calls.append(a) or "out")
+    a = _FakeCuda(torch.zeros((8, 56), dtype=torch.int64))
+    before = samebits_kernels.samebits_full.launches
+    k1_before = samebits_kernels.samebits.launches
+    assert samebits_kernels.samebits_full(a, a) == "out"
+    assert samebits_kernels.samebits_full.launches == before + 1
+    assert samebits_kernels.samebits.launches == k1_before
+    assert calls[0][2:] == (torch.int32, False, 0)
+
+
+@pytest.mark.parametrize("comp", [False, True])
+def test_knn_keys_wrapper_launches_for_cuda_tensors(monkeypatch, comp):
+    calls = []
+    monkeypatch.setattr(knn_kernels, "knn_keys_ref", _refuse_twin)
+    monkeypatch.setattr(knn_kernels, "_launch_knn_keys",
+                        lambda *a: calls.append(a) or "out")
+    a = _FakeCuda(torch.zeros((8, 56), dtype=torch.int64))
+    c = None
+    if comp:
+        c = knn_kernels.Completeness(_FakeCuda(torch.ones(8)),
+                                     _FakeCuda(torch.ones(11)), 0.64, 4)
+    before = knn_kernels.knn_keys.launches
+    assert knn_kernels.knn_keys(a, a, col0=3, nb_real=11, exclude_self=True,
+                                comp=c) == "out"
+    assert knn_kernels.knn_keys.launches == before + 1
+    assert calls[0][2:] == (0, 3, 11, True, c)
+
+
 def test_nthash_wrapper_launches_for_cuda_tensors(monkeypatch):
     calls = []
     monkeypatch.setattr(nthash_torch, "nthash_bin_ref", _refuse_twin)
@@ -175,23 +222,27 @@ def test_cli_refuses_unported(argv, item):
         port_cli.main(argv)
 
 
-def test_jax_cli_keeps_its_selectors_after_a_port_run(tmp_path, monkeypatch):
-    from sketchtpu_torch.synth import related_assemblies
+def _imports_of_jax_package(path: Path) -> list[str]:
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [f"{path.name}:{node.lineno} {name}" for name in names
+                  if name.split(".")[0] in ("sketchtpu", "jax", "jaxlib")]
+    return found
 
-    original = {n: getattr(jax_runtime, n) for n in port_cli.ROUTED}
-    rfile = related_assemblies(tmp_path, 2, 3000, seed=3, max_contigs=2)
-    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
-    seen = {}
-    real = runtime.select_backend
 
-    def spy(seq_type, n):
-        seen["bound"] = jax_runtime.select_backend is spy
-        return real(seq_type, n)
-
-    monkeypatch.setattr(runtime, "select_backend", spy)
-    assert port_cli.main(["sketch", "-f", str(rfile), "-o",
-                          str(tmp_path / "db"), "-k", "9,13", "-s", "64",
-                          "--quiet"]) == 0
-    assert seen == {"bound": True}
-    for name, fn in original.items():
-        assert getattr(jax_runtime, name) is fn, name
+@pytest.mark.parametrize(
+    "path",
+    sorted((REPO / "sketchtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_port_imports_nothing_of_the_jax_package(path):
+    """The port keeps its own copies of the host layers: no module of it,
+    and not chip_smoke.py, imports sketchtpu or jax (a subprocess that runs
+    the JAX CLI as the host oracle is allowed)."""
+    assert _imports_of_jax_package(path) == []
