@@ -78,6 +78,20 @@ PEAK_OPS = 67e12
 # JAX kernels' own cost estimate (pallas_kernels.py:128), two u32 words x
 # (BBITS xor + BBITS and + popcount + add)
 SB_OPS = 2 * (2 * 14 + 2)
+# Hopper's integer issue rates (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0): 64 32-bit bitwise
+# operations (one LOP3 folds a plane's XOR and AND) and 16 popcounts per
+# clock and SM; 132 SMs at the 1.98 GHz boost clock
+SMS, CLOCK_HZ = 132, 1.98e9
+
+
+def integer_floor_ms(pair_chunks: float) -> float:
+    """The least time the samebits work of pair_chunks (pair, 64-bin
+    chunk) units takes at the integer issue rates: two LOP3 per plane, two
+    popcounts per chunk, the two pipes overlapped."""
+    lop3 = pair_chunks * 2 * 14 / (64 * SMS * CLOCK_HZ)
+    popc = pair_chunks * 2 / (16 * SMS * CLOCK_HZ)
+    return max(lop3, popc) * 1e3
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -86,6 +100,29 @@ def bound(ops: float, nbytes: float) -> dict:
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from sketchtpu_torch.dist.coreacc_kernels import coreacc
+    from sketchtpu_torch.dist.knn_kernels import knn_keys
+    from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_full
+    from sketchtpu_torch.hash.nthash_torch import nthash_bin
+
+    return {"samebits": samebits, "coreacc": coreacc, "knn_keys": knn_keys,
+            "samebits_full": samebits_full, "nthash_bin": nthash_bin}
+
+
+def timed_cli(cli_main, argv, what: str) -> float:
+    """Wall seconds of one CLI run; prints the kernel launches it made."""
+    before = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    t0 = time.time()
+    check(cli_main(argv) == 0, f"{what} failed")
+    wall = time.time() - t0
+    made = {k: fn.launches - before[k] for k, fn in kernel_wrappers().items()}
+    print(f"{what}: launches of this one run "
+          f"{ {k: v for k, v in made.items() if v} }")
+    return wall
 
 
 def check(cond, msg: str) -> None:
@@ -175,52 +212,134 @@ def phase2_samebits(words, results):
                    (na + nb) * w_bytes + na * nb * got.element_size())
         print(f"phase2 {name} {label} ({na}, {nb}): equal to twin; kernel "
               f"{ms:.4f} ms, twin {plain:.2f} ms, bound {bd['bound_ms']:.4f} "
-              f"ms ({bd['bound_by']}), {na * nb / ms / 1e6:.3f} G pair/s")
+              f"ms ({bd['bound_by']}), integer-issue floor "
+              f"{integer_floor_ms(pairs * S64):.4f} ms, "
+              f"{na * nb / ms / 1e6:.3f} G pair/s")
         results[name] = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain,
                              library_ms=None, **bd)
 
 
-def phase2_coreacc(words, results):
+# the previous K2 design's times at these shapes (PERF.md's kernel table,
+# an H100 80GB HBM3 at 700 W): a 32 x 64 pair tile, one chunk per barrier
+PREVIOUS_COREACC = {
+    "plain": "previous design 29.7813 ms",
+    "completeness": "previous design 30.6824 ms",
+    "keys": "previous design 12.23 ms for the f32 tile, before key packing",
+}
+
+
+def coreacc_ptxas(lib_path: Path) -> dict:
+    """Registers and spill bytes of K2's two instantiations, from the
+    build's -Xptxas -v log."""
+    lines = lib_path.with_suffix(".log").read_text().splitlines()
+    found = {}
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and "coreacc_kernel" in ln:
+            mode = "keys" if "ILb1E" in ln else "plain"
+            text = " ".join(lines[i + 1 : i + 4])
+            regs = text.split("Used ")[1].split(" registers")[0]
+            spills = text.split("bytes stack frame, ")[1].split(" bytes spill")[0]
+            found[mode] = dict(registers=int(regs), spill_store_bytes=int(spills))
+    return found
+
+
+def timed_once(fn):
+    """(result, ms) of one call of fn() on the card, by CUDA events."""
     import torch
 
-    from sketchtpu_torch.dist.coreacc_kernels import coreacc, coreacc_ref
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
+
+def phase2_coreacc(words, results, lib_path: Path):
+    """K2 plain at 2048 x 16384 (with and without completeness) and in key
+    mode at the core/accessory kNN tile, 2048 x 8192 across the diagonal:
+    every pair against the twin on the same inputs, max error 0 except
+    pairs on the beta == 0 discontinuity (counted; expected none)."""
+    import torch
+
+    from sketchtpu_torch import _build
+    from sketchtpu_torch.dist.coreacc_kernels import (
+        coreacc,
+        coreacc_keys,
+        coreacc_keys_ref,
+        coreacc_ref,
+    )
+
+    ptx = coreacc_ptxas(lib_path)
+    lib = _build.lib()
+    for mode, info in sorted(ptx.items()):
+        info["blocks_per_sm"] = lib.stpu_coreacc_blocks_per_sm(int(mode == "keys"))
+        print(f"phase2 coreacc {mode} kernel: {info['registers']} registers, "
+              f"{info['spill_store_bytes']} bytes spilled, "
+              f"{info['blocks_per_sm']} resident 256-thread blocks per SM")
+        check(info["spill_store_bytes"] == 0 and info["blocks_per_sm"] >= 2,
+              f"coreacc {mode}: spills or fewer than two blocks per SM")
     a, b = words[4096:6144], words
     comp = torch.linspace(0.6, 1.0, b.shape[0], device=b.device)
     comp = comp[torch.randperm(b.shape[0], device=b.device)]
     worst, jumps = 0.0, 0
     times = {}
+    na, nb, nk = a.shape[0], b.shape[0], len(KMERS)
     for label, c1, c2 in (("plain", None, None),
                           ("completeness", comp[4096:6144], comp)):
         core, acc = coreacc(a, b, KMERS, S64 * 64, c1, c2)
-        for r0 in (0, a.shape[0] - 128):
-            rs = slice(r0, r0 + 128)
-            wc, wa = coreacc_ref(a[rs], b, KMERS, S64 * 64,
-                                 None if c1 is None else c1[rs], c2)
-            dc = (core[rs] - wc).abs()
-            # the beta == 0 discontinuity: core jumps between 0 and 1
-            jump = (dc > ATOL) & (torch.minimum(core[rs], wc) < 1e-3) & (
-                torch.maximum(core[rs], wc) == 1.0)
-            jumps += int(jump.sum())
-            err = max(dc[~jump].max().item(), (acc[rs] - wa).abs().max().item())
-            check(err <= ATOL, f"coreacc {label}: kernel vs twin {err}")
-            worst = max(worst, err)
-            fitted = int(((wc > 0) & (wc < 1)).sum())
-            check(fitted > 0, f"coreacc {label}: no pair reached the fit")
-        ms = cuda_ms(lambda: coreacc(a, b, KMERS, S64 * 64, c1, c2), reps=5)
-        plain = cuda_ms(lambda: coreacc_ref(a, b, KMERS, S64 * 64, c1, c2),
-                        reps=1, warmup=0)
+        (wc, wa), plain = timed_once(
+            lambda: coreacc_ref(a, b, KMERS, S64 * 64, c1, c2))
+        dc = (core - wc).abs()
+        # the beta == 0 discontinuity: core jumps between 0 and 1
+        jump = (dc > 0) & (torch.minimum(core, wc) < 1e-3) & (
+            torch.maximum(core, wc) == 1.0)
+        jumps += int(jump.sum())
+        err = max(dc[~jump].max().item(), (acc - wa).abs().max().item())
+        check(err == 0, f"coreacc {label}: kernel vs twin {err}")
+        worst = max(worst, err)
+        fitted = int(((wc > 0) & (wc < 1)).sum())
+        check(fitted > 0, f"coreacc {label}: no pair reached the fit")
+        del core, acc, wc, wa, dc, jump
+        ms = cuda_ms(lambda: coreacc(a, b, KMERS, S64 * 64, c1, c2), reps=10)
         times[label] = (ms, plain)
-        print(f"phase2 coreacc {label} (2048, 16384) nk=7: within {ATOL} of "
-              f"twin (max {worst:.3g}, fitted pairs in sub-block {fitted}); "
-              f"kernel {ms:.4f} ms, twin {plain:.2f} ms, "
-              f"{a.shape[0] * b.shape[0] / ms / 1e6:.3f} G pair/s")
+        print(f"phase2 coreacc {label} ({na}, {nb}) nk={nk}: equal to twin "
+              f"on every pair ({fitted} fitted); kernel {ms:.4f} ms "
+              f"({PREVIOUS_COREACC[label]}), twin {plain:.2f} ms, "
+              f"{na * nb / ms / 1e6:.3f} G pair/s")
     print(f"phase2 coreacc beta==0 discontinuity pairs: {jumps}")
     ms, plain = times["plain"]
-    na, nb = a.shape[0], b.shape[0]
-    bd = bound(na * nb * len(KMERS) * S64 * SB_OPS,
+    bd = bound(na * nb * nk * S64 * SB_OPS,
                (na + nb) * a.shape[1] * a.shape[2] * 8 + na * nb * 8)
-    print(f"phase2 coreacc bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    floor = integer_floor_ms(na * nb * nk * S64)
+    print(f"phase2 coreacc plain bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%; "
+          f"integer-issue floor {floor:.4f} ms: kernel at "
+          f"{100 * floor / ms:.1f}%")
+
+    # key mode at the kNN tile: rows 4096.. against columns 0..8191
+    bk = words[:8192]
+    kw = dict(row0=4096, col0=0, nb_real=words.shape[0], exclude_self=True)
+    keys, acc = coreacc_keys(a, bk, KMERS, S64 * 64, **kw)
+    (want_k, want_a), key_plain = timed_once(
+        lambda: coreacc_keys_ref(a, bk, KMERS, S64 * 64, **kw))
+    check(torch.equal(keys, want_k) and torch.equal(acc, want_a),
+          "coreacc keys: kernel != twin")
+    check(int((keys == -(1 << 63)).sum()) == na, "coreacc keys: self pairs")
+    del keys, acc, want_k, want_a
+    key_ms = cuda_ms(lambda: coreacc_keys(a, bk, KMERS, S64 * 64, **kw),
+                     reps=10)
+    kbd = bound(na * bk.shape[0] * nk * S64 * SB_OPS,
+                (na + bk.shape[0]) * a.shape[1] * a.shape[2] * 8
+                + na * bk.shape[0] * 12)
+    print(f"phase2 coreacc keys ({na}, {bk.shape[0]}) nk={nk}: bit-equal to "
+          f"twin (keys and acc); kernel {key_ms:.4f} ms "
+          f"({PREVIOUS_COREACC['keys']}), twin "
+          f"{key_plain:.2f} ms, bound {kbd['bound_ms']:.4f} ms "
+          f"({kbd['bound_by']}), integer-issue floor "
+          f"{integer_floor_ms(na * bk.shape[0] * nk * S64):.4f} ms, "
+          f"{na * bk.shape[0] / key_ms / 1e6:.3f} G pair/s")
     results["coreacc"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
                               beta0_pairs=jumps, library_ms=None, **bd)
 
@@ -259,7 +378,8 @@ def phase2_knn_keys(words, results):
                    (na + nb) * a.shape[1] * 8 + na * nb * got.element_size())
         print(f"phase2 knn_keys {label} ({na}, {nb}) {got.dtype}: equal to "
               f"twin; kernel {ms:.4f} ms, twin {plain:.2f} ms, bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), integer-issue "
+              f"floor {integer_floor_ms(na * nb * S64):.4f} ms, "
               f"{na * nb / ms / 1e6:.3f} G pair/s")
         if label == "plain":
             results["knn_keys"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
@@ -525,6 +645,11 @@ def profile_dist(cli_main, argv, label: str) -> float:
           f"{100 * busy_ms / 1e3 / wall:.2f}% of wall")
     for us, count, key in rows[:6]:
         print(f"  {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+    for label, part in (("K2 (coreacc_kernel)", "coreacc_kernel"),
+                        ("PyTorch elementwise kernels", "elementwise")):
+        sel = [(us, n) for us, n, name in rows if part in name]
+        print(f"  {label}: {sum(us for us, _ in sel) / 1e3:.3f} ms in "
+              f"{sum(n for _, n in sel)} launches")
     return busy_ms / 1e3 / wall
 
 
@@ -540,10 +665,8 @@ def phase4(cli_main, parent_db: Path, gpu: str) -> None:
     pairs = N_SCALE * (N_SCALE - 1) // 2
     for name, flags, n_values in (("coreacc", [], 2), ("k17", ["-k", "17"], 1)):
         out = d / f"{name}.txt"
-        t0 = time.time()
-        check(cli_main(["dist", str(db), *flags, "-o", str(out), "--quiet"])
-              == 0, f"dist {name} at n={N_SCALE} failed")
-        wall = time.time() - t0
+        wall = timed_cli(cli_main, ["dist", str(db), *flags, "-o", str(out),
+                                    "--quiet"], f"phase4 dist {name} n={N_SCALE}")
         lines = scan_dist_file(out, n_values)
         check(lines == pairs, f"{name}: {lines} lines, expected {pairs}")
         print(f"phase4 dist {name} n={N_SCALE}: {pairs} pairs in {wall:.2f} s "
@@ -588,9 +711,7 @@ def phase5_run(cli_main, parent_db: Path, gpu: str) -> Path:
     for name, n, flags in runs:
         argv = ["dist", str(d / "db"), *flags, "--knn", str(KNN), "-o",
                 str(d / f"{name}.txt"), "--quiet"]
-        t0 = time.time()
-        check(cli_main(argv) == 0, f"phase5 {name} failed")
-        wall = time.time() - t0
+        wall = timed_cli(cli_main, argv, f"phase5 dist --knn {KNN} {name} n={n}")
         print(f"phase5 dist --knn {KNN} {name} n={n}: {wall:.2f} s = "
               f"{n * n / wall / 1e6:.1f} M scanned pairs/s end to end (load, "
               f"upload, scan, selection, host f64 values, "
@@ -700,10 +821,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from sketchtpu_torch import _build, _native
     from sketchtpu_torch.cli import main as cli_main
-    from sketchtpu_torch.dist.coreacc_kernels import coreacc
-    from sketchtpu_torch.dist.knn_kernels import knn_keys
-    from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_full
-    from sketchtpu_torch.hash.nthash_torch import nthash_bin
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).strip().splitlines()[0]
@@ -730,15 +847,13 @@ def main() -> int:
         results: dict[str, dict] = {}
         words = derived_words(16384, SEED)
         phase2_samebits(words, results)
-        phase2_coreacc(words, results)
+        phase2_coreacc(words, results, lib_path)
         phase2_knn_keys(words, results)
         del words
         phase2_nthash(results)
         torch.cuda.empty_cache()
 
-        wrappers = {"samebits": samebits, "coreacc": coreacc,
-                    "knn_keys": knn_keys, "samebits_full": samebits_full,
-                    "nthash_bin": nthash_bin}
+        wrappers = kernel_wrappers()
 
         def counted(path, kernels, *phases):
             """Run a path's phases with every count at 0 before; its

@@ -46,9 +46,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "stpu_samebits": (_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _I, _LL, _P),
     "stpu_coreacc": (
-        _P, _LL, _P, _LL, _LL, _I, _I, _I, _I, _P, _F, _P, _P, _F,
-        _F, _F, _F, _F, _P, _P, _LL, _I, _LL, _P,
+        _P, _LL, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _F, _F, _F,
+        _F, _F, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P,
     ),
+    "stpu_coreacc_blocks_per_sm": (_I,),
     "stpu_nthash_bin": (
         _P, _LL, _I, _P, _P, _I, _P, _I, _ULL, _I, _P, _P,
     ),

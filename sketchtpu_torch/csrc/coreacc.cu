@@ -1,5 +1,6 @@
 // K2: fused multi-k core/accessory distances, the port of
-// sketchtpu/dist/coreacc_pallas.py coreacc_pallas (kernel _coreacc_kernel).
+// sketchtpu/dist/coreacc_pallas.py coreacc_pallas (kernel _coreacc_kernel,
+// coreacc_pallas.py:100), redesigned for Hopper.
 //
 // Per pair, for each k in ascending order: samebits -> bias-corrected
 // Jaccard j -> optional completeness correction -> y = ln j -> the early
@@ -9,15 +10,46 @@
 // The sums use x = k - kc (kc: the middle k, so x is a small exact
 // integer): in f32, sum(k*y) - sum(k)*sum(y)/n cancels two numbers of
 // order 1e2 and costs the accessory distance up to ~2e-5 against the f64
-// chain; centred, the same slope and intercept stay within ~1e-6.
+// chain; centred, the same slope and intercept stay within ~1e-6. Every
+// float operation is the twin's (coreacc_kernels.coreacc_ref), in its
+// order, built with --fmad=false, so kernel and twin agree bit for bit.
 //
-// Bound: integer ALU, as K1, times nk; the float chain is a few dozen
-// flops per pair and k. Design: a 32 x 64 pair tile per 256-thread block,
-// 2 x 4 pairs per thread. The chain consumes each k's samebits as soon as
-// its chunks are summed, so only four running values per pair stay live
-// (the included-k count and the y, k*y and y*y sums; the k and k*k sums
-// follow from the count), for any nk.
+// Two modes. Plain: f32 core and acc (na, nb), with the self-dense
+// triangle skip (tri, row0). Keys (the core/accessory kNN scan tile): for
+// rows with global ids row0 + i and columns col0 + j, an int64 selection
+// key ordered_bits(-core) << 32 | (2^32 - 1 - col) and the f32 acc beside
+// it; a column at or past the real column count (j >= ncols) or, with
+// exclude_self, equal to the row gets INT64_MIN and acc 0. Keys hold
+// their column, so they are unique and a top-k over them orders core
+// ascending, then column ascending.
+//
+// Bound: the integer ALU. A pair and 64-bin chunk costs BBITS LOP3s
+// (acc & ~(a ^ b)) on each 32-bit half and two popcounts; Hopper issues
+// 64 LOP3 and 16 popcounts per clock and SM. The float chain adds a few
+// dozen operations per pair and k, about a tenth of the samebits work at
+// s64 = 16.
+// Design:
+// - 64 x 64 pairs per 256-thread block, 4 x 4 pairs per thread (K1's
+//   tile): each staged plane word feeds four pairs.
+// - The (k, chunk) sequence is flattened and staged G = 2 chunks per stage
+//   into a two-stage ring with 8-byte cp.async (zero-filled past the last
+//   row), transposed to [plane][row] so a warp reads neighbouring words;
+//   the next stage's copies fly while this one is consumed, across k
+//   boundaries and for any s64, with one barrier per stage.
+// - The chain's running state (y, k*y, y*y sums and the included-k count)
+//   lives in shared memory, one slot per pair and thread, updated once per
+//   k: only the 16 samebits counts and the AND chains stay in registers.
+// - The centred k values and their prefix sums (sum x and sum x^2 over
+//   the first n included k, which the early break makes a prefix) come by
+//   value in a __grid_constant__ table (3 KB of the 4 KB parameter space),
+//   at most MAX_NK = 255 k values; the wrapper raises above it.
+// - One-dimensional grid with row tiles fastest, so the blocks resident
+//   together share their column tiles in L2.
+// ptxas (-Xptxas -v, sm_90a, nvcc 12.9): 128 registers, no spills, in both
+// modes; with 112,000 bytes of dynamic shared memory each, 2 blocks of 256
+// threads are resident per SM. chip_smoke.py prints all three.
 #include <math.h>
+#include <string.h>
 
 #include "tile.cuh"
 
@@ -25,27 +57,81 @@ using namespace stpu;
 
 namespace {
 
-constexpr int TX = 16, TY = 16;
-constexpr int RM = 2, RN = 4;
+constexpr int TX = 16, TY = 16;  // threads
+constexpr int RM = 4, RN = 4;    // pairs per thread
 constexpr int TI = TY * RM, TJ = TX * RN, NT = TX * TY;
-constexpr int LDS_A = TI + 1, LDS_B = TJ + 1;
+constexpr int NSLOT = RM * RN;
+constexpr int LDS = TI + 1;  // words per staged plane (TI == TJ); +1: no store clashes
+constexpr int G = 2;         // chunks per stage
+constexpr int STAGES = 2;
+constexpr int MAX_NK = 255;  // s_n, the included-k count, is a byte
+constexpr int OPERAND_STAGE = G * BBITS * LDS;  // words of one operand's stage
+constexpr int SMEM_BYTES = 2 * STAGES * OPERAND_STAGE * 8  // staged words
+                           + NSLOT * NT * (3 * 4 + 1)       // chain state
+                           + (TI + TJ) * 4;                 // completeness
+static_assert(TI == TJ, "one staging layout serves both operands");
 
-__global__ void __launch_bounds__(NT)
+// The k table, passed by value: kf[q] = k_q - kc; xs[n] and xq[n] are the
+// f32 sums, in order, of kf[q] and kf[q] * kf[q] over q < n.
+struct KTable {
+  float kf[MAX_NK];
+  float xs[MAX_NK + 1];
+  float xq[MAX_NK + 1];
+  float kc;
+};
+static_assert(sizeof(KTable) == (3 * MAX_NK + 3) * sizeof(float),
+              "KTable is a flat float array on the host side");
+
+__device__ __forceinline__ void cp_async8(u64* dst, const u64* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int ordered_bits(float v) {
+  const int b = __float_as_int(v);
+  return b < 0 ? b ^ 0x7FFFFFFF : b;
+}
+
+template <bool KEYS>
+__global__ void __launch_bounds__(NT, 2)
     coreacc_kernel(const u64* __restrict__ a, long long lda,
                    const u64* __restrict__ b, long long ldb,
-                   long long kstride, int na, int nb, int s64, int nk,
-                   const float* __restrict__ kf, float kc,
+                   long long kstride, int na, int nb, int ncols, int s64,
+                   int nk, const __grid_constant__ KTable kt,
                    const float* __restrict__ c1,
-                   const float* __restrict__ c2, float cutoff, float expected,
-                   float maxnbits, float denom, float tolerance,
-                   float* __restrict__ core, float* __restrict__ acc,
-                   long long ldo, int tri, long long row0) {
-  __shared__ u64 sa[BBITS][LDS_A];
-  __shared__ u64 sb[BBITS][LDS_B];
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
+                   const float* __restrict__ c2, float cutoff,
+                   float expected, float maxnbits, float denom,
+                   float tolerance, float* __restrict__ core,
+                   long long* __restrict__ keys, float* __restrict__ acc,
+                   long long ldo, int tiles_i, int tri, long long row0,
+                   long long col0, int exclude_self) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* sA = reinterpret_cast<u64*>(smem);
+  u64* sB = sA + STAGES * OPERAND_STAGE;
+  float* s_y = reinterpret_cast<float*>(sB + STAGES * OPERAND_STAGE);
+  float* s_xy = s_y + NSLOT * NT;
+  float* s_yy = s_xy + NSLOT * NT;
+  float* s_c1 = s_yy + NSLOT * NT;
+  float* s_c2 = s_c1 + TI;
+  unsigned char* s_n = reinterpret_cast<unsigned char*>(s_c2 + TJ);
 
-  if (tri && tile_below_diagonal(i0, j0, TJ, nb, row0)) {
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int i0 = (blockIdx.x % tiles_i) * TI;
+  const int j0 = (blockIdx.x / tiles_i) * TJ;
+
+  if (!KEYS && tri && tile_below_diagonal(i0, j0, TJ, nb, row0)) {
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int gi = i0 + ty + i * TY;
@@ -60,55 +146,116 @@ __global__ void __launch_bounds__(NT)
     }
     return;
   }
-
-  const bool comp = c1 != nullptr;
-  float c1v[RM], c2v[RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int gi = i0 + ty + i * TY;
-    c1v[i] = comp && gi < na ? c1[gi] : 1.f;
-  }
-#pragma unroll
-  for (int j = 0; j < RN; ++j) {
-    const int gj = j0 + tx + j * TX;
-    c2v[j] = comp && gj < nb ? c2[gj] : 1.f;
-  }
-
-  int ninc[RM][RN] = {};
-  float ysum[RM][RN] = {}, xysum[RM][RN] = {}, ysq[RM][RN] = {};
-  for (int ki = 0; ki < nk; ++ki) {
-    int cnt[RM][RN] = {};
-    for (int c = 0; c < s64; ++c) {
-      const long long off = (long long)ki * kstride + (long long)c * BBITS;
-      stage_chunk<TI, LDS_A>(sa, a, lda, off, i0, na);
-      stage_chunk<TJ, LDS_B>(sb, b, ldb, off, j0, nb);
-      __syncthreads();
-      samebits_chunk<RM, RN, TY, TX, LDS_A, LDS_B>(cnt, sa, sb, ty, tx);
-      __syncthreads();
-    }
-    const float kv = kf[ki];
+  if (KEYS && j0 >= ncols) {  // wholly past the real columns
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
+      const int gi = i0 + ty + i * TY;
 #pragma unroll
       for (int j = 0; j < RN; ++j) {
-        const float diff = fmaxf((float)cnt[i][j] - expected, 0.f);
-        float jac = (diff * maxnbits / denom) / maxnbits;
-        if (comp) {
-          const float prod = c1v[i] * c2v[j];
-          const float factor = prod / (c1v[i] + c2v[j] - prod);
-          if (prod >= cutoff) {
-            const float q = jac / factor;
-            jac = q > 1.f ? 1.f : q;  // NaN-propagating min, as jnp.minimum
-          }
-        }
-        const float y = logf(jac);
-        if (ninc[i][j] == ki && y >= tolerance) {
-          ninc[i][j] += 1;
-          ysum[i][j] += y;
-          xysum[i][j] += kv * y;
-          ysq[i][j] += y * y;
+        const int gj = j0 + tx + j * TX;
+        if (gi < na && gj < nb) {
+          keys[(long long)gi * ldo + gj] = (long long)(1ull << 63);
+          acc[(long long)gi * ldo + gj] = 0.f;
         }
       }
+    }
+    return;
+  }
+
+  const bool comp = c1 != nullptr;
+  for (int e = tid; e < TI; e += NT)
+    s_c1[e] = comp && i0 + e < na ? c1[i0 + e] : 1.f;
+  for (int e = tid; e < TJ; e += NT)
+    s_c2[e] = comp && j0 + e < ncols ? c2[j0 + e] : 1.f;
+#pragma unroll
+  for (int q = 0; q < NSLOT; ++q) {
+    s_y[q * NT + tid] = 0.f;
+    s_xy[q * NT + tid] = 0.f;
+    s_yy[q * NT + tid] = 0.f;
+    s_n[q * NT + tid] = 0;
+  }
+
+  // Staging role: warps 0-3 copy A rows, 4-7 B rows; lane < 28 copies
+  // plane lane % 14 of rows r, r + 2, ..., r + 14 of its warp's 16 rows.
+  const int warp = tid / 32, lane = tid % 32;
+  const bool stager = lane < 2 * BBITS;
+  const bool is_b = warp >= 4;
+  const int srow = (warp & 3) * 16 + lane / BBITS;
+  const int splane = lane % BBITS;
+  const u64* sop = is_b ? b : a;
+  const long long sld = is_b ? ldb : lda;
+  const int svalid = (is_b ? ncols - j0 : na - i0) - srow;  // rows left
+  const u64* ssrc = sop + (long long)((is_b ? j0 : i0) + srow) * sld + splane;
+  u64* sdst = (is_b ? sB : sA) + splane * LDS + srow;
+
+  const int total = nk * s64;  // flattened (k, chunk) sequence
+  const int nstage = (total + G - 1) / G;
+  auto load_stage = [&](int s) {
+    if (!stager) return;
+    const int buf = s % STAGES;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int t = s * G + g;
+      if (t >= total) break;
+      const int ki = t / s64;
+      const long long off = ki * kstride + (long long)(t - ki * s64) * BBITS;
+      u64* dst = sdst + (buf * G + g) * BBITS * LDS;
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const bool ok = 2 * it < svalid;
+        cp_async8(dst + 2 * it, ok ? ssrc + off + 2 * it * sld : sop, ok);
+      }
+    }
+  };
+
+  load_stage(0);
+  cp_async_commit();
+  int cnt[RM][RN] = {};
+  int ki = 0, c = 0;  // k-plane and chunk of the next chunk consumed
+  for (int s = 0; s < nstage; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s is in; everyone is done with stage s - 1
+    if (s + 1 < nstage) load_stage(s + 1);
+    cp_async_commit();
+    const int buf = s % STAGES;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (s * G + g >= total) break;
+      const int at = (buf * G + g) * BBITS * LDS;
+      samebits_chunk<RM, RN, TY, TX, LDS, LDS>(
+          cnt, reinterpret_cast<const u64(*)[LDS]>(sA + at),
+          reinterpret_cast<const u64(*)[LDS]>(sB + at), ty, tx);
+      if (++c < s64) continue;
+      // k-plane ki is complete: one step of the chain for each pair
+      const float kv = kt.kf[ki];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          const float diff = fmaxf((float)cnt[i][j] - expected, 0.f);
+          float jac = (diff * maxnbits / denom) / maxnbits;
+          if (comp) {
+            const float c1v = s_c1[ty + i * TY], c2v = s_c2[tx + j * TX];
+            const float prod = c1v * c2v;
+            const float factor = prod / (c1v + c2v - prod);
+            if (prod >= cutoff) {
+              const float q = jac / factor;
+              jac = q > 1.f ? 1.f : q;  // NaN-propagating min, as jnp.minimum
+            }
+          }
+          const float y = logf(jac);
+          const int slot = (i * RN + j) * NT + tid;
+          if (s_n[slot] == ki && y >= tolerance) {
+            s_n[slot] = ki + 1;
+            s_y[slot] += y;
+            s_xy[slot] += kv * y;
+            s_yy[slot] += y * y;
+          }
+          cnt[i][j] = 0;
+        }
+      }
+      c = 0;
+      ++ki;
     }
   }
 
@@ -119,45 +266,112 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < RN; ++j) {
       const int gj = j0 + tx + j * TX;
       if (gi >= na || gj >= nb) continue;
-      float xsum = 0.f, xsq = 0.f;  // of the centred x over included k
-      for (int q = 0; q < ninc[i][j]; ++q) {
-        xsum += kf[q];
-        xsq += kf[q] * kf[q];
-      }
-      const float n = (float)ninc[i][j];
-      const float xbar = xsum / n + kc;
-      const float ybar = ysum[i][j] / n;
+      const int slot = (i * RN + j) * NT + tid;
+      const int ninc = s_n[slot];
+      const float ysum = s_y[slot];
+      const float xsum = kt.xs[ninc], xsq = kt.xq[ninc];
+      const float n = (float)ninc;
+      const float xbar = xsum / n + kt.kc;
+      const float ybar = ysum / n;
       const float x_diff = xsq - xsum * xsum / n;
-      const float y_diff = ysq[i][j] - ysum[i][j] * ysum[i][j] / n;
-      const float beta = (xysum[i][j] - xsum * ysum[i][j] / n) / x_diff;
+      const float y_diff = s_yy[slot] - ysum * ysum / n;
+      const float beta = (s_xy[slot] - xsum * ysum / n) / x_diff;
       const float alpha = -beta * xbar + ybar;
       float cd = beta < 0.f ? 1.f - expf(beta) : (beta > 0.f ? 1.f : 0.f);
       float ad = alpha < 0.f ? 1.f - expf(alpha) : 0.f;
       if (y_diff <= 0.f) cd = ad = 0.f;
-      const float ys = ysum[i][j];
-      if (isnan(ys) || (isinf(ys) && ys < 0.f) || n < 3.f) cd = ad = 1.f;
-      core[(long long)gi * ldo + gj] = cd;
-      acc[(long long)gi * ldo + gj] = ad;
+      if (isnan(ysum) || (isinf(ysum) && ysum < 0.f) || n < 3.f) cd = ad = 1.f;
+      const long long o = (long long)gi * ldo + gj;
+      if (KEYS) {
+        const long long col = col0 + gj;
+        if (gj >= ncols || (exclude_self && col == row0 + gi)) {
+          keys[o] = (long long)(1ull << 63);
+          if (gj >= ncols) ad = 0.f;
+        } else {
+          const unsigned long long hi =
+              (unsigned long long)(long long)ordered_bits(-cd) << 32;
+          keys[o] = (long long)(hi | (0xFFFFFFFFull - (unsigned long long)col));
+        }
+      } else {
+        core[o] = cd;
+      }
+      acc[o] = ad;
     }
   }
 }
 
+template <bool KEYS>
+cudaError_t configure() {
+  cudaError_t err = cudaFuncSetAttribute(
+      coreacc_kernel<KEYS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(coreacc_kernel<KEYS>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <bool KEYS>
+cudaError_t configured() {
+  static const cudaError_t err = configure<KEYS>();  // once per process
+  return err;
+}
+
 }  // namespace
 
+// keys 0: plain mode, out = core (f32); keys 1: key mode, out = int64
+// keys. ktable: the KTable as 3 * MAX_NK + 3 floats (host memory).
+// ncols: the real columns (plain mode: nb). Rows are a (na) and b (nb)
+// with row strides lda / ldb words and k-plane stride kstride words.
 extern "C" int stpu_coreacc(const void* a, long long lda, const void* b,
                             long long ldb, long long kstride, int na, int nb,
-                            int s64, int nk, const void* kf, float kc,
-                            const void* c1,
-                            const void* c2, float cutoff, float expected,
-                            float maxnbits, float denom, float tolerance,
-                            void* core, void* acc, long long ldo, int tri,
-                            long long row0, void* stream) {
-  const dim3 grid((nb + TJ - 1) / TJ, (na + TI - 1) / TI);
-  coreacc_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u64*>(a), lda, static_cast<const u64*>(b), ldb,
-      kstride, na, nb, s64, nk, static_cast<const float*>(kf), kc,
-      static_cast<const float*>(c1), static_cast<const float*>(c2), cutoff,
-      expected, maxnbits, denom, tolerance, static_cast<float*>(core),
-      static_cast<float*>(acc), ldo, tri, row0);
+                            int ncols, int s64, int nk, const float* ktable,
+                            const void* c1, const void* c2, float cutoff,
+                            float expected, float maxnbits, float denom,
+                            float tolerance, void* out, void* acc,
+                            long long ldo, int keys, int tri, long long row0,
+                            long long col0, int exclude_self, void* stream) {
+  if (nk < 1 || nk > MAX_NK || s64 < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  KTable kt;
+  memcpy(&kt, ktable, sizeof kt);
+  const int tiles_i = (na + TI - 1) / TI;
+  const long long tiles = (long long)tiles_i * ((nb + TJ - 1) / TJ);
+  if (tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const u64* pa = static_cast<const u64*>(a);
+  const u64* pb = static_cast<const u64*>(b);
+  const float* pc1 = static_cast<const float*>(c1);
+  const float* pc2 = static_cast<const float*>(c2);
+  cudaError_t err;
+  if (keys) {
+    if ((err = configured<true>()) != cudaSuccess) return static_cast<int>(err);
+    coreacc_kernel<true><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
+        pa, lda, pb, ldb, kstride, na, nb, ncols, s64, nk, kt, pc1, pc2,
+        cutoff, expected, maxnbits, denom, tolerance, nullptr,
+        static_cast<long long*>(out), static_cast<float*>(acc), ldo, tiles_i,
+        0, row0, col0, exclude_self);
+  } else {
+    if ((err = configured<false>()) != cudaSuccess) return static_cast<int>(err);
+    coreacc_kernel<false><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
+        pa, lda, pb, ldb, kstride, na, nb, ncols, s64, nk, kt, pc1, pc2,
+        cutoff, expected, maxnbits, denom, tolerance,
+        static_cast<float*>(out), nullptr, static_cast<float*>(acc), ldo,
+        tiles_i, tri, row0, col0, exclude_self);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of the kernel at its launch configuration, or -1.
+extern "C" int stpu_coreacc_blocks_per_sm(int keys) {
+  int n = 0;
+  cudaError_t err = keys ? configured<true>() : configured<false>();
+  if (err == cudaSuccess) {
+    err = keys ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, coreacc_kernel<true>, NT, SMEM_BYTES)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, coreacc_kernel<false>, NT, SMEM_BYTES);
+  }
+  return err == cudaSuccess ? n : -1;
 }

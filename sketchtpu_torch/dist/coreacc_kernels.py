@@ -1,5 +1,5 @@
 """K2, fused multi-k core/accessory distances: the CUDA kernel
-csrc/coreacc.cu and its plain PyTorch twin.
+csrc/coreacc.cu and its plain PyTorch twins.
 
 Replaces sketchtpu/dist/coreacc_pallas.py::coreacc_pallas. The twin is a
 plain copy of sketchtpu/dist/coreacc_jax.py::coreacc_tile except that the
@@ -7,19 +7,30 @@ regression sums run over x = k - kc (kc: the middle k), which keeps the
 f32 accessory distance within ~1e-6 of the f64 chain where the uncentred
 sums lose up to ~2e-5 to cancellation. Both take the (n, nk, W) int64
 sketch words of to_device_words(), k ascending.
+
+Two entry points launch the one kernel (one launch count, coreacc.launches):
+- coreacc(): the (core, acc) f32 tiles of the dense engines;
+- coreacc_keys(): the core/accessory kNN scan tile, int64 selection keys
+  (-core, column) beside the f32 acc, which knn_torch merges by top-k.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from .. import _build
 from ..constants import BBITS
+from .knn_kernels import COLMASK64, pack_keys, scalar_divisors
 from .samebits_kernels import _check_words, _tri_mask_, samebits_ref
 
-_MAX_GRID_Y = 65535
-_TI = 32  # rows per block of coreacc.cu
+MAX_NK = 255  # k values per launch: the kernel's by-value k table
+_MAX_TILES = (1 << 31) - 1  # one-dimensional grid of 64 x 64 pair tiles
+_TILE = 64
+KEY_INVALID = -(1 << 63)  # key of a pair that is not a candidate
 
 
 def chain_constants(s64: int, sketch_size: int) -> tuple[float, float, float]:
@@ -56,10 +67,11 @@ def coreacc_ref(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
     still = torch.ones(shape, dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     kc = k_centre(kmers)
+    denom, mnb = scalar_divisors(dev, maxnbits - expected, maxnbits)
     for ki, k in enumerate(kmers):
         sb = samebits_ref(a[:, ki], b[:, ki]).to(torch.float32)
         diff = torch.clamp_min(sb - expected, 0.0)
-        j = (diff * maxnbits / (maxnbits - expected)) / maxnbits
+        j = (diff * maxnbits / denom) / mnb
         if c1 is not None:
             j = torch.where(comp_apply, torch.clamp(j / factor, max=1.0), j)
         y = torch.log(j)
@@ -96,14 +108,34 @@ def coreacc_ref(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
     return core, acc
 
 
-def coreacc(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
-            c1=None, c2=None, cutoff: float = 0.64, tri: bool = False,
-            row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """(core, acc) f32 (na, nb) distances of sketch words a (na, nk, W)
-    and b (nb, nk, W); c1 (na,) / c2 (nb,) f32 completeness apply the
-    correction where c1*c2 >= cutoff. tri (rows globally at row0 + i)
-    computes only what pairs with column > row need; other entries are
-    zero. CUDA tensors launch the kernel, CPU tensors run the twin."""
+def coreacc_keys_ref(a: torch.Tensor, b: torch.Tensor, kmers,
+                     sketch_size: int, c1=None, c2=None,
+                     cutoff: float = 0.64, *, row0: int = 0, col0: int = 0,
+                     nb_real: int | None = None,
+                     exclude_self: bool = False):
+    """Plain PyTorch twin of coreacc_keys(): coreacc_ref, then pack_keys."""
+    tr, tc = a.shape[0], b.shape[0]
+    ncols = _real_cols(tc, col0, nb_real)
+    core = torch.zeros((tr, tc), dtype=torch.float32, device=a.device)
+    acc = torch.zeros_like(core)
+    core[:, :ncols], acc[:, :ncols] = coreacc_ref(
+        a, b[:ncols], kmers, sketch_size, c1,
+        None if c2 is None else c2[:ncols], cutoff)
+    cols = col0 + torch.arange(tc, device=a.device)
+    valid = (torch.arange(tc, device=a.device) < ncols)[None, :].expand(tr, tc)
+    if exclude_self:
+        rows = row0 + torch.arange(tr, device=a.device)
+        valid = valid & (cols[None, :] != rows[:, None])
+    keys = pack_keys(-core, cols, torch.int64, 32, COLMASK64, valid,
+                     invalid=KEY_INVALID)
+    return keys, acc
+
+
+def _real_cols(tc: int, col0: int, nb_real: int | None) -> int:
+    return tc if nb_real is None else max(0, min(tc, nb_real - col0))
+
+
+def _check(a, b, kmers, c1, c2) -> None:
     _check_words("a", a, 3)
     _check_words("b", b, 3)
     nk = len(kmers)
@@ -118,15 +150,31 @@ def coreacc(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
             if (c.dtype != torch.float32 or c.shape != (m,)
                     or c.device != a.device or not c.is_contiguous()):
                 raise ValueError(f"{name} must be contiguous f32 ({m},)")
+    if a.device.type == "cuda" and nk > MAX_NK:
+        raise ValueError(f"coreacc: {nk} k values exceed the kernel's limit "
+                         f"of {MAX_NK} (MAX_NK in csrc/coreacc.cu)")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+
+
+def coreacc(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
+            c1=None, c2=None, cutoff: float = 0.64, tri: bool = False,
+            row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(core, acc) f32 (na, nb) distances of sketch words a (na, nk, W)
+    and b (nb, nk, W); c1 (na,) / c2 (nb,) f32 completeness apply the
+    correction where c1*c2 >= cutoff. tri (rows globally at row0 + i)
+    computes only what pairs with column > row need; other entries are
+    zero. CUDA tensors launch the kernel (at most MAX_NK k values), CPU
+    tensors run the twin."""
+    _check(a, b, kmers, c1, c2)
     if a.device.type == "cpu":
         return coreacc_ref(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
     shape = (a.shape[0], b.shape[0])
     if 0 in shape:
         z = torch.zeros(shape, dtype=torch.float32, device=a.device)
         return z, z.clone()
-    out = _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0)
+    out = _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0,
+                          None)
     coreacc.launches += 1
     return out
 
@@ -134,28 +182,88 @@ def coreacc(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
 coreacc.launches = 0
 
 
-def _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0):
+def coreacc_keys(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
+                 c1=None, c2=None, cutoff: float = 0.64, *, row0: int = 0,
+                 col0: int = 0, nb_real: int | None = None,
+                 exclude_self: bool = False):
+    """The core/accessory kNN scan tile of the rows a (tr, nk, W) against
+    the columns b (tc, nk, W): (keys int64 (tr, tc), acc f32 (tr, tc)).
+
+    Row i has the global id row0 + i, column j the global id col0 + j. The
+    key of a pair is ordered_bits(-core) << 32 | (COLMASK64 - column), so
+    a descending top-k selects core ascending, then column ascending.
+    Columns with id >= nb_real (default: all of b is real) are never read
+    and get KEY_INVALID and acc 0; so does column == row with exclude_self
+    (its acc is computed). c1 (tr,) / c2 (tc,) as in coreacc(). CUDA
+    tensors launch the kernel and count in coreacc.launches; CPU tensors
+    run the twin."""
+    _check(a, b, kmers, c1, c2)
+    if min(row0, col0) < 0 or (nb_real is not None and nb_real < 0) \
+            or col0 + b.shape[0] - 1 > COLMASK64:
+        raise ValueError(f"bad ids: row0={row0} col0={col0} nb_real={nb_real}")
+    if a.device.type == "cpu":
+        return coreacc_keys_ref(a, b, kmers, sketch_size, c1, c2, cutoff,
+                                row0=row0, col0=col0, nb_real=nb_real,
+                                exclude_self=exclude_self)
+    shape = (a.shape[0], b.shape[0])
+    if 0 in shape:
+        return (torch.full(shape, KEY_INVALID, dtype=torch.int64,
+                           device=a.device),
+                torch.zeros(shape, dtype=torch.float32, device=a.device))
+    out = _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, False,
+                          row0, (col0, _real_cols(b.shape[0], col0, nb_real),
+                                 exclude_self))
+    coreacc.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _k_table(kmers: tuple) -> ctypes.Array:
+    """The kernel's KTable as MAX_NK centred k values, the f32 prefix sums
+    of x and x*x (the twin's sums over the included k, which the early
+    break makes a prefix, added in the same order) and kc."""
+    kc = k_centre(kmers)
+    kf = np.zeros(MAX_NK, dtype=np.float32)
+    xs = np.zeros(MAX_NK + 1, dtype=np.float32)
+    xq = np.zeros(MAX_NK + 1, dtype=np.float32)
+    for q, k in enumerate(kmers):
+        x = float(k) - kc
+        kf[q] = x
+        xs[q + 1] = xs[q] + np.float32(x)
+        xq[q + 1] = xq[q] + np.float32(x * x)
+    flat = np.concatenate([kf, xs, xq, np.float32([kc])])
+    return (ctypes.c_float * flat.size)(*flat.tolist())
+
+
+def _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0,
+                    keys):
+    """Launch K2 in plain mode (keys None) or key mode (keys = (col0,
+    ncols, exclude_self))."""
     na, nk, w = a.shape
     nb = b.shape[0]
-    if na > _MAX_GRID_Y * _TI:
-        raise ValueError(f"coreacc: {na} rows exceed one launch")
+    tiles = -(-na // _TILE) * -(-nb // _TILE)
+    if tiles > _MAX_TILES:
+        raise ValueError(f"coreacc: {na} x {nb} pairs exceed one launch")
     if a.stride(1) != w or b.stride(1) != w:
         raise ValueError("coreacc: each row's k planes must be contiguous")
     s64 = w // BBITS
     maxnbits, expected, tolerance = chain_constants(s64, sketch_size)
-    kc = k_centre(kmers)
-    kf = torch.tensor([float(k) - kc for k in kmers], dtype=torch.float32,
-                      device=a.device)
-    core = torch.empty((na, nb), dtype=torch.float32, device=a.device)
-    acc = torch.empty_like(core)
+    acc = torch.empty((na, nb), dtype=torch.float32, device=a.device)
+    if keys is None:
+        out = torch.empty_like(acc)
+        col0, ncols, exclude_self = 0, nb, False
+    else:
+        out = torch.empty((na, nb), dtype=torch.int64, device=a.device)
+        col0, ncols, exclude_self = keys
     err = _build.lib().stpu_coreacc(
-        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), w, na, nb, s64,
-        nk, kf.data_ptr(), kc,
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), w, na, nb,
+        ncols, s64, nk, _k_table(tuple(kmers)),
         c1.data_ptr() if c1 is not None else None,
         c2.data_ptr() if c2 is not None else None,
         cutoff, expected, maxnbits, maxnbits - expected, tolerance,
-        core.data_ptr(), acc.data_ptr(), nb, int(tri), int(row0),
+        out.data_ptr(), acc.data_ptr(), nb, int(keys is not None), int(tri),
+        int(row0), int(col0), int(exclude_self),
         _build.stream_handle(a.device),
     )
     _build.check(err, "coreacc")
-    return core, acc
+    return out, acc

@@ -62,12 +62,22 @@ def _ordered_bits(v: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
 
 
+def scalar_divisors(device, *values: float) -> tuple[torch.Tensor, ...]:
+    """f32 0-dim tensors to divide by. On CUDA, torch divides a tensor by a
+    Python scalar as a product with its f32 reciprocal, which is not the
+    IEEE quotient the kernels compute unless the divisor is a power of two;
+    a tensor divisor is divided exactly on every device."""
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in values)
+
+
 def corrected_jaccard(sb: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
                       comp: Completeness) -> torch.Tensor:
     """The JAX completeness scan's f32 selection key, op for op."""
     maxnbits, expected = comp.maxnbits, comp.expected
+    denom, mnb = scalar_divisors(sb.device, maxnbits - expected, maxnbits)
     diff = torch.clamp_min(sb.to(torch.float32) - expected, 0.0)
-    j = diff * maxnbits / (maxnbits - expected) / maxnbits
+    j = diff * maxnbits / denom / mnb
     prod = c1[:, None] * c2[None, :]
     factor = prod / (c1[:, None] + c2[None, :] - prod)
     return torch.where(prod >= comp.cutoff, torch.clamp(j / factor, max=1.0), j)

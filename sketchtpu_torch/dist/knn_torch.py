@@ -14,10 +14,10 @@ ascending, whatever the top-k's own tie order.
   distances exactly; printed values are the host's f64 chain on the
   selected samebits. With completeness the keys are the corrected f32
   Jaccard, and the selected pairs' samebits are gathered exactly.
-- Core/accessory: K2 (coreacc_kernels.coreacc) gives the f32 (core, acc)
-  tile; the key is (-core, column), so f32 near-ties may select other
-  pairs than the f64 chain, but every printed value is the f64 chain's
-  for the selected pair (exact_ca_values).
+- Core/accessory: K2 in key mode (coreacc_kernels.coreacc_keys) gives
+  the (-core, column) keys and the f32 acc of a tile; f32 near-ties may
+  select other pairs than the f64 chain, but every printed value is the
+  f64 chain's for the selected pair (exact_ca_values).
 """
 
 from __future__ import annotations
@@ -26,22 +26,14 @@ import numpy as np
 import torch
 
 from ..constants import BBITS
-from .coreacc_kernels import coreacc
+from .coreacc_kernels import KEY_INVALID, coreacc_keys
 from .coreacc_torch import _f32
 from .jaccard_np import ani_pois, core_acc_from_jaccards, jaccard_from_samebits
-from .knn_kernels import (
-    COLMASK64,
-    INVALID,
-    Completeness,
-    key_layout,
-    knn_keys,
-    pack_keys,
-)
+from .knn_kernels import COLMASK64, INVALID, Completeness, key_layout, knn_keys
 from .samebits_kernels import popcount64, to_device_words
 
 _NEG = -0x7FFFFFFF  # samebits of a missing candidate
 _NO_COL = 0x7FFFFFFF  # column of a missing candidate
-_I64_MIN = -(1 << 63)  # invalid core/acc key: below every (-core) key
 _PAIR_CHUNK = 1 << 16  # selected pairs per gather of their words
 
 
@@ -285,25 +277,19 @@ class DeviceKnnEngine:
         key_blocks, acc_blocks = [], []
         for r0 in range(0, na, self.row_tile):
             r1 = min(r0 + self.row_tile, na)
-            keys = torch.full((r1 - r0, knn), _I64_MIN, dtype=torch.int64,
+            keys = torch.full((r1 - r0, knn), KEY_INVALID, dtype=torch.int64,
                               device=self.device)
             accs = torch.zeros((r1 - r0, knn), dtype=torch.float32,
                                device=self.device)
-            row_ids = torch.arange(r0, r1, device=self.device)
             for c0 in range(0, n, self.col_tile):
                 c1_ = min(c0 + self.col_tile, n)
-                core, acc = coreacc(
+                tile, acc = coreacc_keys(
                     rows[r0:r1], self._words[c0:c1_], self.kmers,
                     self.ms.sketch_size,
                     c1[r0:r1] if c1 is not None else None,
                     c2[c0:c1_] if c1 is not None else None, cutoff,
+                    row0=r0, col0=c0, nb_real=n, exclude_self=exclude_self,
                 )
-                col_ids = torch.arange(c0, c1_, device=self.device)
-                valid = torch.ones_like(core, dtype=torch.bool)
-                if exclude_self:
-                    valid = col_ids[None, :] != row_ids[:, None]
-                tile = pack_keys(-core, col_ids, torch.int64, 32, COLMASK64,
-                                 valid, invalid=_I64_MIN)
                 keys, pos = _merge(keys, tile, knn)
                 accs = torch.gather(torch.cat([accs, acc], dim=1), 1, pos)
             key_blocks.append(keys)
@@ -313,7 +299,7 @@ class DeviceKnnEngine:
             return (empty.astype(np.float32), empty.astype(np.float32),
                     empty.astype(np.int32))
         keys = torch.cat(key_blocks)
-        bad = keys == _I64_MIN
+        bad = keys == KEY_INVALID
         hi = (keys >> 32).to(torch.int32)
         neg_core = torch.where(hi < 0, hi ^ 0x7FFFFFFF, hi).view(torch.float32)
         core = torch.where(bad, torch.inf, -neg_core)

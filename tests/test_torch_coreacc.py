@@ -15,7 +15,12 @@ from sketchtpu.dist.jaccard_np import (
     jaccard_from_samebits,
     samebits_matrix,
 )
-from sketchtpu_torch.dist.coreacc_kernels import coreacc, coreacc_ref
+from sketchtpu_torch.dist.coreacc_kernels import (
+    KEY_INVALID,
+    coreacc,
+    coreacc_keys,
+    coreacc_ref,
+)
 from sketchtpu_torch.synth import derive_words
 
 KMERS = (17, 19, 21, 23, 25, 27, 29)
@@ -46,27 +51,45 @@ def _comp(n, seed):
     return np.random.default_rng(seed).uniform(0.7, 1.0, n).astype(np.float32)
 
 
-@pytest.mark.parametrize("with_comp", [False, True])
-def test_coreacc_matches_pallas_interpret_and_xla(with_comp):
-    s64, n = 4, 24
-    w = _related(n, s64, 1)
+ALL_K = tuple(range(len(KMERS)))
+
+
+# the original cases keep their ids; the others add sketch sizes whose
+# chunk count the card kernel's 2-chunk stages do not divide, and nk = 2
+# (the n < 3 branch everywhere)
+@pytest.mark.parametrize("with_comp,s64,kidx", [
+    pytest.param(False, 4, ALL_K, id="False"),
+    pytest.param(True, 4, ALL_K, id="True"),
+    pytest.param(False, 1, ALL_K, id="s64_1"),
+    pytest.param(True, 3, ALL_K, id="s64_3-comp"),
+    pytest.param(False, 5, ALL_K, id="s64_5"),
+    pytest.param(False, 4, (0, 3), id="nk_2"),
+    pytest.param(True, 3, (1, 5), id="nk_2-s64_3-comp"),
+])
+def test_coreacc_matches_pallas_interpret_and_xla(with_comp, s64, kidx):
+    n = 24
+    kmers = tuple(KMERS[i] for i in kidx)
+    w = np.ascontiguousarray(_related(n, s64, 1)[:, list(kidx)])
     sketch_size = s64 * 64
     c = _comp(n, 2) if with_comp else None
     cj = dict(c1=jnp.asarray(c), c2=jnp.asarray(c), cutoff=0.64) if with_comp else {}
     stack = jnp.asarray(_stack32(w))
-    xla = np.asarray(coreacc_tile(stack, stack, s64, KMERS, sketch_size, **cj))
+    xla = np.asarray(coreacc_tile(stack, stack, s64, kmers, sketch_size, **cj))
     cm = chunk_major(stack, s64)
     pallas = np.asarray(coreacc_pallas(
-        cm, jnp.transpose(cm), s64, KMERS, sketch_size, ti=8, tj=8,
+        cm, jnp.transpose(cm), s64, kmers, sketch_size, ti=8, tj=8,
         interpret=True, **cj,
     ))
     ct = dict(c1=torch.from_numpy(c), c2=torch.from_numpy(c), cutoff=0.64) \
         if with_comp else {}
-    core, acc = coreacc(_t(w), _t(w), KMERS, sketch_size, **ct)
+    core, acc = coreacc(_t(w), _t(w), kmers, sketch_size, **ct)
     got = np.stack([core.numpy(), acc.numpy()], axis=-1)
-    # the branches the fixture must reach: fitted, no-fit, degenerate
-    assert ((got[..., 0] > 0) & (got[..., 0] < 1)).sum() > n
-    assert (got[..., 0] == 1).any() and (got[..., 0] == 0).any()
+    if len(kmers) < 3:
+        assert (got == 1).all()  # fewer than 3 points: no fit
+    elif s64 == 4:
+        # the branches the fixture must reach: fitted, no-fit, degenerate
+        assert ((got[..., 0] > 0) & (got[..., 0] < 1)).sum() > n
+        assert (got[..., 0] == 1).any() and (got[..., 0] == 0).any()
     np.testing.assert_allclose(got, xla, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=0)
 
@@ -122,3 +145,54 @@ def test_coreacc_rejects_bad_input():
     with pytest.raises(ValueError):
         coreacc(w, w, KMERS, 256, c1=torch.ones(4, dtype=torch.float64),
                 c2=torch.ones(4, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("with_comp", [False, True])
+@pytest.mark.parametrize(
+    "tr,tc,row0,col0,nb_real",
+    [
+        (8, 8, 0, 0, 8),  # one tile on the diagonal
+        (7, 13, 0, 0, 13),  # ragged, diagonal inside
+        (5, 11, 20, 15, 40),  # off the diagonal, overlapping ids
+        (6, 12, 10, 4, 13),  # nb_real inside the tile
+        (4, 9, 0, 30, 33),  # mostly past nb_real
+        (3, 6, 0, 40, 33),  # wholly past nb_real
+    ],
+)
+def test_coreacc_keys_twin_packs_coreacc_ref(with_comp, tr, tc, row0, col0,
+                                             nb_real):
+    """Key mode on the CPU (its twin): the int64 key of every real pair is
+    ordered_bits(-core) << 32 | (2^32 - 1 - column) over coreacc_ref's
+    core, with acc beside it; self pairs and columns past nb_real get
+    KEY_INVALID (acc 0 past nb_real)."""
+    s64 = 4
+    w = _t(_related(48, s64, 9))
+    a, b = w[row0 : row0 + tr], w[col0 : col0 + tc]
+    c1 = c2 = None
+    if with_comp:
+        c = torch.from_numpy(_comp(48, 10))
+        c1, c2 = c[row0 : row0 + tr].contiguous(), c[col0 : col0 + tc].contiguous()
+    keys, acc = coreacc_keys(a, b, KMERS, s64 * 64, c1, c2, row0=row0,
+                             col0=col0, nb_real=nb_real, exclude_self=True)
+    assert keys.dtype == torch.int64 and acc.dtype == torch.float32
+    ncols = max(0, min(tc, nb_real - col0))
+    core_r, acc_r = coreacc_ref(a, b[:ncols], KMERS, s64 * 64, c1,
+                                None if c2 is None else c2[:ncols])
+    bits = (-core_r).numpy().view(np.int32)
+    ordered = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits).astype(np.int64)
+    cols = col0 + np.arange(tc)
+    want = np.full((tr, tc), KEY_INVALID, dtype=np.int64)
+    want[:, :ncols] = (ordered << 32) | (0xFFFFFFFF - cols[:ncols])
+    self_pair = cols[None, :] == row0 + np.arange(tr)[:, None]
+    want[self_pair] = KEY_INVALID
+    np.testing.assert_array_equal(keys.numpy(), want)
+    want_acc = np.zeros((tr, tc), dtype=np.float32)
+    want_acc[:, :ncols] = acc_r.numpy()
+    np.testing.assert_array_equal(acc.numpy(), want_acc)
+    # keys descending is core ascending, then column ascending
+    for i in range(tr):
+        real = np.nonzero(want[i] != KEY_INVALID)[0]
+        got_order = real[np.argsort(-want[i, real], kind="stable")]
+        core_i = core_r.numpy()[i]
+        want_order = real[np.lexsort((cols[real], core_i[real]))]
+        np.testing.assert_array_equal(got_order, want_order)

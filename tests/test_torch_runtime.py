@@ -162,6 +162,63 @@ def test_coreacc_wrapper_launches_for_cuda_tensors(monkeypatch):
     assert len(calls) == 1
 
 
+def test_coreacc_keys_wrapper_launches_for_cuda_tensors(monkeypatch):
+    """Key mode launches K2 too, counted with its plain mode, with the
+    tile's column offset, real column count and self exclusion."""
+    calls = []
+    monkeypatch.setattr(coreacc_kernels, "coreacc_keys_ref", _refuse_twin)
+    monkeypatch.setattr(coreacc_kernels, "coreacc_ref", _refuse_twin)
+    monkeypatch.setattr(coreacc_kernels, "_launch_coreacc",
+                        lambda *a: calls.append(a) or ("keys", "acc"))
+    w = _FakeCuda(torch.zeros((8, 3, 56), dtype=torch.int64))
+    before = coreacc_kernels.coreacc.launches
+    got = coreacc_kernels.coreacc_keys(w, w, (17, 21, 25), 256, row0=2,
+                                       col0=5, nb_real=9, exclude_self=True)
+    assert got == ("keys", "acc")
+    assert coreacc_kernels.coreacc.launches == before + 1
+    assert calls[0][7:] == (False, 2, (5, 4, True))
+
+
+def test_coreacc_rejects_more_k_than_the_kernel_takes_on_cuda():
+    nk = coreacc_kernels.MAX_NK + 1
+    kmers = tuple(range(3, 3 + nk))
+    w = torch.zeros((2, nk, 14), dtype=torch.int64)
+    with pytest.raises(ValueError, match=f"limit of {nk - 1}"):
+        coreacc_kernels.coreacc(_FakeCuda(w), _FakeCuda(w), kmers, 64)
+    with pytest.raises(ValueError, match=f"limit of {nk - 1}"):
+        coreacc_kernels.coreacc_keys(_FakeCuda(w), _FakeCuda(w), kmers, 64)
+    core, acc = coreacc_kernels.coreacc(w, w, kmers, 64)  # the twin: no limit
+    assert core.shape == acc.shape == (2, 2)
+
+
+def test_coreacc_k_limit_is_the_kernels():
+    """The wrapper's MAX_NK is the one csrc/coreacc.cu sizes its k table
+    and byte-wide included-k count by."""
+    src = (REPO / "sketchtpu_torch" / "csrc" / "coreacc.cu").read_text()
+    assert f"constexpr int MAX_NK = {coreacc_kernels.MAX_NK};" in src
+    assert coreacc_kernels.MAX_NK <= 255
+    table = coreacc_kernels._k_table((17, 19, 21))
+    assert len(table) == 3 * coreacc_kernels.MAX_NK + 3
+
+
+def test_coreacc_engines_past_the_k_limit_stay_on_the_card(monkeypatch):
+    """In cuda mode more k than K2 takes still selects the card's
+    core/accessory engines (whose launch then raises): no route to the
+    host chain."""
+    from sketchtpu_torch.dist import coreacc_torch, knn_torch
+
+    many = tuple(range(3, 3 + coreacc_kernels.MAX_NK + 1))
+    monkeypatch.setattr(runtime, "device", lambda: torch.device("cuda", 0))
+    monkeypatch.setattr(coreacc_torch, "DeviceCoreAccEngine",
+                        lambda ms, dev, **kw: ("dense", dev))
+    monkeypatch.setattr(knn_torch, "DeviceKnnEngine",
+                        lambda ms, dev: ("knn", dev))
+    cuda = torch.device("cuda", 0)
+    assert runtime.select_coreacc_engine(_MS(kmers=many)) == ("dense", cuda)
+    assert runtime.select_knn_engine(_MS(kmers=many), DistType()) == \
+        ("knn", cuda)
+
+
 def test_samebits_full_wrapper_launches_for_cuda_tensors(monkeypatch):
     calls = []
     monkeypatch.setattr(samebits_kernels, "samebits_ref", _refuse_twin)
