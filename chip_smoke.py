@@ -19,8 +19,10 @@
 4. Dense path at scale: dense dist on 8192 samples derived from those
    sketches (33.5 M pairs).
 5. kNN path at scale: `dist -k 17 --knn 50` over 100,000 derived samples
-   and core/accessory `dist --knn 50` over the first 50,000, with the
-   selection and values of 512 random rows checked against full rows.
+   (one K3 selection launch; its profile must hold no top-k, sort or
+   concatenation kernel) and core/accessory `dist --knn 50` over the first
+   50,000, with the selection and values of 512 random rows checked
+   against full rows.
 
 Each path's kernel launches are counted from 0 over its phases; the run
 fails if a kernel of a path was never launched there. Any failure exits
@@ -56,15 +58,17 @@ SOURCES = {
                  "sketchtpu/dist/pallas_kernels.py:136"),
     "coreacc": ("sketchtpu_torch/csrc/coreacc.cu",
                 "sketchtpu/dist/coreacc_pallas.py:100"),
-    "knn_keys": ("sketchtpu_torch/csrc/knn_scan.cu",
-                 "sketchtpu/dist/pallas_kernels.py:47"),
+    "knn_select": ("sketchtpu_torch/csrc/knn_scan.cu",
+                   "sketchtpu/dist/pallas_kernels.py:47"),
     "samebits_full": ("sketchtpu_torch/csrc/samebits.cu",
                       "sketchtpu/dist/pallas_kernels.py:265"),
-    "nthash_bin": ("sketchtpu_torch/csrc/nthash_bin.cu",
-                   "sketchtpu/hash/nthash_jax.py:227"),
+    "nthash_bin_multi": ("sketchtpu_torch/csrc/nthash_bin.cu",
+                         "sketchtpu/hash/nthash_jax.py:227"),
 }
-DENSE_PATH = ("samebits", "coreacc", "nthash_bin")
-KNN_PATH = ("knn_keys", "coreacc")
+DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi")
+KNN_PATH = ("knn_select", "coreacc")
+# K3's tile mode (knn_keys) is held against its twin in phase 2; no CLI path
+# calls it: the single-k scan is one selection launch (knn_select)
 # no CLI path calls K4: the JAX package calls samebits_pallas only in its
 # tests; the port's samebits engine hook (dist/api.py) reaches it only past
 # 32767 bins
@@ -105,12 +109,13 @@ def bound(ops: float, nbytes: float) -> dict:
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from sketchtpu_torch.dist.coreacc_kernels import coreacc
-    from sketchtpu_torch.dist.knn_kernels import knn_keys
+    from sketchtpu_torch.dist.knn_kernels import knn_keys, knn_select
     from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_full
-    from sketchtpu_torch.hash.nthash_torch import nthash_bin
+    from sketchtpu_torch.hash.nthash_torch import nthash_bin_multi
 
     return {"samebits": samebits, "coreacc": coreacc, "knn_keys": knn_keys,
-            "samebits_full": samebits_full, "nthash_bin": nthash_bin}
+            "knn_select": knn_select, "samebits_full": samebits_full,
+            "nthash_bin_multi": nthash_bin_multi}
 
 
 def timed_cli(cli_main, argv, what: str) -> float:
@@ -156,7 +161,7 @@ def run(cmd, **kw) -> str:
 
 # --- phase 2: kernels against their twins ---------------------------------
 
-def derived_words(n: int, seed: int):
+def derived_words(n: int, seed: int, kmers=KMERS):
     """(n, nk, s64*14) int64 related sketch words on the card."""
     import numpy as np
     import torch
@@ -164,10 +169,10 @@ def derived_words(n: int, seed: int):
     from sketchtpu_torch.synth import derive_words
 
     rng = np.random.default_rng(seed)
-    parents = rng.integers(0, 2**64, (8, len(KMERS), S64, 14), dtype=np.uint64)
-    words = derive_words(parents, n, KMERS, seed)
+    parents = rng.integers(0, 2**64, (8, len(kmers), S64, 14), dtype=np.uint64)
+    words = derive_words(parents, n, kmers, seed)
     return torch.from_numpy(
-        words.reshape(n, len(KMERS), S64 * 14).view(np.int64)
+        words.reshape(n, len(kmers), S64 * 14).view(np.int64)
     ).cuda()
 
 
@@ -228,14 +233,15 @@ PREVIOUS_COREACC = {
 }
 
 
-def coreacc_ptxas(lib_path: Path) -> dict:
-    """Registers and spill bytes of K2's two instantiations, from the
-    build's -Xptxas -v log."""
+def ptxas_report(lib_path: Path, kernel: str, modes: dict) -> dict:
+    """Registers and spill bytes of each instantiation of `kernel`, from the
+    build's -Xptxas -v log: {mode: {registers, spill_store_bytes}}, with
+    `modes` mapping a piece of the mangled template arguments to its name."""
     lines = lib_path.with_suffix(".log").read_text().splitlines()
     found = {}
     for i, ln in enumerate(lines):
-        if "Compiling entry" in ln and "coreacc_kernel" in ln:
-            mode = "keys" if "ILb1E" in ln else "plain"
+        if "Compiling entry" in ln and kernel in ln:
+            mode = next(name for part, name in modes.items() if part in ln)
             text = " ".join(lines[i + 1 : i + 4])
             regs = text.split("Used ")[1].split(" registers")[0]
             spills = text.split("bytes stack frame, ")[1].split(" bytes spill")[0]
@@ -271,7 +277,8 @@ def phase2_coreacc(words, results, lib_path: Path):
         coreacc_ref,
     )
 
-    ptx = coreacc_ptxas(lib_path)
+    ptx = ptxas_report(lib_path, "coreacc_kernel",
+                       {"ILb1E": "keys", "ILb0E": "plain"})
     lib = _build.lib()
     for mode, info in sorted(ptx.items()):
         info["blocks_per_sm"] = lib.stpu_coreacc_blocks_per_sm(int(mode == "keys"))
@@ -345,8 +352,8 @@ def phase2_coreacc(words, results, lib_path: Path):
 
 
 def phase2_knn_keys(words, results):
-    """K3 at the kNN scan's tile (2048 rows x 8192 columns): a self tile
-    across the diagonal, both key modes, bit-equal to the twin."""
+    """K3's tile mode at 2048 rows x 8192 columns: a self tile across the
+    diagonal, both key modes, bit-equal to the twin."""
     import torch
 
     from sketchtpu_torch.dist.knn_kernels import (
@@ -381,19 +388,105 @@ def phase2_knn_keys(words, results):
               f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), integer-issue "
               f"floor {integer_floor_ms(na * nb * S64):.4f} ms, "
               f"{na * nb / ms / 1e6:.3f} G pair/s")
-        if label == "plain":
-            results["knn_keys"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                                       library_ms=None, **bd)
+
+
+# the previous K3 design at shape (a) (PERF.md's kernel table, an H100 80GB
+# HBM3 at 700 W): every key of the tile written, then torch.cat + torch.topk
+PREVIOUS_KNN = "previous design 0.8099 ms for the key tile + 0.28 ms merge"
+
+
+def phase2_knn_select(words, results, lib_path: Path):
+    """K3 in selection mode against its twin (the tile twin's keys merged
+    by torch.topk), bit-equal: (a) 2048 rows x 8192 columns across the
+    diagonal, knn 50, the shape of the previous design's tile; (b) 2048
+    rows x 100,000 columns, the main path's sweep; (c) completeness keys at
+    (a); (d) 3 rows x 100,000, which splits the columns over blocks; (e)
+    16,896 rows x 8192 columns: enough row tiles for one column split, the
+    main path's route with no merge kernel."""
+    import torch
+
+    from sketchtpu_torch import _build
+    from sketchtpu_torch.dist.knn_kernels import (
+        Completeness,
+        default_splits,
+        knn_select,
+        knn_select_ref,
+    )
+
+    lib = _build.lib()
+    ptx = ptxas_report(lib_path, "knn_select_kernel",
+                       {"IiLb0E": "int32", "IxLb0E": "int64",
+                        "IxLb1E": "int64 completeness"})
+    for mode, info in sorted(ptx.items()):
+        key_bytes = 4 if mode == "int32" else 8
+        per_sm = lib.stpu_knn_select_blocks_per_sm(KNN, key_bytes,
+                                                   int("comp" in mode))
+        print(f"phase2 knn_select {mode} kernel: {info['registers']} "
+              f"registers, {info['spill_store_bytes']} bytes spilled, "
+              f"{lib.stpu_knn_select_rows(KNN, key_bytes)} rows per block "
+              f"and {per_sm} resident blocks per SM at knn {KNN}")
+        check(info["spill_store_bytes"] == 0, f"knn_select {mode}: spills")
+    plane = words[:, 0]
+    big = derived_words(N_KNN, SEED + 2, kmers=(17,))[:, 0]
+    comp = torch.linspace(0.6, 1.0, plane.shape[0], device=plane.device)
+    comp = comp[torch.randperm(plane.shape[0], device=plane.device)]
+    w_bytes = plane.shape[1] * 8
+    cases = (
+        ("a", plane[4096:6144], plane[:8192], 4096, None, 10),
+        ("b", big[4096:6144], big, 4096, None, 3),
+        ("c", plane[4096:6144], plane[:8192], 4096,
+         Completeness(comp[4096:6144].contiguous(), comp[:8192].contiguous(),
+                      0.64, S64), 10),
+        ("d", big[:3], big, 0, None, 10),
+        ("e", big[4096:20992], big[:8192], 4096, None, 3),
+    )
+    for label, a, b, row0, c, reps in cases:
+        kw = dict(row0=row0, exclude_self=True, comp=c)
+        got = knn_select(a, b, KNN, **kw)
+        (want, plain) = timed_once(lambda: knn_select_ref(a, b, KNN, **kw))
+        check(torch.equal(got, want), f"knn_select ({label}): kernel != twin")
+        check(bool((got >= 0).all()), f"knn_select ({label}): missing keys")
+        ms = cuda_ms(lambda: knn_select(a, b, KNN, **kw), reps=reps)
+        na, nb = a.shape[0], b.shape[0]
+        bd = bound(na * nb * S64 * SB_OPS,
+                   (na + nb) * w_bytes + na * KNN * got.element_size())
+        floor = integer_floor_ms(na * nb * S64)
+        slots = SMS * lib.stpu_knn_select_blocks_per_sm(
+            KNN, got.element_size(), int(c is not None))
+        splits = default_splits(
+            na, nb, lib.stpu_knn_select_rows(KNN, got.element_size()), slots)
+        check(splits == 1 or label != "e", f"knn_select (e): {splits} splits")
+        print(f"phase2 knn_select ({label}) ({na}, {nb}) knn {KNN} "
+              f"{got.dtype}, {splits} column split(s) for {slots} resident "
+              f"blocks: bit-equal to twin; kernel {ms:.4f} ms"
+              f"{' (' + PREVIOUS_KNN + ')' if label == 'a' else ''}, twin "
+              f"{plain:.2f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%"
+              f"; integer-issue floor {floor:.4f} ms: kernel at "
+              f"{100 * floor / ms:.1f}%; {na * nb / ms / 1e6:.3f} G pair/s")
+        if label == "a":
+            results["knn_select"] = dict(max_abs_err=0.0, ms=ms,
+                                         plain_ms=plain, library_ms=None, **bd)
+
+
+# 32-bit operations per window and k of the rolling formulation: two split
+# rotations by one (a 64-bit rotate, 4, and the swap of bits 0 and 33, 4)
+# = 16; four 64-bit XORs = 8; the unsigned 64-bit minimum 4; the Mersenne
+# fold (and, shift, 64-bit add, compare, subtract) 8; the multiply-high
+# (four 32 x 32 products and their carries) 8 and its shift 2; the compare
+# with the bin's minimum 2
+ROLL_OPS = 48
 
 
 def phase2_nthash(results):
+    """The multi-k ntHash launch against the stacked single-k twins on
+    8 x 2 Mb + one 20 Mb contig, 7 k."""
     import torch
 
     from sketchtpu_torch.hash.nthash_torch import (
-        nthash_bin,
-        nthash_bin_ref,
+        nthash_bin_multi,
+        nthash_bin_multi_ref,
         pack_group,
-        tap_tables,
     )
     from sketchtpu_torch.synth import random_streams
 
@@ -402,27 +495,32 @@ def phase2_nthash(results):
     seq_d = torch.from_numpy(seq).cuda()
     starts_d = torch.from_numpy(starts).cuda()
     nbins = S64 * 64
-    ms = plain = 0.0
-    for k in KMERS:
-        tf, tr = (torch.from_numpy(t).cuda() for t in tap_tables(k))
-        got = nthash_bin(seq_d, k, tf, tr, True, starts_d, nbins)
-        want = nthash_bin_ref(seq_d, k, tf, tr, True, starts_d, nbins)
-        check(torch.equal(got, want), f"nthash_bin k={k}: kernel != twin")
-        check(not (got == -1).all(dim=1).any(), f"nthash_bin k={k}: empty row")
-        ms += cuda_ms(lambda: nthash_bin(seq_d, k, tf, tr, True, starts_d,
-                                         nbins), reps=5)
-        plain += cuda_ms(lambda: nthash_bin_ref(seq_d, k, tf, tr, True,
-                                                starts_d, nbins),
-                         reps=1, warmup=0)
-    # per window and k: k taps of two 64-bit table XORs (4 u32 ops)
-    bd = bound(seq.size * sum(KMERS) * 4,
-               len(KMERS) * (seq.size + starts.size * nbins * 8))
-    print(f"phase2 nthash_bin 8 x 2 Mb + 20 Mb ({seq.size} bases), 7 k: "
-          f"equal to twin; kernel {ms:.3f} ms, twin {plain:.2f} ms for all "
-          f"k, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+    want, plain = timed_once(
+        lambda: nthash_bin_multi_ref(seq_d, KMERS, True, starts_d, nbins))
+    got = nthash_bin_multi(seq_d, KMERS, True, starts_d, nbins)
+    check(torch.equal(got, want), "nthash_bin_multi: kernel != twin")
+    check(not (got == -1).all(dim=2).any(), "nthash_bin_multi: empty row")
+    ms = cuda_ms(lambda: nthash_bin_multi(seq_d, KMERS, True, starts_d, nbins),
+                 reps=10)
+    # the function's least work, the rolling formulation: ROLL_OPS per
+    # window and k, the batch read once
+    bd = bound(seq.size * len(KMERS) * ROLL_OPS,
+               seq.size + len(KMERS) * starts.size * nbins * 8)
+    # the tap form, for comparison with the previous design's bound: per
+    # window and k, k taps of two 64-bit table XORs (4 u32 ops), the batch
+    # read once per k
+    tap = bound(seq.size * sum(KMERS) * 4,
+                len(KMERS) * (seq.size + starts.size * nbins * 8))
+    print(f"phase2 nthash_bin_multi 8 x 2 Mb + 20 Mb ({seq.size} bases), 7 k "
+          f"in one launch: equal to twin; kernel {ms:.3f} ms (previous "
+          f"design, one tap-table launch per k: 8.535 ms), twin {plain:.2f} "
+          f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, the rolling "
+          f"form): kernel at {100 * bd['bound_ms'] / ms:.1f}%; tap-form bound "
+          f"{tap['bound_ms']:.4f} ms ({tap['bound_by']}): kernel at "
+          f"{100 * tap['bound_ms'] / ms:.1f}%; "
           f"{seq.size * len(KMERS) / ms / 1e6:.3f} G base-k/s")
-    results["nthash_bin"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                                 library_ms=None, **bd)
+    results["nthash_bin_multi"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                       library_ms=None, **bd)
 
 
 # --- phase 3: main path against the host oracle ----------------------------
@@ -619,9 +717,10 @@ def scan_dist_file(path: Path, n_values: int) -> int:
     return lines
 
 
-def profile_dist(cli_main, argv, label: str) -> float:
+def profile_dist(cli_main, argv, label: str, no_sort: bool = False) -> float:
     """One more run of a dist command under torch.profiler: device time by
-    kernel against the host clock. Returns the device's busy share."""
+    kernel against the host clock. Returns the device's busy share. With
+    no_sort the run fails if a top-k, sort or concatenation kernel ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -645,11 +744,19 @@ def profile_dist(cli_main, argv, label: str) -> float:
           f"{100 * busy_ms / 1e3 / wall:.2f}% of wall")
     for us, count, key in rows[:6]:
         print(f"  {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
-    for label, part in (("K2 (coreacc_kernel)", "coreacc_kernel"),
-                        ("PyTorch elementwise kernels", "elementwise")):
-        sel = [(us, n) for us, n, name in rows if part in name]
-        print(f"  {label}: {sum(us for us, _ in sel) / 1e3:.3f} ms in "
+    for what, parts in (("K2 (coreacc_kernel)", ("coreacc_kernel",)),
+                        ("K3 selection (knn_select_kernel, knn_merge_kernel)",
+                         ("knn_select_kernel", "knn_merge_kernel")),
+                        ("PyTorch elementwise kernels", ("elementwise",)),
+                        ("top-k, sort and concatenation kernels",
+                         ("topk", "sort", "catarray"))):
+        sel = [(us, n) for us, n, name in rows
+               if any(part in name.lower() for part in parts)]
+        print(f"  {what}: {sum(us for us, _ in sel) / 1e3:.3f} ms in "
               f"{sum(n for _, n in sel)} launches")
+    if no_sort:
+        check(not sel, f"{label}: top-k, sort or concatenation kernels ran: "
+              f"{[name for _, _, name in rows if any(p in name.lower() for p in ('topk', 'sort', 'catarray'))][:3]}")
     return busy_ms / 1e3 / wall
 
 
@@ -717,7 +824,8 @@ def phase5_run(cli_main, parent_db: Path, gpu: str) -> Path:
               f"upload, scan, selection, host f64 values, "
               f"{(d / f'{name}.txt').stat().st_size / 1e6:.0f} MB written), "
               f"{gpu}")
-        profile_dist(cli_main, argv, f"phase5 dist --knn {KNN} {name} n={n}")
+        profile_dist(cli_main, argv, f"phase5 dist --knn {KNN} {name} n={n}",
+                     no_sort=name == "k17")
     return d
 
 
@@ -849,6 +957,7 @@ def main() -> int:
         phase2_samebits(words, results)
         phase2_coreacc(words, results, lib_path)
         phase2_knn_keys(words, results)
+        phase2_knn_select(words, results, lib_path)
         del words
         phase2_nthash(results)
         torch.cuda.empty_cache()

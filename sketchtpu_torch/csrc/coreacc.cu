@@ -61,15 +61,16 @@ constexpr int TX = 16, TY = 16;  // threads
 constexpr int RM = 4, RN = 4;    // pairs per thread
 constexpr int TI = TY * RM, TJ = TX * RN, NT = TX * TY;
 constexpr int NSLOT = RM * RN;
-constexpr int LDS = TI + 1;  // words per staged plane (TI == TJ); +1: no store clashes
-constexpr int G = 2;         // chunks per stage
-constexpr int STAGES = 2;
+constexpr int LDS = RING_LDS;  // words per staged plane
+constexpr int G = RING_G;      // chunks per stage
+constexpr int STAGES = RING_STAGES;
 constexpr int MAX_NK = 255;  // s_n, the included-k count, is a byte
-constexpr int OPERAND_STAGE = G * BBITS * LDS;  // words of one operand's stage
+constexpr int OPERAND_STAGE = G * RING_CHUNK;  // words of one operand's stage
 constexpr int SMEM_BYTES = 2 * STAGES * OPERAND_STAGE * 8  // staged words
                            + NSLOT * NT * (3 * 4 + 1)       // chain state
                            + (TI + TJ) * 4;                 // completeness
-static_assert(TI == TJ, "one staging layout serves both operands");
+static_assert(TI == RING_ROWS && TJ == RING_ROWS,
+              "the ring stages 64 rows of each operand");
 
 // The k table, passed by value: kf[q] = k_q - kc; xs[n] and xq[n] are the
 // f32 sums, in order, of kf[q] and kf[q] * kf[q] over q < n.
@@ -81,22 +82,6 @@ struct KTable {
 };
 static_assert(sizeof(KTable) == (3 * MAX_NK + 3) * sizeof(float),
               "KTable is a flat float array on the host side");
-
-__device__ __forceinline__ void cp_async8(u64* dst, const u64* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 8 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 __device__ __forceinline__ int ordered_bits(float v) {
   const int b = __float_as_int(v);
@@ -175,23 +160,19 @@ __global__ void __launch_bounds__(NT, 2)
     s_n[q * NT + tid] = 0;
   }
 
-  // Staging role: warps 0-3 copy A rows, 4-7 B rows; lane < 28 copies
-  // plane lane % 14 of rows r, r + 2, ..., r + 14 of its warp's 16 rows.
-  const int warp = tid / 32, lane = tid % 32;
-  const bool stager = lane < 2 * BBITS;
-  const bool is_b = warp >= 4;
-  const int srow = (warp & 3) * 16 + lane / BBITS;
-  const int splane = lane % BBITS;
+  // Staging role (tile.cuh): warps 0-3 copy A rows, 4-7 B rows.
+  const RingRole role = ring_role(tid);
+  const bool is_b = role.second;
   const u64* sop = is_b ? b : a;
   const long long sld = is_b ? ldb : lda;
-  const int svalid = (is_b ? ncols - j0 : na - i0) - srow;  // rows left
-  const u64* ssrc = sop + (long long)((is_b ? j0 : i0) + srow) * sld + splane;
-  u64* sdst = (is_b ? sB : sA) + splane * LDS + srow;
+  const int svalid = (is_b ? ncols - j0 : na - i0) - role.row;  // rows left
+  const u64* ssrc =
+      sop + (long long)((is_b ? j0 : i0) + role.row) * sld + role.plane;
 
   const int total = nk * s64;  // flattened (k, chunk) sequence
   const int nstage = (total + G - 1) / G;
   auto load_stage = [&](int s) {
-    if (!stager) return;
+    if (!role.stager) return;
     const int buf = s % STAGES;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -199,12 +180,8 @@ __global__ void __launch_bounds__(NT, 2)
       if (t >= total) break;
       const int ki = t / s64;
       const long long off = ki * kstride + (long long)(t - ki * s64) * BBITS;
-      u64* dst = sdst + (buf * G + g) * BBITS * LDS;
-#pragma unroll
-      for (int it = 0; it < 8; ++it) {
-        const bool ok = 2 * it < svalid;
-        cp_async8(dst + 2 * it, ok ? ssrc + off + 2 * it * sld : sop, ok);
-      }
+      ring_copy(ring_slot(is_b ? sB : sA, role, buf, g), ssrc + off, sld,
+                svalid, sop);
     }
   };
 

@@ -1,94 +1,234 @@
-// ntHash + Mersenne-61 sign + per-(genome, bin) minimum: the port of
-// sketchtpu/hash/nthash_jax.py hash_bin_kernel (an XLA program, the whole
-// compute of the sketch stage).
+// ntHash + Mersenne-61 sign + per-(k, genome, bin) minimum for every k of a
+// sketch in one launch: the port of sketchtpu/hash/nthash_jax.py
+// hash_bin_kernel (an XLA program, the whole compute of the sketch stage).
 //
-// One thread per window start s of a batch of concatenated genomes:
-//   fwd = XOR_j tf[j][c(s+j)], rev = XOR_j tr[j][c(s+j)]  (nthash_np.py)
+// For every window start s of a batch of concatenated genomes and every k:
+//   fwd = XOR_j srol^(k-1-j)(SEED[c(s+j)]), rev = XOR_j srol^j(RC[c(s+j)])
 //   h = rc ? min(fwd, rev) : fwd         (min as unsigned 64-bit)
 //   sign = h mod (2^61 - 1)              (shift-add, signs.py)
-//   bin = sign / binsize                 (plain u64 division)
-//   out[genome][bin] = min(out, sign)    (64-bit atomicMin)
-// The window is dropped when a break flag sits at s+1..s+k-1 (a break at p
-// forbids s < p < s+k; the packer puts one at every genome start) or when
-// it runs past the batch. seq bytes are code | break << 2.
+//   bin = sign / binsize
+//   out[k][genome][bin] = min(out, sign) (64-bit atomicMin)
+// with srol the split 33/31-bit rotation of the reference. The window is
+// dropped when a break flag sits at s+1..s+k-1 (a break at p forbids
+// s < p < s+k; the packer puts one at every genome start) or when it runs
+// past the batch. seq bytes are code | break << 2.
 //
-// Bound: integer ALU (2k 64-bit table XORs per window) and, per bin, the
-// atomic traffic. Design: the block's k tap tables and its span of
-// sequence bytes are staged in shared memory; a plain L2 read of the slot
-// skips the atomic for every sign that cannot lower it, which is nearly
-// all of them once a bin's minimum has settled.
+// Bound: integer ALU. Design:
+// - Rolling hash. A thread owns a run of L = 64 consecutive window
+//   starts (of 16, 32, 64 and 128 the fastest on an H100, see PERF.md). It builds the first window's hashes in Horner form,
+//     fwd <- srol(fwd) ^ SEED[c],  v <- sror(v ^ RC[c])  (rev = srol^k(v)),
+//   which extends from one k to the next larger one by the bases between
+//   them, so all k of the launch (ascending) share one pass over the first
+//   max k bases. Then it rolls, per k, in O(1) per window:
+//     fwd' = srol(fwd) ^ srol^k(SEED[out]) ^ SEED[in]
+//     rev' = sror(rev ^ RC[out]) ^ srol^(k-1)(RC[in])
+//   with eight precomputed words per k instead of a (k, 4) tap table.
+// - One staging for all k. The block's span of bytes (256 L + max k - 1)
+//   is staged once, transposed so that byte q lies at
+//   [q % L][q / L]: at every step the threads of a warp read neighbouring
+//   bytes, free of bank conflicts.
+// - The break rule is the position of the last flag: a window at relative
+//   start w is valid when no flag lies past w among the bytes read so far.
+// - sign / binsize is a multiply-high by a host-computed magic number (see
+//   stpu_magic_div below for the proof); the genome comes from one binary
+//   search per run and a compare with the next start per window.
+// - Minima: a plain L2 read of the slot skips the atomic for every sign that
+//   cannot lower it; with smin the block first reduces the signs of its
+//   first genome in a shared-memory table per k and flushes that.
 #include <cuda_runtime.h>
 
 namespace {
 
 typedef unsigned long long u64;
 constexpr u64 M61 = (1ull << 61) - 1;
+constexpr u64 M33 = (1ull << 33) - 1;
+constexpr u64 M31 = (1ull << 31) - 1;
 constexpr int NT = 256;
+constexpr int KWORDS = 10;  // table words per k
+constexpr int LG = 6;       // log2 of the window starts per thread
+constexpr int L = 1 << LG;
 
+// One step of the split rotation: rotate left by one, then swap bits 0 and
+// 33 (the bit that left the high part and the one that left the low part).
+__device__ __forceinline__ u64 srol1(u64 x) {
+  const u64 y = (x << 1) | (x >> 63);
+  const u64 t = (y ^ (y >> 33)) & 1ull;
+  return y ^ (t | (t << 33));
+}
+
+__device__ __forceinline__ u64 sror1(u64 x) {
+  const u64 t = (x ^ (x >> 33)) & 1ull;
+  const u64 y = x ^ (t | (t << 33));
+  return (y >> 1) | (y << 63);
+}
+
+// srol applied k times: r33 = k % 33, r31 = k % 31.
+__device__ __forceinline__ u64 srolk(u64 x, int r33, int r31) {
+  u64 lo = x & M33, hi = x >> 33;
+  lo = ((lo << r33) | (lo >> (33 - r33))) & M33;
+  hi = ((hi << r31) | (hi >> (31 - r31))) & M31;
+  return (hi << 33) | lo;
+}
+
+// floor(x / d) for x < 2^61 as (x * magic) >> (64 + shift).
+__device__ __forceinline__ u64 magic_div(u64 x, u64 magic, int shift) {
+  return __umul64hi(x, magic) >> shift;
+}
+
+__device__ __forceinline__ void global_min(u64* slot, u64 x) {
+  if (x < __ldcg(slot)) atomicMin(slot, x);
+}
+
+// ktab: per k (ascending) KWORDS words: srol^k(SEED[0..3]),
+// srol^(k-1)(RC[0..3]), k, (k % 33) | (k % 31) << 32; then SEED[0..3],
+// RC[0..3]. out is (nk, n_genomes, nbins), filled with u64 max.
 __global__ void __launch_bounds__(NT)
-    nthash_bin_kernel(const unsigned char* __restrict__ seq, long long total,
-                      int k, const u64* __restrict__ tf,
-                      const u64* __restrict__ tr, int rc,
-                      const long long* __restrict__ starts, int n_genomes,
-                      u64 binsize, int nbins, u64* __restrict__ out) {
-  extern __shared__ u64 smem[];
-  u64* stf = smem;
-  u64* str = smem + 4 * k;
-  unsigned char* sseq = reinterpret_cast<unsigned char*>(smem + 8 * k);
-  for (int e = threadIdx.x; e < 4 * k; e += blockDim.x) {
-    stf[e] = tf[e];
-    str[e] = rc ? tr[e] : 0ull;
-  }
-  const long long base = (long long)blockIdx.x * blockDim.x;
-  for (int e = threadIdx.x; e < (int)blockDim.x + k - 1; e += blockDim.x) {
-    const long long p = base + e;
-    sseq[e] = p < total ? seq[p] : 0;
+    nthash_multi_kernel(const unsigned char* __restrict__ seq, long long total,
+                        const u64* __restrict__ ktab, int nk, int rc,
+                        const long long* __restrict__ starts, int n_genomes,
+                        u64 magic, int mshift, int nbins, int pitch, int smin,
+                        u64* __restrict__ out) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  u64* stab = reinterpret_cast<u64*>(smem);
+  const u64* seed = stab + nk * KWORDS;
+  const u64* rcs = seed + 4;
+  u64* stbl = stab + nk * KWORDS + 8;  // nbins minima when smin
+  unsigned char* sseq =
+      reinterpret_cast<unsigned char*>(stbl + (smin ? nbins : 0));
+  const int tid = threadIdx.x;
+  for (int e = tid; e < nk * KWORDS + 8; e += NT) stab[e] = ktab[e];
+  if (smin) {
+    for (int e = tid; e < nbins; e += NT) stbl[e] = ~0ull;
   }
   __syncthreads();
-
-  const long long s = base + threadIdx.x;
-  if (s + k > total) return;
-  const unsigned char* w = sseq + threadIdx.x;
-  u64 fh = 0, rh = 0;
-  unsigned brk = 0;
-  for (int j = 0; j < k; ++j) {
-    const unsigned v = w[j];
-    const unsigned c = v & 3u;
-    if (j > 0) brk |= v & 4u;
-    fh ^= stf[4 * j + c];
-    rh ^= str[4 * j + c];
+  const int kmax = (int)stab[(nk - 1) * KWORDS + 8];
+  const long long base = (long long)blockIdx.x * NT * L;
+  const int span = NT * L + kmax - 1;
+  for (int e = tid; e < span; e += NT) {
+    const long long p = base + e;
+    sseq[(e & (L - 1)) * pitch + (e >> LG)] = p < total ? seq[p] : 0;
   }
-  if (brk) return;
-  const u64 h = (rc && rh < fh) ? rh : fh;
-  u64 x = (h & M61) + (h >> 61);
-  if (x >= M61) x -= M61;
-  const u64 bin = x / binsize;
+  __syncthreads();
+  auto byte_at = [&](int q) -> unsigned {
+    return sseq[(q & (L - 1)) * pitch + (q >> LG)];
+  };
+  auto genome_of = [&](long long s) {  // last genome with starts[g] <= s
+    int lo = 0, hi = n_genomes - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (starts[mid] <= s) lo = mid; else hi = mid - 1;
+    }
+    return lo;
+  };
 
-  int lo = 0, hi = n_genomes - 1;  // last genome with starts[g] <= s
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (starts[mid] <= s) lo = mid; else hi = mid - 1;
+  const int q0 = tid * L;  // the run's first window start, block-relative
+  const long long s0 = base + q0;
+  const int g0 = genome_of(s0);
+  const int gblock = smin ? genome_of(base) : -1;
+  u64 fh = 0, v = 0;  // Horner state of the window at q0, j bases long
+  int j = 0, last = 0;  // last: the last flag among bases 1..j-1 (0: none)
+  for (int ki = 0; ki < nk; ++ki) {
+    const u64* t = stab + ki * KWORDS;
+    const int k = (int)t[8];
+    if (s0 + k <= total) {
+      for (; j < k; ++j) {
+        const unsigned b = byte_at(q0 + j);
+        if (j > 0 && (b & 4u)) last = j;
+        fh = srol1(fh) ^ seed[b & 3u];
+        v = sror1(v ^ rcs[b & 3u]);
+      }
+      u64 f = fh;
+      u64 r = srolk(v, (int)(t[9] & 0xFFFFFFFFull), (int)(t[9] >> 32));
+      int lf = last, g = g0;
+      long long next = g + 1 < n_genomes ? starts[g + 1] : total;
+      const long long left = total - k + 1 - s0;  // windows from s0 on
+      const int nwin = left < L ? (int)left : L;
+      u64* plane = out + (long long)ki * n_genomes * nbins;
+      for (int w = 0; w < nwin; ++w) {
+        if (w > 0) {
+          const unsigned bo = byte_at(q0 + w - 1) & 3u;
+          const unsigned bi = byte_at(q0 + w + k - 1);
+          if (bi & 4u) lf = w + k - 1;
+          f = srol1(f) ^ t[bo] ^ seed[bi & 3u];
+          r = sror1(r ^ rcs[bo]) ^ t[4 + (bi & 3u)];
+        }
+        if (lf > w) continue;  // a flag inside the window
+        const u64 h = (rc && r < f) ? r : f;
+        u64 x = (h & M61) + (h >> 61);
+        if (x >= M61) x -= M61;
+        const u64 bin = magic_div(x, magic, mshift);
+        const long long s = s0 + w;
+        while (s >= next && g + 1 < n_genomes) {
+          ++g;
+          next = g + 1 < n_genomes ? starts[g + 1] : total;
+        }
+        if (g == gblock) {
+          if (x < stbl[bin]) atomicMin(&stbl[bin], x);
+        } else {
+          global_min(plane + (long long)g * nbins + (long long)bin, x);
+        }
+      }
+    }
+    if (smin) {  // flush this k's table and reset it for the next
+      __syncthreads();
+      u64* row = out + ((long long)ki * n_genomes + gblock) * nbins;
+      for (int e = tid; e < nbins; e += NT) {
+        const u64 m = stbl[e];
+        if (m != ~0ull) {
+          global_min(row + e, m);
+          stbl[e] = ~0ull;
+        }
+      }
+      __syncthreads();
+    }
   }
-  u64* slot = out + (long long)lo * nbins + (long long)bin;
-  if (x < __ldcg(slot)) atomicMin(slot, x);
+}
+
+__global__ void magic_div_kernel(const u64* __restrict__ x, int n, u64 magic,
+                                 int shift, u64* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = magic_div(x[i], magic, shift);
 }
 
 }  // namespace
 
-extern "C" int stpu_nthash_bin(const void* seq, long long total, int k,
-                               const void* tf, const void* tr, int rc,
-                               const void* starts, int n_genomes,
-                               unsigned long long binsize, int nbins,
-                               void* out, void* stream) {
-  const long long windows = total - k + 1;
-  if (windows <= 0) return 0;
-  const long long blocks = (windows + NT - 1) / NT;
-  const size_t smem = 64 * (size_t)k + NT + k;
-  nthash_bin_kernel<<<(unsigned)blocks, NT, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(seq), total, k,
-      static_cast<const u64*>(tf), static_cast<const u64*>(tr), rc,
-      static_cast<const long long*>(starts), n_genomes, binsize, nbins,
-      static_cast<u64*>(out));
+// smem_bytes: nk * 80 + 64 table bytes, nbins * 8 when smin, then the
+// transposed span, 64 * pitch bytes with
+// pitch >= 256 + ((max k - 2) >> 6) + 1. Needs at least one window at the
+// smallest k (total >= k[0]).
+extern "C" int stpu_nthash_multi(const void* seq, long long total,
+                                 const void* ktab, int nk, int kmin, int rc,
+                                 const void* starts, int n_genomes,
+                                 unsigned long long magic, int mshift,
+                                 int nbins, int pitch, int smin,
+                                 int smem_bytes, void* out, void* stream) {
+  const long long windows = total - kmin + 1;
+  if (windows <= 0 || nk < 1 || smem_bytes > 48 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long per_block = (long long)NT * L;
+  const long long blocks = (windows + per_block - 1) / per_block;
+  nthash_multi_kernel<<<(unsigned)blocks, NT, smem_bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(seq), total,
+      static_cast<const u64*>(ktab), nk, rc,
+      static_cast<const long long*>(starts), n_genomes, magic, mshift, nbins,
+      pitch, smin, static_cast<u64*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[i] = floor(x[i] / d) by the kernel's magic division, for its tests.
+// With l = ceil(log2 d) and magic = ceil(2^(61 + l) / d), shift = l - 3:
+// magic * d = 2^(61 + l) + e with 0 <= e < d <= 2^l, so for x < 2^61
+//   x * magic / 2^(61 + l) = x / d + x * e / (d * 2^(61 + l)) < x / d + 1 / d,
+// and since the fraction of x / d is at most (d - 1) / d the floor is that
+// of x / d. magic < 2^62 + 1 fits a u64; binsize >= 2^30 (at most 2^31
+// bins) gives l >= 30, so the shift past the high word is not negative.
+extern "C" int stpu_magic_div(const void* x, int n, unsigned long long magic,
+                              int shift, void* out, void* stream) {
+  if (n < 1) return 0;
+  magic_div_kernel<<<(n + 255) / 256, 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(x), n, magic, shift, static_cast<u64*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-// Shared pieces of the two samebits-based kernels (samebits.cu, coreacc.cu).
+// Shared pieces of the samebits-based kernels (samebits.cu, coreacc.cu,
+// knn_scan.cu).
 //
 // Sketch words arrive in the .skd order: per row, per 64-bin chunk, BBITS
 // u64 bit-planes ([row][chunk][plane], with a caller-given row stride so a
@@ -59,6 +60,72 @@ __device__ __forceinline__ void samebits_chunk(int (&cnt)[RM][RN],
   for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < RN; ++j) cnt[i][j] += __popcll(acc[i][j]);
+}
+
+// --- the two-stage cp.async ring of coreacc.cu and knn_scan.cu ---
+//
+// A 256-thread block stages RING_G chunks of two 64-row operands per stage
+// into a ring of RING_STAGES stages with 8-byte cp.async, transposed to
+// [plane][row] (row pitch RING_LDS words), zero-filled past an operand's
+// last row. The kernel waits for stage s, passes one barrier, starts the
+// copies of stage s + 1 and consumes stage s: one barrier per RING_G chunks
+// with the next stage in flight.
+constexpr int RING_ROWS = 64;
+constexpr int RING_LDS = RING_ROWS + 1;  // +1: no store clashes
+constexpr int RING_G = 2;                // chunks per stage
+constexpr int RING_STAGES = 2;
+constexpr int RING_CHUNK = BBITS * RING_LDS;  // words of one staged chunk
+constexpr int RING_OPERAND = RING_STAGES * RING_G * RING_CHUNK;
+
+__device__ __forceinline__ void cp_async8(u64* dst, const u64* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Staging role of a thread: warps 0-3 copy the first operand's rows, warps
+// 4-7 the second's; lane < 28 copies plane lane % 14 of rows row, row + 2,
+// ..., row + 14 of its warp's 16 rows.
+struct RingRole {
+  bool stager, second;
+  int row, plane;
+};
+
+__device__ __forceinline__ RingRole ring_role(int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  return {lane < 2 * BBITS, warp >= 4, (warp & 3) * 16 + lane / BBITS,
+          lane % BBITS};
+}
+
+// The slot of a thread's first word in stage buffer `buf`, chunk g, of an
+// operand's ring.
+__device__ __forceinline__ u64* ring_slot(u64* operand, const RingRole& role,
+                                          int buf, int g) {
+  return operand + ((buf * RING_G + g) * BBITS + role.plane) * RING_LDS +
+         role.row;
+}
+
+// A thread's eight copies of one chunk: src points at its plane word of its
+// first row, rows_left counts the operand's rows from that row on; a row
+// past them is zero-filled (the copy then reads nothing, from `safe`).
+__device__ __forceinline__ void ring_copy(u64* dst, const u64* src,
+                                          long long ld, int rows_left,
+                                          const u64* safe) {
+#pragma unroll
+  for (int it = 0; it < 8; ++it) {
+    const bool ok = 2 * it < rows_left;
+    cp_async8(dst + 2 * it, ok ? src + 2 * it * ld : safe, ok);
+  }
 }
 
 // Self-dense triangle skip: a tile whose last column is at or left of its

@@ -1,11 +1,14 @@
-"""K3, the kNN scan tile: the CUDA kernel csrc/knn_scan.cu and its plain
-PyTorch twin.
+"""K3, the kNN scan: the CUDA kernels of csrc/knn_scan.cu and their plain
+PyTorch twins.
 
 Replaces sketchtpu/dist/pallas_kernels.py::samebits_pallas_chunked
-together with the key epilogue the JAX scans wrap around it in XLA
-(dist/knn_jax.py::_knn_scan_block_packed, _knn_scan_block_comp). The rows
-and columns are k-planes of (n, nk, W) sketch words, read in place through
-their row stride as K1 reads them; there is no chunk-group relayout.
+together with the key epilogue and the running top-k merge the JAX scans
+wrap around it in XLA (dist/knn_jax.py::_knn_scan_block_packed,
+_knn_scan_block_comp). The rows and columns are k-planes of (n, nk, W)
+sketch words, read in place through their row stride as K1 reads them;
+there is no chunk-group relayout. Two modes: knn_select() keeps each row's
+knn best keys inside the kernel while it walks the whole column plane and
+returns only (rows, knn); knn_keys() returns the keys of one tile.
 
 Keys (see csrc/knn_scan.cu): plain mode packs (samebits, column) into one
 int32 (or, past the int32 key's column range, int64); completeness mode
@@ -25,6 +28,8 @@ from .samebits_kernels import _check_words, samebits_ref
 
 _MAX_GRID_Y = 65535
 _TI = 64  # rows per block of knn_scan.cu
+MAX_KNN = 1024  # the selection kernel's per-row lists live in shared memory
+_REF_ROW_TILE, _REF_COL_TILE = 2048, 8192  # a merge step of the selection twin
 INVALID = -1
 COLMASK64 = (1 << 32) - 1
 
@@ -136,21 +141,8 @@ def knn_keys(a: torch.Tensor, b: torch.Tensor, *, row0: int = 0,
     the keys are int64 corrected-Jaccard keys; otherwise int32 samebits
     keys while nb_real fits the int32 column field, else int64. CUDA
     tensors launch the kernel, CPU tensors run the twin."""
-    _check_words("a", a, 2)
-    _check_words("b", b, 2)
-    if a.shape[1] != b.shape[1] or a.device != b.device:
-        raise ValueError("a and b need the same width and device")
     nb_real = col0 + b.shape[0] if nb_real is None else nb_real
-    if min(row0, col0) < 0 or nb_real < 0 or nb_real > COLMASK64:
-        raise ValueError(f"bad ids: row0={row0} col0={col0} nb_real={nb_real}")
-    if comp is not None:
-        if comp.c1.shape != (a.shape[0],) or comp.c2.shape[0] < nb_real:
-            raise ValueError("comp.c1 must hold tr values, comp.c2 nb_real")
-        for name, c in (("c1", comp.c1), ("c2", comp.c2)):
-            if (c.dtype != torch.float32 or c.dim() != 1
-                    or not c.is_contiguous() or c.device != a.device):
-                raise ValueError(f"comp.{name} must be contiguous 1-D f32 "
-                                 f"on {a.device}")
+    _check_scan(a, b, min(row0, col0), nb_real, comp)
     if a.device.type == "cpu":
         return knn_keys_ref(a, b, row0=row0, col0=col0, nb_real=nb_real,
                             exclude_self=exclude_self, comp=comp)
@@ -180,13 +172,160 @@ def _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp):
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         out.data_ptr(), tc, tr, tc, ncols, s64, row0, col0,
         int(exclude_self), shift, colmask, out.element_size(),
-        comp.c1.data_ptr() if comp is not None else None,
-        comp.c2[col0:].data_ptr() if comp is not None else None,
-        comp.cutoff if comp is not None else 0.0,
-        comp.expected if comp is not None else 0.0,
-        comp.maxnbits if comp is not None else 0.0,
-        comp.maxnbits - comp.expected if comp is not None else 0.0,
-        _build.stream_handle(a.device),
+        *_comp_args(comp, col0), _build.stream_handle(a.device),
     )
     _build.check(err, "knn_keys")
     return out
+
+
+def knn_select_ref(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
+                   row0: int = 0, nb_real: int | None = None,
+                   exclude_self: bool = False,
+                   comp: Completeness | None = None,
+                   row_tile: int = _REF_ROW_TILE,
+                   col_tile: int = _REF_COL_TILE) -> torch.Tensor:
+    """Plain PyTorch twin of knn_select(): per block of row_tile rows, the
+    tile twin's keys per column tile, merged into the running selection
+    with torch.topk."""
+    nb_real = cols.shape[0] if nb_real is None else nb_real
+    s64 = rows.shape[1] // BBITS
+    dtype = key_layout(s64, nb_real, comp is not None)[0]
+    blocks = [torch.full((0, knn), INVALID, dtype=dtype, device=rows.device)]
+    for r0 in range(0, rows.shape[0], row_tile):
+        part = rows[r0 : r0 + row_tile]
+        c = (Completeness(comp.c1[r0 : r0 + row_tile], comp.c2, comp.cutoff,
+                          s64) if comp is not None else None)
+        carry = torch.full((part.shape[0], knn), INVALID, dtype=dtype,
+                           device=rows.device)
+        for c0 in range(0, min(cols.shape[0], nb_real), col_tile):
+            keys = knn_keys_ref(part, cols[c0 : c0 + col_tile], row0=row0 + r0,
+                                col0=c0, nb_real=nb_real,
+                                exclude_self=exclude_self, comp=c)
+            carry = torch.topk(torch.cat([carry, keys], dim=1), knn, dim=1,
+                               sorted=True).values
+        blocks.append(carry)
+    return torch.cat(blocks)
+
+
+def _check_scan(rows, cols, row0, nb_real, comp):
+    _check_words("a", rows, 2)
+    _check_words("b", cols, 2)
+    if rows.shape[1] != cols.shape[1] or rows.device != cols.device:
+        raise ValueError("a and b need the same width and device")
+    if min(row0, nb_real) < 0 or nb_real > COLMASK64:
+        raise ValueError(f"bad ids: row0={row0} nb_real={nb_real}")
+    if comp is not None:
+        if comp.c1.shape != (rows.shape[0],) or comp.c2.shape[0] < nb_real:
+            raise ValueError("comp.c1 must hold tr values, comp.c2 nb_real")
+        for name, c in (("c1", comp.c1), ("c2", comp.c2)):
+            if (c.dtype != torch.float32 or c.dim() != 1
+                    or not c.is_contiguous() or c.device != rows.device):
+                raise ValueError(f"comp.{name} must be contiguous 1-D f32 "
+                                 f"on {rows.device}")
+
+
+def knn_select(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
+               row0: int = 0, nb_real: int | None = None,
+               exclude_self: bool = False, comp: Completeness | None = None,
+               splits: int | None = None) -> torch.Tensor:
+    """(tr, knn) keys: for every row of `rows` (tr, W) its knn largest
+    knn_keys() keys over the whole column plane `cols` (nb, W), sorted
+    descending, INVALID where the row has fewer valid columns.
+
+    Row i has the global id row0 + i, column j the id j; columns with id
+    >= nb_real are never read. Key layout, validity and completeness
+    arithmetic are knn_keys()'s. CUDA tensors launch the kernel (at most
+    MAX_KNN neighbours), CPU tensors run the twin. splits (the column
+    ranges that separate blocks scan before a merge kernel joins them;
+    default: enough to fill the card when there are few rows) changes no
+    result."""
+    nb_real = cols.shape[0] if nb_real is None else nb_real
+    _check_scan(rows, cols, row0, nb_real, comp)
+    if knn < 1:
+        raise ValueError(f"knn={knn} must be positive")
+    if rows.device.type == "cpu":
+        return knn_select_ref(rows, cols, knn, row0=row0, nb_real=nb_real,
+                              exclude_self=exclude_self, comp=comp)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    if knn > MAX_KNN:
+        raise ValueError(f"knn={knn} exceeds the kernel's limit of {MAX_KNN}")
+    ncols = min(cols.shape[0], nb_real)
+    if rows.shape[0] == 0 or ncols == 0:
+        dtype = key_layout(rows.shape[1] // BBITS, nb_real, comp is not None)[0]
+        return torch.full((rows.shape[0], knn), INVALID, dtype=dtype,
+                          device=rows.device)
+    out = _launch_knn_select(rows, cols, knn, row0, nb_real, exclude_self,
+                             comp, splits)
+    knn_select.launches += 1
+    return out
+
+
+knn_select.launches = 0
+
+
+_COLD_TILES = 8  # a split's empty-list start costs about 8 column tiles
+
+
+def default_splits(tr: int, ncols: int, rows_per_block: int,
+                   slots: int) -> int:
+    """Column splits of a selection launch on a card that holds `slots`
+    blocks at once. The blocks run in waves of `slots`; a block walks its
+    share of the column tiles and pays for starting its lists empty (many
+    inserts on its first tiles), so a launch takes about
+    waves x (column tiles / splits + _COLD_TILES): the least of that, the
+    fewest splits among equals."""
+    row_tiles = -(-tr // rows_per_block)
+    col_tiles = -(-ncols // _TI)
+
+    def cost(splits):
+        return -(-row_tiles * splits // slots) * (col_tiles / splits
+                                                  + _COLD_TILES)
+
+    return min(range(1, min(col_tiles, slots) + 1), key=cost)
+
+
+def _launch_knn_select(rows, cols, knn, row0, nb_real, exclude_self, comp,
+                       splits):
+    s64 = rows.shape[1] // BBITS
+    dtype, shift, colmask = key_layout(s64, nb_real, comp is not None)
+    tr, ncols = rows.shape[0], min(cols.shape[0], nb_real)
+    key_bytes = 4 if dtype == torch.int32 else 8
+    if splits is None:
+        rows_per_block = _build.lib().stpu_knn_select_rows(knn, key_bytes)
+        if rows_per_block < 1:
+            raise RuntimeError(f"knn_select: knn={knn} does not fit a block")
+        splits = default_splits(tr, ncols, rows_per_block,
+                                _block_slots(rows.device, knn, key_bytes,
+                                             comp is not None))
+    splits = max(1, min(int(splits), -(-ncols // _TI)))
+    out = torch.empty((tr, knn), dtype=dtype, device=rows.device)
+    part = (torch.empty((splits, tr, knn), dtype=dtype, device=rows.device)
+            if splits > 1 else None)
+    err = _build.lib().stpu_knn_select(
+        rows.data_ptr(), rows.stride(0), cols.data_ptr(), cols.stride(0),
+        out.data_ptr(), part.data_ptr() if part is not None else None, tr,
+        ncols, s64, knn, splits, row0, int(exclude_self), shift, colmask,
+        key_bytes, *_comp_args(comp, 0), _build.stream_handle(rows.device),
+    )
+    _build.check(err, "knn_select")
+    return out
+
+
+def _block_slots(device, knn: int, key_bytes: int, comp: bool) -> int:
+    """Selection blocks the card holds at once."""
+    per_sm = _build.lib().stpu_knn_select_blocks_per_sm(knn, key_bytes,
+                                                        int(comp))
+    if per_sm < 1:
+        raise RuntimeError("knn_select: the kernel does not fit an SM")
+    return per_sm * torch.cuda.get_device_properties(
+        device).multi_processor_count
+
+
+def _comp_args(comp, col0: int):
+    """The kernels' completeness arguments: c1, c2 (from column col0 on),
+    cutoff, expected, maxnbits, denom."""
+    if comp is None:
+        return None, None, 0.0, 0.0, 0.0, 0.0
+    return (comp.c1.data_ptr(), comp.c2[col0:].data_ptr(), comp.cutoff,
+            comp.expected, comp.maxnbits, comp.maxnbits - comp.expected)

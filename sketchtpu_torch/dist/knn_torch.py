@@ -2,22 +2,24 @@
 
 Port of sketchtpu/dist/knn_jax.py::DeviceKnnEngine (self_knn, cross_knn,
 self_knn_coreacc, cross_knn_coreacc), without the precluster mixin. The
-database's sketch words live on the card once, as (n, nk, W). Each block
-of rows walks the column tiles; every tile's selection keys go to device
-memory and merge with the running per-row selection by torch.topk, the
-lax.top_k of the JAX scans. Only (rows, knn) results leave the card.
+database's sketch words live on the card once, as (n, nk, W). Only
+(rows, knn) results leave the card.
 
 Selection matches the host path (dist/api.py): a key holds its column,
-so keys are unique and the merge orders value descending, then column
-ascending, whatever the top-k's own tie order.
-- Single-k: K3 (knn_kernels.knn_keys) keys on samebits, which order
-  distances exactly; printed values are the host's f64 chain on the
-  selected samebits. With completeness the keys are the corrected f32
-  Jaccard, and the selected pairs' samebits are gathered exactly.
-- Core/accessory: K2 in key mode (coreacc_kernels.coreacc_keys) gives
-  the (-core, column) keys and the f32 acc of a tile; f32 near-ties may
-  select other pairs than the f64 chain, but every printed value is the
-  f64 chain's for the selected pair (exact_ca_values).
+so keys are unique and the selection orders value descending, then column
+ascending, whatever order the keys were found in.
+- Single-k: K3 in selection mode (knn_kernels.knn_select) walks the whole
+  column plane and keeps each row's knn best keys inside the kernel. Keys
+  are samebits, which order distances exactly; printed values are the
+  host's f64 chain on the selected samebits. With completeness the keys
+  are the corrected f32 Jaccard, and the selected pairs' samebits are
+  gathered exactly.
+- Core/accessory: each block of rows walks the column tiles; K2 in key
+  mode (coreacc_kernels.coreacc_keys) gives the (-core, column) keys and
+  the f32 acc of a tile, which merge with the running per-row selection by
+  torch.topk, the lax.top_k of the JAX scans. f32 near-ties may select
+  other pairs than the f64 chain, but every printed value is the f64
+  chain's for the selected pair (exact_ca_values).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..constants import BBITS
 from .coreacc_kernels import KEY_INVALID, coreacc_keys
 from .coreacc_torch import _f32
 from .jaccard_np import ani_pois, core_acc_from_jaccards, jaccard_from_samebits
-from .knn_kernels import COLMASK64, INVALID, Completeness, key_layout, knn_keys
+from .knn_kernels import COLMASK64, Completeness, key_layout, knn_select
 from .samebits_kernels import popcount64, to_device_words
 
 _NEG = -0x7FFFFFFF  # samebits of a missing candidate
@@ -172,39 +174,25 @@ def _merge(carry: torch.Tensor, keys: torch.Tensor, knn: int):
 
 def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
              exclude_self: bool, comp_rows=None, comp_cols=None,
-             cutoff: float = 0.64, row_tile: int = 2048,
-             col_tile: int = 8192):
+             cutoff: float = 0.64):
     """Single-k selection: knn columns of the (nb, W) plane `cols` for every
     row of the (na, W) plane `rows`, on their device. Row i and column j
     have the ids i and j (a self scan passes the same plane twice, with
     exclude_self). comp_rows (na,) / comp_cols (nb,) switch to the
-    completeness keys.
-    Row blocks of row_tile walk column tiles of col_tile; each tile's K3
-    keys merge into the running selection.
+    completeness keys. One K3 selection launch covers all rows.
 
     Returns (sb, idx) int32 (na, knn) numpy: the selected pairs' exact
     samebits and columns, value descending then column ascending (the
     JAX scans' (vals, idxs)); _NEG / _NO_COL where a row has fewer than
     knn candidates."""
-    na, nb, dev = rows.shape[0], cols.shape[0], rows.device
+    nb, dev = cols.shape[0], rows.device
     comp_on = comp_rows is not None
-    dtype, shift, colmask = key_layout(rows.shape[1] // BBITS, nb, comp_on)
-    c1 = _f32(comp_rows, dev) if comp_on else None
-    c2 = _f32(comp_cols, dev) if comp_on else None
-    blocks = []
-    for r0 in range(0, na, row_tile):
-        r1 = min(r0 + row_tile, na)
-        comp = (Completeness(c1[r0:r1], c2, cutoff, rows.shape[1] // BBITS)
-                if comp_on else None)
-        carry = torch.full((r1 - r0, knn), INVALID, dtype=dtype, device=dev)
-        for c0 in range(0, nb, col_tile):
-            keys = knn_keys(rows[r0:r1], cols[c0 : c0 + col_tile], row0=r0,
-                            col0=c0, nb_real=nb, exclude_self=exclude_self,
-                            comp=comp)
-            carry = _merge(carry, keys, knn).values
-        blocks.append(carry)
-    keys = (torch.cat(blocks) if blocks
-            else torch.full((0, knn), INVALID, dtype=dtype, device=dev))
+    s64 = rows.shape[1] // BBITS
+    _dtype, shift, colmask = key_layout(s64, nb, comp_on)
+    comp = (Completeness(_f32(comp_rows, dev), _f32(comp_cols, dev), cutoff,
+                         s64) if comp_on else None)
+    keys = knn_select(rows, cols, knn, nb_real=nb, exclude_self=exclude_self,
+                      comp=comp)
     bad = keys < 0
     idx = torch.where(bad, _NO_COL, colmask - (keys & colmask)).long()
     if comp_on:
@@ -243,8 +231,7 @@ class DeviceKnnEngine:
         plane = self._words[:, dist_type.k_idx]
         sb, idx = knn_scan(plane, plane, knn, exclude_self=True,
                            comp_rows=comp, comp_cols=comp,
-                           cutoff=completeness_cutoff, row_tile=self.row_tile,
-                           col_tile=self.col_tile)
+                           cutoff=completeness_cutoff)
         return rows_from_samebits(sb, idx, dist_type, self.s64, c1_rows=comp,
                                   c2_all=comp, cutoff=completeness_cutoff)
 
@@ -260,8 +247,7 @@ class DeviceKnnEngine:
             c2 = np.asarray(ref_completeness_vec, dtype=np.float64)
         sb, idx = knn_scan(q, self._words[:, dist_type.k_idx], knn,
                            exclude_self=False, comp_rows=c1, comp_cols=c2,
-                           cutoff=completeness_cutoff, row_tile=self.row_tile,
-                           col_tile=self.col_tile)
+                           cutoff=completeness_cutoff)
         return rows_from_samebits(sb, idx, dist_type, self.s64, c1_rows=c1,
                                   c2_all=c2, cutoff=completeness_cutoff)
 

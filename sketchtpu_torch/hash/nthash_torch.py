@@ -1,26 +1,43 @@
-"""ntHash + sign + per-(genome, bin) minimum: the CUDA kernel
-csrc/nthash_bin.cu and its plain PyTorch twin.
+"""ntHash + sign + per-(k, genome, bin) minimum: the CUDA kernel
+csrc/nthash_bin.cu (one rolling-hash launch for every k of a batch) and its
+plain PyTorch twin.
 
 Replaces sketchtpu/hash/nthash_jax.py::hash_bin_kernel together with its
-TPU workarounds (2-bit packing, magic-multiply division, sort-based bin
-minima): the card has u64 division and a 64-bit atomicMin.
+TPU workarounds (2-bit packing, sort-based bin minima): the card has a
+64-bit atomicMin.
 
 Input layout (pack_group): one byte per base of a batch of concatenated
 genomes, code | break << 2, where a break at p forbids windows with
 s < p < s+k and every genome start carries one; `starts` holds each
-genome's offset. Output: (genomes, nbins) int64 holding u64 sign bit
+genome's offset. Output: (k, genomes, nbins) int64 holding u64 sign bit
 patterns, with empty bins at u64::MAX (-1).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .. import _build
-from ..constants import SIGN_MOD, nt_tap_tables
+from ..constants import (
+    NT_HASH_SEEDS,
+    NT_RC_HASH_SEEDS,
+    SIGN_MOD,
+    nt_tap_tables,
+    srol,
+)
 
-MAX_K_CUDA = 512  # tap tables + sequence span stay within 48 KB of shared memory
+# The kernel's limits: its per-k words and the block's span of bases (256
+# runs + the largest k) share 48 KB of shared memory. The rolling hash
+# needs no (k, 4) tap table, so k is bounded by the span alone.
+MAX_K_CUDA = 16384
+MAX_NK_CUDA = 128
+_NT = 256  # threads per block of nthash_bin.cu
+_KWORDS = 10  # table words per k
+_RUN_LG = 6  # log2 of the window starts per thread
+_SMEM_LIMIT = 48 * 1024
 _I64_MAX = (1 << 63) - 1
 _SIGN_FLIP = -(1 << 63)  # xor with it turns unsigned order into signed order
 
@@ -84,45 +101,147 @@ def nthash_bin_ref(seq: torch.Tensor, k: int, tf: torch.Tensor,
     return table.view(starts.numel(), nbins)
 
 
-def nthash_bin(seq: torch.Tensor, k: int, tf: torch.Tensor, tr: torch.Tensor,
-               rc: bool, starts: torch.Tensor, nbins: int) -> torch.Tensor:
-    """(genomes, nbins) int64 per-bin sign minima at k of a packed batch.
-    CUDA tensors launch the kernel, CPU tensors run the twin."""
+def nthash_bin_multi_ref(seq: torch.Tensor, kmers, rc: bool,
+                         starts: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Plain PyTorch twin of nthash_bin_multi(): the single-k twin per k,
+    stacked."""
+    planes = []
+    for k in kmers:
+        tf, tr = (torch.from_numpy(t).to(seq.device) for t in tap_tables(k))
+        planes.append(nthash_bin_ref(seq, k, tf, tr, rc, starts, nbins))
+    return torch.stack(planes)
+
+
+def magic_divisor(d: int) -> tuple[int, int]:
+    """(magic, shift) with x // d == (x * magic) >> (64 + shift) for every
+    0 <= x < 2^61 (proof at stpu_magic_div in csrc/nthash_bin.cu); needs
+    d >= 8 so that the shift is not negative."""
+    if d < 8:
+        raise ValueError(f"divisor {d} is below 8")
+    ell = (d - 1).bit_length()
+    return -((-1 << (61 + ell)) // d), ell - 3
+
+
+def magic_div(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x // d for int64 x in [0, 2^61): the kernel's multiply-high on CUDA
+    tensors (the kernel's own routine, for its tests), floor division on
+    CPU tensors."""
+    if x.dtype != torch.int64 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous 1-D int64 tensor")
+    if x.device.type == "cpu":
+        return torch.div(x, d, rounding_mode="floor")
+    magic, shift = magic_divisor(d)
+    out = torch.empty_like(x)
+    err = _build.lib().stpu_magic_div(x.data_ptr(), x.numel(), magic, shift,
+                                      out.data_ptr(),
+                                      _build.stream_handle(x.device))
+    _build.check(err, "magic_div")
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _k_table(kmers: tuple[int, ...]) -> np.ndarray:
+    """The kernel's table for ascending kmers: per k, srol^k(SEED[0..3]),
+    srol^(k-1)(RC[0..3]), k, (k % 33) | (k % 31) << 32; then SEED, RC."""
+    words = []
+    for k in kmers:
+        words += [srol(s, k) for s in NT_HASH_SEEDS]
+        words += [srol(s, k - 1) for s in NT_RC_HASH_SEEDS]
+        words += [k, (k % 33) | ((k % 31) << 32)]
+    words += list(NT_HASH_SEEDS) + list(NT_RC_HASH_SEEDS)
+    return np.array(words, dtype=np.uint64).view(np.int64)
+
+
+def _span_pitch(kmax: int) -> int:
+    """Row pitch of the kernel's transposed span of bases: at least the
+    256 runs + the columns the largest window reaches past them, in whole
+    words, an odd number of them (consecutive rows fall in distinct
+    banks)."""
+    words = (_NT + ((kmax - 2) >> _RUN_LG) + 1 + 3) // 4
+    return 4 * (words | 1)
+
+
+def _smem_bytes(nk: int, kmax: int, nbins: int, smin: bool) -> int:
+    return ((nk * _KWORDS + 8) * 8 + (nbins * 8 if smin else 0)
+            + (_span_pitch(kmax) << _RUN_LG))
+
+
+def _check_batch(seq: torch.Tensor, starts: torch.Tensor, nbins: int):
     if seq.dtype != torch.uint8 or seq.dim() != 1 or not seq.is_contiguous():
         raise ValueError("seq must be a contiguous 1-D uint8 tensor")
+    if (starts.dtype != torch.int64 or starts.dim() != 1 or starts.numel() < 1
+            or not starts.is_contiguous() or starts.device != seq.device):
+        raise ValueError("starts must be a non-empty contiguous int64 vector")
+    if nbins < 1:
+        raise ValueError(f"nbins={nbins} must be positive")
+
+
+def nthash_bin_multi(seq: torch.Tensor, kmers, rc: bool, starts: torch.Tensor,
+                     nbins: int) -> torch.Tensor:
+    """(len(kmers), genomes, nbins) int64 per-bin sign minima of a packed
+    batch at every k of kmers, from one launch. CUDA tensors launch the
+    kernel, CPU tensors run the twin."""
+    _check_batch(seq, starts, nbins)
+    kmers = [int(k) for k in kmers]
+    if not kmers or min(kmers) < 1:
+        raise ValueError(f"kmers={kmers} must be positive and not empty")
+    if seq.device.type == "cpu":
+        return nthash_bin_multi_ref(seq, kmers, rc, starts, nbins)
+    if seq.device.type != "cuda":
+        raise ValueError(f"unsupported device {seq.device}")
+    if max(kmers) > MAX_K_CUDA or len(kmers) > MAX_NK_CUDA:
+        raise ValueError(
+            f"kmers={kmers}: the kernel's limit is k <= {MAX_K_CUDA} and "
+            f"{MAX_NK_CUDA} k values")
+    if seq.numel() < min(kmers):  # no window fits: every bin stays empty
+        return torch.full((len(kmers), starts.numel(), nbins), -1,
+                          dtype=torch.int64, device=seq.device)
+    out = _launch_nthash_multi(seq, kmers, rc, starts, nbins)
+    nthash_bin_multi.launches += 1
+    return out
+
+
+nthash_bin_multi.launches = 0
+
+
+def _launch_nthash_multi(seq, kmers, rc, starts, nbins):
+    order = sorted(range(len(kmers)), key=kmers.__getitem__)
+    ks = tuple(kmers[i] for i in order)
+    # a block first reduces its minima in a shared-memory table where that
+    # fits the 48 KB beside the span; else they go to device memory directly
+    smin = _smem_bytes(len(ks), ks[-1], nbins, True) <= _SMEM_LIMIT
+    ktab = torch.from_numpy(_k_table(ks)).to(seq.device)
+    out = torch.full((len(ks), starts.numel(), nbins), -1, dtype=torch.int64,
+                     device=seq.device)
+    magic, mshift = magic_divisor(bin_size(nbins))
+    err = _build.lib().stpu_nthash_multi(
+        seq.data_ptr(), seq.numel(), ktab.data_ptr(), len(ks), ks[0],
+        int(rc), starts.data_ptr(), starts.numel(), magic, mshift, nbins,
+        _span_pitch(ks[-1]), int(smin),
+        _smem_bytes(len(ks), ks[-1], nbins, smin), out.data_ptr(),
+        _build.stream_handle(seq.device),
+    )
+    _build.check(err, "nthash_bin_multi")
+    if list(ks) == kmers:
+        return out
+    back = torch.empty(len(kmers), dtype=torch.int64)
+    back[torch.tensor(order)] = torch.arange(len(kmers))
+    return out[back.to(seq.device)]
+
+
+def nthash_bin(seq: torch.Tensor, k: int, tf: torch.Tensor, tr: torch.Tensor,
+               rc: bool, starts: torch.Tensor, nbins: int) -> torch.Tensor:
+    """(genomes, nbins) int64 per-bin sign minima at one k of a packed
+    batch: the multi-k kernel with one k on CUDA tensors, the twin on the
+    (k, 4) tap tables tf / tr (tap_tables) on CPU tensors. Launches count
+    on nthash_bin_multi."""
+    _check_batch(seq, starts, nbins)
     for name, t in (("tf", tf), ("tr", tr)):
         if (t.dtype != torch.int64 or tuple(t.shape) != (k, 4)
                 or not t.is_contiguous() or t.device != seq.device):
             raise ValueError(f"{name} must be a contiguous int64 ({k}, 4) table")
-    if (starts.dtype != torch.int64 or starts.dim() != 1 or starts.numel() < 1
-            or not starts.is_contiguous() or starts.device != seq.device):
-        raise ValueError("starts must be a non-empty contiguous int64 vector")
-    if k < 1 or nbins < 1:
-        raise ValueError(f"k={k} and nbins={nbins} must be positive")
+    if k < 1:
+        raise ValueError(f"k={k} must be positive")
     if seq.device.type == "cpu":
         return nthash_bin_ref(seq, k, tf, tr, rc, starts, nbins)
-    if seq.device.type != "cuda":
-        raise ValueError(f"unsupported device {seq.device}")
-    if k > MAX_K_CUDA:
-        raise ValueError(f"k={k} exceeds the kernel's limit of {MAX_K_CUDA}")
-    if seq.numel() - k + 1 <= 0:  # no window fits: every bin stays empty
-        return torch.full((starts.numel(), nbins), -1, dtype=torch.int64,
-                          device=seq.device)
-    out = _launch_nthash_bin(seq, k, tf, tr, rc, starts, nbins)
-    nthash_bin.launches += 1
-    return out
-
-
-nthash_bin.launches = 0
-
-
-def _launch_nthash_bin(seq, k, tf, tr, rc, starts, nbins) -> torch.Tensor:
-    out = torch.full((starts.numel(), nbins), -1, dtype=torch.int64,
-                     device=seq.device)
-    err = _build.lib().stpu_nthash_bin(
-        seq.data_ptr(), seq.numel(), k, tf.data_ptr(), tr.data_ptr(),
-        int(rc), starts.data_ptr(), starts.numel(), bin_size(nbins), nbins,
-        out.data_ptr(), _build.stream_handle(seq.device),
-    )
-    _build.check(err, "nthash_bin")
-    return out
+    return nthash_bin_multi(seq, [k], rc, starts, nbins)[0]

@@ -3,8 +3,8 @@
 Port of sketchtpu/sketchcore/sketch_jax.py::DeviceSketchBackend, the
 assemblies branch of sketch_dna_streams: genomes are packed into batches
 (one byte per base; PCIe carries that easily), each batch is uploaded once
-and gets one hash + sign + bin-minimum launch per k, and densification and
-the bit-plane transpose run on the host exactly as in the JAX backend.
+and gets one hash + sign + bin-minimum launch for all k, and densification
+and the bit-plane transpose run on the host exactly as in the JAX backend.
 Sketches are bit-identical to the host oracle (sketchcore/sketch.py).
 """
 
@@ -15,7 +15,7 @@ import torch
 
 from .._transfer import HostCopy
 from ..constants import num_bins as num_bins_fn
-from ..hash.nthash_torch import nthash_bin, pack_group, tap_tables
+from ..hash.nthash_torch import nthash_bin_multi, pack_group
 from .signs import densify, fill_usigs
 from .sketch import Sketch
 
@@ -43,33 +43,20 @@ def _groups(streams):
 class DeviceSketchBackend:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
-        self._taps: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-
-    def _tap_tables(self, k: int):
-        if k not in self._taps:
-            fwd, rev = tap_tables(k)
-            self._taps[k] = (
-                torch.from_numpy(fwd).to(self.device),
-                torch.from_numpy(rev).to(self.device),
-            )
-        return self._taps[k]
 
     def _dispatch(self, group, kmers, rc: bool, nbins: int):
+        """One launch for the batch; the (nk, genomes, nbins) minima start
+        their copy to the host."""
         seq, starts = pack_group(group)
         seq_d = torch.from_numpy(seq).to(self.device)
         starts_d = torch.from_numpy(starts).to(self.device)
-        return {
-            kk: HostCopy(
-                nthash_bin(seq_d, kk, *self._tap_tables(kk), rc, starts_d,
-                           nbins)
-            )
-            for kk in kmers
-        }
+        return HostCopy(nthash_bin_multi(seq_d, kmers, rc, starts_d, nbins))
 
     def bin_minima_multi_k(self, streams, kmers, rc: bool, nbins: int):
         """{k: (len(streams), nbins) u64} per-bin sign minima (u64::MAX for
         empty bins). Batch i+1 is packed and launched before batch i's
         minima are read back."""
+        kmers = list(dict.fromkeys(kmers))  # one plane of minima per k
         out = {kk: np.empty((len(streams), nbins), dtype=np.uint64)
                for kk in kmers}
         pending = None
@@ -85,8 +72,9 @@ class DeviceSketchBackend:
 
     @staticmethod
     def _collect(out, start, end, launched):
-        for kk, copy in launched.items():
-            out[kk][start:end] = copy.numpy().view(np.uint64)
+        minima = launched.numpy().view(np.uint64)
+        for ki, kk in enumerate(out):
+            out[kk][start:end] = minima[ki]
 
     def sketch_dna_streams(self, streams, names, kmers, sketch_size: int,
                            rc: bool, min_count: int, threads: int = 1):

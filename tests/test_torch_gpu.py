@@ -20,7 +20,16 @@ from sketchtpu_torch.dist.coreacc_kernels import (
     coreacc_keys_ref,
     coreacc_ref,
 )
-from sketchtpu_torch.dist.knn_kernels import Completeness, knn_keys, knn_keys_ref
+from sketchtpu_torch import _build
+from sketchtpu_torch.dist.knn_kernels import (
+    INVALID,
+    MAX_KNN,
+    Completeness,
+    knn_keys,
+    knn_keys_ref,
+    knn_select,
+    knn_select_ref,
+)
 from sketchtpu_torch.dist.knn_torch import DeviceKnnEngine
 from sketchtpu_torch.dist.samebits_kernels import (
     samebits,
@@ -29,11 +38,17 @@ from sketchtpu_torch.dist.samebits_kernels import (
 )
 from sketchtpu_torch.formats.skm import MultiSketch
 from sketchtpu_torch.hash.nthash_torch import (
+    MAX_K_CUDA,
+    bin_size,
+    magic_div,
     nthash_bin,
+    nthash_bin_multi,
+    nthash_bin_multi_ref,
     nthash_bin_ref,
     pack_group,
     tap_tables,
 )
+from sketchtpu_torch.ingest.fastx import DnaStream
 from sketchtpu_torch.sketchcore.sketch import HashType, Sketch
 from sketchtpu_torch.synth import derive_words, random_streams
 
@@ -202,11 +217,76 @@ def test_nthash_kernel_matches_twin(cuda, k, rc):
 
 
 def test_nthash_kernel_rejects_k_past_its_limit(cuda):
+    k = MAX_K_CUDA + 1
     seq = torch.zeros(1000, dtype=torch.uint8, device=cuda)
-    tf = torch.zeros((513, 4), dtype=torch.int64, device=cuda)
+    tf = torch.zeros((k, 4), dtype=torch.int64, device=cuda)
     starts = torch.zeros(1, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="limit"):
-        nthash_bin(seq, 513, tf, tf, True, starts, 64)
+        nthash_bin(seq, k, tf, tf, True, starts, 64)
+    with pytest.raises(ValueError, match="limit"):
+        nthash_bin_multi(seq, (17, k), True, starts, 64)
+
+
+def _edge_streams(run, seed):
+    """Genomes whose starts and breaks fall on the first, last and middle
+    window start of a thread's run of `run` windows, with a genome shorter
+    than most k and an empty one."""
+    rng = np.random.default_rng(seed)
+    lens = [run * 256 + run, 45, 0, 7, run * 2 + 1, run * 300 - 1, 70_001]
+    streams = []
+    for n in lens:
+        codes = rng.integers(0, 4, n).astype(np.uint8)
+        at = {run, run + 1, 2 * run - 1, run + run // 2, 40, run * 256 - 1,
+              run * 256, run * 256 + 1}
+        at |= {int(b) for b in rng.integers(1, max(n, 2), 6)}
+        brk = np.array(sorted(b for b in at if 0 < b < n), dtype=np.int64)
+        streams.append(DnaStream(codes=codes, breaks=brk,
+                                 acgt=np.bincount(codes, minlength=4)))
+    return streams
+
+
+# 8192 bins do not fit the block's shared-memory table beside its span:
+# there the minima go to device memory directly
+@pytest.mark.parametrize("nbins", [64, 1000, 8192])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("rc", [True, False])
+def test_nthash_multi_kernel_matches_twin_at_run_edges(cuda, nbins, seed, rc):
+    seq, starts = pack_group(_edge_streams(64, seed))  # 64 starts per thread
+    seq_d = torch.from_numpy(seq).to(cuda)
+    starts_d = torch.from_numpy(starts).to(cuda)
+    kmers = (3, 17, 31, 64, 513)
+    want = nthash_bin_multi_ref(seq_d, kmers, rc, starts_d, nbins)
+    got = nthash_bin_multi(seq_d, kmers, rc, starts_d, nbins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # the caller's k order, duplicates included
+    mixed = nthash_bin_multi(seq_d, (64, 3, 17, 3), rc, starts_d, nbins)
+    assert torch.equal(mixed, want[[3, 0, 1, 0]])
+
+
+def test_nthash_multi_kernel_at_its_largest_k(cuda):
+    streams = random_streams([40_000, 300, 20_000], seed=3, breaks_per_mb=50)
+    seq, starts = pack_group(streams)
+    seq_d = torch.from_numpy(seq).to(cuda)
+    starts_d = torch.from_numpy(starts).to(cuda)
+    kmers = (31, 4097, MAX_K_CUDA)
+    got = nthash_bin_multi(seq_d, kmers, True, starts_d, 256)
+    assert torch.equal(got, nthash_bin_multi_ref(seq_d, kmers, True, starts_d,
+                                                 256))
+
+
+@pytest.mark.parametrize("nbins", [1, 64, 1000, 1024, 32768 + 64, 2**31])
+def test_magic_division_kernel_on_its_boundaries(cuda, nbins):
+    d = bin_size(nbins)
+    last = ((1 << 61) - 2) // d
+    xs = [0, 1, (1 << 61) - 2, (1 << 61) - 1]
+    for m in (1, 2, last, last + 1):
+        xs += [m * d - 1, m * d, m * d + 1]
+    xs = [x for x in xs if 0 <= x < 1 << 61]
+    rng = np.random.default_rng(nbins % 1000)
+    xs += [int(v) for v in rng.integers(0, 1 << 61, 4096)]
+    got = magic_div(torch.tensor(xs, dtype=torch.int64, device=cuda), d)
+    assert got.tolist() == [x // d for x in xs]
 
 
 @pytest.mark.parametrize("na,nb", [(1, 1), (70, 130), (200, 333)])
@@ -290,3 +370,94 @@ def test_knn_engine_on_card_matches_cpu_twins(cuda, with_comp):
     want = on_cpu.self_knn_coreacc(10, completeness_vec=comp)
     for g, w in zip(got.as_arrays(), want.as_arrays()):
         np.testing.assert_array_equal(g, w)
+
+
+# --- K3 in selection mode ---------------------------------------------------
+
+def _select_case(cuda, tr, nb, s64, knn, *, row0=0, nb_real=None, comp=False,
+                 excl=True, splits=None, seed=11):
+    w = _kwords(max(row0 + tr, nb), KMERS, s64, seed, cuda)[:, 1]
+    rows, cols = w[row0 : row0 + tr], w[:nb]
+    c = None
+    if comp:
+        cv = _comp(max(row0 + tr, nb), seed, cuda)
+        c = Completeness(cv[row0 : row0 + tr].contiguous(), cv[:nb].contiguous(),
+                         0.64, s64)
+    kw = dict(row0=row0, nb_real=nb_real, exclude_self=excl, comp=c)
+    got = knn_select(rows, cols, knn, splits=splits, **kw)
+    torch.cuda.synchronize()
+    want = knn_select_ref(rows, cols, knn, col_tile=100, **kw)
+    assert got.dtype == want.dtype and got.shape == (tr, knn)
+    assert torch.equal(got, want)
+    return got
+
+
+# one below, at and one past the 64-row and 64-column tiles
+@pytest.mark.parametrize("tr", [1, 63, 64, 65])
+@pytest.mark.parametrize("nb", [63, 64, 65, 200])
+@pytest.mark.parametrize("comp", [False, True])
+def test_knn_select_kernel_matches_twin_at_tile_edges(cuda, tr, nb, comp):
+    _select_case(cuda, tr, nb, 16, 10, comp=comp)
+    _select_case(cuda, tr, nb, 16, 10, comp=comp, excl=False, row0=30)
+
+
+@pytest.mark.parametrize("s64", [1, 3, 5, 16])
+@pytest.mark.parametrize("comp", [False, True])
+def test_knn_select_kernel_matches_twin_across_s64(cuda, s64, comp):
+    _select_case(cuda, 130, 700, s64, 20, comp=comp, nb_real=650)
+
+
+@pytest.mark.parametrize("knn", [1, 31, 32, 33, 50, 64, 65, 200, MAX_KNN])
+@pytest.mark.parametrize("comp", [False, True])
+def test_knn_select_kernel_matches_twin_across_knn(cuda, knn, comp):
+    """List lengths around the warp's 32 lanes, the usual 50, and the limit
+    (32 or 16 rows per block there); fewer columns than knn pads rows."""
+    _select_case(cuda, 100, 1500, 16, knn, comp=comp)
+    if knn > 100:
+        got = _select_case(cuda, 70, 90, 16, knn, comp=comp)
+        assert (got[:, 89:] == INVALID).all() and (got[:, :89] >= 0).all()
+
+
+def test_knn_select_kernel_rows_per_block(cuda):
+    """Fewer rows per block where longer lists need the shared memory."""
+    rows = _build.lib().stpu_knn_select_rows
+    assert rows(50, 4) == rows(50, 8) == rows(128, 4) == 64
+    assert rows(MAX_KNN, 4) == 32
+    assert rows(MAX_KNN, 8) == 16
+    assert rows(MAX_KNN + 1, 4) == 0
+
+
+def test_knn_select_kernel_rejects_knn_past_its_limit(cuda):
+    w = _kwords(10, KMERS, 16, 1, cuda)[:, 0]
+    with pytest.raises(ValueError, match="limit"):
+        knn_select(w, w, MAX_KNN + 1)
+
+
+def test_knn_select_kernel_all_invalid_rows(cuda):
+    """No real column, or the only column is the row itself: INVALID."""
+    w = _kwords(70, KMERS, 16, 2, cuda)[:, 0]
+    got = knn_select(w[:1], w[:1], 5, exclude_self=True)
+    assert (got == INVALID).all() and got.shape == (1, 5)
+    got = knn_select(w, w, 5, nb_real=0)
+    assert (got == INVALID).all() and got.shape == (70, 5)
+
+
+@pytest.mark.parametrize("comp", [False, True])
+def test_knn_select_kernel_column_splits_agree(cuda, comp):
+    """1 to 8 column splits (and more than there are column tiles) merge to
+    the same selection; 3 rows take the default split."""
+    base = _select_case(cuda, 3, 3000, 16, 50, comp=comp, excl=False, splits=1)
+    for splits in (2, 3, 4, 5, 6, 7, 8, 1000, None):
+        got = _select_case(cuda, 3, 3000, 16, 50, comp=comp, excl=False,
+                           splits=splits)
+        assert torch.equal(got, base)
+    _select_case(cuda, 200, 777, 5, 33, comp=comp, splits=4)
+
+
+def test_knn_select_kernel_int64_plain_keys(cuda, monkeypatch):
+    """Past the int32 column field plain keys are int64."""
+    from sketchtpu_torch.dist import knn_kernels
+
+    monkeypatch.setattr(knn_kernels, "pack_shift", lambda s64: 8)
+    got = _select_case(cuda, 100, 400, 16, 12)
+    assert got.dtype == torch.int64

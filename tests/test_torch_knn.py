@@ -1,4 +1,5 @@
-"""K3 (the kNN scan tile), K4 and the port's kNN engine on the CPU twins,
+"""K3 (the kNN scan: tile and selection mode), K4 and the port's kNN engine
+on the CPU twins,
 against the JAX package: samebits_pallas_chunked / samebits_pallas in
 interpret mode, the JAX scans (_knn_scan_block_packed with its Pallas
 tile in interpret mode, _knn_scan_block_comp on JAX-CPU) and the host
@@ -21,8 +22,11 @@ from sketchtpu_torch.constants import BBITS
 from sketchtpu_torch.dist import api
 from sketchtpu_torch.dist.knn_kernels import (
     Completeness,
+    INVALID,
     key_layout,
     knn_keys,
+    knn_select,
+    knn_select_ref,
     pack_shift,
 )
 from sketchtpu_torch.dist.knn_torch import DeviceKnnEngine, knn_scan
@@ -82,8 +86,7 @@ def test_plain_scan_matches_jax_packed_scan(nb_real):
         s64=s64, knn=5, tc=256, exclude_self=True, pallas=True,
         ti=256, tj=256, interpret=True,
     )
-    sb, idx = knn_scan(_t(a), _t(b[:nb_real]), 5, exclude_self=True,
-                       row_tile=96, col_tile=200)
+    sb, idx = knn_scan(_t(a), _t(b[:nb_real]), 5, exclude_self=True)
     np.testing.assert_array_equal(sb, np.asarray(want_v))
     np.testing.assert_array_equal(idx, np.asarray(want_i))
 
@@ -103,8 +106,7 @@ def test_completeness_scan_matches_jax_comp_scan(nb_real):
         masked=False, cutoff=0.64,
     )
     sb, idx = knn_scan(_t(a), _t(b[:nb_real]), 5, exclude_self=True,
-                       comp_rows=c1, comp_cols=c2[:nb_real], cutoff=0.64,
-                       row_tile=100, col_tile=128)
+                       comp_rows=c1, comp_cols=c2[:nb_real], cutoff=0.64)
     np.testing.assert_array_equal(sb, np.asarray(want_v))
     np.testing.assert_array_equal(idx, np.asarray(want_i))
 
@@ -216,10 +218,10 @@ def test_scan_reaches_int64_keys_past_the_int32_column_field(monkeypatch):
     from sketchtpu_torch.dist import knn_kernels
 
     s64, a, b = _scan_inputs(11)
-    want = knn_scan(_t(a), _t(b), 4, exclude_self=True, col_tile=100)
+    want = knn_scan(_t(a), _t(b), 4, exclude_self=True)
     monkeypatch.setattr(knn_kernels, "pack_shift", lambda s64: 8)
     assert knn_kernels.key_layout(s64, 512, False)[0] == torch.int64
-    got = knn_scan(_t(a), _t(b), 4, exclude_self=True, col_tile=100)
+    got = knn_scan(_t(a), _t(b), 4, exclude_self=True)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
 
@@ -229,3 +231,129 @@ def test_samebits_of_scan_match_oracle():
     sb, idx = knn_scan(_t(a), _t(b), 6, exclude_self=False)
     full = samebits_matrix(a.view(np.uint64), b.view(np.uint64))
     np.testing.assert_array_equal(sb, np.take_along_axis(full, idx, 1))
+
+
+# --- K3 in selection mode: the twin against the JAX scans -------------------
+
+def _decode(keys, s64, nb_real, comp):
+    """(value field, column) of selection keys; -1 / -1 where INVALID."""
+    _dtype, shift, colmask = key_layout(s64, nb_real, comp)
+    k = keys.numpy().astype(np.int64)
+    bad = k == INVALID
+    return (np.where(bad, -1, k >> shift),
+            np.where(bad, -1, colmask - (k & colmask)))
+
+
+def _jax_packed(a, b, s64, nb_real, knn):
+    v, i = _knn_scan_block_packed(
+        chunk_group_major(jnp.asarray(a), s64),
+        jnp.transpose(chunk_group_major(jnp.asarray(b), s64)),
+        np.int32(0), np.int32(nb_real),
+        s64=s64, knn=knn, tc=256, exclude_self=True, pallas=True,
+        ti=256, tj=256, interpret=True,
+    )
+    return np.asarray(v), np.asarray(i)
+
+
+@pytest.mark.parametrize("knn", [3, 50])
+@pytest.mark.parametrize("nb_real", [512, 509])
+def test_knn_select_twin_matches_jax_packed_scan(nb_real, knn):
+    """The selection twin picks the JAX packed scan's columns and samebits,
+    whatever its merge tile: exact equality."""
+    s64, a, b = _scan_inputs(21)
+    want_v, want_i = _jax_packed(a, b, s64, nb_real, knn)
+    for col_tile in (64, 200, 8192):
+        keys = knn_select_ref(_t(a), _t(b), knn, nb_real=nb_real,
+                              exclude_self=True, col_tile=col_tile,
+                              row_tile=96)
+        assert keys.dtype == torch.int32 and keys.shape == (256, knn)
+        assert (keys[:, :-1] > keys[:, 1:]).all()  # descending, unique
+        sb, idx = _decode(keys, s64, nb_real, False)
+        np.testing.assert_array_equal(sb, want_v)
+        np.testing.assert_array_equal(idx, want_i)
+    via_wrapper = knn_select(_t(a), _t(b), knn, nb_real=nb_real,
+                             exclude_self=True)
+    assert torch.equal(via_wrapper, keys)
+
+
+@pytest.mark.parametrize("knn", [3, 50])
+@pytest.mark.parametrize("nb_real", [512, 509])
+def test_knn_select_twin_matches_jax_comp_scan(nb_real, knn):
+    """Completeness keys: the columns of _knn_scan_block_comp, and their
+    exact samebits after knn_scan's gather."""
+    s64, a, b = _scan_inputs(22)
+    rng = np.random.default_rng(23)
+    c1 = rng.uniform(0.5, 1.0, a.shape[0]).astype(np.float32)
+    c2 = rng.uniform(0.5, 1.0, b.shape[0]).astype(np.float32)
+    c2[:a.shape[0]] = c1
+    sig = np.zeros((a.shape[0], 1), np.int32)
+    want_v, want_i = _knn_scan_block_comp(
+        jnp.asarray(a), jnp.asarray(b), np.int32(0), np.int32(nb_real),
+        sig, np.zeros((b.shape[0], 1), np.int32), jnp.asarray(c1),
+        jnp.asarray(c2), s64=s64, knn=knn, tc=256, exclude_self=True,
+        masked=False, cutoff=0.64,
+    )
+    comp = Completeness(torch.from_numpy(c1), torch.from_numpy(c2), 0.64, s64)
+    keys = knn_select(_t(a), _t(b), knn, nb_real=nb_real, exclude_self=True,
+                      comp=comp)
+    assert torch.equal(keys, knn_select_ref(
+        _t(a), _t(b), knn, nb_real=nb_real, exclude_self=True, comp=comp,
+        row_tile=100, col_tile=128))
+    assert keys.dtype == torch.int64
+    _jac, idx = _decode(keys, s64, nb_real, True)
+    np.testing.assert_array_equal(idx, np.asarray(want_i))
+    sb, idx2 = knn_scan(_t(a), _t(b[:nb_real]), knn, exclude_self=True,
+                        comp_rows=c1, comp_cols=c2[:nb_real], cutoff=0.64)
+    np.testing.assert_array_equal(sb, np.asarray(want_v))
+    np.testing.assert_array_equal(idx2, np.asarray(want_i))
+
+
+@pytest.mark.parametrize("knn", [39, 40, 64])
+def test_knn_select_twin_pads_rows_with_fewer_candidates(knn):
+    """knn >= n: the n - 1 valid keys in order, then INVALID."""
+    rng = np.random.default_rng(24)
+    s64, n = 2, 40
+    a = _u32(n, s64, rng)
+    keys = knn_select(_t(a), _t(a), knn, exclude_self=True)
+    assert keys.shape == (n, knn)
+    assert (keys[:, : n - 1] >= 0).all() and (keys[:, n - 1 :] == INVALID).all()
+    _sb, idx = _decode(keys, s64, n, False)
+    for r in range(n):
+        assert sorted(idx[r, : n - 1]) == [c for c in range(n) if c != r]
+
+
+def test_knn_select_twin_ties_go_to_the_lowest_column():
+    """Equal samebits: the lower column has the larger key."""
+    s64, a, b = _scan_inputs(25)
+    keys = knn_select(_t(a), _t(b), 4, exclude_self=True)
+    sb, idx = _decode(keys, s64, 512, False)
+    # row 10 equals columns 300 and 301 (and itself, excluded)
+    assert list(idx[10, :2]) == [300, 301] and sb[10, 0] == sb[10, 1] == s64 * 64
+
+
+def test_knn_select_twin_int64_key_route(monkeypatch):
+    """Past the int32 column field the keys widen to int64 and select the
+    same columns and samebits."""
+    from sketchtpu_torch.dist import knn_kernels
+
+    s64, a, b = _scan_inputs(26)
+    want = _decode(knn_select(_t(a), _t(b), 7, exclude_self=True), s64, 512,
+                   False)
+    monkeypatch.setattr(knn_kernels, "pack_shift", lambda s64: 8)
+    keys = knn_select(_t(a), _t(b), 7, exclude_self=True)
+    assert keys.dtype == torch.int64
+    got = _decode(keys, s64, 512, False)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_knn_select_rows_offset_excludes_the_global_row():
+    """row0 shifts the rows' ids: exclude_self drops column row0 + i."""
+    s64, a, b = _scan_inputs(27)
+    keys = knn_select(_t(b[100:140]), _t(b), 5, row0=100, exclude_self=True)
+    _sb, idx = _decode(keys, s64, 512, False)
+    assert not (idx == (100 + np.arange(40))[:, None]).any()
+    full = samebits_matrix(b[100:140].view(np.uint64), b.view(np.uint64))
+    full[np.arange(40), 100 + np.arange(40)] = -1
+    np.testing.assert_array_equal(np.sort(full, axis=1)[:, ::-1][:, :5],
+                                  _decode(keys, s64, 512, False)[0])

@@ -252,17 +252,127 @@ def test_knn_keys_wrapper_launches_for_cuda_tensors(monkeypatch, comp):
 
 
 def test_nthash_wrapper_launches_for_cuda_tensors(monkeypatch):
+    """The single-k entry point is the multi-k kernel with one k."""
     calls = []
     monkeypatch.setattr(nthash_torch, "nthash_bin_ref", _refuse_twin)
-    monkeypatch.setattr(nthash_torch, "_launch_nthash_bin",
-                        lambda *a: calls.append(a) or "out")
+    monkeypatch.setattr(nthash_torch, "nthash_bin_multi_ref", _refuse_twin)
+    monkeypatch.setattr(nthash_torch, "_launch_nthash_multi",
+                        lambda *a: calls.append(a) or ["out"])
     seq = _FakeCuda(torch.zeros(100, dtype=torch.uint8))
     tf = _FakeCuda(torch.zeros((5, 4), dtype=torch.int64))
     starts = _FakeCuda(torch.zeros(1, dtype=torch.int64))
-    before = nthash_torch.nthash_bin.launches
+    before = nthash_torch.nthash_bin_multi.launches
     assert nthash_torch.nthash_bin(seq, 5, tf, tf, True, starts, 64) == "out"
-    assert nthash_torch.nthash_bin.launches == before + 1
-    assert len(calls) == 1 and calls[0][1] == 5
+    assert nthash_torch.nthash_bin_multi.launches == before + 1
+    assert len(calls) == 1 and calls[0][1] == [5]
+
+
+def test_nthash_multi_wrapper_launches_for_cuda_tensors(monkeypatch):
+    calls = []
+    monkeypatch.setattr(nthash_torch, "nthash_bin_ref", _refuse_twin)
+    monkeypatch.setattr(nthash_torch, "nthash_bin_multi_ref", _refuse_twin)
+    monkeypatch.setattr(nthash_torch, "_launch_nthash_multi",
+                        lambda *a: calls.append(a) or "out")
+    seq = _FakeCuda(torch.zeros(100, dtype=torch.uint8))
+    starts = _FakeCuda(torch.zeros(1, dtype=torch.int64))
+    before = nthash_torch.nthash_bin_multi.launches
+    assert nthash_torch.nthash_bin_multi(seq, (21, 17), True, starts,
+                                         64) == "out"
+    assert nthash_torch.nthash_bin_multi.launches == before + 1
+    assert calls[0][1:] == ([21, 17], True, starts, 64)
+
+
+def test_nthash_multi_rejects_what_the_kernel_does_not_take():
+    seq = _FakeCuda(torch.zeros(100, dtype=torch.uint8))
+    starts = _FakeCuda(torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="limit"):
+        nthash_torch.nthash_bin_multi(seq, (nthash_torch.MAX_K_CUDA + 1,),
+                                      True, starts, 64)
+    with pytest.raises(ValueError, match="limit"):
+        nthash_torch.nthash_bin_multi(
+            seq, range(1, nthash_torch.MAX_NK_CUDA + 2), True, starts, 64)
+    with pytest.raises(ValueError, match="not empty"):
+        nthash_torch.nthash_bin_multi(seq, (), True, starts, 64)
+
+
+def test_nthash_multi_without_a_window_launches_nothing(monkeypatch):
+    monkeypatch.setattr(nthash_torch, "_launch_nthash_multi", _refuse_twin)
+    monkeypatch.setattr(torch, "full", lambda *a, **kw: (a, kw["dtype"]))
+    seq = _FakeCuda(torch.zeros(10, dtype=torch.uint8))
+    starts = _FakeCuda(torch.zeros(2, dtype=torch.int64))
+    before = nthash_torch.nthash_bin_multi.launches
+    got = nthash_torch.nthash_bin_multi(seq, (17, 21), True, starts, 64)
+    assert got == (((2, 2, 64), -1), torch.int64)
+    assert nthash_torch.nthash_bin_multi.launches == before
+
+
+@pytest.mark.parametrize("comp", [False, True])
+def test_knn_select_wrapper_launches_for_cuda_tensors(monkeypatch, comp):
+    calls = []
+    monkeypatch.setattr(knn_kernels, "knn_select_ref", _refuse_twin)
+    monkeypatch.setattr(knn_kernels, "knn_keys_ref", _refuse_twin)
+    monkeypatch.setattr(knn_kernels, "_launch_knn_select",
+                        lambda *a: calls.append(a) or "out")
+    a = _FakeCuda(torch.zeros((8, 56), dtype=torch.int64))
+    b = _FakeCuda(torch.zeros((11, 56), dtype=torch.int64))
+    c = None
+    if comp:
+        c = knn_kernels.Completeness(_FakeCuda(torch.ones(8)),
+                                     _FakeCuda(torch.ones(11)), 0.64, 4)
+    before = knn_kernels.knn_select.launches
+    tiles_before = knn_kernels.knn_keys.launches
+    assert knn_kernels.knn_select(a, b, 5, row0=3, exclude_self=True,
+                                  comp=c) == "out"
+    assert knn_kernels.knn_select.launches == before + 1
+    assert knn_kernels.knn_keys.launches == tiles_before
+    assert calls[0][2:] == (5, 3, 11, True, c, None)
+
+
+def test_knn_select_rejects_knn_past_its_limit_on_cuda():
+    a = _FakeCuda(torch.zeros((8, 56), dtype=torch.int64))
+    with pytest.raises(ValueError, match=f"limit of {knn_kernels.MAX_KNN}"):
+        knn_kernels.knn_select(a, a, knn_kernels.MAX_KNN + 1)
+    w = torch.zeros((8, 56), dtype=torch.int64)  # the twin: no limit
+    assert knn_kernels.knn_select(w, w, knn_kernels.MAX_KNN + 1).shape == \
+        (8, knn_kernels.MAX_KNN + 1)
+
+
+def test_knn_select_limits_are_the_kernels():
+    """MAX_KNN is the one csrc/knn_scan.cu sizes its shared-memory lists
+    by; the split rule on the kernel's rows per block."""
+    src = (REPO / "sketchtpu_torch" / "csrc" / "knn_scan.cu").read_text()
+    assert f"constexpr int MAX_KNN = {knn_kernels.MAX_KNN};" in src
+    # splits: whole waves of the 264 blocks an H100 holds at once
+    splits = knn_kernels.default_splits
+    assert splits(100_000, 100_000, 64, 264) == 1  # 1563 row tiles: 6 waves
+    assert splits(264 * 64, 100_000, 64, 264) == 1
+    assert splits(2048, 100_000, 64, 264) == 8  # 32 row tiles: 256 blocks
+    assert splits(313 * 64, 100_000, 64, 264) == 5  # 1565 blocks: 6 waves
+    assert splits(3, 100_000, 64, 264) == 264
+    assert splits(3, 100, 64, 264) == 2
+    # at the largest knn a block holds 16 rows: 128 row tiles
+    assert splits(2048, 100_000, 16, 132) == splits(2048 * 4, 100_000, 64, 132)
+
+
+def test_single_k_scan_makes_one_selection_launch(monkeypatch):
+    """knn_scan hands all rows and the whole column plane to knn_select
+    once: no key tile, no torch.topk merge on its path."""
+    from sketchtpu_torch.dist import knn_torch
+
+    calls = []
+
+    def select(rows, cols, knn, **kw):
+        calls.append((rows.shape[0], cols.shape[0], knn, kw))
+        return knn_kernels.knn_select_ref(rows, cols, knn, **kw)
+
+    monkeypatch.setattr(knn_torch, "knn_select", select)
+    monkeypatch.setattr(knn_torch, "_merge", _refuse_twin)
+    g = torch.Generator().manual_seed(1)
+    w = torch.randint(-2**62, 2**62, (300, 28), generator=g)
+    sb, idx = knn_torch.knn_scan(w, w, 4, exclude_self=True)
+    assert sb.shape == idx.shape == (300, 4)
+    assert calls == [(300, 300, 4, dict(nb_real=300, exclude_self=True,
+                                        comp=None))]
 
 
 @pytest.mark.parametrize(
