@@ -5,17 +5,20 @@
 
 1. Builds the port's CUDA kernels from sketchtpu_torch/csrc.
 2. Holds every kernel against its plain PyTorch twin on the card at the
-   main path's shapes (sketch size 1000 -> s64 = 16, k = 17..29 step 2),
-   and times both with CUDA events, beside the least time the card could
-   take (bound: operations at the table rate, or bytes at 3.35 TB/s).
+   main path's shapes (sketch size 1000 -> s64 = 16, k = 17..29 step 2;
+   K1 also on the first strip of a 100,000-sample dense run, K4 also at
+   40,000 bins), and times both with CUDA events, beside the least time
+   the card could take (bound: operations at the table rate, or bytes at
+   3.35 TB/s) and the integer-issue floor of the samebits kernels.
 3. Drives the two paths through the port's CLI and checks them against
    `python -m sketchtpu.cli` on its NumPy host oracle (run as a separate
    process): the dense path (`sketch` of 8 synthetic 2 Mb assemblies, then
    dense `dist` self and ref-vs-query: -k 17, --ani, --exact, f32
    core/accessory; .skd/.skm and the exact outputs byte for byte, f32
-   core/accessory within 1e-5) and the kNN path (`dist --knn 3`, self and
-   cross, -k 17, --ani, core/accessory, each with and without completeness;
-   byte for byte).
+   core/accessory within 1e-5; the same assemblies sketched at 40,000
+   bins, where `dist -k 17` and `--exact` run on K4, byte for byte) and
+   the kNN path (`dist --knn 3`, self and cross, -k 17, --ani,
+   core/accessory, each with and without completeness; byte for byte).
 4. Dense path at scale: dense dist on 8192 samples derived from those
    sketches (33.5 M pairs).
 5. kNN path at scale: `dist -k 17 --knn 50` over 100,000 derived samples
@@ -65,13 +68,10 @@ SOURCES = {
     "nthash_bin_multi": ("sketchtpu_torch/csrc/nthash_bin.cu",
                          "sketchtpu/hash/nthash_jax.py:227"),
 }
-DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi")
+DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi", "samebits_full")
 KNN_PATH = ("knn_select", "coreacc")
 # K3's tile mode (knn_keys) is held against its twin in phase 2; no CLI path
 # calls it: the single-k scan is one selection launch (knn_select)
-# no CLI path calls K4: the JAX package calls samebits_pallas only in its
-# tests; the port's samebits engine hook (dist/api.py) reaches it only past
-# 32767 bins
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
 # the 32-bit non-tensor rate, which bounds the 32-bit integer logic and
@@ -161,7 +161,7 @@ def run(cmd, **kw) -> str:
 
 # --- phase 2: kernels against their twins ---------------------------------
 
-def derived_words(n: int, seed: int, kmers=KMERS):
+def derived_words(n: int, seed: int, kmers=KMERS, s64: int = S64):
     """(n, nk, s64*14) int64 related sketch words on the card."""
     import numpy as np
     import torch
@@ -169,15 +169,71 @@ def derived_words(n: int, seed: int, kmers=KMERS):
     from sketchtpu_torch.synth import derive_words
 
     rng = np.random.default_rng(seed)
-    parents = rng.integers(0, 2**64, (8, len(kmers), S64, 14), dtype=np.uint64)
+    parents = rng.integers(0, 2**64, (8, len(kmers), s64, 14), dtype=np.uint64)
     words = derive_words(parents, n, kmers, seed)
     return torch.from_numpy(
-        words.reshape(n, len(kmers), S64 * 14).view(np.int64)
+        words.reshape(n, len(kmers), s64 * 14).view(np.int64)
     ).cuda()
 
 
-def phase2_samebits(words, results):
-    """K1 (int16 strip, triangle skip) and K4 (int32 full matrix)."""
+# the parent design's K1 / K4 times (PERF.md's kernel table, an H100 80GB
+# HBM3 at 700 W): a 64 x 64 pair tile, 4 x 4 pairs per thread, staged
+# through registers with two barriers per chunk
+PREVIOUS_SAMEBITS = {"i": "previous design 1.1221 ms",
+                     "iii": "previous design 1.6922 ms"}
+S64_K4 = 625  # 40,000 bins: past the int16 strips, K4's only CLI regime
+
+
+def sass_counts(lib_path: Path, kernel: str) -> dict:
+    """Instruction counts of each instantiation of `kernel` in the built
+    library's SASS (cuobjdump -sass): {mangled name: Counter of opcodes
+    with their first modifier (LOP3.LUT, LDS.64, ...), and of each LOP3's
+    truth table as "LUT 0x.."}."""
+    import re
+    from collections import Counter
+
+    from sketchtpu_torch import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    text = run([str(cuobjdump), "-sass", str(lib_path)])
+    opcode = (r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+              r"([A-Z0-9_]+(?:\.[A-Z0-9_]+)?)")
+    found = {}
+    for body in text.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if kernel in name:
+            ops = Counter(re.findall(opcode, body))
+            ops.update("LUT " + lut for lut in re.findall(
+                r"LOP3\.LUT [^;]*?(0x[0-9a-f]+), !?U?PT", body))
+            found[name] = ops
+    return found
+
+
+def print_sass(lib_path: Path, kernel: str, chunks_per_loop: int) -> None:
+    """The samebits work in `kernel`'s SASS. Its logic ops are the LOP3s
+    with the tables of ~(a ^ b) (0xc3, the first plane) and acc & ~(a ^ b)
+    (0x90); per plane of the unrolled loop body, which holds
+    chunks_per_loop chunks of 14 planes."""
+    for name, ops in sass_counts(lib_path, kernel).items():
+        planes = 14 * chunks_per_loop
+        logic = ops["LUT 0xc3"] + ops["LUT 0x90"]
+        luts = sorted(((v, k) for k, v in ops.items() if k.startswith("LUT")),
+                      reverse=True)[:4]
+        total = sum(v for k, v in ops.items() if not k.startswith("LUT"))
+        print(f"phase2 SASS {name[-60:]}: {ops['LOP3.LUT']} LOP3 (tables "
+              f"{', '.join(f'{k[4:]} x{v}' for v, k in luts)}), "
+              f"{ops['LDS.64']} LDS.64, {ops['LDS']} LDS, {ops['POPC']} POPC, "
+              f"{ops['LDGSTS.E']} LDGSTS, {total} instructions; per plane of "
+              f"the loop body: {logic / planes:.1f} samebits LOP3, "
+              f"{ops['LDS.64'] / planes:.1f} LDS.64")
+
+
+def phase2_samebits(words, big, results, lib_path: Path):
+    """K1 (int16 strips, triangle skip) and K4 (int32 matrix), every entry
+    against the twin: (i) the strip of the record, 2048 x 16384 at row0
+    4096; (ii) the first strip of a 100,000-sample dense run, whose column
+    plane exceeds L2; (iii) K4 at 2048 x 16384; (iv) K4 at 40,000 bins
+    (s64 = 625), 2048 x 8192."""
     import torch
 
     from sketchtpu_torch.dist.samebits_kernels import (
@@ -186,42 +242,57 @@ def phase2_samebits(words, results):
         samebits_ref,
     )
 
-    b = words[:, 0]
-    w_bytes = b.shape[1] * 8
-    for name, label, a, fn, kw in (
-        ("samebits", "K1 int16 tri row0=4096", b[4096:6144], samebits,
-         dict(out_dtype=torch.int16, tri=True, row0=4096)),
-        ("samebits_full", "K4 int32", b[:2048], samebits_full, {}),
-    ):
+    ptx = ptxas_report(lib_path, "samebits_kernel",
+                       {"IsE": "int16", "IiE": "int32"})
+    for mode, info in sorted(ptx.items()):
+        print(f"phase2 samebits {mode} kernel: {info['registers']} registers, "
+              f"{info['spill_store_bytes']} bytes spilled")
+        check(info["spill_store_bytes"] == 0, f"samebits {mode}: spills")
+    # the loop body: the ring's RING_G = 2 chunks a stage, unrolled
+    print_sass(lib_path, "samebits_kernel", 2)
+
+    w16 = words[:, 0]
+    w625 = derived_words(8192, SEED + 3, kmers=(17,), s64=S64_K4)[:, 0]
+    cases = (
+        ("i", "samebits", w16[4096:6144], w16,
+         dict(out_dtype=torch.int16, tri=True, row0=4096), 10),
+        ("ii", "samebits", big[:2048], big,
+         dict(out_dtype=torch.int16, tri=True, row0=0), 3),
+        ("iii", "samebits_full", w16[:2048], w16, {}, 10),
+        ("iv", "samebits_full", w625[:2048], w625, {}, 3),
+    )
+    kernels = {"samebits": samebits, "samebits_full": samebits_full}
+    for label, name, a, b, kw, reps in cases:
+        fn = kernels[name]
         got = fn(a, b, **kw)
-        worst = 0
-        for r0 in (0, a.shape[0] - 256):
-            want = samebits_ref(a[r0 : r0 + 256], b,
-                                out_dtype=kw.get("out_dtype", torch.int32))
-            blk = got[r0 : r0 + 256]
-            if kw.get("tri"):
-                rows = kw["row0"] + r0 + torch.arange(256, device=b.device)
-                read = torch.arange(b.shape[0], device=b.device)[None, :] > rows[:, None]
-            else:
-                read = torch.ones_like(blk, dtype=torch.bool)
-            err = (blk[read].long() - want[read].long()).abs().max().item()
-            check(err == 0, f"{name} {label}: kernel != twin (max {err})")
-            worst = max(worst, err)
-        ms = cuda_ms(lambda: fn(a, b, **kw), reps=10)
-        plain = cuda_ms(lambda: samebits_ref(a, b, **kw), reps=2, warmup=0)
-        na, nb = a.shape[0], b.shape[0]
+        check(torch.equal(got, samebits_ref(a, b, **kw)),
+              f"{name} ({label}): kernel != twin")
+        del got
+        plain = cuda_ms(lambda: samebits_ref(a, b, **kw), reps=1, warmup=0)
+        ms = cuda_ms(lambda: fn(a, b, **kw), reps=reps)
+        na, nb, s64 = a.shape[0], b.shape[0], a.shape[1] // 14
         # the triangle skip computes only pairs with column > row
         pairs = (sum(max(0, nb - 1 - (kw["row0"] + i)) for i in range(na))
                  if kw.get("tri") else na * nb)
-        bd = bound(pairs * S64 * SB_OPS,
-                   (na + nb) * w_bytes + na * nb * got.element_size())
-        print(f"phase2 {name} {label} ({na}, {nb}): equal to twin; kernel "
-              f"{ms:.4f} ms, twin {plain:.2f} ms, bound {bd['bound_ms']:.4f} "
-              f"ms ({bd['bound_by']}), integer-issue floor "
-              f"{integer_floor_ms(pairs * S64):.4f} ms, "
+        out_bytes = 2 if kw.get("out_dtype") == torch.int16 else 4
+        bd = bound(pairs * s64 * SB_OPS,
+                   (na + nb) * a.shape[1] * 8 + na * nb * out_bytes)
+        floor = integer_floor_ms(pairs * s64)
+        prev = PREVIOUS_SAMEBITS.get(label)
+        print(f"phase2 {name} ({label}) ({na}, {nb}) s64={s64} "
+              f"{'int16' if out_bytes == 2 else 'int32'}"
+              f"{' tri row0=%d' % kw['row0'] if kw.get('tri') else ''}: "
+              f"equal to twin on every entry; kernel {ms:.4f} ms"
+              f"{' (' + prev + ')' if prev else ''}, twin {plain:.2f} ms, "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}): kernel at "
+              f"{100 * bd['bound_ms'] / ms:.1f}%; integer-issue floor "
+              f"{floor:.4f} ms: kernel at {100 * floor / ms:.1f}%; "
               f"{na * nb / ms / 1e6:.3f} G pair/s")
-        results[name] = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain,
-                             library_ms=None, **bd)
+        if label in ("i", "iii"):
+            results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                 library_ms=None, **bd)
+    del w625
+    torch.cuda.empty_cache()
 
 
 # the previous K2 design's times at these shapes (PERF.md's kernel table,
@@ -395,7 +466,7 @@ def phase2_knn_keys(words, results):
 PREVIOUS_KNN = "previous design 0.8099 ms for the key tile + 0.28 ms merge"
 
 
-def phase2_knn_select(words, results, lib_path: Path):
+def phase2_knn_select(words, big, results, lib_path: Path):
     """K3 in selection mode against its twin (the tile twin's keys merged
     by torch.topk), bit-equal: (a) 2048 rows x 8192 columns across the
     diagonal, knn 50, the shape of the previous design's tile; (b) 2048
@@ -427,7 +498,6 @@ def phase2_knn_select(words, results, lib_path: Path):
               f"and {per_sm} resident blocks per SM at knn {KNN}")
         check(info["spill_store_bytes"] == 0, f"knn_select {mode}: spills")
     plane = words[:, 0]
-    big = derived_words(N_KNN, SEED + 2, kmers=(17,))[:, 0]
     comp = torch.linspace(0.6, 1.0, plane.shape[0], device=plane.device)
     comp = comp[torch.randperm(plane.shape[0], device=plane.device)]
     w_bytes = plane.shape[1] * 8
@@ -541,14 +611,15 @@ def host_env() -> dict:
     return env
 
 
-def sketch_commands(prefix: Path, rfile: Path, rfile_q: Path):
+def sketch_commands(prefix: Path, rfile: Path, rfile_q: Path, kmers=KMERS,
+                    size: int = SKETCH_SIZE):
     p = str(prefix)
-    kmers = ",".join(map(str, KMERS))
+    kmers = ",".join(map(str, kmers))
     return [
         ["sketch", "-f", str(rfile), "-o", f"{p}db", "-k", kmers,
-         "-s", str(SKETCH_SIZE), "--quiet"],
+         "-s", str(size), "--quiet"],
         ["sketch", "-f", str(rfile_q), "-o", f"{p}q", "-k", kmers,
-         "-s", str(SKETCH_SIZE), "--quiet"],
+         "-s", str(size), "--quiet"],
     ]
 
 
@@ -694,6 +765,45 @@ def phase3_knn(cli_main, d: Path) -> None:
                       f"dist {side} {label} differs from the host oracle")
         print(f"phase3 {side}: --knn 3 -k 17, --ani, core/acc, each with "
               f"and without completeness, byte-identical")
+
+
+# 625 chunks: past the int16 strips (32,767 bins), where single-k dist and
+# --exact take the samebits engine of dist/api.py, K4
+K4_SKETCH_SIZE = 40000
+K4_KMERS = (17, 21)
+K4_MODES = {"k17": ["-k", "17"], "exact": ["--exact"]}
+
+
+def phase3_k4(cli_main, p3: Path) -> None:
+    """K4 on the CLI: phase 3's assemblies sketched at 40,000 bins, then
+    `dist -k 17` and `dist --exact`, self and ref-vs-query; .skd/.skm and
+    every output byte for byte against the host oracle."""
+    d = WORK / "p3k4"
+    d.mkdir(parents=True, exist_ok=True)
+    rfile, rfile_q = p3 / "fa" / "rfile.txt", p3 / "rfile_q.txt"
+    k4 = kernel_wrappers()["samebits_full"]
+    before = k4.launches
+    port_s, host_s = run_port_and_host(
+        cli_main,
+        sketch_commands(d / "port_", rfile, rfile_q, K4_KMERS, K4_SKETCH_SIZE)
+        + dist_commands(d / "port_", K4_MODES),
+        sketch_commands(d / "host_", rfile, rfile_q, K4_KMERS, K4_SKETCH_SIZE)
+        + dist_commands(d / "host_", K4_MODES),
+    )
+    for db in ("db", "q"):
+        for ext in (".skd", ".skm"):
+            check(same_bytes(d / f"port_{db}{ext}", d / f"host_{db}{ext}"),
+                  f"-s {K4_SKETCH_SIZE}: {db}{ext} differs from the host oracle")
+    for side in ("self", "cross"):
+        for name in K4_MODES:
+            check(same_bytes(d / f"port_{side}_{name}.txt",
+                             d / f"host_{side}_{name}.txt"),
+                  f"-s {K4_SKETCH_SIZE} dist {side} {name} differs from the "
+                  f"host oracle")
+    print(f"phase3 -s {K4_SKETCH_SIZE} -k {','.join(map(str, K4_KMERS))}: "
+          f".skd/.skm, -k 17 and --exact, self and cross, byte-identical; "
+          f"{k4.launches - before} K4 launches; {len(port_s)} commands: port "
+          f"{sum(port_s):.2f} s, host oracle {sum(host_s):.2f} s")
 
 
 # --- phase 4: a database of the size users run -----------------------------
@@ -954,11 +1064,12 @@ def main() -> int:
 
         results: dict[str, dict] = {}
         words = derived_words(16384, SEED)
-        phase2_samebits(words, results)
+        big = derived_words(N_KNN, SEED + 2, kmers=(17,))[:, 0]
+        phase2_samebits(words, big, results, lib_path)
         phase2_coreacc(words, results, lib_path)
         phase2_knn_keys(words, results)
-        phase2_knn_select(words, results, lib_path)
-        del words
+        phase2_knn_select(words, big, results, lib_path)
+        del words, big
         phase2_nthash(results)
         torch.cuda.empty_cache()
 
@@ -978,10 +1089,12 @@ def main() -> int:
             return got, out
 
         t0 = time.time()
-        dense, (p3, _) = counted(
+        dense, (p3, _, _) = counted(
             "dense", DENSE_PATH, lambda: phase3_dense(cli_main),
+            lambda: phase3_k4(cli_main, WORK / "p3"),
             lambda: phase4(cli_main, WORK / "p3" / "port_db", smi))
-        print(f"dense path phases 3-4: {time.time() - t0:.1f} s")
+        print(f"dense path phases 3 (with the 40,000-bin K4 runs) and 4: "
+              f"{time.time() - t0:.1f} s")
         t0 = time.time()
         knn, (_, p5) = counted(
             "kNN", KNN_PATH, lambda: phase3_knn(cli_main, p3),

@@ -1,18 +1,30 @@
-// K1: exact samebits strips, the port of sketchtpu/dist/pallas_kernels.py
-// samebits_strip_fused (kernel _samebits_strip_kernel).
+// K1 and K4: exact samebits, the port of sketchtpu/dist/pallas_kernels.py
+// samebits_strip_fused (K1, kernel _samebits_strip_kernel) and
+// samebits_pallas (K4, the same function with int32 output and no
+// triangle).
 //
 // out[i][j] = sum_c popcount(AND_p ~(a[i][c][p] ^ b[j][c][p])) as int16 (the
 // dense-stream strips; exact since samebits <= s64*64 <= 32767) or int32
-// (the all-pairs matrix the host distance functions call). With tri, tiles
-// wholly at or below the diagonal (global row = row0 + i) are written as
-// zeros without computing them.
+// (the all-pairs matrix the host distance functions call). With tri (global
+// row = row0 + i), pairs with column <= row are zero: tiles wholly at or
+// below the diagonal are written as zeros without computing them, and the
+// diagonal tiles zero those pairs in the epilogue.
 //
-// Bound: integer ALU. Each pair costs s64 * BBITS * (xor + and) on 64-bit
-// words plus s64 popcounts, against (na + nb) * s64 * BBITS * 8 bytes read
-// per tile row/column (the column matrix of a main-path strip fits in L2).
-// Design: a 64 x 64 pair tile per 256-thread block, 4 x 4 pairs per thread
-// in registers, one chunk of both operands staged through shared memory at
-// a time; each staged word feeds 4 pairs.
+// Bound: integer issue. A pair costs s64 * BBITS * 2 LOP3 (one per 32-bit
+// word and plane: acc & ~(a ^ b) is one three-input logic op) plus 2
+// popcounts per chunk, against (na + nb) * s64 * BBITS * 8 bytes read.
+// Design:
+// - a 64 x 64 pair tile per 256-thread block, 4 x 4 pairs per thread in
+//   registers (8 x 4 and 4 x 8 spill under the two-blocks-per-SM register
+//   cap and ran no faster);
+// - both operands staged through the two-stage cp.async ring of tile.cuh,
+//   RING_G chunks per barrier with the next stage in flight, any s64 (a
+//   missing chunk of the last stage is neither copied nor computed); each
+//   warp stages 8 rows of both operands, which measured ~2 % faster than
+//   ring_role's one operand per warp;
+// - a 1-D grid with row tiles fastest: the blocks resident together read
+//   the same few column tiles, so a strip whose rows fit L2 reads its
+//   column plane from device memory once, however wide it is.
 #include "tile.cuh"
 
 using namespace stpu;
@@ -22,39 +34,134 @@ namespace {
 constexpr int TX = 16, TY = 16;  // threads
 constexpr int RM = 4, RN = 4;    // pairs per thread
 constexpr int TI = TY * RM, TJ = TX * RN, NT = TX * TY;
-constexpr int LDS_A = TI + 1, LDS_B = TJ + 1;  // +1 word: fewer bank clashes
+constexpr int LDS = RING_LDS;
+constexpr int RING_BYTES = 2 * RING_OPERAND * 8;
+// rows of each operand that one warp stages
+constexpr int WARP_ROWS = TI / (NT / 32);
+static_assert(TI == RING_ROWS && TJ == RING_ROWS,
+              "the ring stages 64 rows of each operand");
+
+// One staged chunk of the samebits count for the thread's RM x RN pairs:
+// rows ty + i*TY of sa, columns tx + j*TX of sb ([plane][row], pitch LDS).
+__device__ __forceinline__ void chunk_count(int (&cnt)[RM][RN],
+                                            const u64* __restrict__ sa,
+                                            const u64* __restrict__ sb,
+                                            int ty, int tx) {
+  u64 acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = ~0ull;
+#pragma unroll
+  for (int p = 0; p < BBITS; ++p) {
+    u64 bv[RN];
+#pragma unroll
+    for (int j = 0; j < RN; ++j) bv[j] = sb[p * LDS + tx + j * TX];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const u64 av = sa[p * LDS + ty + i * TY];
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] &= ~(av ^ bv[j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) cnt[i][j] += __popcll(acc[i][j]);
+}
 
 template <typename OutT>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
     samebits_kernel(const u64* __restrict__ a, long long lda,
                     const u64* __restrict__ b, long long ldb,
                     OutT* __restrict__ out, long long ldo, int na, int nb,
                     int s64, int tri, long long row0) {
-  __shared__ u64 sa[BBITS][LDS_A];
-  __shared__ u64 sb[BBITS][LDS_B];
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* sA = reinterpret_cast<u64*>(smem);
+  u64* sB = sA + RING_OPERAND;
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+
+  const int nrt = (na + TI - 1) / TI;  // row tiles run fastest
+  const int i0 = (int)(blockIdx.x % nrt) * TI;
+  const int j0 = (int)(blockIdx.x / nrt) * TJ;
 
   int cnt[RM][RN] = {};
-  const bool skip = tri && tile_below_diagonal(i0, j0, TJ, nb, row0);
-  if (!skip) {
-    for (int c = 0; c < s64; ++c) {
-      stage_chunk<TI, LDS_A>(sa, a, lda, (long long)c * BBITS, i0, na);
-      stage_chunk<TJ, LDS_B>(sb, b, ldb, (long long)c * BBITS, j0, nb);
-      __syncthreads();
-      samebits_chunk<RM, RN, TY, TX, LDS_A, LDS_B>(cnt, sa, sb, ty, tx);
-      __syncthreads();
+  if (!(tri && tile_below_diagonal(i0, j0, TJ, nb, row0))) {
+    // lane < 28 copies plane lane % 14 of every other one of its warp's
+    // WARP_ROWS rows of each operand
+    const int warp = tid / 32, lane = tid % 32;
+    const bool stager = lane < 2 * BBITS;
+    const int plane = lane % BBITS;
+    const int row = warp * WARP_ROWS + lane / BBITS;
+    const u64* a_src = a + (long long)(i0 + row) * lda + plane;
+    const u64* b_src = b + (long long)(j0 + row) * ldb + plane;
+    u64* a_dst = sA + plane * LDS + row;
+    u64* b_dst = sB + plane * LDS + row;
+    const int nstage = (s64 + RING_G - 1) / RING_G;
+    auto load_stage = [&](int s) {
+      if (!stager) return;
+      const int buf = s % RING_STAGES;
+#pragma unroll
+      for (int g = 0; g < RING_G; ++g) {
+        const int c = s * RING_G + g;
+        if (c >= s64) break;
+        const long long off = (long long)c * BBITS;
+        const int at = (buf * RING_G + g) * RING_CHUNK;
+        ring_copy<WARP_ROWS / 2>(a_dst + at, a_src + off, lda, na - i0 - row,
+                                 a);
+        ring_copy<WARP_ROWS / 2>(b_dst + at, b_src + off, ldb, nb - j0 - row,
+                                 b);
+      }
+    };
+
+    load_stage(0);
+    cp_async_commit();
+    for (int s = 0; s < nstage; ++s) {
+      cp_async_wait_all();
+      __syncthreads();  // stage s is in; everyone is done with stage s - 1
+      if (s + 1 < nstage) load_stage(s + 1);
+      cp_async_commit();
+      const int buf = s % RING_STAGES;
+#pragma unroll
+      for (int g = 0; g < RING_G; ++g) {
+        if (s * RING_G + g < s64) {
+          const int at = (buf * RING_G + g) * RING_CHUNK;
+          chunk_count(cnt, sA + at, sB + at, ty, tx);
+        }
+      }
     }
   }
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int gi = i0 + ty + i * TY;
+    if (gi >= na) continue;
+    const long long diag = row0 + gi;  // tri: columns <= diag are zero
 #pragma unroll
     for (int j = 0; j < RN; ++j) {
       const int gj = j0 + tx + j * TX;
-      if (gi < na && gj < nb) out[(long long)gi * ldo + gj] = (OutT)cnt[i][j];
+      if (gj < nb) {
+        out[(long long)gi * ldo + gj] =
+            (OutT)(tri && gj <= diag ? 0 : cnt[i][j]);
+      }
     }
   }
+}
+
+template <typename OutT>
+cudaError_t launch(const u64* a, long long lda, const u64* b, long long ldb,
+                   OutT* out, long long ldo, int na, int nb, int s64,
+                   int tri, long long row0, cudaStream_t st) {
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      samebits_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      RING_BYTES);
+  if (configured != cudaSuccess) return configured;
+  const long long blocks =
+      (long long)((na + TI - 1) / TI) * ((nb + TJ - 1) / TJ);
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  samebits_kernel<OutT><<<(unsigned)blocks, NT, RING_BYTES, st>>>(
+      a, lda, b, ldb, out, ldo, na, nb, s64, tri, row0);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -63,22 +170,18 @@ extern "C" int stpu_samebits(const void* a, long long lda, const void* b,
                              long long ldb, void* out, long long ldo, int na,
                              int nb, int s64, int out_bytes, int tri,
                              long long row0, void* stream) {
-  const dim3 grid((nb + TJ - 1) / TJ, (na + TI - 1) / TI);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const u64* pa = static_cast<const u64*>(a);
   const u64* pb = static_cast<const u64*>(b);
+  cudaError_t err = cudaErrorInvalidValue;
   if (out_bytes == 2) {
-    samebits_kernel<short><<<grid, NT, 0, st>>>(
-        pa, lda, pb, ldb, static_cast<short*>(out), ldo, na, nb, s64, tri,
-        row0);
+    err = launch(pa, lda, pb, ldb, static_cast<short*>(out), ldo, na, nb, s64,
+                 tri, row0, st);
   } else if (out_bytes == 4) {
-    samebits_kernel<int><<<grid, NT, 0, st>>>(pa, lda, pb, ldb,
-                                              static_cast<int*>(out), ldo, na,
-                                              nb, s64, tri, row0);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = launch(pa, lda, pb, ldb, static_cast<int*>(out), ldo, na, nb, s64,
+                 tri, row0, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" const char* stpu_error_string(int err) {

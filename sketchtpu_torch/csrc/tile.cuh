@@ -14,24 +14,6 @@ namespace stpu {
 constexpr int BBITS = 14;
 typedef unsigned long long u64;
 
-// Stage one chunk (BBITS plane words) of ROWS tile rows, starting at global
-// row r0, into s[plane][row]. Neighbouring threads read neighbouring words
-// of a row (coalesced); the transposed store lets the compute loop read a
-// plane of neighbouring rows. Rows past nrows stage as zero (their results
-// are never written).
-template <int ROWS, int LD>
-__device__ __forceinline__ void stage_chunk(u64 (*s)[LD],
-                                            const u64* __restrict__ src,
-                                            long long ld, long long off,
-                                            int r0, int nrows) {
-  for (int e = threadIdx.x; e < ROWS * BBITS; e += blockDim.x) {
-    const int r = e / BBITS;
-    const int p = e - r * BBITS;
-    const int g = r0 + r;
-    s[p][r] = g < nrows ? src[(long long)g * ld + off + p] : 0ull;
-  }
-}
-
 // One chunk of the samebits count for the thread's RM x RN pairs: rows
 // ty + i*TY of sa, columns tx + j*TX of sb.
 template <int RM, int RN, int TY, int TX, int LDA, int LDB>
@@ -62,7 +44,7 @@ __device__ __forceinline__ void samebits_chunk(int (&cnt)[RM][RN],
     for (int j = 0; j < RN; ++j) cnt[i][j] += __popcll(acc[i][j]);
 }
 
-// --- the two-stage cp.async ring of coreacc.cu and knn_scan.cu ---
+// --- the two-stage cp.async ring of the samebits-based kernels ---
 //
 // A 256-thread block stages RING_G chunks of two 64-row operands per stage
 // into a ring of RING_STAGES stages with 8-byte cp.async, transposed to
@@ -115,14 +97,16 @@ __device__ __forceinline__ u64* ring_slot(u64* operand, const RingRole& role,
          role.row;
 }
 
-// A thread's eight copies of one chunk: src points at its plane word of its
-// first row, rows_left counts the operand's rows from that row on; a row
-// past them is zero-filled (the copy then reads nothing, from `safe`).
+// A thread's COPIES copies of one chunk, rows row, row + 2, ... (eight for
+// ring_role's 16 rows a warp): src points at its plane word of its first
+// row, rows_left counts the operand's rows from that row on; a row past
+// them is zero-filled (the copy then reads nothing, from `safe`).
+template <int COPIES = 8>
 __device__ __forceinline__ void ring_copy(u64* dst, const u64* src,
                                           long long ld, int rows_left,
                                           const u64* safe) {
 #pragma unroll
-  for (int it = 0; it < 8; ++it) {
+  for (int it = 0; it < COPIES; ++it) {
     const bool ok = 2 * it < rows_left;
     cp_async8(dst + 2 * it, ok ? src + 2 * it * ld : safe, ok);
   }

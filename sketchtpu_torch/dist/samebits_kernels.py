@@ -16,8 +16,6 @@ import torch
 from .. import _build
 from ..constants import BBITS
 
-_MAX_GRID_Y = 65535
-_TI = 64  # rows per block of samebits.cu
 INT16_MAX_BINS = 32767
 # twin working set: elements of one broadcast (rows, cols, s64) temporary
 _REF_ELEMS = 1 << 24
@@ -106,8 +104,8 @@ def samebits(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.int32,
 
     out_dtype int16 writes the dense-stream strips (exact up to 32767
     bins), int32 the all-pairs matrix. tri (rows globally at row0 + i)
-    computes only what pairs with column > row need; other entries are
-    zero. CUDA tensors launch the kernel, CPU tensors run the twin."""
+    computes only the pairs with column > row; the others are zero. CUDA
+    tensors launch the kernel, CPU tensors run the twin."""
     _check_words("a", a, 2)
     _check_words("b", b, 2)
     if a.shape[1] != b.shape[1] or a.device != b.device:
@@ -160,8 +158,6 @@ samebits_full.launches = 0
 def _launch_samebits(a, b, out_dtype, tri, row0) -> torch.Tensor:
     na, w = a.shape
     nb = b.shape[0]
-    if na > _MAX_GRID_Y * _TI:
-        raise ValueError(f"samebits: {na} rows exceed one launch")
     out = torch.empty((na, nb), dtype=out_dtype, device=a.device)
     err = _build.lib().stpu_samebits(
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),

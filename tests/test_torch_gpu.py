@@ -85,13 +85,70 @@ def test_samebits_kernel_matches_twin(cuda, na, nb, s64, dtype):
 
 @pytest.mark.parametrize("row0", [0, 37, 64, 250, 1000])
 def test_samebits_tri_matches_twin_above_diagonal(cuda, row0):
+    """Every entry: counts above the diagonal, zeros at and below it."""
     w = _words(300, 16, 2, cuda)[:, 0]
     a = w[: 100]
     got = samebits(a, w, out_dtype=torch.int16, tri=True, row0=row0)
-    want = samebits_ref(a, w, out_dtype=torch.int16)
+    want = samebits_ref(a, w, out_dtype=torch.int16, tri=True, row0=row0)
+    assert torch.equal(got, want)
     upper = (torch.arange(300, device=cuda)[None, :]
              > row0 + torch.arange(100, device=cuda)[:, None])
-    assert torch.equal(got[upper], want[upper])
+    assert torch.equal(got[upper], samebits_ref(a, w, out_dtype=torch.int16)[upper])
+
+
+# the pair tile of samebits.cu: 64 rows x 64 columns, 16 x 16 threads
+_SB_TI, _SB_TJ = 64, 64
+
+
+# one below, at and one past the block tile in each dimension, and more
+@pytest.mark.parametrize("na", [1, _SB_TI - 1, _SB_TI, _SB_TI + 1,
+                                2 * _SB_TI + 3])
+@pytest.mark.parametrize("nb", [1, _SB_TJ - 1, _SB_TJ, _SB_TJ + 1,
+                                3 * _SB_TJ - 5])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_samebits_kernel_at_tile_edges(cuda, na, nb, dtype):
+    w = _words(max(na, nb), 3, 11, cuda)
+    a, b = w[:na, 0], w[:nb, 3]
+    got = samebits(a, b, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, samebits_ref(a, b, out_dtype=dtype))
+
+
+# s64 1 and 3 (and 625) leave the last stage of the two-chunk ring half
+# empty; 625 chunks are 40,000 bins, past int16 (K4 only there)
+@pytest.mark.parametrize("s64,kernel", [
+    (s64, kernel) for s64 in (1, 2, 3, 16, 625)
+    for kernel in ("K1 int16", "K1 int32", "K4")
+    if not (kernel == "K1 int16" and s64 * 64 > 32767)
+])
+def test_samebits_kernels_across_s64_on_strided_planes(cuda, s64, kernel):
+    w = _words(200, s64, 20 + s64, cuda)
+    a, b = w[3:150, 1], w[:, 2]  # k-planes read through their row stride
+    if kernel == "K4":
+        got, want = samebits_full(a, b), samebits_ref(a, b)
+    else:
+        dtype = torch.int16 if kernel == "K1 int16" else torch.int32
+        got = samebits(a, b, out_dtype=dtype)
+        want = samebits_ref(a, b, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+# row0 on warp-tile (16) and block-tile (64) boundaries and off them;
+# row0 >= nb skips every block
+@pytest.mark.parametrize("row0", [0, 15, 16, 63, 64, 65, 127, 128, 129, 191,
+                                  299, 300, 5000])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_samebits_tri_every_entry(cuda, row0, dtype):
+    w = _words(300, 5, 7, cuda)
+    a = w[40:240, 1]
+    got = samebits(a, w[:, 1], out_dtype=dtype, tri=True, row0=row0)
+    torch.cuda.synchronize()
+    want = samebits_ref(a, w[:, 1], out_dtype=dtype, tri=True, row0=row0)
+    assert torch.equal(got, want)
+    if row0 >= 300:
+        assert not got.any()
 
 
 def _kwords(n, kmers, s64, seed, device):

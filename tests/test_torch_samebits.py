@@ -116,3 +116,36 @@ def test_twin_tiles_columns_exactly(monkeypatch):
     want = samebits_ref(_t(a), _t(b)).numpy()
     monkeypatch.setattr(sk, "_REF_ELEMS", 9 * 4 * 5)
     np.testing.assert_array_equal(samebits_ref(_t(a), _t(b)).numpy(), want)
+
+
+@pytest.mark.parametrize("fn", ["samebits", "samebits_full"])
+def test_twin_at_625_chunks_matches_xla_and_oracle(fn):
+    """40,000 bins (s64 = 625, past the int16 strips: the only width at
+    which a CLI run reaches K4): the twin against the XLA tile and the
+    NumPy oracle."""
+    from sketchtpu_torch.dist.samebits_kernels import samebits_full
+
+    s64 = 625
+    a, b = _words(7, s64, 21), _words(11, s64, 22)
+    b[:2] = a[:2]  # identical pairs: samebits == 40,000
+    got = (samebits_full(_t(a), _t(b)) if fn == "samebits_full"
+           else samebits(_t(a), _t(b), out_dtype=torch.int32))
+    want = samebits_matrix(a, b)
+    assert want[0, 0] == s64 * 64
+    np.testing.assert_array_equal(got.numpy(), want)
+    xla = np.asarray(_samebits_tile(jnp.asarray(a.view(np.uint32)),
+                                    jnp.asarray(b.view(np.uint32)), s64))
+    np.testing.assert_array_equal(got.numpy(), xla)
+
+
+@pytest.mark.parametrize("row0", [0, 3, 30, 100])
+def test_twin_tri_zeroes_every_pair_at_or_below_the_diagonal(row0):
+    """tri: the oracle's counts where column > row0 + row, zero elsewhere
+    (the kernel's contract on every entry)."""
+    a, b = _words(24, 2, 31), _words(60, 2, 32)
+    got = samebits(_t(a), _t(b), out_dtype=torch.int16, tri=True,
+                   row0=row0).numpy()
+    upper = np.arange(60)[None, :] > row0 + np.arange(24)[:, None]
+    want = np.where(upper, samebits_matrix(a, b), 0).astype(np.int16)
+    np.testing.assert_array_equal(got, want)
+
