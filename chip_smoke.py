@@ -21,11 +21,28 @@
    core/accessory, each with and without completeness; byte for byte).
 4. Dense path at scale: dense dist on 8192 samples derived from those
    sketches (33.5 M pairs).
+   The kNN path also runs `dist -k 17 --knn 1025` on 1100 derived samples
+   (past K3's selection limit: its tile keys and the top-k merge), byte
+   for byte. The reads + inverted path: `sketch` of synthetic FASTQ (a
+   500 kb genome at 10x, single and paired files), alone and mixed with
+   the 8 assemblies, at --min-count 1, 2, 3; `inverted build` (-s 100 and
+   the default -s 1000 with --species-names and --metadata), `info` on the
+   .ski, `inverted query` of every --query-type, `precluster --count`,
+   `precluster --skd --knn 3` (-k 17, --ani, completeness, --retain-
+   unmatched singleton and bruteforce, --core-acc), every output byte for
+   byte against the host oracle, and one `inverted serve` round.
 5. kNN path at scale: `dist -k 17 --knn 50` over 100,000 derived samples
    (one K3 selection launch; its profile must hold no top-k, sort or
    concatenation kernel) and core/accessory `dist --knn 50` over the first
    50,000, with the selection and values of 512 random rows checked
    against full rows.
+6. Reads and the inverted index at the sizes users run: 2 read samples of
+   50 Mb each (a 2 Mb genome at 25x) at 7 k and --min-count 5; an index
+   of 661,000 samples at S = 100, k = 17 (the reference's published
+   `precluster --count` size), with `info`, `precluster --count` and the 8
+   assemblies queried; `precluster --skd --knn 50` over phase 5's 100,000
+   samples and --core-acc over its first 50,000, 512 rows of each against
+   the host oracle.
 
 Each path's kernel launches are counted from 0 over its phases; the run
 fails if a kernel of a path was never launched there. Any failure exits
@@ -35,6 +52,7 @@ last one {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -55,6 +73,12 @@ N_KNN_CA = 50_000  # phase 5: core/accessory kNN samples (the first ones)
 KNN = 50
 CHECK_ROWS = 512
 SEED = 20261016
+N_INDEX = 661_000  # phase 6: samples of the derived index
+INDEX_SIZE, INDEX_K = 100, 17
+N_CLUSTERS = 2_000  # independent clusters of its signs
+READS_GENOME, READS_COVERAGE = 2_000_000, 25
+READS_ORACLE_KMERS = (17, 29)  # the host oracle's k at 50 Mb of reads
+THREADS = "8"
 
 SOURCES = {
     "samebits": ("sketchtpu_torch/csrc/samebits.cu",
@@ -67,11 +91,29 @@ SOURCES = {
                       "sketchtpu/dist/pallas_kernels.py:265"),
     "nthash_bin_multi": ("sketchtpu_torch/csrc/nthash_bin.cu",
                          "sketchtpu/hash/nthash_jax.py:227"),
+    "knn_keys": ("sketchtpu_torch/csrc/knn_scan.cu",
+                 "sketchtpu/dist/pallas_kernels.py:47"),
+    "nthash_signs": ("sketchtpu_torch/csrc/nthash_bin.cu",
+                     "sketchtpu/hash/nthash_jax.py:336"),
+    "signeq_count": ("sketchtpu_torch/csrc/signeq.cu",
+                     "sketchtpu/inverted/device.py:134"),
+    "signeq_any": ("sketchtpu_torch/csrc/signeq.cu",
+                   "sketchtpu/inverted/device.py:134"),
+    "signeq_all": ("sketchtpu_torch/csrc/signeq.cu",
+                   "sketchtpu/inverted/device.py:134"),
+    "pair_count": ("sketchtpu_torch/csrc/signeq.cu",
+                   "sketchtpu/inverted/device.py:32"),
+    "knn_select_masked": ("sketchtpu_torch/csrc/knn_scan.cu",
+                          "sketchtpu/dist/pallas_kernels.py:47"),
+    "coreacc_keys_masked": ("sketchtpu_torch/csrc/coreacc.cu",
+                            "sketchtpu/dist/coreacc_pallas.py:100"),
 }
 DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi", "samebits_full")
-KNN_PATH = ("knn_select", "coreacc")
-# K3's tile mode (knn_keys) is held against its twin in phase 2; no CLI path
-# calls it: the single-k scan is one selection launch (knn_select)
+# knn_keys: K3's tile mode, the route of `dist --knn` past MAX_KNN = 1024
+KNN_PATH = ("knn_select", "coreacc", "knn_keys")
+INVERTED_PATH = ("nthash_signs", "nthash_bin_multi", "signeq_count",
+                 "signeq_any", "signeq_all", "pair_count",
+                 "knn_select_masked", "coreacc_keys_masked")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
 # the 32-bit non-tensor rate, which bounds the 32-bit integer logic and
@@ -106,27 +148,81 @@ def bound(ops: float, nbytes: float) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+class Count:
+    """A kernel's launch count, kept by its wrapper: the wrapper's attribute
+    `attr`, or one mode's entry `key` of a dict attribute."""
+
+    def __init__(self, fn, attr: str = "launches", key: str | None = None):
+        self.fn, self.attr, self.key = fn, attr, key
+
+    @property
+    def launches(self) -> int:
+        v = getattr(self.fn, self.attr)
+        return v[self.key] if self.key is not None else v
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        if self.key is None:
+            setattr(self.fn, self.attr, value)
+        else:
+            getattr(self.fn, self.attr)[self.key] = value
+
+
 def kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port by name; each counts its launches."""
+    """Every kernel (and kernel mode) of the port by name, with the launch
+    count its wrapper keeps."""
     from sketchtpu_torch.dist.coreacc_kernels import coreacc
     from sketchtpu_torch.dist.knn_kernels import knn_keys, knn_select
     from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_full
-    from sketchtpu_torch.hash.nthash_torch import nthash_bin_multi
+    from sketchtpu_torch.hash.nthash_torch import nthash_bin_multi, nthash_signs
+    from sketchtpu_torch.inverted.device import pair_count, signeq
 
-    return {"samebits": samebits, "coreacc": coreacc, "knn_keys": knn_keys,
-            "knn_select": knn_select, "samebits_full": samebits_full,
-            "nthash_bin_multi": nthash_bin_multi}
+    return {"samebits": Count(samebits), "coreacc": Count(coreacc),
+            "knn_keys": Count(knn_keys), "knn_select": Count(knn_select),
+            "samebits_full": Count(samebits_full),
+            "nthash_bin_multi": Count(nthash_bin_multi),
+            "nthash_signs": Count(nthash_signs),
+            "signeq_count": Count(signeq, "mode_launches", "count"),
+            "signeq_any": Count(signeq, "mode_launches", "any"),
+            "signeq_all": Count(signeq, "mode_launches", "all"),
+            "pair_count": Count(pair_count),
+            "knn_select_masked": Count(knn_select, "masked_launches"),
+            "coreacc_keys_masked": Count(coreacc, "masked_launches")}
 
 
-def timed_cli(cli_main, argv, what: str) -> float:
-    """Wall seconds of one CLI run; prints the kernel launches it made."""
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (a kernel held against its twin, a reference
+    number) are taken out of every count again: the counts keep only the
+    CLI's own."""
+    wrappers = kernel_wrappers()
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    try:
+        yield
+    finally:
+        for k, fn in wrappers.items():
+            fn.launches = before[k]
+
+
+def timed_cli(cli_main, argv, what: str, stdout: Path | None = None,
+              expect=()) -> float:
+    """Wall seconds of one CLI run (its stdout in `stdout` when given);
+    prints the kernel launches it made and fails if one of `expect` made
+    none."""
     before = {k: fn.launches for k, fn in kernel_wrappers().items()}
-    t0 = time.time()
-    check(cli_main(argv) == 0, f"{what} failed")
-    wall = time.time() - t0
+    with contextlib.ExitStack() as stack:
+        if stdout is not None:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(stdout, "w"))))
+        t0 = time.time()
+        rc = cli_main(argv)
+        wall = time.time() - t0
+    check(rc == 0, f"{what} failed")
     made = {k: fn.launches - before[k] for k, fn in kernel_wrappers().items()}
     print(f"{what}: launches of this one run "
           f"{ {k: v for k, v in made.items() if v} }")
+    for name in expect:
+        check(made[name] > 0, f"{what} did not launch {name}")
     return wall
 
 
@@ -349,10 +445,12 @@ def phase2_coreacc(words, results, lib_path: Path):
     )
 
     ptx = ptxas_report(lib_path, "coreacc_kernel",
-                       {"ILb1E": "keys", "ILb0E": "plain"})
+                       {"ILb1ELb0E": "keys", "ILb0ELb0E": "plain",
+                        "ILb1ELb1E": "keys masked"})
     lib = _build.lib()
     for mode, info in sorted(ptx.items()):
-        info["blocks_per_sm"] = lib.stpu_coreacc_blocks_per_sm(int(mode == "keys"))
+        info["blocks_per_sm"] = lib.stpu_coreacc_blocks_per_sm(
+            {"plain": 0, "keys": 1, "keys masked": 2}[mode])
         print(f"phase2 coreacc {mode} kernel: {info['registers']} registers, "
               f"{info['spill_store_bytes']} bytes spilled, "
               f"{info['blocks_per_sm']} resident 256-thread blocks per SM")
@@ -461,6 +559,15 @@ def phase2_knn_keys(words, results):
               f"{na * nb / ms / 1e6:.3f} G pair/s")
 
 
+# K3's instantiations <key type, completeness, sign mask> by a piece of
+# their mangled names
+KNN_MODES_MANGLED = {
+    "IiLb0ELb0E": "int32", "IxLb0ELb0E": "int64",
+    "IxLb1ELb0E": "int64 completeness", "IiLb0ELb1E": "int32 masked",
+    "IxLb0ELb1E": "int64 masked", "IxLb1ELb1E": "int64 completeness masked",
+}
+
+
 # the previous K3 design at shape (a) (PERF.md's kernel table, an H100 80GB
 # HBM3 at 700 W): every key of the tile written, then torch.cat + torch.topk
 PREVIOUS_KNN = "previous design 0.8099 ms for the key tile + 0.28 ms merge"
@@ -485,17 +592,16 @@ def phase2_knn_select(words, big, results, lib_path: Path):
     )
 
     lib = _build.lib()
-    ptx = ptxas_report(lib_path, "knn_select_kernel",
-                       {"IiLb0E": "int32", "IxLb0E": "int64",
-                        "IxLb1E": "int64 completeness"})
+    ptx = ptxas_report(lib_path, "knn_select_kernel", KNN_MODES_MANGLED)
     for mode, info in sorted(ptx.items()):
-        key_bytes = 4 if mode == "int32" else 8
-        per_sm = lib.stpu_knn_select_blocks_per_sm(KNN, key_bytes,
-                                                   int("comp" in mode))
+        key_bytes = 4 if mode.startswith("int32") else 8
+        mask = int("masked" in mode)
+        per_sm = lib.stpu_knn_select_blocks_per_sm(
+            KNN, key_bytes, int("comp" in mode), mask)
         print(f"phase2 knn_select {mode} kernel: {info['registers']} "
               f"registers, {info['spill_store_bytes']} bytes spilled, "
-              f"{lib.stpu_knn_select_rows(KNN, key_bytes)} rows per block "
-              f"and {per_sm} resident blocks per SM at knn {KNN}")
+              f"{lib.stpu_knn_select_rows(KNN, key_bytes, mask)} rows per "
+              f"block and {per_sm} resident blocks per SM at knn {KNN}")
         check(info["spill_store_bytes"] == 0, f"knn_select {mode}: spills")
     plane = words[:, 0]
     comp = torch.linspace(0.6, 1.0, plane.shape[0], device=plane.device)
@@ -522,9 +628,10 @@ def phase2_knn_select(words, big, results, lib_path: Path):
                    (na + nb) * w_bytes + na * KNN * got.element_size())
         floor = integer_floor_ms(na * nb * S64)
         slots = SMS * lib.stpu_knn_select_blocks_per_sm(
-            KNN, got.element_size(), int(c is not None))
+            KNN, got.element_size(), int(c is not None), 0)
         splits = default_splits(
-            na, nb, lib.stpu_knn_select_rows(KNN, got.element_size()), slots)
+            na, nb, lib.stpu_knn_select_rows(KNN, got.element_size(), 0),
+            slots)
         check(splits == 1 or label != "e", f"knn_select (e): {splits} splits")
         print(f"phase2 knn_select ({label}) ({na}, {nb}) knn {KNN} "
               f"{got.dtype}, {splits} column split(s) for {slots} resident "
@@ -593,6 +700,354 @@ def phase2_nthash(results):
                                        library_ms=None, **bd)
 
 
+# --- phase 2, this slice's kernel pieces ------------------------------------
+
+# 32-bit operations per window and k of the signs mode: ROLL_OPS without
+# the bin's multiply-high, its shift and the compare with the bin's minimum
+SIGN_OPS = ROLL_OPS - 12
+
+
+def reads_stream(n: int, seed: int, read_len: int = 150):
+    """A DnaStream of n bases cut like reads: a break at every read end and
+    an N run (a break) about every 400 bases."""
+    import numpy as np
+
+    from sketchtpu_torch.ingest.fastx import DnaStream
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    breaks = np.unique(np.concatenate([
+        np.arange(read_len, n + 1, read_len), rng.integers(1, n, n // 400),
+        [n]]))
+    return DnaStream(codes=codes, breaks=breaks.astype(np.int64), reads=True)
+
+
+def phase2_nthash_signs(results):
+    """The signs mode against its twin, bit for bit: reads (a break at
+    every read end, N runs), an assembly, k in {1, 17, 31, 64, 4097} alone,
+    7 k at the reads path's chunk (timed), and 129 k split into two
+    launches in each mode."""
+    import torch
+
+    from sketchtpu_torch.hash.nthash_torch import (
+        nthash_bin_multi,
+        nthash_bin_multi_ref,
+        nthash_signs,
+        nthash_signs_ref,
+        pack_group,
+    )
+    from sketchtpu_torch.sketchcore.sketch_torch import _READ_CHUNK_SIGNS
+    from sketchtpu_torch.synth import random_streams
+
+    reads = torch.from_numpy(pack_group([reads_stream(2_000_000, SEED)])[0]).cuda()
+    asm = torch.from_numpy(pack_group(random_streams(
+        [3_000_000], SEED, breaks_per_mb=20))[0]).cuda()
+    for k in (1, 17, 31, 64, 4097):
+        for name, seq in (("reads", reads), ("assembly", asm)):
+            got = nthash_signs(seq, [k], True)
+            check(torch.equal(got, nthash_signs_ref(seq, [k], True,
+                                                    got.shape[1])),
+                  f"nthash_signs k={k} {name}: kernel != twin")
+            valid = int((got != -1).sum())
+            check(valid > 0 or (name == "reads" and k > 150),
+                  f"nthash_signs k={k} {name}: no valid window")
+        print(f"phase2 nthash_signs k={k}: reads and assembly bit-equal to "
+              f"twin on every window start")
+    kmers = list(range(3, 132))
+    starts = torch.zeros(1, dtype=torch.int64, device="cuda")
+    part = asm[:200_000]
+    before = (nthash_signs.launches, nthash_bin_multi.launches)
+    got = nthash_signs(part, kmers[::-1], True)
+    check(torch.equal(got, nthash_signs_ref(part, kmers[::-1], True,
+                                            got.shape[1])),
+          "nthash_signs 129 k: kernel != twin")
+    got = nthash_bin_multi(part, kmers, True, starts, 1024)
+    check(torch.equal(got, nthash_bin_multi_ref(part, kmers, True, starts,
+                                                1024)),
+          "nthash_bin_multi 129 k: kernel != twin")
+    check((nthash_signs.launches - before[0],
+           nthash_bin_multi.launches - before[1]) == (2, 2),
+          "129 k: not two launches of each mode")
+    print("phase2 129 k (3..131): two launches of each mode, bit-equal to "
+          "the twins")
+    # the reads path's chunk: all 7 k of the main path in one launch
+    own = _READ_CHUNK_SIGNS // len(KMERS)
+    seq = reads[: own + max(KMERS) - 1]
+    got = nthash_signs(seq, KMERS, True, own)
+    want, plain = timed_once(lambda: nthash_signs_ref(seq, KMERS, True, own))
+    check(torch.equal(got, want), "nthash_signs chunk: kernel != twin")
+    del want
+    ms = cuda_ms(lambda: nthash_signs(seq, KMERS, True, own), reps=10)
+    bd = bound(own * len(KMERS) * SIGN_OPS,
+               seq.numel() + own * len(KMERS) * 8)
+    print(f"phase2 nthash_signs chunk ({own} window starts, 7 k, "
+          f"{own * len(KMERS) * 8 / 1e6:.0f} MB of signs): bit-equal to twin; "
+          f"kernel {ms:.4f} ms, twin {plain:.2f} ms, bound {bd['bound_ms']:.4f}"
+          f" ms ({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%"
+          f"; {own * len(KMERS) * 8 / ms / 1e6:.1f} GB/s written")
+    results["nthash_signs"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                   library_ms=None, **bd)
+
+
+def index_signs(n: int, seed: int):
+    """The (n, INDEX_SIZE) u16 signs of a derived index (N_CLUSTERS
+    independent clusters)."""
+    from sketchtpu_torch.synth import derive_signs
+
+    return derive_signs(n, INDEX_SIZE, max(1, n * N_CLUSTERS // N_INDEX),
+                        seed)
+
+
+def signeq_floor_ms(pair_words: float, ops: int) -> float:
+    """The least time of `ops` 32-bit integer operations per pair and sign
+    word at Hopper's 64 a clock and SM."""
+    return pair_words * ops / (64 * SMS * CLOCK_HZ) * 1e3
+
+
+def phase2_signeq(results, lib_path: Path):
+    """signeq.cu in every mode against its twin at S in {1, 99, 100, 1000}
+    with ragged tile edges and unaligned row ranges; then timed at the main
+    path's shapes: 8 queries against 661,000 rows at S = 100 (count, any,
+    all) and pair_count's first 8192 rows of the 661,000 (a strip of
+    `precluster --count`)."""
+    import numpy as np
+    import torch
+
+    from sketchtpu_torch import _build
+    from sketchtpu_torch.inverted.device import (
+        pack_signs,
+        pair_count,
+        pair_count_ref,
+        signeq,
+        signeq_ref,
+    )
+
+    for kernel, modes in (("signeq_kernel", {"ILi0E": "count", "ILi1E": "any",
+                                             "ILi2E": "all"}),
+                          ("pair_count_kernel", {"pair_count": "pair_count"})):
+        for mode, info in sorted(ptxas_report(lib_path, kernel, modes).items()):
+            print(f"phase2 signeq {mode} kernel: {info['registers']} "
+                  f"registers, {info['spill_store_bytes']} bytes spilled")
+            check(info["spill_store_bytes"] == 0, f"signeq {mode}: spills")
+    # the SASS of signeq.cu's kernels: the compare as XOR / IADD3 / LOP3
+    # (any) or with an SHF and an IADD3 (count), no emulated vector compare
+    for name, ops in sass_counts(lib_path, "signeq_cu").items():
+        top = sorted(((v, k) for k, v in ops.items()
+                      if not k.startswith("LUT")), reverse=True)[:8]
+        print(f"phase2 SASS {name[-45:]}: "
+              f"{sum(v for v, _ in top)} of "
+              f"{sum(v for k, v in ops.items() if not k.startswith('LUT'))} "
+              f"instructions in {', '.join(f'{k} x{v}' for v, k in top)}; "
+              f"VSETP/VABSDIFF (emulated vector compares): "
+              f"{sum(v for k, v in ops.items() if k.startswith(('VSET', 'VABS')))}")
+    rng = np.random.default_rng(SEED)
+    for s in (1, 99, 100, 1000):
+        alphabet = 4 if s < 50 else 60
+        m_np = rng.integers(0, alphabet, (700, s)).astype(np.uint16)
+        q_np = rng.integers(0, alphabet, (65, s)).astype(np.uint16)
+        q_np[0] = m_np[3]
+        m, q = pack_signs(m_np, "cuda"), pack_signs(q_np, "cuda")
+        for nq, n in ((65, 700), (64, 63), (1, 1), (63, 129)):
+            for mode in ("count", "any", "all"):
+                check(torch.equal(signeq(q[:nq], m[:n], s, mode),
+                                  signeq_ref(q[:nq], m[:n], s, mode)),
+                      f"signeq {mode} S={s} ({nq}, {n}): kernel != twin")
+        for lo, hi in ((0, 700), (3, 700), (65, 129), (64, 64), (699, 700)):
+            check(pair_count(m, s, lo, hi) == pair_count_ref(m, s, lo, hi),
+                  f"pair_count S={s} [{lo}, {hi}): kernel != twin")
+        print(f"phase2 signeq S={s}: count, any, all at 4 shapes and "
+              f"pair_count at 5 row ranges equal to the twin")
+
+    sig = index_signs(N_INDEX, SEED + 6)
+    m = pack_signs(sig, "cuda")
+    q = pack_signs(sig[rng.choice(N_INDEX, 8, replace=False)], "cuda")
+    words = m.shape[1]
+    for mode, ops in (("count", 6), ("any", 3), ("all", 6)):
+        got = signeq(q, m, INDEX_SIZE, mode)
+        want, plain = timed_once(lambda: signeq_ref(q, m, INDEX_SIZE, mode))
+        check(torch.equal(got, want), f"signeq {mode} at 661k: kernel != twin")
+        ms = cuda_ms(lambda: signeq(q, m, INDEX_SIZE, mode), reps=10)
+        pairs = 8 * N_INDEX
+        bd = bound(pairs * words * ops,
+                   (8 + N_INDEX) * words * 4 + pairs * got.element_size())
+        print(f"phase2 signeq {mode} (8, {N_INDEX}) S={INDEX_SIZE}: equal to "
+              f"twin; kernel {ms:.4f} ms, twin {plain:.2f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}): kernel at "
+              f"{100 * bd['bound_ms'] / ms:.1f}%; integer-issue floor "
+              f"{signeq_floor_ms(pairs * words, ops):.4f} ms")
+        results[f"signeq_{mode}"] = dict(max_abs_err=0.0, ms=ms,
+                                         plain_ms=plain, library_ms=None,
+                                         **bd)
+    hi = 8192
+    got = pair_count(m, INDEX_SIZE, 0, hi)
+    want, plain = timed_once(lambda: pair_count_ref(m, INDEX_SIZE, 0, hi,
+                                                    tile=2048))
+    check(got == want, f"pair_count strip: kernel {got} != twin {want}")
+    ms = cuda_ms(lambda: pair_count(m, INDEX_SIZE, 0, hi), reps=3)
+    pairs = sum(N_INDEX - 1 - i for i in range(hi))
+    bd = bound(pairs * words * 3, N_INDEX * words * 4 + 8)
+    print(f"phase2 pair_count rows [0, {hi}) of {N_INDEX} S={INDEX_SIZE}: "
+          f"{got} of {pairs} pairs share a sign ({100 * got / pairs:.3f}%), "
+          f"equal to twin; kernel {ms:.4f} ms, twin {plain:.2f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}): kernel at "
+          f"{100 * bd['bound_ms'] / ms:.1f}%; integer-issue floor "
+          f"{signeq_floor_ms(pairs * words, 3):.4f} ms; "
+          f"{pairs / ms / 1e6:.2f} G pair/s")
+    results["pair_count"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                 library_ms=None, **bd)
+    del m, q
+    torch.cuda.empty_cache()
+
+
+def masked_signs(n: int, s: int, seed: int, device="cuda"):
+    """Packed signs of n samples in clusters of about 64, so that a tile
+    holds candidates and non-candidates; sample 7 shares no sign."""
+    import numpy as np
+
+    from sketchtpu_torch.inverted.device import pack_signs
+    from sketchtpu_torch.synth import derive_signs
+
+    sig = derive_signs(n, s, max(1, n // 64), seed, redraw=0.5)
+    sig[7] = np.random.default_rng(seed).integers(0, 1 << 16, s)
+    return pack_signs(sig, device), sig
+
+
+def phase2_knn_masked(words, results, lib_path: Path):
+    """K3 with the precluster mask, bit-equal to the masked twins: tile
+    mode and selection, plain and completeness keys, at knn 50 (2048 x
+    8192 across the diagonal, S = 1000 and S = 100) and at knn 1025 (K3's
+    tiles and the top-k merge, 256 x 8192)."""
+    import torch
+
+    from sketchtpu_torch.dist.knn_kernels import (
+        Completeness,
+        SignMask,
+        knn_keys,
+        knn_keys_ref,
+        knn_select,
+        knn_select_ref,
+    )
+    from sketchtpu_torch.dist.knn_torch import select_keys
+
+    ptx = ptxas_report(lib_path, "knn_keys_kernel", KNN_MODES_MANGLED)
+    for mode, info in sorted(ptx.items()):
+        print(f"phase2 knn_keys {mode} kernel: {info['registers']} registers,"
+              f" {info['spill_store_bytes']} bytes spilled")
+    plane = words[:8192, 0]
+    comp = torch.linspace(0.6, 1.0, 8192, device="cuda")
+    a = plane[4096:6144]
+    for s in (1000, 100):
+        w, _ = masked_signs(8192, s, SEED + s)
+        sig = SignMask(w[4096:6144], w, s)
+        share = torch.zeros(())
+        for label, c in (("plain", None),
+                         ("completeness",
+                          Completeness(comp[4096:6144].contiguous(), comp,
+                                       0.64, S64))):
+            kw = dict(row0=4096, exclude_self=True, comp=c, sig=sig)
+            got = knn_keys(a, plane, col0=0, **kw)
+            check(torch.equal(got, knn_keys_ref(a, plane, col0=0, **kw)),
+                  f"knn_keys masked {label} S={s}: kernel != twin")
+            share = (got >= 0).float().mean()
+            sel = knn_select(a, plane, KNN, **kw)
+            want, plain = timed_once(lambda: knn_select_ref(a, plane, KNN,
+                                                            **kw))
+            check(torch.equal(sel, want),
+                  f"knn_select masked {label} S={s}: kernel != twin")
+            ms = cuda_ms(lambda: knn_select(a, plane, KNN, **kw), reps=10)
+            na, nb = a.shape[0], plane.shape[0]
+            sw = (s + 1) // 2
+            bd = bound(na * nb * (S64 * SB_OPS + sw * 3),
+                       (na + nb) * (a.shape[1] * 8 + sw * 4)
+                       + na * KNN * sel.element_size())
+            floor = (integer_floor_ms(na * nb * S64)
+                     + signeq_floor_ms(na * nb * sw, 3))
+            print(f"phase2 knn_select masked {label} ({na}, {nb}) S={s} knn "
+                  f"{KNN}: {100 * float(share):.2f}% of pairs are candidates;"
+                  f" bit-equal to twin (tile mode too); kernel {ms:.4f} ms, "
+                  f"twin {plain:.2f} ms, bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']}): kernel at "
+                  f"{100 * bd['bound_ms'] / ms:.1f}%; integer-issue floor "
+                  f"(samebits + mask) {floor:.4f} ms")
+            if s == 1000 and c is None:
+                results["knn_select_masked"] = dict(
+                    max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+                    **bd)
+        for label, c in (("plain", None),
+                         ("completeness",
+                          Completeness(comp[4096:4352].contiguous(), comp,
+                                       0.64, S64))):
+            kw = dict(row0=4096, exclude_self=True, comp=c,
+                      sig=SignMask(w[4096:4352], w, s))
+            before = knn_keys.launches
+            got = select_keys(plane[4096:4352], plane, 1025, **kw)
+            check(knn_keys.launches > before, "knn 1025: no tile launch")
+            check(torch.equal(got, knn_select_ref(plane[4096:4352], plane,
+                                                  1025, **kw)),
+                  f"knn 1025 masked {label} S={s}: tiles + merge != twin")
+        print(f"phase2 knn 1025 masked S={s}: K3 tiles + top-k merge "
+              f"bit-equal to the twin, plain and completeness")
+    # knn 1025 without the mask (the route of `dist --knn 1025`)
+    for label, c in (("plain", None),
+                     ("completeness",
+                      Completeness(comp[4096:4352].contiguous(), comp, 0.64,
+                                   S64))):
+        kw = dict(row0=4096, exclude_self=True, comp=c)
+        got = select_keys(plane[4096:4352], plane, 1025, **kw)
+        check(torch.equal(got, knn_select_ref(plane[4096:4352], plane, 1025,
+                                              **kw)),
+              f"knn 1025 {label}: tiles + merge != twin")
+    a, b = plane[4096:6144], plane
+    kw = dict(row0=4096, col0=0, nb_real=8192, exclude_self=True)
+    ms = cuda_ms(lambda: knn_keys(a, b, **kw), reps=10)
+    plain = cuda_ms(lambda: knn_keys_ref(a, b, **kw), reps=2, warmup=0)
+    bd = bound(a.shape[0] * b.shape[0] * S64 * SB_OPS,
+               (a.shape[0] + b.shape[0]) * a.shape[1] * 8
+               + a.shape[0] * b.shape[0] * 4)
+    print(f"phase2 knn 1025: bit-equal to the twin, plain and completeness; "
+          f"knn_keys plain (2048, 8192) {ms:.4f} ms, twin {plain:.2f} ms")
+    results["knn_keys"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                               library_ms=None, **bd)
+
+
+def phase2_coreacc_masked(words, results):
+    """K2's masked key mode at the core/accessory kNN tile (2048 x 8192
+    across the diagonal, S = 1000), keys and acc bit-equal to the twin."""
+    import torch
+
+    from sketchtpu_torch.dist.coreacc_kernels import (
+        coreacc_keys,
+        coreacc_keys_ref,
+    )
+    from sketchtpu_torch.dist.knn_kernels import SignMask
+
+    w, _ = masked_signs(8192, 1000, SEED + 9)
+    a, bk = words[4096:6144], words[:8192]
+    kw = dict(row0=4096, col0=0, nb_real=8192, exclude_self=True,
+              sig=SignMask(w[4096:6144], w, 1000))
+    keys, acc = coreacc_keys(a, bk, KMERS, S64 * 64, **kw)
+    (want_k, want_a), plain = timed_once(
+        lambda: coreacc_keys_ref(a, bk, KMERS, S64 * 64, **kw))
+    check(torch.equal(keys, want_k) and torch.equal(acc, want_a),
+          "coreacc keys masked: kernel != twin")
+    share = float((keys != -(1 << 63)).float().mean())
+    del keys, acc, want_k, want_a
+    ms = cuda_ms(lambda: coreacc_keys(a, bk, KMERS, S64 * 64, **kw), reps=10)
+    na, nb, nk = a.shape[0], bk.shape[0], len(KMERS)
+    bd = bound(na * nb * (nk * S64 * SB_OPS + 500 * 3),
+               (na + nb) * (a.shape[1] * a.shape[2] * 8 + 500 * 4)
+               + na * nb * 12)
+    print(f"phase2 coreacc keys masked ({na}, {nb}) nk={nk} S=1000: "
+          f"{100 * share:.2f}% of pairs are candidates; bit-equal to twin "
+          f"(keys and acc); kernel {ms:.4f} ms, twin {plain:.2f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); integer-issue floor "
+          f"(samebits + mask) "
+          f"{integer_floor_ms(na * nb * nk * S64) + signeq_floor_ms(na * nb * 500, 3):.4f} ms")
+    results["coreacc_keys_masked"] = dict(max_abs_err=0.0, ms=ms,
+                                          plain_ms=plain, library_ms=None,
+                                          **bd)
+
+
 # --- phase 3: main path against the host oracle ----------------------------
 
 DIST_MODES = {"k17": ["-k", "17"], "ani": ["-k", "17", "--ani"],
@@ -642,19 +1097,41 @@ def dist_commands(prefix: Path, modes: dict, comp: tuple | None = None):
     return cmds
 
 
-def run_port_and_host(cli_main, port_cmds, host_cmds):
+HOST_JOBS = 4  # host oracle processes at a time
+
+
+def host_oracle(*stages) -> list[float]:
+    """Run the host oracle's commands, a new process each, HOST_JOBS at a
+    time within a stage and the stages in order (a stage reads what the
+    one before wrote). A command is its argv, or (argv, the path of its
+    stdout). Returns each command's seconds, in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(cmd):
+        argv, out = (cmd, None) if isinstance(cmd[0], str) else cmd
+        t0 = time.time()
+        text = run([sys.executable, "-m", "sketchtpu.cli", *argv],
+                   env=host_env())
+        if out is not None:
+            Path(out).write_text(text)
+        return time.time() - t0
+
+    secs = []
+    with ThreadPoolExecutor(HOST_JOBS) as pool:
+        for stage in stages:
+            secs += list(pool.map(one, stage))
+    return secs
+
+
+def run_port_and_host(cli_main, port_cmds, *host_stages):
     """(port seconds, host seconds) of each command: the port in this
-    process, the host oracle in a new process each."""
-    port_s, host_s = [], []
+    process, in order, then the host oracle (host_oracle's stages)."""
+    port_s = []
     for argv in port_cmds:
         t0 = time.time()
         check(cli_main(argv) == 0, f"port {' '.join(argv)} failed")
         port_s.append(time.time() - t0)
-    for argv in host_cmds:
-        t0 = time.time()
-        run([sys.executable, "-m", "sketchtpu.cli", *argv], env=host_env())
-        host_s.append(time.time() - t0)
-    return port_s, host_s
+    return port_s, host_oracle(*host_stages)
 
 
 def same_bytes(a: Path, b: Path) -> bool:
@@ -715,8 +1192,8 @@ def phase3_dense(cli_main):
         cli_main,
         sketch_commands(d / "port_", rfile, rfile_q)
         + dist_commands(d / "port_", DIST_MODES),
-        sketch_commands(d / "host_", rfile, rfile_q)
-        + dist_commands(d / "host_", DIST_MODES),
+        sketch_commands(d / "host_", rfile, rfile_q),
+        dist_commands(d / "host_", DIST_MODES),
     )
     mbk = 8 * 2.0 * len(KMERS)
     print(f"phase3 sketch 8 x 2 Mb x {len(KMERS)} k: port {port_s[0]:.3f} s "
@@ -724,7 +1201,8 @@ def phase3_dense(cli_main):
           f"kernels, densify, .skd), host oracle {host_s[0]:.3f} s (a new "
           f"process each)")
     print(f"phase3 all {len(port_s)} commands: port {sum(port_s):.2f} s, "
-          f"host oracle {sum(host_s):.2f} s")
+          f"host oracle {sum(host_s):.2f} process-s, {HOST_JOBS} "
+          f"at a time")
     for db in ("db", "q"):
         for ext in (".skd", ".skm"):
             check(same_bytes(d / f"port_{db}{ext}", d / f"host_{db}{ext}"),
@@ -756,7 +1234,8 @@ def phase3_knn(cli_main, d: Path) -> None:
         cli_main, dist_commands(d / "port_", KNN_MODES, comp),
         dist_commands(d / "host_", KNN_MODES, comp))
     print(f"phase3 kNN {len(port_s)} commands: port {sum(port_s):.2f} s, "
-          f"host oracle {sum(host_s):.2f} s")
+          f"host oracle {sum(host_s):.2f} process-s, {HOST_JOBS} "
+          f"at a time")
     for side in ("self", "cross"):
         for name in KNN_MODES:
             for label in (name, f"{name}_comp"):
@@ -787,8 +1266,8 @@ def phase3_k4(cli_main, p3: Path) -> None:
         cli_main,
         sketch_commands(d / "port_", rfile, rfile_q, K4_KMERS, K4_SKETCH_SIZE)
         + dist_commands(d / "port_", K4_MODES),
-        sketch_commands(d / "host_", rfile, rfile_q, K4_KMERS, K4_SKETCH_SIZE)
-        + dist_commands(d / "host_", K4_MODES),
+        sketch_commands(d / "host_", rfile, rfile_q, K4_KMERS, K4_SKETCH_SIZE),
+        dist_commands(d / "host_", K4_MODES),
     )
     for db in ("db", "q"):
         for ext in (".skd", ".skm"):
@@ -803,7 +1282,220 @@ def phase3_k4(cli_main, p3: Path) -> None:
     print(f"phase3 -s {K4_SKETCH_SIZE} -k {','.join(map(str, K4_KMERS))}: "
           f".skd/.skm, -k 17 and --exact, self and cross, byte-identical; "
           f"{k4.launches - before} K4 launches; {len(port_s)} commands: port "
-          f"{sum(port_s):.2f} s, host oracle {sum(host_s):.2f} s")
+          f"{sum(port_s):.2f} s, host oracle {sum(host_s):.2f} process-s, {HOST_JOBS} "
+          f"at a time")
+
+
+# --- phase 3, reads and the inverted index ---------------------------------
+
+def run_cli_stdout(cli_main, argv, path: Path) -> None:
+    """The port's CLI in this process with its stdout in `path`."""
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        check(cli_main(argv) == 0, f"port {' '.join(argv)} failed")
+
+
+def phase3_reads(cli_main, p3: Path) -> Path:
+    """`sketch` of synthetic FASTQ (a 500 kb genome at 10x in 150 bp reads,
+    one single-file and one paired sample), alone and mixed with phase 3's
+    8 assemblies, at --min-count 1, 2 and 3: .skd/.skm byte for byte
+    against the host oracle."""
+    from sketchtpu_torch.synth import read_samples
+
+    d = WORK / "p3reads"
+    lines = (read_samples(d / "fq", 1, 500_000, 10, SEED)
+             + read_samples(d / "fq", 1, 500_000, 10, SEED + 1, paired=True))
+    (d / "reads.txt").write_text("".join(lines))
+    (d / "mixed.txt").write_text((p3 / "fa" / "rfile.txt").read_text()
+                                 + "".join(lines))
+    kmers = ",".join(map(str, KMERS))
+    port_cmds, host_cmds = [], []
+    for inputs in ("reads", "mixed"):
+        for mc in (1, 2, 3):
+            for cmds, who in ((port_cmds, "port"), (host_cmds, "host")):
+                cmds.append(["sketch", "-f", str(d / f"{inputs}.txt"), "-o",
+                             str(d / f"{who}_{inputs}_{mc}"), "-k", kmers,
+                             "-s", str(SKETCH_SIZE), "--min-count", str(mc),
+                             "--threads", THREADS, "--quiet"])
+    port_s, host_s = run_port_and_host(cli_main, port_cmds, host_cmds)
+    for inputs in ("reads", "mixed"):
+        for mc in (1, 2, 3):
+            for ext in (".skd", ".skm"):
+                check(same_bytes(d / f"port_{inputs}_{mc}{ext}",
+                                 d / f"host_{inputs}_{mc}{ext}"),
+                      f"sketch {inputs} --min-count {mc}: {ext} differs "
+                      f"from the host oracle")
+    print(f"phase3 reads: `sketch` of 2 read samples (5 Mb of 150 bp reads "
+          f"each, one paired) alone and with the 8 assemblies, --min-count "
+          f"1, 2, 3, {len(KMERS)} k: .skd/.skm byte-identical; port "
+          f"{sum(port_s):.2f} s, host oracle {sum(host_s):.2f} process-s, {HOST_JOBS} "
+          f"at a time")
+    return d
+
+
+PRECLUSTER_FORMS = {  # the .ski's k, 17
+    "k17": [], "ani": ["--ani"],
+    "comp": ["--ref-completeness-file"],
+    "singleton": ["--retain-unmatched", "singleton"],
+    "bruteforce": ["--retain-unmatched", "bruteforce"],
+    "coreacc": ["--core-acc"],
+}
+
+
+def phase3_inverted(cli_main, reads: Path) -> None:
+    """The inverted index on the mixed inputs (8 assemblies + 2 read
+    samples), every output byte for byte against the host oracle: build
+    at -s 100 -k 17 and at the default -s 1000 with --species-names and
+    --metadata (.ski and .skq), info (plain, --sample-info), query of every
+    type, precluster --count, precluster --skd --knn 3 in every form; then
+    one `inverted serve` round against the in-memory answers."""
+    import numpy as np
+
+    d = WORK / "p3inv"
+    d.mkdir(parents=True, exist_ok=True)
+    mixed = reads / "mixed.txt"
+    names = [ln.split("\t")[0] for ln in mixed.read_text().splitlines()]
+    (d / "species.txt").write_text("".join(
+        f"{nm}\tspecies_{i % 3}\n" for i, nm in enumerate(names)))
+    (d / "meta.txt").write_text("".join(
+        f"{nm}\tmeta {i}\n" for i, nm in enumerate(names)))
+    rng = np.random.default_rng(SEED + 7)
+    comp = d / "comp.txt"
+    comp.write_text("".join(f"{nm}\t{c:.3f}\n" for nm, c in
+                            zip(names, rng.uniform(0.6, 1.0, len(names)))))
+    skd_db = reads / "port_mixed_2"  # sketched at all 7 k
+
+    def builds(who):
+        p = str(d / who)
+        return [
+            (["inverted", "build", "-f", str(mixed), "-o", f"{p}_inv", "-s",
+              "100", "-k", "17", "--write-skq", "--threads", THREADS,
+              "--quiet"], None),
+            (["inverted", "build", "-f", str(mixed), "-o", f"{p}_inv_sp",
+              "-k", "17", "--write-skq", "--species-names",
+              str(d / "species.txt"), "--metadata", str(d / "meta.txt"),
+              "--threads", THREADS, "--quiet"], None),
+        ]
+
+    def commands(who):  # on the index that builds(who) wrote
+        p = str(d / who)
+        files = [
+            (["info", f"{p}_inv_sp.ski"], f"{p}_info.txt"),
+            (["info", f"{p}_inv_sp.ski", "--sample-info"],
+             f"{p}_info_samples.txt"),
+            (["inverted", "precluster", f"{p}_inv.ski", "--count", "--quiet"],
+             f"{p}_count.txt"),
+        ]
+        for q in ("match-count", "all-bins", "any-bins"):
+            files.append((["inverted", "query", f"{p}_inv_sp.ski", "-f",
+                           str(mixed), "--query-type", q, "-o",
+                           f"{p}_query_{q}.txt", "--threads", THREADS,
+                           "--quiet"], None))
+        for form, flags in PRECLUSTER_FORMS.items():
+            flags = flags + [str(comp)] if form == "comp" else flags
+            files.append((["inverted", "precluster", f"{p}_inv.ski", "--skd",
+                           str(skd_db), "--knn", "3", *flags, "-o",
+                           f"{p}_pc_{form}.txt", "--quiet"], None))
+        return files
+
+    pairs = kernel_wrappers()["pair_count"]
+    t0 = time.time()
+    for argv, out in builds("port") + commands("port"):
+        before = pairs.launches
+        if out is None:
+            check(cli_main(argv) == 0, f"port {' '.join(argv)} failed")
+        else:
+            run_cli_stdout(cli_main, argv, Path(out))
+        check("--count" not in argv or pairs.launches > before,
+              "phase3 precluster --count did not launch pair_count")
+    port_s = time.time() - t0
+    t0 = time.time()
+    host_oracle(builds("host"), commands("host"))
+    host_s = time.time() - t0
+    outputs = (["inv.ski", "inv.skq", "inv_sp.ski", "inv_sp.skq", "info.txt",
+                "info_samples.txt", "count.txt"]
+               + [f"query_{q}.txt" for q in ("match-count", "all-bins",
+                                              "any-bins")]
+               + [f"pc_{form}.txt" for form in PRECLUSTER_FORMS])
+    for name in outputs:
+        check(same_bytes(d / f"port_{name}", d / f"host_{name}"),
+              f"inverted {name} differs from the host oracle")
+    plain = (d / "port_pc_k17.txt").read_text()
+    check(plain != (d / "port_pc_singleton.txt").read_text()
+          and plain != (d / "port_pc_bruteforce.txt").read_text(),
+          "precluster: no row without candidates (retain-unmatched unused)")
+    print(f"phase3 inverted: {', '.join(outputs)} byte-identical "
+          f"({(d / 'port_count.txt').read_text().strip()}); port "
+          f"{port_s:.2f} s, host oracle {host_s:.2f} s")
+    serve_round(d / "port_inv_sp", p3_query=(mixed, names))
+
+
+def serve_round(prefix: Path, p3_query) -> None:
+    """`inverted serve` on the port's engines (the card): GET /info and
+    POST /match-count of one assembly's FASTA against the in-memory
+    answers (the index's own info and its host match counts)."""
+    import http.client
+    import threading
+
+    from sketchtpu_torch.inverted.index import Inverted
+    from sketchtpu_torch.inverted.serve import _info_payload, make_server
+    from sketchtpu_torch.runtime import select_backend, select_inverted_engine
+    from sketchtpu_torch.sketchcore.sketch import HashType
+
+    mixed, names = p3_query
+    fasta = Path(mixed.read_text().splitlines()[0].split("\t")[1])
+    inv = Inverted.load(str(prefix))
+    srv = make_server(inv, "127.0.0.1", 0,
+                      backend=select_backend(HashType("dna"), 1),
+                      engine=select_inverted_engine(inv))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    def ask(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                          timeout=120)
+        try:
+            conn.request(method, path, body=body)
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    try:
+        status, info = ask("GET", "/info")
+        check(status == 200 and info == _info_payload(inv), "serve /info")
+        status, got = ask("POST", "/match-count?name=q", fasta.read_bytes())
+        queries, _ = inv.sketch_queries([("q", [str(fasta)])], 5, 20)
+        want = [int(c) for c in inv.query_match_count(queries[0])]
+        check(status == 200 and got["counts"] == want
+              and got["samples"] == list(inv.sample_names),
+              "serve /match-count differs from the in-memory answer")
+        check(max(want) == inv.sketch_size, "serve: the query misses itself")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"phase3 serve: GET /info and POST /match-count ({fasta.name}) "
+          f"equal to the in-memory answers")
+
+
+def phase3_knn1025(cli_main, p3: Path) -> None:
+    """`dist -k 17 --knn 1025` on 1100 samples derived from phase 3's
+    sketches: past K3's selection limit, byte for byte against the host
+    oracle."""
+    from sketchtpu_torch.synth import derive_database
+
+    d = WORK / "p3knn1025"
+    d.mkdir(parents=True, exist_ok=True)
+    derive_database(str(p3 / "port_db"), str(d / "db"), 1100, SEED + 8)
+    argv = ["dist", str(d / "db"), "-k", "17", "--knn", "1025", "--quiet"]
+    tiles = kernel_wrappers()["knn_keys"]
+    before = tiles.launches
+    port_s, host_s = run_port_and_host(
+        cli_main, [argv + ["-o", str(d / "port.txt")]],
+        [argv + ["-o", str(d / "host.txt")]])
+    check(same_bytes(d / "port.txt", d / "host.txt"),
+          "dist --knn 1025 differs from the host oracle")
+    print(f"phase3 dist -k 17 --knn 1025 on 1100 samples: byte-identical; "
+          f"{tiles.launches - before} K3 tile launches; port {port_s[0]:.2f} "
+          f"s, host oracle {host_s[0]:.2f} s")
 
 
 # --- phase 4: a database of the size users run -----------------------------
@@ -1030,6 +1722,251 @@ def phase5_check(d: Path) -> None:
           f"distances lie within 1e-6")
 
 
+# --- phase 6: reads and the inverted index at the sizes users run ----------
+
+def phase6_reads(cli_main, gpu: str) -> None:
+    """2 read samples of 50 Mb (a 2 Mb genome at 25x in 150 bp reads) at
+    7 k and --min-count 5: timed, profiled; the host oracle at k 17 and 29
+    only (its NumPy hash takes ~10 s per k and sample), byte for byte."""
+    from sketchtpu_torch.synth import read_samples
+
+    d = WORK / "p6reads"
+    t0 = time.time()
+    lines = read_samples(d / "fq", 2, READS_GENOME, READS_COVERAGE,
+                         SEED + 10)
+    (d / "reads.txt").write_text("".join(lines))
+    print(f"phase6 wrote 2 x {READS_GENOME * READS_COVERAGE / 1e6:.0f} Mb of "
+          f"150 bp reads (FASTQ.gz) in {time.time() - t0:.1f} s (set-up)")
+
+    def argv(prefix, kmers):
+        return ["sketch", "-f", str(d / "reads.txt"), "-o", str(prefix),
+                "-k", ",".join(map(str, kmers)), "-s", str(SKETCH_SIZE),
+                "--min-count", "5", "--threads", THREADS, "--quiet"]
+
+    full = argv(d / "port7", KMERS)
+    wall = timed_cli(cli_main, full, "phase6 sketch reads 7 k")
+    mbk = 2 * READS_GENOME * READS_COVERAGE / 1e6 * len(KMERS)
+    print(f"phase6 sketch 2 x 50 Mb of reads x {len(KMERS)} k "
+          f"--min-count 5: {wall:.2f} s = {mbk / wall:.1f} Mbase-k/s end to "
+          f"end (parse, upload, signs, copy back, compaction, count filter "
+          f"on {THREADS} threads, .skd), {gpu}")
+    profile_dist(cli_main, full, "phase6 sketch reads 7 k")
+    port_s, host_s = run_port_and_host(
+        cli_main, [argv(d / "port2", READS_ORACLE_KMERS)],
+        [argv(d / "host2", READS_ORACLE_KMERS)])
+    for ext in (".skd", ".skm"):
+        check(same_bytes(d / f"port2{ext}", d / f"host2{ext}"),
+              f"phase6 reads {ext} differs from the host oracle")
+    print(f"phase6 reads at k {READS_ORACLE_KMERS}: .skd/.skm byte-identical "
+          f"to the host oracle (port {port_s[0]:.2f} s, host oracle "
+          f"{host_s[0]:.2f} s)")
+
+
+def phase6_index(cli_main, p3: Path, gpu: str) -> None:
+    """A derived index of N_INDEX samples at S = INDEX_SIZE, k = 17: `info`,
+    `precluster --count` (its count also held against the twin on sampled
+    row strips and against row-range partials on the card) and phase 3's 8
+    assemblies as `inverted query` of every type, against the host
+    oracle."""
+    import numpy as np
+    import torch
+
+    from sketchtpu_torch.inverted.device import (
+        pack_signs,
+        pair_count,
+        pair_count_ref,
+    )
+    from sketchtpu_torch.synth import write_derived_inverted
+
+    d = WORK / "p6inv"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    sig = index_signs(N_INDEX, SEED + 11)
+    names = [f"sample_{i:06d}" for i in range(N_INDEX)]
+    write_derived_inverted(str(d / "idx"), names, sig, INDEX_K)
+    print(f"phase6 derived an index of {N_INDEX} samples at S={INDEX_SIZE} "
+          f"k={INDEX_K} ({N_CLUSTERS} clusters; "
+          f"{(d / 'idx.ski').stat().st_size / 1e6:.0f} MB .ski, "
+          f"{sig.nbytes / 1e6:.0f} MB of signs) in {time.time() - t0:.1f} s "
+          f"(set-up)")
+    wall = timed_cli(cli_main, ["info", str(d / "idx.ski")], "phase6 info",
+                     d / "info.txt")
+    check(f"n_samples={N_INDEX}" in (d / "info.txt").read_text(),
+          "phase6 info: wrong sample count")
+    print(f"phase6 info on the {N_INDEX}-sample .ski: {wall:.2f} s (load and "
+          f"the per-bin statistics on the host), {gpu}")
+    argv = ["inverted", "precluster", str(d / "idx.ski"), "--count", "--quiet"]
+    wall = timed_cli(cli_main, argv, "phase6 precluster --count",
+                     d / "count.txt", expect=("pair_count",))
+    line = (d / "count.txt").read_text().strip()
+    count, total = int(line.split()[1]), int(line.split()[-1])
+    check(total == N_INDEX * (N_INDEX - 1) // 2 and 0 < count < total // 50,
+          f"phase6 count: {line}")
+    print(f"phase6 precluster --count n={N_INDEX}: {line}; candidate share "
+          f"{100 * count / total:.4f}%; {wall:.2f} s = "
+          f"{total / wall / 1e9:.2f} G pairs/s end to end (load, upload, "
+          f"count), {gpu}")
+    profile_dist(cli_main, argv, "phase6 precluster --count")
+    m = pack_signs(sig, "cuda")
+    rng = np.random.default_rng(SEED + 13)
+    cuts = [0, 1, N_INDEX // 7 + 3, N_INDEX * 3 // 5, N_INDEX]
+    with uncounted():
+        for lo in sorted(rng.choice(N_INDEX - 256, 3, replace=False)):
+            got = pair_count(m, INDEX_SIZE, int(lo), int(lo) + 256)
+            want = pair_count_ref(m, INDEX_SIZE, int(lo), int(lo) + 256,
+                                  tile=2048)
+            check(got == want,
+                  f"phase6 pair_count strip at {lo}: {got} != {want}")
+        parts = sum(pair_count(m, INDEX_SIZE, a, b)
+                    for a, b in zip(cuts, cuts[1:]))
+    check(parts == count, f"phase6 row-range partials {parts} != {count}")
+    print("phase6 count: 3 strips of 256 rows equal to the twin on the card; "
+          "the partials over 4 row ranges sum to the CLI's count")
+    del m
+    torch.cuda.empty_cache()
+    rfile = p3 / "fa" / "rfile.txt"
+    types = ("match-count", "all-bins", "any-bins")
+
+    def qargv(q, who):
+        return ["inverted", "query", str(d / "idx.ski"), "-f", str(rfile),
+                "--query-type", q, "--threads", THREADS, "--quiet", "-o",
+                str(d / f"{who}_{q}.txt")]
+
+    walls = {q: timed_cli(cli_main, qargv(q, "port"), f"phase6 query {q}")
+             for q in types}
+    host_s = host_oracle([qargv(q, "host") for q in types])
+    for q in types:
+        check(same_bytes(d / f"port_{q}.txt", d / f"host_{q}.txt"),
+              f"phase6 query {q} differs from the host oracle")
+        print(f"phase6 query {q}: 8 x 2 Mb assemblies against {N_INDEX} "
+              f"samples, byte-identical to the host oracle; {walls[q]:.2f} s "
+              f"= {8 * N_INDEX / walls[q] / 1e6:.2f} M pairs/s end to end "
+              f"(load, sketch, query), {gpu}")
+    print(f"phase6 queries: host oracle {max(host_s):.2f} s at most a type")
+    profile_dist(cli_main, qargv("any-bins", "profiled"),
+                 "phase6 query any-bins")
+
+
+def slice_database(src: Path, dst: Path, n: int) -> None:
+    """dst.skd/.skm: the first n samples of src."""
+    from sketchtpu_torch.formats.skm import MultiSketch
+
+    ms = MultiSketch.load_metadata(str(src))
+    stride = ms.sample_stride * 8
+    with open(f"{src}.skd", "rb") as f:
+        Path(f"{dst}.skd").write_bytes(f.read(n * stride))
+    MultiSketch(ms.sketch_metadata[:n], ms.sketch_size, ms.kmer_lengths,
+                ms.hash_type).save_metadata(str(dst))
+
+
+def phase6_precluster(cli_main, p5: Path, gpu: str) -> None:
+    """`precluster --skd --knn 50` over phase 5's N_KNN samples (single-k)
+    and --core-acc over its first N_KNN_CA, with a .ski/.skq derived at
+    S = INDEX_SIZE for the same names (clusters of samples of one parent):
+    timed and profiled; 8 seeded blocks of 64 rows of each (512 rows)
+    against the host oracle, api.self_dists_knn_precluster with a
+    row_range."""
+    import io
+
+    import numpy as np
+
+    from sketchtpu_torch.dist import api
+    from sketchtpu_torch.dist import output as dist_output
+    from sketchtpu_torch.formats import skd
+    from sketchtpu_torch.formats.skm import MultiSketch
+    from sketchtpu_torch.inverted.device import pack_signs, pair_count
+    from sketchtpu_torch.inverted.index import Inverted
+    from sketchtpu_torch.synth import derive_signs, write_derived_inverted
+
+    d = WORK / "p6pc"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    names = [f"derived_{i:05d}" for i in range(N_KNN)]
+    # cluster i % 800 holds samples of parent i % 8 only
+    sig = derive_signs(N_KNN, INDEX_SIZE, 800, SEED + 12)
+    write_derived_inverted(str(d / "pc"), names, sig, 17)
+    slice_database(p5 / "db", d / "db50k", N_KNN_CA)
+    print(f"phase6 derived a {N_KNN}-sample .ski/.skq at S={INDEX_SIZE} and "
+          f"the first {N_KNN_CA} samples' .skd in {time.time() - t0:.1f} s "
+          f"(set-up)")
+    inv = Inverted.load(str(d / "pc"))
+    skq = skd.read_all_skq(str(d / "pc.skq"))
+    rng = np.random.default_rng(SEED + 14)
+    for name, db, n, flags in (("k17", p5 / "db", N_KNN, []),
+                               ("coreacc", d / "db50k", N_KNN_CA,
+                                ["--core-acc"])):
+        m = pack_signs(sig[:n], "cuda")
+        with uncounted():
+            cand = pair_count(m, INDEX_SIZE)
+        del m
+        out = d / f"{name}.txt"
+        argv = ["inverted", "precluster", str(d / "pc.ski"), "--skd", str(db),
+                "--knn", str(KNN), *flags, "-o", str(out), "--quiet"]
+        wall = timed_cli(cli_main, argv, f"phase6 precluster {name} n={n}")
+        pairs = n * (n - 1) // 2
+        print(f"phase6 precluster --skd --knn {KNN} {name} n={n}: {wall:.2f} "
+              f"s; {cand} candidate pairs of {pairs} "
+              f"({100 * cand / pairs:.3f}%); {pairs / wall / 1e9:.3f} G "
+              f"scanned pairs/s and {cand / wall / 1e6:.2f} M candidate "
+              f"pairs/s end to end (load, upload, masked scan, host f64 "
+              f"values, {out.stat().st_size / 1e6:.0f} MB written), {gpu}")
+        profile_dist(cli_main, argv, f"phase6 precluster {name} n={n}")
+        ms = MultiSketch.load_metadata(str(db))
+        ms.read_sketch_data(str(db))
+        if name == "coreacc":
+            api.set_k(ms, 17, False)
+            dist_type = api.DistType()
+        else:
+            dist_type = api.set_k(ms, 17, False)
+        lines = {}
+        for ln in out.read_text().splitlines():
+            lines.setdefault(ln.split("\t", 1)[0], []).append(ln)
+        starts = np.sort(rng.choice(n // 64, CHECK_ROWS // 64,
+                                    replace=False)) * 64
+        near = 0
+        for lo in starts:
+            rows = api.self_dists_knn_precluster(
+                ms, inv, skq, INDEX_SIZE, KNN, dist_type,
+                retain_unmatched=None, row_range=slice(int(lo), int(lo) + 64))
+            buf = io.StringIO()
+            dist_output.write_sparse(buf, names[lo : lo + 64], names[:n],
+                                     rows, coreacc=dist_type.coreacc)
+            want = {}
+            for ln in buf.getvalue().splitlines():
+                want.setdefault(ln.split("\t", 1)[0], []).append(ln)
+            for r in range(int(lo), int(lo) + 64):
+                got_r, want_r = lines.get(names[r], []), want.get(names[r], [])
+                if got_r == want_r:
+                    continue
+                check(name == "coreacc", f"phase6 precluster {name} row {r} "
+                      f"differs from the host oracle")
+                near += 1
+                check(near_tie_row(got_r, want_r, rows[r - int(lo)]),
+                      f"phase6 precluster coreacc row {r} differs beyond an "
+                      f"f32 near-tie")
+        print(f"phase6 precluster {name}: {CHECK_ROWS} rows (8 blocks of 64) "
+              f"equal to the host oracle"
+              + (f" except {near} rows of f32 near-ties" if near else ""))
+
+
+def near_tie_row(got, want, host_row) -> bool:
+    """A core/accessory row whose f32 selection differs from the f64
+    host's only among neighbours whose f64 core distances lie within 1e-6
+    of each other: the values of the pairs both select agree, and every
+    swapped neighbour is within 1e-6 of the host's last kept distance."""
+    g = {ln.split("\t")[1]: ln for ln in got}
+    w = {ln.split("\t")[1]: ln for ln in want}
+    if len(got) != len(want):
+        return False
+    for col in g.keys() & w.keys():
+        if g[col] != w[col]:
+            return False
+    last = max(float(c) for _j, c, _a in host_row)
+    swapped = [float(ln.split("\t")[2]) for col, ln in g.items()
+               if col not in w]
+    return all(abs(c - last) <= 1e-6 for c in swapped)
+
+
 def main() -> int:
     import torch
 
@@ -1063,15 +2000,22 @@ def main() -> int:
               f"{time.time() - t0:.1f} s")
 
         results: dict[str, dict] = {}
+        t0 = time.time()
         words = derived_words(16384, SEED)
         big = derived_words(N_KNN, SEED + 2, kmers=(17,))[:, 0]
         phase2_samebits(words, big, results, lib_path)
         phase2_coreacc(words, results, lib_path)
         phase2_knn_keys(words, results)
         phase2_knn_select(words, big, results, lib_path)
-        del words, big
+        del big
+        phase2_knn_masked(words, results, lib_path)
+        phase2_coreacc_masked(words, results)
+        del words
         phase2_nthash(results)
+        phase2_nthash_signs(results)
+        phase2_signeq(results, lib_path)
         torch.cuda.empty_cache()
+        print(f"phase2: {time.time() - t0:.1f} s")
 
         wrappers = kernel_wrappers()
 
@@ -1096,15 +2040,27 @@ def main() -> int:
         print(f"dense path phases 3 (with the 40,000-bin K4 runs) and 4: "
               f"{time.time() - t0:.1f} s")
         t0 = time.time()
-        knn, (_, p5) = counted(
+        knn, (_, _, p5) = counted(
             "kNN", KNN_PATH, lambda: phase3_knn(cli_main, p3),
+            lambda: phase3_knn1025(cli_main, p3),
             lambda: phase5_run(cli_main, p3 / "port_db", smi))
         print(f"kNN path phases 3, 5: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        phase5_check(p5)
+        print(f"phase5 check: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        inverted, _ = counted(
+            "reads + inverted", INVERTED_PATH,
+            lambda: phase3_inverted(cli_main, phase3_reads(cli_main, p3)),
+            lambda: phase6_reads(cli_main, smi),
+            lambda: phase6_index(cli_main, p3, smi),
+            lambda: phase6_precluster(cli_main, p5, smi))
+        print(f"reads + inverted path phases 3, 6: {time.time() - t0:.1f} s")
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("sketchtpu", "jax")]
         check(not loaded, f"the port's phases loaded {loaded[:5]}")
-        phase5_check(p5)
-        launches = {name: dense[name] + knn[name] for name in wrappers}
+        launches = {name: dense[name] + knn[name] + inverted[name]
+                    for name in wrappers}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

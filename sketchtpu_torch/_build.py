@@ -47,23 +47,27 @@ _SIGNATURES = {
     "stpu_samebits": (_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _I, _LL, _P),
     "stpu_coreacc": (
         _P, _LL, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _F, _F, _F,
-        _F, _F, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P,
+        _F, _F, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P, _P, _I, _LL, _I, _P,
     ),
     "stpu_coreacc_blocks_per_sm": (_I,),
     "stpu_nthash_multi": (
         _P, _LL, _P, _I, _I, _I, _P, _I, _ULL, _I, _I, _I, _I, _I, _P, _P,
     ),
+    "stpu_nthash_signs": (_P, _LL, _P, _I, _I, _I, _I, _LL, _P, _P),
     "stpu_magic_div": (_P, _I, _ULL, _I, _P, _P),
     "stpu_knn_keys": (
         _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _LL,
-        _I, _P, _P, _F, _F, _F, _F, _P,
+        _I, _P, _P, _F, _F, _F, _F, _P, _P, _I, _LL, _I, _P,
     ),
     "stpu_knn_select": (
         _P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _LL, _I, _I, _LL, _I,
-        _P, _P, _F, _F, _F, _F, _P,
+        _P, _P, _F, _F, _F, _F, _P, _P, _I, _LL, _I, _P,
     ),
-    "stpu_knn_select_rows": (_I, _I),
-    "stpu_knn_select_blocks_per_sm": (_I, _I, _I),
+    "stpu_knn_select_rows": (_I, _I, _I),
+    "stpu_signeq": (_P, _LL, _I, _P, _LL, _I, _I, _I, _I, _P, _P),
+    "stpu_pair_count": (_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P),
+    "stpu_pair_count_blocks_per_sm": (),
+    "stpu_knn_select_blocks_per_sm": (_I, _I, _I, _I),
 }
 
 _lock = threading.Lock()

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "stpu_format_dist_lines": (_I64,
                                [ctypes.c_char_p, _P, ctypes.c_char_p, _P, _P,
                                 _P, _P, _P, _I64, _P, _I64]),
+    "stpu_ski_bin_msgpack": (_I64, [_P, _P, _P, _I64, _P, _I64]),
+    "stpu_ski_bin_unpack": (_I64, [_P, _I64, _P, _P, _I64, _P]),
 }
 
 

@@ -1,9 +1,11 @@
 """Command line of the port: the subcommands and flags of the reference
 (sketchlib.rust src/cli.rs) that sketchtpu_torch serves, on its own engines.
 
-Subcommands: sketch, dist (dense and --knn), merge, append, delete, info.
-`inverted`, `info` on a .ski, `warmup`, --jax-profile and multi-process runs
-parse but are refused with NotImplementedError naming their ROADMAP item.
+Subcommands: sketch (assemblies and reads), dist (dense and --knn), merge,
+append, delete, info (.skm and .ski), inverted build / query / precluster /
+serve. `warmup`, --jax-profile, AA/3Di input and multi-process runs parse
+but are refused with NotImplementedError naming their ROADMAP item; a k
+past the card's limit is refused at argument parsing in cuda mode.
 """
 
 from __future__ import annotations
@@ -14,8 +16,12 @@ import os
 import sys
 import time
 
+import numpy as np
+
 log = logging.getLogger("sketchtpu")
 
+DEFAULT_KNN = 50
+DEFAULT_KMER = 21
 DEFAULT_MINCOUNT = 5
 DEFAULT_MINQUAL = 20
 DEFAULT_SKETCHSIZE = 1000
@@ -103,9 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_ranks(p)
     _add_common(p)
 
+    _add_inverted(sub)
+
     # --- not ported: parsed only to be refused ---
-    p = sub.add_parser("inverted", help="Inverted index commands (not ported yet)")
-    p.add_argument("rest", nargs=argparse.REMAINDER)
     p = sub.add_parser("warmup", help="Kernel pre-compilation (not ported yet)")
     p.add_argument("rest", nargs=argparse.REMAINDER)
 
@@ -146,15 +152,78 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _add_inverted(sub) -> None:
+    p_inv = sub.add_parser("inverted", help="Inverted index commands")
+    inv_sub = p_inv.add_subparsers(dest="inverted_command", required=True)
+
+    p = inv_sub.add_parser("build")
+    p.add_argument("seq_files", nargs="*")
+    p.add_argument("-f", dest="file_list")
+    p.add_argument("-o", dest="output", required=True)
+    p.add_argument("--write-skq", action="store_true")
+    p.add_argument("--species-names")
+    p.add_argument("--metadata")
+    p.add_argument("-s", "--sketch-size", type=int, default=DEFAULT_SKETCHSIZE)
+    p.add_argument("-k", "--kmer-length", type=int, default=DEFAULT_KMER)
+    p.add_argument("--single-strand", action="store_true")
+    p.add_argument("--min-count", type=int, default=DEFAULT_MINCOUNT)
+    p.add_argument("--min-qual", type=int, default=DEFAULT_MINQUAL)
+    p.add_argument("--threads", type=int, default=1)
+    _add_ranks(p)
+    _add_common(p)
+
+    p = inv_sub.add_parser("query")
+    p.add_argument("ski")
+    p.add_argument("seq_files", nargs="*")
+    p.add_argument("-f", dest="file_list")
+    p.add_argument("-o", dest="output")
+    p.add_argument(
+        "--query-type",
+        choices=["match-count", "all-bins", "any-bins"],
+        default="match-count",
+    )
+    p.add_argument("--min-count", type=int, default=DEFAULT_MINCOUNT)
+    p.add_argument("--min-qual", type=int, default=DEFAULT_MINQUAL)
+    p.add_argument("--threads", type=int, default=1)
+    _add_ranks(p)
+    _add_common(p)
+
+    p = inv_sub.add_parser(
+        "serve",
+        help="Serve the index over HTTP (GET /info, POST /query = "
+        "SketchlibData::get_probs JSON, POST /match-count)",
+    )
+    p.add_argument("ski")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    _add_common(p)
+
+    p = inv_sub.add_parser("precluster")
+    p.add_argument("ski")
+    p.add_argument("--skd")
+    p.add_argument("-o", dest="output")
+    p.add_argument("--count", action="store_true")
+    p.add_argument("--knn", type=int, default=DEFAULT_KNN)
+    p.add_argument("--ani", action="store_true")
+    p.add_argument(
+        "--core-acc",
+        action="store_true",
+        help="Rank neighbours by multi-k core/accessory distances over "
+        "every k in the .skd (extension; the reference CLI only supports "
+        "single-k distances here)",
+    )
+    p.add_argument("--threads", type=int, default=1)
+    p.add_argument("--ref-completeness-file")
+    p.add_argument("--completeness-cutoff", type=float, default=0.64)
+    p.add_argument(
+        "--retain-unmatched", choices=["singleton", "bruteforce"], default=None
+    )
+    _add_ranks(p)
+    _add_common(p)
+
+
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for the parts of the CLI with no port."""
-    if args.command == "inverted" or (
-        args.command == "info" and args.skm_file.endswith(".ski")
-    ):
-        raise NotImplementedError(
-            "inverted index commands are not ported yet (ROADMAP queue 1 "
-            "item 6)"
-        )
     if args.command == "warmup":
         raise NotImplementedError(
             "warmup is not ported yet (ROADMAP queue 1 item 10)"
@@ -169,6 +238,31 @@ def refuse_unported(args) -> None:
     ):
         raise NotImplementedError(
             "multi-process runs are not ported yet (ROADMAP queue 1 item 8)"
+        )
+
+
+def refuse_past_card_limits(args, parser) -> None:
+    """A k past the card's hash kernel (MAX_K_CUDA, csrc/nthash_bin.cu) is
+    refused before any work in cuda mode; nothing else takes it there."""
+    from .runtime import mode
+
+    if mode() != "cuda":
+        return
+    if args.command == "sketch" and (args.k_vals or args.k_seq):
+        from .ingest.inputs import parse_kmers
+
+        kmers = parse_kmers(args.k_vals, args.k_seq)
+    elif args.command == "inverted" and args.inverted_command == "build":
+        kmers = [args.kmer_length]
+    else:
+        return
+    from .hash.nthash_torch import MAX_K_CUDA
+
+    past = [k for k in kmers if k > MAX_K_CUDA]
+    if past:
+        parser.error(
+            f"k={past}: the card's hash kernel takes k <= {MAX_K_CUDA} "
+            "(SKETCHTPU_TORCH_BACKEND=cpu or host sketch past it)"
         )
 
 
@@ -194,8 +288,10 @@ def _level_num(level_str: str) -> int:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     refuse_unported(args)
+    refuse_past_card_limits(args, parser)
     _setup_logging(args)
     start = time.time()
 
@@ -215,11 +311,10 @@ def main(argv=None) -> int:
             ids = [line.rstrip("\n") for line in f if line.rstrip("\n")]
         _delete_samples(MultiSketch.load_metadata(ref_db), ref_db,
                         args.output_file, ids)
+    elif args.command == "inverted":
+        _inverted_main(args)
     elif args.command == "info":
-        from .formats.skm import MultiSketch
-
-        ms = MultiSketch.load_metadata(strip_sketch_extension(args.skm_file))
-        print(ms.display_str() if args.sample_info else ms.debug_str())
+        _info_main(args)
         return 0
 
     if not args.quiet:
@@ -513,3 +608,217 @@ def _delete_samples(ms, ref_db: str, output_file: str, ids: list[str]) -> None:
     with skd_io.SketchDataWriter(f"{output_file}.skd") as w:
         for i in range(len(keep)):
             w.write_sketch(data[i * ms.sample_stride : (i + 1) * ms.sample_stride])
+
+
+def _ostream(path):
+    return open(path, "w") if path else sys.stdout
+
+
+def _inverted_main(args) -> None:
+    from .ingest import inputs as io_inputs
+    from .inverted.index import Inverted
+    from .runtime import select_backend, select_inverted_engine
+    from .sketchcore.sketch import HashType
+
+    if args.inverted_command == "build":
+        from .progress import progress_printer
+
+        input_files = io_inputs.get_input_list(args.file_list,
+                                               args.seq_files or None)
+        log.info("Parsed %d samples in input list", len(input_files))
+        distinct = {name for name, _ in input_files}
+        if args.species_names:
+            file_order, map_names_labels = io_inputs.reorder_input_files(
+                input_files, args.species_names
+            )
+        else:
+            names = [name for name, _ in input_files]
+            if len(distinct) == len(input_files):
+                file_order, map_names_labels = list(range(len(input_files))), None
+            else:
+                idx_map: dict[str, int] = {}
+                for name in names:
+                    if name not in idx_map:
+                        idx_map[name] = len(idx_map)
+                file_order, map_names_labels = [idx_map[n] for n in names], None
+        labels_vec = None
+        if map_names_labels is not None:
+            labels_vec = [""] * len(distinct)
+            for idx, (name, _f) in zip(file_order, input_files):
+                labels_vec[idx] = map_names_labels.get(name, "")
+        metadata_vec = None
+        if args.metadata:
+            md = io_inputs.parse_metadata_info(args.metadata)
+            metadata_vec = [""] * len(distinct)
+            for idx, (name, _f) in zip(file_order, input_files):
+                metadata_vec[idx] = md[name]
+        tick, finish = progress_printer(len(input_files), args.quiet,
+                                        "Sketching ")
+        inv = Inverted.build(
+            input_files,
+            file_order,
+            args.kmer_length,
+            args.sketch_size,
+            not args.single_strand,
+            args.min_count,
+            args.min_qual,
+            write_skq=f"{args.output}.skq" if args.write_skq else None,
+            metadata=metadata_vec,
+            labels=labels_vec,
+            hash_type=HashType("dna"),
+            backend=select_backend(HashType("dna"), len(input_files)),
+            threads=args.threads,
+            progress=tick,
+        )
+        finish()
+        inv.save(args.output)
+        log.info("Index info:\n%s", inv.debug_str())
+
+    elif args.inverted_command == "query":
+        out = _ostream(args.output)
+        inv = Inverted.load(strip_sketch_extension(args.ski))
+        input_files = io_inputs.get_input_list(args.file_list,
+                                               args.seq_files or None)
+        queries, query_names = inv.sketch_queries(
+            input_files,
+            args.min_count,
+            args.min_qual,
+            backend=select_backend(HashType("dna"), len(input_files)),
+            threads=args.threads,
+        )
+        engine = select_inverted_engine(inv)
+        batch_counts = batch_any = None
+        if engine is not None:
+            if args.query_type == "match-count":
+                batch_counts = engine.match_counts(queries)
+            elif args.query_type == "any-bins":
+                batch_any = engine.any_shared_rows(queries)
+            else:
+                batch_any = engine.all_shared_rows(queries)
+        out.write("Query")
+        if args.query_type == "match-count":
+            for name in inv.sample_names:
+                out.write(f"\t{name}")
+            out.write("\n")
+        else:
+            out.write("\tMatches\n")
+        for qi, q_name in enumerate(query_names):
+            q = queries[qi]
+            out.write(q_name)
+            if args.query_type == "match-count":
+                counts = (batch_counts[qi] if batch_counts is not None
+                          else inv.query_match_count(q))
+                out.write("\t" + "\t".join(str(int(c)) for c in counts))
+            else:
+                if batch_any is not None:
+                    hits = np.flatnonzero(batch_any[qi])
+                elif args.query_type == "all-bins":
+                    hits = inv.all_shared_bins(q)
+                else:
+                    hits = inv.any_shared_bins(q)
+                if hits.size:
+                    out.write("\t" + ",".join(inv.sample_names[int(h)]
+                                              for h in hits))
+            out.write("\n")
+        if out is not sys.stdout:
+            out.close()
+
+    elif args.inverted_command == "serve":
+        from .inverted.serve import serve_forever
+
+        inv = Inverted.load(strip_sketch_extension(args.ski))
+        serve_forever(inv, args.host, args.port,
+                      backend=select_backend(HashType("dna"), 1),
+                      engine=select_inverted_engine(inv))
+
+    elif args.inverted_command == "precluster":
+        _precluster_main(args)
+
+
+def _precluster_main(args) -> None:
+    from .dist import api
+    from .dist import output as dist_output
+    from .formats import skd as skd_io
+    from .formats.skm import MultiSketch
+    from .ingest import inputs as io_inputs
+    from .inverted.index import Inverted
+    from .runtime import select_engine, select_inverted_engine, select_knn_engine
+
+    if args.count and args.skd:
+        # clap: the "mode" ArgGroup is exclusive (cli.rs:416-420)
+        raise SystemExit("--count and --skd are mutually exclusive")
+    if args.count and args.core_acc:
+        raise SystemExit("--core-acc needs --skd, not --count")
+    input_prefix = strip_sketch_extension(args.ski)
+    inv = Inverted.load(input_prefix)
+    if args.count:
+        n = len(inv.sample_names)
+        count = inv.any_shared_bin_count(engine=select_inverted_engine(inv))
+        print(f"Identified {count} prefilter pairs from a max of "
+              f"{n * (n - 1) // 2}")
+        return
+    if not args.skd:
+        raise SystemExit("one of --skd or --count is required")
+    out = _ostream(args.output)
+    skq_bins = skd_io.read_all_skq(f"{input_prefix}.skq")
+    ref_name = strip_sketch_extension(args.skd)
+    references = MultiSketch.load_metadata(ref_name)
+    references.read_sketch_data(ref_name)
+    n = references.number_samples_loaded()
+    knn = args.knn
+    if knn >= n:
+        log.warning("knn=%d is higher than number of samples=%d", knn, n)
+        knn = n - 1
+    if args.core_acc:
+        # extension: the reference leaves core/accessory precluster
+        # unimplemented (distances/mod.rs:548-550)
+        if args.ani:
+            raise SystemExit("--core-acc and --ani are mutually exclusive")
+        if len(references.kmer_lengths) < 2:
+            raise SystemExit(
+                "--core-acc needs at least two k-mer lengths in the .skd")
+        # the k-mer of the prefilter must still exist in the .skd
+        api.set_k(references, inv.kmer_size, False)
+        dist_type = api.DistType()
+        log.info("Preclustering with k=%d, ranking by core/accessory over "
+                 "k=%s", inv.kmer_size, references.kmer_lengths)
+    else:
+        dist_type = api.set_k(references, inv.kmer_size, args.ani)
+    ref_comp = (
+        io_inputs.read_completeness_file(args.ref_completeness_file,
+                                         references)
+        if args.ref_completeness_file
+        else None
+    )
+    knn_engine = select_knn_engine(references, dist_type)
+    if knn_engine is not None:
+        log.info("Using on-device preclustered kNN engine")
+        rows = knn_engine.precluster_knn(
+            inv, skq_bins, knn, dist_type, args.retain_unmatched,
+            completeness_vec=ref_comp,
+            completeness_cutoff=args.completeness_cutoff,
+        )
+    else:
+        rows = api.self_dists_knn_precluster(
+            references, inv, skq_bins, inv.sketch_size, knn, dist_type,
+            ref_comp, args.completeness_cutoff, args.retain_unmatched,
+            engine=select_engine(references),
+        )
+    names = [references.sketch_name(i) for i in range(n)]
+    dist_output.write_sparse(out, names, names, rows,
+                             coreacc=dist_type.coreacc)
+    if out is not sys.stdout:
+        out.close()
+
+
+def _info_main(args) -> None:
+    from .formats.skm import MultiSketch
+    from .inverted.index import Inverted
+
+    name = args.skm_file
+    if name.endswith(".ski"):
+        inv = Inverted.load(name[:-4])
+        print(inv.display_str() if args.sample_info else inv.debug_str())
+    else:
+        ms = MultiSketch.load_metadata(strip_sketch_extension(name))
+        print(ms.display_str() if args.sample_info else ms.debug_str())

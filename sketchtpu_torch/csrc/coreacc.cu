@@ -21,7 +21,12 @@
 // it; a column at or past the real column count (j >= ncols) or, with
 // exclude_self, equal to the row gets INT64_MIN and acc 0. Keys hold
 // their column, so they are unique and a top-k over them orders core
-// ascending, then column ascending.
+// ascending, then column ascending. Masked key mode (the inverted index's
+// precluster, the a_sig / b_sig mask of knn_jax._knn_scan_block_ca_pallas)
+// also gives INT64_MIN to a pair whose rows share no u16 sign of the
+// index: signeq.cuh's sign_any_mask, run after the (k, chunk) walk through
+// the then idle ring's shared memory, so the launch keeps its 112,000
+// bytes and its two blocks per SM.
 //
 // Bound: the integer ALU. A pair and 64-bin chunk costs BBITS LOP3s
 // (acc & ~(a ^ b)) on each 32-bit half and two popcounts; Hopper issues
@@ -51,6 +56,7 @@
 #include <math.h>
 #include <string.h>
 
+#include "signeq.cuh"
 #include "tile.cuh"
 
 using namespace stpu;
@@ -71,6 +77,19 @@ constexpr int SMEM_BYTES = 2 * STAGES * OPERAND_STAGE * 8  // staged words
                            + (TI + TJ) * 4;                 // completeness
 static_assert(TI == RING_ROWS && TJ == RING_ROWS,
               "the ring stages 64 rows of each operand");
+static_assert(SIG_STAGE_WORDS * 4 <= STAGES * OPERAND_STAGE * 8,
+              "the sign mask stages through the first operand's ring");
+
+// The masked key mode's signs: rows' (tile-local row index) and columns'
+// (tile-local column index) packed words, words a row, row stride, odd
+// sign count.
+struct SignArgs {
+  const unsigned* asig;
+  const unsigned* bsig;
+  int words;
+  long long ld;
+  int odd;
+};
 
 // The k table, passed by value: kf[q] = k_q - kc; xs[n] and xq[n] are the
 // f32 sums, in order, of kf[q] and kf[q] * kf[q] over q < n.
@@ -88,7 +107,7 @@ __device__ __forceinline__ int ordered_bits(float v) {
   return b < 0 ? b ^ 0x7FFFFFFF : b;
 }
 
-template <bool KEYS>
+template <bool KEYS, bool MASK>
 __global__ void __launch_bounds__(NT, 2)
     coreacc_kernel(const u64* __restrict__ a, long long lda,
                    const u64* __restrict__ b, long long ldb,
@@ -100,7 +119,7 @@ __global__ void __launch_bounds__(NT, 2)
                    float tolerance, float* __restrict__ core,
                    long long* __restrict__ keys, float* __restrict__ acc,
                    long long ldo, int tiles_i, int tri, long long row0,
-                   long long col0, int exclude_self) {
+                   long long col0, int exclude_self, const SignArgs sg) {
   extern __shared__ __align__(16) unsigned char smem[];
   u64* sA = reinterpret_cast<u64*>(smem);
   u64* sB = sA + STAGES * OPERAND_STAGE;
@@ -236,6 +255,13 @@ __global__ void __launch_bounds__(NT, 2)
     }
   }
 
+  unsigned mbits = ~0u;
+  if (MASK) {  // the walk is over: its ring holds no stage in flight
+    const SignOperand sa{sg.asig + (long long)i0 * sg.ld, sg.ld, na - i0};
+    const SignOperand sb{sg.bsig + (long long)j0 * sg.ld, sg.ld, ncols - j0};
+    mbits = sign_any_mask<RM, RN, TY, TX>(
+        sa, sb, sg.words, sg.odd, reinterpret_cast<unsigned*>(sA), ty, tx);
+  }
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int gi = i0 + ty + i * TY;
@@ -261,7 +287,8 @@ __global__ void __launch_bounds__(NT, 2)
       const long long o = (long long)gi * ldo + gj;
       if (KEYS) {
         const long long col = col0 + gj;
-        if (gj >= ncols || (exclude_self && col == row0 + gi)) {
+        if (gj >= ncols || (exclude_self && col == row0 + gi) ||
+            !((mbits >> (i * RN + j)) & 1u)) {
           keys[o] = (long long)(1ull << 63);
           if (gj >= ncols) ad = 0.f;
         } else {
@@ -277,27 +304,29 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <bool KEYS>
+template <bool KEYS, bool MASK>
 cudaError_t configure() {
   cudaError_t err = cudaFuncSetAttribute(
-      coreacc_kernel<KEYS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      coreacc_kernel<KEYS, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(coreacc_kernel<KEYS>,
+  return cudaFuncSetAttribute(coreacc_kernel<KEYS, MASK>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool KEYS>
+template <bool KEYS, bool MASK>
 cudaError_t configured() {
-  static const cudaError_t err = configure<KEYS>();  // once per process
+  static const cudaError_t err = configure<KEYS, MASK>();  // once per process
   return err;
 }
 
 }  // namespace
 
 // keys 0: plain mode, out = core (f32); keys 1: key mode, out = int64
-// keys. ktable: the KTable as 3 * MAX_NK + 3 floats (host memory).
+// keys, masked when asig is not null (asig: na rows, bsig: nb rows of
+// swords packed sign words at row stride sld; sodd: odd sign count).
+// ktable: the KTable as 3 * MAX_NK + 3 floats (host memory).
 // ncols: the real columns (plain mode: nb). Rows are a (na) and b (nb)
 // with row strides lda / ldb words and k-plane stride kstride words.
 extern "C" int stpu_coreacc(const void* a, long long lda, const void* b,
@@ -307,7 +336,9 @@ extern "C" int stpu_coreacc(const void* a, long long lda, const void* b,
                             float expected, float maxnbits, float denom,
                             float tolerance, void* out, void* acc,
                             long long ldo, int keys, int tri, long long row0,
-                            long long col0, int exclude_self, void* stream) {
+                            long long col0, int exclude_self, const void* asig,
+                            const void* bsig, int swords, long long sld,
+                            int sodd, void* stream) {
   if (nk < 1 || nk > MAX_NK || s64 < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -321,34 +352,63 @@ extern "C" int stpu_coreacc(const void* a, long long lda, const void* b,
   const u64* pb = static_cast<const u64*>(b);
   const float* pc1 = static_cast<const float*>(c1);
   const float* pc2 = static_cast<const float*>(c2);
+  const SignArgs sg{static_cast<const unsigned*>(asig),
+                    static_cast<const unsigned*>(bsig), swords, sld, sodd};
   cudaError_t err;
-  if (keys) {
-    if ((err = configured<true>()) != cudaSuccess) return static_cast<int>(err);
-    coreacc_kernel<true><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
+  if (keys && asig != nullptr) {
+    if ((err = configured<true, true>()) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    coreacc_kernel<true, true><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
         pa, lda, pb, ldb, kstride, na, nb, ncols, s64, nk, kt, pc1, pc2,
         cutoff, expected, maxnbits, denom, tolerance, nullptr,
         static_cast<long long*>(out), static_cast<float*>(acc), ldo, tiles_i,
-        0, row0, col0, exclude_self);
+        0, row0, col0, exclude_self, sg);
+  } else if (keys) {
+    if ((err = configured<true, false>()) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    coreacc_kernel<true, false><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
+        pa, lda, pb, ldb, kstride, na, nb, ncols, s64, nk, kt, pc1, pc2,
+        cutoff, expected, maxnbits, denom, tolerance, nullptr,
+        static_cast<long long*>(out), static_cast<float*>(acc), ldo, tiles_i,
+        0, row0, col0, exclude_self, sg);
   } else {
-    if ((err = configured<false>()) != cudaSuccess) return static_cast<int>(err);
-    coreacc_kernel<false><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
+    if ((err = configured<false, false>()) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    coreacc_kernel<false, false><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
         pa, lda, pb, ldb, kstride, na, nb, ncols, s64, nk, kt, pc1, pc2,
         cutoff, expected, maxnbits, denom, tolerance,
         static_cast<float*>(out), nullptr, static_cast<float*>(acc), ldo,
-        tiles_i, tri, row0, col0, exclude_self);
+        tiles_i, tri, row0, col0, exclude_self, sg);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM of the kernel at its launch configuration, or -1.
+// Resident blocks per SM of the kernel at its launch configuration, or -1:
+// keys 0 plain mode, 1 key mode, 2 masked key mode.
 extern "C" int stpu_coreacc_blocks_per_sm(int keys) {
   int n = 0;
-  cudaError_t err = keys ? configured<true>() : configured<false>();
-  if (err == cudaSuccess) {
-    err = keys ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &n, coreacc_kernel<true>, NT, SMEM_BYTES)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &n, coreacc_kernel<false>, NT, SMEM_BYTES);
+  cudaError_t err;
+  if (keys == 2) {
+    err = configured<true, true>();
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, coreacc_kernel<true, true>, NT, SMEM_BYTES);
+    }
+  } else if (keys == 1) {
+    err = configured<true, false>();
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, coreacc_kernel<true, false>, NT, SMEM_BYTES);
+    }
+  } else {
+    err = configured<false, false>();
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, coreacc_kernel<false, false>, NT, SMEM_BYTES);
+    }
   }
   return err == cudaSuccess ? n : -1;
 }

@@ -3,7 +3,8 @@
 // src/sketch/multisketch.rs:80-103), the FASTQ k-mer count filter, whose
 // result depends on read order (src/sketch/mod.rs:198-208 with
 // src/hashing/bloom_filter.rs), the bin minimum of the host sketch oracle,
-// f32 text formatting with the reference's digits, and the DNA fastx parser.
+// f32 text formatting with the reference's digits, the DNA fastx parser,
+// and the .ski index codec (one bin's msgpack map of roaring bitmaps).
 //
 // Formats are implemented from their public specifications
 // (https://github.com/google/snappy/blob/main/format_description.txt).
@@ -645,6 +646,230 @@ int stpu_parse_dna(const uint8_t* buf, int64_t n, int fmt,
     for (int i = 0; i < 4; i++) acgt[i] = o.acgt[i];
     *non_acgt = o.non_acgt;
     return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// .ski index-body serialization: the per-bin {u16 sign -> roaring bitmap}
+// msgpack maps, the same bytes as formats/msgpack.py and formats/roaring.py
+// in one pass (the Python codec costs ~20us per entry, and an index of
+// 100k+ samples has millions of entries).
+// Formats: MessagePack (uint keys minimal-width, bin8/16/32 values) and the
+// RoaringFormatSpec no-run-container layout (cookie 12346), matching
+// formats/msgpack.py and formats/roaring.py byte-for-byte.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+inline void put_u16le(uint8_t* p, uint16_t v) { p[0] = v & 0xFF; p[1] = v >> 8; }
+inline void put_u32le(uint8_t* p, uint32_t v) {
+    p[0] = v & 0xFF; p[1] = (v >> 8) & 0xFF; p[2] = (v >> 16) & 0xFF; p[3] = v >> 24;
+}
+
+// roaring blob for sorted u32 members; returns bytes written or -1 on cap
+int64_t roaring_emit(const uint32_t* vals, int64_t n, uint8_t* out, int64_t cap) {
+    // count containers (distinct high-16 keys) and the exact data size
+    int64_t nc = 0, data_size = 0;
+    for (int64_t i = 0; i < n;) {
+        uint16_t key = vals[i] >> 16;
+        int64_t j = i;
+        while (j < n && (vals[j] >> 16) == key) j++;
+        data_size += (j - i) <= 4096 ? (j - i) * 2 : 8192;
+        i = j;
+        nc++;
+    }
+    int64_t header = 8 + 4 * nc;
+    int64_t pos = header + 4 * nc;  // offsets section then container data
+    if (pos + data_size > cap) return -1;
+    put_u32le(out, 12346u);
+    put_u32le(out + 4, (uint32_t)nc);
+    uint8_t* desc = out + 8;
+    uint8_t* offs = out + header;
+    int64_t i = 0;
+    for (int64_t c = 0; c < nc; c++) {
+        uint16_t key = vals[i] >> 16;
+        int64_t j = i;
+        while (j < n && (vals[j] >> 16) == key) j++;
+        int64_t card = j - i;
+        put_u16le(desc, key); desc += 2;
+        put_u16le(desc, (uint16_t)(card - 1)); desc += 2;
+        put_u32le(offs, (uint32_t)pos); offs += 4;
+        if (card <= 4096) {
+            for (int64_t t = i; t < j; t++) {
+                put_u16le(out + pos, (uint16_t)(vals[t] & 0xFFFF));
+                pos += 2;
+            }
+        } else {
+            uint8_t* bits = out + pos;
+            std::memset(bits, 0, 8192);
+            for (int64_t t = i; t < j; t++) {
+                uint16_t lo = vals[t] & 0xFFFF;
+                bits[lo >> 3] |= (uint8_t)(1u << (lo & 7));
+            }
+            pos += 8192;
+        }
+        i = j;
+    }
+    return pos;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One bin's msgpack map {sign: roaring bin}: signs ascending (n_entries
+// distinct u16), members flat sorted-ascending u32 with entry offsets.
+// Returns bytes written, or -1 if cap insufficient.
+int64_t stpu_ski_bin_msgpack(const uint16_t* signs, const int64_t* ent_off,
+                             const uint32_t* members, int64_t n_entries,
+                             uint8_t* out, int64_t cap) {
+    int64_t o = 0;
+    if (n_entries < 16) {
+        if (o + 1 > cap) return -1;
+        out[o++] = 0x80 | (uint8_t)n_entries;
+    } else if (n_entries < (1 << 16)) {
+        if (o + 3 > cap) return -1;
+        out[o++] = 0xDE;
+        out[o++] = (n_entries >> 8) & 0xFF;
+        out[o++] = n_entries & 0xFF;
+    } else {
+        if (o + 5 > cap) return -1;
+        out[o++] = 0xDF;
+        out[o++] = (n_entries >> 24) & 0xFF;
+        out[o++] = (n_entries >> 16) & 0xFF;
+        out[o++] = (n_entries >> 8) & 0xFF;
+        out[o++] = n_entries & 0xFF;
+    }
+    for (int64_t e = 0; e < n_entries; e++) {
+        uint16_t sign = signs[e];
+        if (o + 3 > cap) return -1;
+        if (sign < 0x80) {
+            out[o++] = (uint8_t)sign;
+        } else if (sign < 0x100) {
+            out[o++] = 0xCC;
+            out[o++] = (uint8_t)sign;
+        } else {
+            out[o++] = 0xCD;
+            out[o++] = sign >> 8;
+            out[o++] = sign & 0xFF;
+        }
+        // roaring blob into scratch position after a reserved bin header;
+        // bin header size depends on blob length, so emit blob at o+5 max
+        // then move if needed
+        uint8_t tmp_hdr[5];
+        int64_t blob_at = o + 5;
+        int64_t blen = roaring_emit(members + ent_off[e], ent_off[e + 1] - ent_off[e],
+                                    out + blob_at, cap - blob_at);
+        if (blen < 0) return -1;
+        int hdr;
+        if (blen < (1 << 8)) {
+            tmp_hdr[0] = 0xC4; tmp_hdr[1] = (uint8_t)blen; hdr = 2;
+        } else if (blen < (1 << 16)) {
+            tmp_hdr[0] = 0xC5; tmp_hdr[1] = blen >> 8; tmp_hdr[2] = blen & 0xFF; hdr = 3;
+        } else {
+            tmp_hdr[0] = 0xC6;
+            tmp_hdr[1] = (blen >> 24) & 0xFF; tmp_hdr[2] = (blen >> 16) & 0xFF;
+            tmp_hdr[3] = (blen >> 8) & 0xFF; tmp_hdr[4] = blen & 0xFF; hdr = 5;
+        }
+        std::memcpy(out + o, tmp_hdr, hdr);
+        if (hdr != 5) std::memmove(out + o + hdr, out + blob_at, blen);
+        o += hdr + blen;
+    }
+    return o;
+}
+
+// Parse one bin's msgpack map and emit (member, sign) pairs.
+// Returns bytes consumed (>0) and sets *n_out, or a negative code on any
+// unsupported encoding (the caller then decodes it in Python).
+int64_t stpu_ski_bin_unpack(const uint8_t* buf, int64_t len,
+                            uint32_t* members, uint16_t* signs,
+                            int64_t out_cap, int64_t* n_out) {
+    int64_t pos = 0, no = 0;
+    if (pos >= len) return -1;
+    uint8_t b = buf[pos++];
+    int64_t n_entries;
+    if ((b & 0xF0) == 0x80) n_entries = b & 0x0F;
+    else if (b == 0xDE) {
+        if (pos + 2 > len) return -1;
+        n_entries = ((int64_t)buf[pos] << 8) | buf[pos + 1]; pos += 2;
+    } else if (b == 0xDF) {
+        if (pos + 4 > len) return -1;
+        n_entries = ((int64_t)buf[pos] << 24) | ((int64_t)buf[pos+1] << 16) |
+                    ((int64_t)buf[pos+2] << 8) | buf[pos+3]; pos += 4;
+    } else return -2;
+    for (int64_t e = 0; e < n_entries; e++) {
+        if (pos >= len) return -1;
+        uint8_t kb = buf[pos++];
+        uint32_t sign;
+        if (kb < 0x80) sign = kb;
+        else if (kb == 0xCC) { if (pos + 1 > len) return -1; sign = buf[pos]; pos += 1; }
+        else if (kb == 0xCD) {
+            if (pos + 2 > len) return -1;
+            sign = ((uint32_t)buf[pos] << 8) | buf[pos + 1]; pos += 2;
+        } else if (kb == 0xCE) {
+            if (pos + 4 > len) return -1;
+            sign = ((uint32_t)buf[pos] << 24) | ((uint32_t)buf[pos+1] << 16) |
+                   ((uint32_t)buf[pos+2] << 8) | buf[pos+3]; pos += 4;
+        } else return -3;
+        if (sign > 0xFFFF) return -3;
+        if (pos >= len) return -1;
+        uint8_t vb = buf[pos++];
+        int64_t blen;
+        if (vb == 0xC4) { if (pos + 1 > len) return -1; blen = buf[pos]; pos += 1; }
+        else if (vb == 0xC5) {
+            if (pos + 2 > len) return -1;
+            blen = ((int64_t)buf[pos] << 8) | buf[pos + 1]; pos += 2;
+        } else if (vb == 0xC6) {
+            if (pos + 4 > len) return -1;
+            blen = ((int64_t)buf[pos] << 24) | ((int64_t)buf[pos+1] << 16) |
+                   ((int64_t)buf[pos+2] << 8) | buf[pos+3]; pos += 4;
+        } else return -4;
+        if (pos + blen > len) return -1;
+        const uint8_t* blob = buf + pos;
+        // roaring: accept only the no-run cookie; run containers -> Python
+        if (blen < 8) return -5;
+        uint32_t cookie = blob[0] | (blob[1] << 8) | (blob[2] << 16) |
+                          ((uint32_t)blob[3] << 24);
+        if ((cookie & 0xFFFF) == 12347) return -6;
+        if (cookie != 12346) return -5;
+        int64_t nc = blob[4] | (blob[5] << 8) | (blob[6] << 16) |
+                     ((int64_t)blob[7] << 24);
+        int64_t dpos = 8 + 4 * nc + 4 * nc;  // skip descriptors + offsets
+        const uint8_t* desc = blob + 8;
+        for (int64_t c = 0; c < nc; c++) {
+            uint32_t key = desc[0] | (desc[1] << 8);
+            int64_t card = (int64_t)(desc[2] | (desc[3] << 8)) + 1;
+            desc += 4;
+            if (card <= 4096) {
+                if (dpos + card * 2 > blen || no + card > out_cap) return -1;
+                for (int64_t t = 0; t < card; t++) {
+                    uint32_t lo = blob[dpos] | (blob[dpos + 1] << 8);
+                    dpos += 2;
+                    members[no] = (key << 16) | lo;
+                    signs[no] = (uint16_t)sign;
+                    no++;
+                }
+            } else {
+                if (dpos + 8192 > blen) return -1;
+                for (int64_t w = 0; w < 8192; w++) {
+                    uint8_t byte = blob[dpos + w];
+                    while (byte) {
+                        int bit = __builtin_ctz(byte);
+                        byte &= byte - 1;
+                        if (no >= out_cap) return -1;
+                        members[no] = (key << 16) | (uint32_t)(w * 8 + bit);
+                        signs[no] = (uint16_t)sign;
+                        no++;
+                    }
+                }
+                dpos += 8192;
+            }
+        }
+        pos += blen;
+    }
+    *n_out = no;
+    return pos;
 }
 
 }  // extern "C"

@@ -15,7 +15,12 @@
 //   as int64 (order-preserving int32 of its bits) << 32 | (colmask - col).
 // Pairs whose column is at or past the real columns or, with exclude_self,
 // equals the row are invalid: -1, below every valid key (valid keys are
-// >= 0). Since every key holds its column, keys are unique and the knn
+// >= 0). In masked mode (the inverted index's precluster, the port of
+// knn_jax._knn_scan_block_packed(masked=True) and of the a_sig / b_sig
+// mask of _knn_scan_block_comp_pallas) a pair whose rows share no u16
+// sign of the index is invalid too: the mask is one more validity term,
+// computed per 64 x 64 tile by signeq.cuh's sign_any_mask, the routine of
+// the index's own queries, through SIG_STAGE_WORDS of shared memory. Since every key holds its column, keys are unique and the knn
 // largest of a row are one set, ordered value descending, then column
 // ascending, whatever order they were found in.
 //
@@ -47,6 +52,7 @@
 // bound knn: a block keeps rows x knn keys, with 64 rows per block while
 // that fits the 227 KB of shared memory, else 32 or 16 (the other rows of
 // the pair tile idle); MAX_KNN = 1024 fits with 16 rows of int64 keys.
+#include "signeq.cuh"
 #include "tile.cuh"
 
 using namespace stpu;
@@ -77,7 +83,26 @@ struct KeyParams {
   const float* c1;  // rows' completeness (tile-local index), or null
   const float* c2;  // columns' completeness (tile-local index)
   float cutoff, expected, maxnbits, denom;
+  // masked mode: the rows' and columns' packed signs (tile-local index as
+  // c1 / c2), words a row, row stride (words), odd sign count
+  const unsigned* asig;
+  const unsigned* bsig;
+  int swords;
+  long long sld;
+  int sodd;
 };
+
+// The sign mask of the thread's pairs of the 64 x 64 tile whose rows start
+// at i0 (arows real) and columns at j0 (ncols real columns in all).
+__device__ __forceinline__ unsigned tile_sign_mask(const KeyParams& p, int i0,
+                                                   int arows, int j0,
+                                                   int ncols, unsigned* stage,
+                                                   int ty, int tx) {
+  const SignOperand sa{p.asig + (long long)i0 * p.sld, p.sld, arows};
+  const SignOperand sb{p.bsig + (long long)j0 * p.sld, p.sld, ncols - j0};
+  return sign_any_mask<RM, RN, TY, TX>(sa, sb, p.swords, p.sodd, stage, ty,
+                                       tx);
+}
 
 // The key of a valid pair.
 template <typename KeyT, bool COMP>
@@ -168,7 +193,7 @@ __device__ __forceinline__ void walk_tiles(u64* sA, u64* sB,
 
 // --- tile mode -------------------------------------------------------------
 
-template <typename KeyT, bool COMP>
+template <typename KeyT, bool COMP, bool MASK>
 __global__ void __launch_bounds__(NT, 2)
     knn_keys_kernel(const u64* __restrict__ a, long long lda,
                     const u64* __restrict__ b, long long ldb,
@@ -177,10 +202,15 @@ __global__ void __launch_bounds__(NT, 2)
   extern __shared__ __align__(16) unsigned char smem[];
   u64* sA = reinterpret_cast<u64*>(smem);
   u64* sB = sA + RING_OPERAND;
+  unsigned* s_sig = reinterpret_cast<unsigned*>(sB + RING_OPERAND);
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
 
   auto write_keys = [&](int, const int (&cnt)[RM][RN]) {
+    const unsigned mbits =
+        MASK && j0 < ncols
+            ? tile_sign_mask(p, i0, min(TI, tr - i0), j0, ncols, s_sig, ty, tx)
+            : ~0u;
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int gi = i0 + ty + i * TY;
@@ -193,7 +223,8 @@ __global__ void __launch_bounds__(NT, 2)
         if (gj >= tc) continue;
         const long long col = p.col0 + gj;
         KeyT key = -1;
-        if (gj < ncols && !(p.exclude_self && col == row)) {
+        if (gj < ncols && !(p.exclude_self && col == row) &&
+            ((mbits >> (i * RN + j)) & 1u)) {
           key = pair_key<KeyT, COMP>(cnt[i][j], col, c1v,
                                      COMP ? p.c2[gj] : 1.f, p);
         }
@@ -261,14 +292,15 @@ __host__ __device__ constexpr int cand_rows(int rows, int key_bytes) {
 // Shared memory of a selection block of `rows` rows: the ring, then the
 // lists (knn keys a row), the candidates (TJ keys a buffer row), and per
 // row the threshold, the candidate count and the completeness value.
+// With the sign mask, SIG_STAGE_WORDS words follow.
 __host__ __device__ constexpr int select_smem(int rows, int knn,
-                                              int key_bytes) {
+                                              int key_bytes, bool mask) {
   return RING_BYTES +
          (rows * (knn + 1) + cand_rows(rows, key_bytes) * TJ) * key_bytes +
-         rows * 8;
+         rows * 8 + (mask ? SIG_STAGE_WORDS * 4 : 0);
 }
 
-template <typename KeyT, bool COMP>
+template <typename KeyT, bool COMP, bool MASK>
 __global__ void __launch_bounds__(NT, 2)
     knn_select_kernel(const u64* __restrict__ a, long long lda,
                       const u64* __restrict__ b, long long ldb,
@@ -283,6 +315,7 @@ __global__ void __launch_bounds__(NT, 2)
   KeyT* s_thr = s_cand + cand_rows(rows, sizeof(KeyT)) * TJ;
   int* s_cnt = reinterpret_cast<int*>(s_thr + rows);
   float* s_c1 = reinterpret_cast<float*>(s_cnt + rows);
+  unsigned* s_sig = reinterpret_cast<unsigned*>(s_c1 + rows);
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
@@ -307,6 +340,8 @@ __global__ void __launch_bounds__(NT, 2)
   constexpr int PROWS = TI / PASSES, PI = RM / PASSES;
   auto select = [&](int jt, const int (&cnt)[RM][RN]) {
     const int j0 = jt * TJ;
+    const unsigned mbits =
+        MASK ? tile_sign_mask(p, i0, arows, j0, ncols, s_sig, ty, tx) : ~0u;
 #pragma unroll
     for (int h = 0; h < PASSES; ++h) {
       if (h * PROWS >= arows) break;  // the same for every thread
@@ -321,7 +356,10 @@ __global__ void __launch_bounds__(NT, 2)
         for (int j = 0; j < RN; ++j) {
           const int gj = j0 + tx + j * TX;
           const long long col = p.col0 + gj;
-          if (gj >= ncols || (p.exclude_self && col == row)) continue;
+          if (gj >= ncols || (p.exclude_self && col == row) ||
+              !((mbits >> (i * RN + j)) & 1u)) {
+            continue;
+          }
           const KeyT key = pair_key<KeyT, COMP>(cnt[i][j], col, c1v,
                                                 COMP ? p.c2[gj] : 1.f, p);
           if (key > thr) {
@@ -401,19 +439,20 @@ cudaError_t allow_smem(Kernel kernel) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename KeyT, bool COMP>
+template <typename KeyT, bool COMP, bool MASK>
 cudaError_t configured() {  // once per process and instantiation
   static const cudaError_t err = [] {
-    cudaError_t e = allow_smem(knn_keys_kernel<KeyT, COMP>);
-    return e != cudaSuccess ? e : allow_smem(knn_select_kernel<KeyT, COMP>);
+    cudaError_t e = allow_smem(knn_keys_kernel<KeyT, COMP, MASK>);
+    return e != cudaSuccess ? e
+                            : allow_smem(knn_select_kernel<KeyT, COMP, MASK>);
   }();
   return err;
 }
 
 // Rows per selection block: the most of 64, 32, 16 whose lists fit.
-int select_rows(int knn, int key_bytes) {
+int select_rows(int knn, int key_bytes, bool mask) {
   for (int rows = TI; rows >= 16; rows /= 2) {
-    if (select_smem(rows, knn, key_bytes) <= MAX_SMEM) return rows;
+    if (select_smem(rows, knn, key_bytes, mask) <= MAX_SMEM) return rows;
   }
   return 0;
 }
@@ -427,31 +466,32 @@ struct Launch {
   cudaStream_t st;
 };
 
-template <typename KeyT, bool COMP>
+template <typename KeyT, bool COMP, bool MASK>
 cudaError_t launch_keys(const Launch& l, long long ldo, int tc) {
-  cudaError_t err = configured<KeyT, COMP>();
+  cudaError_t err = configured<KeyT, COMP, MASK>();
   if (err != cudaSuccess) return err;
   const dim3 grid((tc + TJ - 1) / TJ, (l.tr + TI - 1) / TI);
-  knn_keys_kernel<KeyT, COMP><<<grid, NT, RING_BYTES, l.st>>>(
+  const int smem = RING_BYTES + (MASK ? SIG_STAGE_WORDS * 4 : 0);
+  knn_keys_kernel<KeyT, COMP, MASK><<<grid, NT, smem, l.st>>>(
       l.a, l.lda, l.b, l.ldb, static_cast<KeyT*>(l.out), ldo, l.tr, tc,
       l.ncols, l.s64, l.p);
   return cudaGetLastError();
 }
 
-template <typename KeyT, bool COMP>
+template <typename KeyT, bool COMP, bool MASK>
 cudaError_t launch_select(const Launch& l, void* part, int knn, int splits) {
-  cudaError_t err = configured<KeyT, COMP>();
+  cudaError_t err = configured<KeyT, COMP, MASK>();
   if (err != cudaSuccess) return err;
-  const int rows = select_rows(knn, sizeof(KeyT));
+  const int rows = select_rows(knn, sizeof(KeyT), MASK);
   if (rows == 0) return cudaErrorInvalidValue;
   const int row_tiles = (l.tr + rows - 1) / rows;
   const long long blocks = (long long)row_tiles * splits;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   KeyT* first = static_cast<KeyT*>(splits > 1 ? part : l.out);
-  knn_select_kernel<KeyT, COMP>
-      <<<(unsigned)blocks, NT, select_smem(rows, knn, sizeof(KeyT)), l.st>>>(
-          l.a, l.lda, l.b, l.ldb, first, l.tr, l.ncols, l.s64, knn, rows,
-          row_tiles, splits, l.p);
+  knn_select_kernel<KeyT, COMP, MASK>
+      <<<(unsigned)blocks, NT, select_smem(rows, knn, sizeof(KeyT), MASK),
+         l.st>>>(l.a, l.lda, l.b, l.ldb, first, l.tr, l.ncols, l.s64, knn,
+                 rows, row_tiles, splits, l.p);
   if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
   knn_merge_kernel<KeyT>
       <<<(l.tr + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32,
@@ -460,43 +500,76 @@ cudaError_t launch_select(const Launch& l, void* part, int knn, int splits) {
   return cudaGetLastError();
 }
 
-// Calls f<KeyT, COMP> for the key type and mode of (key_bytes, c1).
-template <typename F32, typename F64, typename F64C>
-int dispatch(int key_bytes, const void* c1, F32 f32, F64 f64, F64C f64c) {
-  if (key_bytes == 4 && c1 == nullptr) return static_cast<int>(f32());
-  if (key_bytes == 8 && c1 == nullptr) return static_cast<int>(f64());
-  if (key_bytes == 8) return static_cast<int>(f64c());
-  return static_cast<int>(cudaErrorInvalidValue);
+// The key type and modes of one instantiation, as a value.
+template <typename KeyT, bool COMP, bool MASK>
+struct Inst {
+  using Key = KeyT;
+  static constexpr bool comp = COMP, mask = MASK;
+};
+
+// Calls f(Inst<KeyT, COMP, MASK>{}) for the key type and mode of
+// (key_bytes, comp, mask).
+template <typename F>
+int dispatch(int key_bytes, bool comp, bool mask, F f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (key_bytes == 4 && !comp) {
+    err = mask ? f(Inst<int, false, true>{}) : f(Inst<int, false, false>{});
+  } else if (key_bytes == 8 && !comp) {
+    err = mask ? f(Inst<long long, false, true>{})
+               : f(Inst<long long, false, false>{});
+  } else if (key_bytes == 8) {
+    err = mask ? f(Inst<long long, true, true>{})
+               : f(Inst<long long, true, false>{});
+  }
+  return static_cast<int>(err);
+}
+
+KeyParams key_params(long long row0, long long col0, int exclude_self,
+                     int shift, long long colmask, const void* c1,
+                     const void* c2, float cutoff, float expected,
+                     float maxnbits, float denom, const void* asig,
+                     const void* bsig, int swords, long long sld, int sodd) {
+  return KeyParams{row0, col0, exclude_self, shift, colmask,
+                   static_cast<const float*>(c1),
+                   static_cast<const float*>(c2), cutoff, expected, maxnbits,
+                   denom, static_cast<const unsigned*>(asig),
+                   static_cast<const unsigned*>(bsig), swords, sld, sodd};
 }
 
 }  // namespace
 
 // Tile mode. key_bytes 4: int32 plain keys; 8: int64 keys, completeness
 // mode when c1 is not null. c1 (tr) and c2 (tc) are the rows' and columns'
-// completeness; out is (tr, tc) with row stride ldo.
+// completeness; out is (tr, tc) with row stride ldo. Masked mode when asig
+// is not null: asig (tr rows) and bsig (tc rows) hold `swords` packed sign
+// words a row at row stride sld words; sodd: the sign count is odd.
 extern "C" int stpu_knn_keys(const void* a, long long lda, const void* b,
                              long long ldb, void* out, long long ldo, int tr,
                              int tc, int ncols, int s64, long long row0,
                              long long col0, int exclude_self, int shift,
                              long long colmask, int key_bytes, const void* c1,
                              const void* c2, float cutoff, float expected,
-                             float maxnbits, float denom, void* stream) {
+                             float maxnbits, float denom, const void* asig,
+                             const void* bsig, int swords, long long sld,
+                             int sodd, void* stream) {
   const Launch l{static_cast<const u64*>(a), static_cast<const u64*>(b),
                  lda, ldb, out, tr, ncols, s64,
-                 KeyParams{row0, col0, exclude_self, shift, colmask,
-                           static_cast<const float*>(c1),
-                           static_cast<const float*>(c2), cutoff, expected,
-                           maxnbits, denom},
+                 key_params(row0, col0, exclude_self, shift, colmask, c1, c2,
+                            cutoff, expected, maxnbits, denom, asig, bsig,
+                            swords, sld, sodd),
                  static_cast<cudaStream_t>(stream)};
-  return dispatch(
-      key_bytes, c1, [&] { return launch_keys<int, false>(l, ldo, tc); },
-      [&] { return launch_keys<long long, false>(l, ldo, tc); },
-      [&] { return launch_keys<long long, true>(l, ldo, tc); });
+  return dispatch(key_bytes, c1 != nullptr, asig != nullptr,
+                  [&](auto inst) {
+                    using I = decltype(inst);
+                    return launch_keys<typename I::Key, I::comp, I::mask>(
+                        l, ldo, tc);
+                  });
 }
 
 // Selection mode: out (tr, knn) gets each row's knn largest keys over the
 // columns [0, ncols) of b (global ids from 0), descending, -1 where a row
-// has fewer. part: scratch of (splits, tr, knn) keys when splits > 1.
+// has fewer. part: scratch of (splits, tr, knn) keys when splits > 1. The
+// sign mask as in tile mode, bsig from column 0.
 extern "C" int stpu_knn_select(const void* a, long long lda, const void* b,
                                long long ldb, void* out, void* part, int tr,
                                int ncols, int s64, int knn, int splits,
@@ -504,52 +577,49 @@ extern "C" int stpu_knn_select(const void* a, long long lda, const void* b,
                                long long colmask, int key_bytes,
                                const void* c1, const void* c2, float cutoff,
                                float expected, float maxnbits, float denom,
-                               void* stream) {
+                               const void* asig, const void* bsig, int swords,
+                               long long sld, int sodd, void* stream) {
   if (knn < 1 || knn > MAX_KNN || splits < 1 || tr < 1 || ncols < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Launch l{static_cast<const u64*>(a), static_cast<const u64*>(b),
                  lda, ldb, out, tr, ncols, s64,
-                 KeyParams{row0, 0, exclude_self, shift, colmask,
-                           static_cast<const float*>(c1),
-                           static_cast<const float*>(c2), cutoff, expected,
-                           maxnbits, denom},
+                 key_params(row0, 0, exclude_self, shift, colmask, c1, c2,
+                            cutoff, expected, maxnbits, denom, asig, bsig,
+                            swords, sld, sodd),
                  static_cast<cudaStream_t>(stream)};
-  return dispatch(
-      key_bytes, c1,
-      [&] { return launch_select<int, false>(l, part, knn, splits); },
-      [&] { return launch_select<long long, false>(l, part, knn, splits); },
-      [&] { return launch_select<long long, true>(l, part, knn, splits); });
+  return dispatch(key_bytes, c1 != nullptr, asig != nullptr,
+                  [&](auto inst) {
+                    using I = decltype(inst);
+                    return launch_select<typename I::Key, I::comp, I::mask>(
+                        l, part, knn, splits);
+                  });
 }
 
-// Rows per selection block at (knn, key_bytes), 0 when knn does not fit.
-extern "C" int stpu_knn_select_rows(int knn, int key_bytes) {
-  return knn < 1 || knn > MAX_KNN ? 0 : select_rows(knn, key_bytes);
+// Rows per selection block at (knn, key_bytes, mask), 0 when knn does not
+// fit.
+extern "C" int stpu_knn_select_rows(int knn, int key_bytes, int mask) {
+  return knn < 1 || knn > MAX_KNN ? 0 : select_rows(knn, key_bytes, mask);
 }
 
-// Resident selection blocks per SM at (knn, key_bytes, comp), or -1.
+// Resident selection blocks per SM at (knn, key_bytes, comp, mask), or -1.
 extern "C" int stpu_knn_select_blocks_per_sm(int knn, int key_bytes,
-                                             int comp) {
-  const int rows = stpu_knn_select_rows(knn, key_bytes);
+                                             int comp, int mask) {
+  const int rows = stpu_knn_select_rows(knn, key_bytes, mask);
   if (rows == 0) return -1;
-  const int bytes = select_smem(rows, knn, key_bytes);
+  const int bytes = select_smem(rows, knn, key_bytes, mask);
   int n = 0;
   const int rc = dispatch(
-      key_bytes, comp ? &n : nullptr,
-      [&] {
-        cudaError_t e = configured<int, false>();
-        return e ? e : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &n, knn_select_kernel<int, false>, NT, bytes);
-      },
-      [&] {
-        cudaError_t e = configured<long long, false>();
-        return e ? e : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &n, knn_select_kernel<long long, false>, NT, bytes);
-      },
-      [&] {
-        cudaError_t e = configured<long long, true>();
-        return e ? e : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &n, knn_select_kernel<long long, true>, NT, bytes);
+      key_bytes, comp != 0, mask != 0,
+      [&](auto inst) {
+        using I = decltype(inst);
+        cudaError_t e = configured<typename I::Key, I::comp, I::mask>();
+        return e != cudaSuccess
+                   ? e
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &n,
+                         knn_select_kernel<typename I::Key, I::comp, I::mask>,
+                         NT, bytes);
       });
   return rc == 0 ? n : -1;
 }

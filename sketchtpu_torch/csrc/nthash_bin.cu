@@ -1,6 +1,11 @@
 // ntHash + Mersenne-61 sign + per-(k, genome, bin) minimum for every k of a
 // sketch in one launch: the port of sketchtpu/hash/nthash_jax.py
 // hash_bin_kernel (an XLA program, the whole compute of the sketch stage).
+// Its signs mode is the port of nthash_jax.hash_signs_kernel (the reads
+// path): the same hash, break rule and sign, written at every window start
+// in sequence order (u64 max for a window that is not valid; signs are
+// below 2^61, so the value is free) for the host's order-dependent count
+// filter, with no minimum table.
 //
 // For every window start s of a batch of concatenated genomes and every k:
 //   fwd = XOR_j srol^(k-1-j)(SEED[c(s+j)]), rev = XOR_j srol^j(RC[c(s+j)])
@@ -35,6 +40,10 @@
 // - Minima: a plain L2 read of the slot skips the atomic for every sign that
 //   cannot lower it; with smin the block first reduces the signs of its
 //   first genome in a shared-memory table per k and flushes that.
+// - Signs mode: the launch holds one stream (or a chunk of one); out is
+//   (nk, n_out), one row per k over the first n_out window starts, and a
+//   thread writes its run's 64 consecutive words per k. Bound there: the
+//   8 bytes a window and k that the host must read back.
 #include <cuda_runtime.h>
 
 namespace {
@@ -82,12 +91,15 @@ __device__ __forceinline__ void global_min(u64* slot, u64 x) {
 // ktab: per k (ascending) KWORDS words: srol^k(SEED[0..3]),
 // srol^(k-1)(RC[0..3]), k, (k % 33) | (k % 31) << 32; then SEED[0..3],
 // RC[0..3]. out is (nk, n_genomes, nbins), filled with u64 max.
+// Signs mode (SIGNS): out is (nk, n_out) and starts, magic and the bins
+// are unused; n_genomes is 1.
+template <bool SIGNS>
 __global__ void __launch_bounds__(NT)
     nthash_multi_kernel(const unsigned char* __restrict__ seq, long long total,
                         const u64* __restrict__ ktab, int nk, int rc,
                         const long long* __restrict__ starts, int n_genomes,
                         u64 magic, int mshift, int nbins, int pitch, int smin,
-                        u64* __restrict__ out) {
+                        long long n_out, u64* __restrict__ out) {
   extern __shared__ __align__(8) unsigned char smem[];
   u64* stab = reinterpret_cast<u64*>(smem);
   const u64* seed = stab + nk * KWORDS;
@@ -123,13 +135,21 @@ __global__ void __launch_bounds__(NT)
 
   const int q0 = tid * L;  // the run's first window start, block-relative
   const long long s0 = base + q0;
-  const int g0 = genome_of(s0);
-  const int gblock = smin ? genome_of(base) : -1;
+  const int g0 = SIGNS ? 0 : genome_of(s0);
+  const int gblock = !SIGNS && smin ? genome_of(base) : -1;
+  // signs mode: the window starts of this run that have an output slot
+  const int nout = SIGNS ? (int)max(0ll, min((long long)L, n_out - s0)) : 0;
+  if (SIGNS && nout == 0) return;  // no barrier follows in signs mode
   u64 fh = 0, v = 0;  // Horner state of the window at q0, j bases long
   int j = 0, last = 0;  // last: the last flag among bases 1..j-1 (0: none)
   for (int ki = 0; ki < nk; ++ki) {
     const u64* t = stab + ki * KWORDS;
     const int k = (int)t[8];
+    u64* srow = out + (long long)ki * n_out + s0;  // signs mode
+    if (SIGNS && s0 + k > total) {  // no window of this run fits at this k
+      for (int w = 0; w < nout; ++w) srow[w] = ~0ull;
+      continue;
+    }
     if (s0 + k <= total) {
       for (; j < k; ++j) {
         const unsigned b = byte_at(q0 + j);
@@ -144,7 +164,10 @@ __global__ void __launch_bounds__(NT)
       const long long left = total - k + 1 - s0;  // windows from s0 on
       const int nwin = left < L ? (int)left : L;
       u64* plane = out + (long long)ki * n_genomes * nbins;
-      for (int w = 0; w < nwin; ++w) {
+      if (SIGNS) {
+        for (int w = nwin; w < nout; ++w) srow[w] = ~0ull;
+      }
+      for (int w = 0; w < (SIGNS ? min(nwin, nout) : nwin); ++w) {
         if (w > 0) {
           const unsigned bo = byte_at(q0 + w - 1) & 3u;
           const unsigned bi = byte_at(q0 + w + k - 1);
@@ -152,10 +175,17 @@ __global__ void __launch_bounds__(NT)
           f = srol1(f) ^ t[bo] ^ seed[bi & 3u];
           r = sror1(r ^ rcs[bo]) ^ t[4 + (bi & 3u)];
         }
-        if (lf > w) continue;  // a flag inside the window
+        if (lf > w) {  // a flag inside the window
+          if (SIGNS) srow[w] = ~0ull;
+          continue;
+        }
         const u64 h = (rc && r < f) ? r : f;
         u64 x = (h & M61) + (h >> 61);
         if (x >= M61) x -= M61;
+        if (SIGNS) {
+          srow[w] = x;
+          continue;
+        }
         const u64 bin = magic_div(x, magic, mshift);
         const long long s = s0 + w;
         while (s >= next && g + 1 < n_genomes) {
@@ -169,7 +199,7 @@ __global__ void __launch_bounds__(NT)
         }
       }
     }
-    if (smin) {  // flush this k's table and reset it for the next
+    if (!SIGNS && smin) {  // flush this k's table and reset it for the next
       __syncthreads();
       u64* row = out + ((long long)ki * n_genomes + gblock) * nbins;
       for (int e = tid; e < nbins; e += NT) {
@@ -208,12 +238,35 @@ extern "C" int stpu_nthash_multi(const void* seq, long long total,
   }
   const long long per_block = (long long)NT * L;
   const long long blocks = (windows + per_block - 1) / per_block;
-  nthash_multi_kernel<<<(unsigned)blocks, NT, smem_bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
+  nthash_multi_kernel<false><<<(unsigned)blocks, NT, smem_bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(seq), total,
       static_cast<const u64*>(ktab), nk, rc,
       static_cast<const long long*>(starts), n_genomes, magic, mshift, nbins,
-      pitch, smin, static_cast<u64*>(out));
+      pitch, smin, 0, static_cast<u64*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Signs mode: out (nk, n_out) u64 gets, for every k of ktab (ascending) and
+// window start s < n_out, the sign of the window [s, s + k) of seq, or u64
+// max where that window crosses a break flag or runs past total. The
+// caller owns starts [0, n_out) and passes at least the max k - 1 bases
+// past them where the stream has them. smem_bytes: nk * 80 + 64 table
+// bytes, then the span as in the bin mode.
+extern "C" int stpu_nthash_signs(const void* seq, long long total,
+                                 const void* ktab, int nk, int rc, int pitch,
+                                 int smem_bytes, long long n_out, void* out,
+                                 void* stream) {
+  if (n_out < 1 || total < 1 || nk < 1 || smem_bytes > 48 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long per_block = (long long)NT * L;
+  const long long blocks = (n_out + per_block - 1) / per_block;
+  nthash_multi_kernel<true><<<(unsigned)blocks, NT, smem_bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(seq), total,
+      static_cast<const u64*>(ktab), nk, rc, nullptr, 1, 0, 0, 1, pitch, 0,
+      n_out, static_cast<u64*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -286,6 +286,165 @@ def self_dists_knn(
     return rows_out
 
 
+def ski_skd_maps(ms, inverted):
+    """Name-based index maps between a loaded .skd and a .ski
+    (distances/mod.rs:413-438). Returns (skq_index_lookup, skd_index_from_ski):
+    the forward map gives each skd sample's ski position (every skd sample
+    must exist in the ski, like the reference); the reverse map covers
+    every SKI sample, with -1 for samples the .skd lacks."""
+    skq_lookup = {name: i for i, name in enumerate(inverted.sample_names)}
+    skq_index_lookup = []
+    not_found = []
+    for skd_idx in range(ms.number_samples_loaded()):
+        name = ms.sketch_name(skd_idx)
+        if name in skq_lookup:
+            skq_index_lookup.append(skq_lookup[name])
+        else:
+            not_found.append(name)
+    if not_found:
+        raise ValueError(
+            "The following samples in the .skd could not be found in the "
+            f".ski:\n{not_found!r}"
+        )
+    skd_index_from_ski = np.full(len(inverted.sample_names), -1, np.int64)
+    for skd_idx, ski_idx in enumerate(skq_index_lookup):
+        skd_index_from_ski[ski_idx] = skd_idx
+    return skq_index_lookup, skd_index_from_ski
+
+
+def self_dists_knn_precluster(
+    ms,
+    inverted,
+    skq_bins: np.ndarray,
+    skq_stride: int,
+    knn: int,
+    dist_type: DistType,
+    completeness_vec=None,
+    completeness_cutoff: float = 0.64,
+    retain_unmatched: str | None = None,
+    engine=None,
+    row_range: slice | None = None,
+):
+    """kNN with inverted-index prefiltering (distances/mod.rs:399-553).
+
+    retain_unmatched: None | "singleton" | "bruteforce".
+    row_range restricts to a block of rows (multi-process sharding).
+
+    Core/accessory mode (dist_type.coreacc) is an extension: the reference
+    leaves it `unimplemented!` (distances/mod.rs:548-550). Candidates come
+    from the inverted index's single-k prefilter; distances are the multi-k
+    core/accessory regression over every k in the .skd, with neighbours
+    ranked by core distance. Rows keep only their real candidates (no
+    (row, 1.0) padding entries — the sparse core/acc printer never skips).
+    """
+    engine = engine or _default_engine
+    n = ms.number_samples_loaded()
+    s64 = ms.sketchsize64
+    comp = (
+        np.asarray(completeness_vec, dtype=np.float64)
+        if completeness_vec is not None
+        else None
+    )
+    # name-based index mappings between the .skd and .ski orderings.
+    # The reverse map covers EVERY ski sample, with -1 marking samples the
+    # .skd lacks (the reference sizes its reverse vec by the .skd count,
+    # distances/mod.rs:435-438, and panics / silently maps such candidates
+    # to sample 0 — the device path here already skips them, so the host
+    # path matches it)
+    skq_index_lookup, skd_index_from_ski = ski_skd_maps(ms, inverted)
+
+    if dist_type.coreacc:
+        k_mats = [_usig_matrix(ms, ki) for ki in range(len(ms.kmer_lengths))]
+    else:
+        mat = _usig_matrix(ms, dist_type.k_idx)
+    lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
+    rows_out = []
+    for i in range(lo, hi):
+        ski_i = skq_index_lookup[i]
+        flat_i = skq_bins[ski_i * skq_stride : (ski_i + 1) * skq_stride]
+        candidates = inverted.any_shared_bins(flat_i)
+        candidates = candidates[candidates != ski_i]
+        skd_js = skd_index_from_ski[candidates]
+        skd_js = skd_js[skd_js >= 0]  # .ski samples absent from the .skd
+
+        if dist_type.coreacc:
+
+            def _ca_for(js: np.ndarray):
+                jaccs = np.empty((js.size, len(k_mats)))
+                c1 = np.full(js.size, comp[i]) if comp is not None else None
+                c2 = comp[js] if comp is not None else None
+                for ki in range(len(k_mats)):
+                    sbk = engine(
+                        k_mats[ki][i : i + 1], k_mats[ki][js]
+                    ).reshape(-1)
+                    jaccs[:, ki] = jaccard_from_samebits(
+                        sbk, s64, c1, c2, completeness_cutoff
+                    )
+                return core_acc_from_jaccards(
+                    jaccs, ms.kmer_lengths, ms.sketch_size
+                )
+
+            ca_items: list[tuple] = []
+            if skd_js.size:
+                core, acc = _ca_for(skd_js)
+                order = np.argsort(core, kind="stable")[:knn]
+                ca_items = [
+                    (int(skd_js[x]), core[x], acc[x]) for x in order
+                ]
+            if not ca_items:
+                if retain_unmatched == "singleton":
+                    rows_out.append(
+                        [(i, np.float32(0.0), np.float32(0.0))]
+                    )
+                    continue
+                if retain_unmatched == "bruteforce":
+                    js = np.array(
+                        [j for j in range(n) if j != i], dtype=np.int64
+                    )
+                    core, acc = _ca_for(js)
+                    order = np.argsort(core, kind="stable")[:knn]
+                    ca_items = [
+                        (int(js[x]), core[x], acc[x]) for x in order
+                    ]
+            rows_out.append(ca_items)
+            continue
+
+        def _dists_for(js: np.ndarray) -> np.ndarray:
+            sb = engine(mat[i : i + 1], mat[js]).reshape(-1)
+            c1 = np.full(js.size, comp[i]) if comp is not None else None
+            c2 = comp[js] if comp is not None else None
+            j_idx = jaccard_from_samebits(sb, s64, c1, c2, completeness_cutoff)
+            if dist_type.ani:
+                return (1.0 - ani_pois(j_idx, dist_type.k)).astype(np.float32)
+            return (1.0 - j_idx).astype(np.float32)
+
+        items: list[tuple[int, np.float32]] = []
+        if skd_js.size:
+            d = _dists_for(skd_js)
+            order = np.argsort(d, kind="stable")[:knn]
+            items = [(int(skd_js[x]), d[x]) for x in order]
+
+        if not items:
+            if retain_unmatched == "singleton":
+                row = [(i, np.float32(0.0))] + [(i, np.float32(1.0))] * (knn - 1)
+                rows_out.append(row)
+                continue
+            if retain_unmatched == "bruteforce":
+                js = np.array(
+                    [j for j in range(n) if j != i], dtype=np.int64
+                )
+                d = _dists_for(js)
+                order = np.argsort(d, kind="stable")[:knn]
+                items = [(int(js[x]), d[x]) for x in order]
+
+        if dist_type.ani:
+            items = [(j, np.float32(1.0) - d) for j, d in items]
+        if len(items) < knn:
+            items += [(i, np.float32(1.0))] * (knn - len(items))
+        rows_out.append(items)
+    return rows_out
+
+
 def cross_dists_knn(
     ref_ms,
     query_ms,

@@ -11,7 +11,9 @@ sketch words of to_device_words(), k ascending.
 Two entry points launch the one kernel (one launch count, coreacc.launches):
 - coreacc(): the (core, acc) f32 tiles of the dense engines;
 - coreacc_keys(): the core/accessory kNN scan tile, int64 selection keys
-  (-core, column) beside the f32 acc, which knn_torch merges by top-k.
+  (-core, column) beside the f32 acc, which knn_torch merges by top-k;
+  with a SignMask (the inverted index's precluster) a pair whose rows
+  share no sign of the index is not a candidate.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 
 from .. import _build
 from ..constants import BBITS
-from .knn_kernels import COLMASK64, pack_keys, scalar_divisors
+from .knn_kernels import (_NO_SIG, COLMASK64, SignMask, pack_keys,
+                          scalar_divisors)
 from .samebits_kernels import _check_words, _tri_mask_, samebits_ref
 
 MAX_NK = 255  # k values per launch: the kernel's by-value k table
@@ -112,7 +115,8 @@ def coreacc_keys_ref(a: torch.Tensor, b: torch.Tensor, kmers,
                      sketch_size: int, c1=None, c2=None,
                      cutoff: float = 0.64, *, row0: int = 0, col0: int = 0,
                      nb_real: int | None = None,
-                     exclude_self: bool = False):
+                     exclude_self: bool = False,
+                     sig: SignMask | None = None):
     """Plain PyTorch twin of coreacc_keys(): coreacc_ref, then pack_keys."""
     tr, tc = a.shape[0], b.shape[0]
     ncols = _real_cols(tc, col0, nb_real)
@@ -126,6 +130,8 @@ def coreacc_keys_ref(a: torch.Tensor, b: torch.Tensor, kmers,
     if exclude_self:
         rows = row0 + torch.arange(tr, device=a.device)
         valid = valid & (cols[None, :] != rows[:, None])
+    if sig is not None:
+        valid = valid & sig.tile_mask(ncols, col0, tc)
     keys = pack_keys(-core, cols, torch.int64, 32, COLMASK64, valid,
                      invalid=KEY_INVALID)
     return keys, acc
@@ -180,12 +186,13 @@ def coreacc(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
 
 
 coreacc.launches = 0
+coreacc.masked_launches = 0  # of them, masked key tiles (the precluster)
 
 
 def coreacc_keys(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
                  c1=None, c2=None, cutoff: float = 0.64, *, row0: int = 0,
                  col0: int = 0, nb_real: int | None = None,
-                 exclude_self: bool = False):
+                 exclude_self: bool = False, sig: SignMask | None = None):
     """The core/accessory kNN scan tile of the rows a (tr, nk, W) against
     the columns b (tc, nk, W): (keys int64 (tr, tc), acc f32 (tr, tc)).
 
@@ -194,17 +201,21 @@ def coreacc_keys(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
     a descending top-k selects core ascending, then column ascending.
     Columns with id >= nb_real (default: all of b is real) are never read
     and get KEY_INVALID and acc 0; so does column == row with exclude_self
-    (its acc is computed). c1 (tr,) / c2 (tc,) as in coreacc(). CUDA
-    tensors launch the kernel and count in coreacc.launches; CPU tensors
-    run the twin."""
+    (its acc is computed). c1 (tr,) / c2 (tc,) as in coreacc(). With sig
+    (sig.rows (tr,), sig.cols for every column id) a pair that shares no
+    sign gets KEY_INVALID (its acc is computed). CUDA tensors launch the
+    kernel and count in coreacc.launches; CPU tensors run the twin."""
     _check(a, b, kmers, c1, c2)
     if min(row0, col0) < 0 or (nb_real is not None and nb_real < 0) \
             or col0 + b.shape[0] - 1 > COLMASK64:
         raise ValueError(f"bad ids: row0={row0} col0={col0} nb_real={nb_real}")
+    if sig is not None:
+        sig.check(a.shape[0], col0 + _real_cols(b.shape[0], col0, nb_real),
+                  a.device)
     if a.device.type == "cpu":
         return coreacc_keys_ref(a, b, kmers, sketch_size, c1, c2, cutoff,
                                 row0=row0, col0=col0, nb_real=nb_real,
-                                exclude_self=exclude_self)
+                                exclude_self=exclude_self, sig=sig)
     shape = (a.shape[0], b.shape[0])
     if 0 in shape:
         return (torch.full(shape, KEY_INVALID, dtype=torch.int64,
@@ -212,8 +223,9 @@ def coreacc_keys(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
                 torch.zeros(shape, dtype=torch.float32, device=a.device))
     out = _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, False,
                           row0, (col0, _real_cols(b.shape[0], col0, nb_real),
-                                 exclude_self))
+                                 exclude_self), sig)
     coreacc.launches += 1
+    coreacc.masked_launches += sig is not None
     return out
 
 
@@ -236,9 +248,9 @@ def _k_table(kmers: tuple) -> ctypes.Array:
 
 
 def _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0,
-                    keys):
+                    keys, sig=None):
     """Launch K2 in plain mode (keys None) or key mode (keys = (col0,
-    ncols, exclude_self))."""
+    ncols, exclude_self)), masked by sig when given."""
     na, nk, w = a.shape
     nb = b.shape[0]
     tiles = -(-na // _TILE) * -(-nb // _TILE)
@@ -263,6 +275,7 @@ def _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0,
         cutoff, expected, maxnbits, maxnbits - expected, tolerance,
         out.data_ptr(), acc.data_ptr(), nb, int(keys is not None), int(tri),
         int(row0), int(col0), int(exclude_self),
+        *(sig.args(col0) if sig is not None else _NO_SIG),
         _build.stream_handle(a.device),
     )
     _build.check(err, "coreacc")

@@ -15,7 +15,8 @@ int32 (or, past the int32 key's column range, int64); completeness mode
 packs (corrected f32 Jaccard, column) into one int64. Every key holds its
 column, so keys are unique and a descending top-k over them selects value
 descending, then column ascending. Invalid pairs are -1, below every valid
-key.
+key. With a SignMask (the inverted index's precluster) a pair whose rows
+share no sign of the index is invalid too.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from .. import _build
 from ..constants import BBITS
+from .sign_words import any_mask_ref
 from .samebits_kernels import _check_words, samebits_ref
 
 _MAX_GRID_Y = 65535
@@ -59,6 +61,51 @@ class Completeness:
         self.c1, self.c2, self.cutoff = c1, c2, float(cutoff)
         self.maxnbits = float(s64 * 64)
         self.expected = float(int(s64 * 64) >> BBITS)
+
+
+class SignMask:
+    """The precluster mask of a masked scan: the rows' and the columns'
+    packed u16 signs (sign_words.pack_signs; the columns' from column
+    id 0, or from col0 for a tile) and the sign count. A pair is a
+    candidate only where its two rows hold the same sign in some bin."""
+
+    def __init__(self, rows: torch.Tensor, cols: torch.Tensor, nsigns: int):
+        self.rows, self.cols, self.nsigns = rows, cols, int(nsigns)
+
+    def block(self, r0: int, r1: int) -> "SignMask":
+        """The mask of rows [r0, r1) against the same columns."""
+        return SignMask(self.rows[r0:r1], self.cols, self.nsigns)
+
+    def tile_mask(self, ncols: int, col0: int, tc: int) -> torch.Tensor:
+        """(tr, tc) bool twin mask of the columns [col0, col0 + tc), of
+        which the first ncols are real (the rest False)."""
+        m = torch.zeros((self.rows.shape[0], tc), dtype=torch.bool,
+                        device=self.rows.device)
+        m[:, :ncols] = any_mask_ref(self.rows, self.cols[col0 : col0 + ncols],
+                                    self.nsigns)
+        return m
+
+    def args(self, col0: int):
+        """The kernels' mask arguments: rows' and columns' (from column
+        col0) sign pointers, words a row, row stride, odd sign count."""
+        return (self.rows.data_ptr(), self.cols[col0:].data_ptr(),
+                self.rows.shape[1], self.rows.stride(0), self.nsigns % 2)
+
+    def check(self, tr: int, nb_real: int, device) -> None:
+        words = (self.nsigns + 1) // 2
+        for name, t, m in (("rows", self.rows, tr), ("cols", self.cols, None)):
+            if (t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != words
+                    or t.stride(1) != 1 or t.device != device
+                    or (m is not None and t.shape[0] != m)):
+                raise ValueError(f"sig.{name} must be int32 packed signs "
+                                 f"({m or 'n'}, {words}) on {device}")
+        if self.rows.stride(0) != self.cols.stride(0):
+            raise ValueError("sig.rows and sig.cols need one row stride")
+        if self.cols.shape[0] < nb_real:
+            raise ValueError("sig.cols must hold every real column")
+
+
+_NO_SIG = (None, None, 0, 0, 0)  # the kernels' mask arguments without one
 
 
 def _ordered_bits(v: torch.Tensor) -> torch.Tensor:
@@ -105,7 +152,8 @@ def pack_keys(value: torch.Tensor, cols: torch.Tensor, dtype, shift: int,
 def knn_keys_ref(a: torch.Tensor, b: torch.Tensor, *, row0: int = 0,
                  col0: int = 0, nb_real: int | None = None,
                  exclude_self: bool = False,
-                 comp: Completeness | None = None) -> torch.Tensor:
+                 comp: Completeness | None = None,
+                 sig: SignMask | None = None) -> torch.Tensor:
     """Plain PyTorch twin of knn_keys(): the same keys on any device."""
     tr, tc = a.shape[0], b.shape[0]
     s64 = a.shape[1] // BBITS
@@ -119,6 +167,8 @@ def knn_keys_ref(a: torch.Tensor, b: torch.Tensor, *, row0: int = 0,
     if exclude_self:
         rows = row0 + torch.arange(tr, device=a.device)
         valid = valid & (cols[None, :] != rows[:, None])
+    if sig is not None:
+        valid = valid & sig.tile_mask(ncols, col0, tc)
     value = sb
     if comp is not None:
         c2 = torch.ones(tc, dtype=torch.float32, device=a.device)
@@ -130,7 +180,8 @@ def knn_keys_ref(a: torch.Tensor, b: torch.Tensor, *, row0: int = 0,
 def knn_keys(a: torch.Tensor, b: torch.Tensor, *, row0: int = 0,
              col0: int = 0, nb_real: int | None = None,
              exclude_self: bool = False,
-             comp: Completeness | None = None) -> torch.Tensor:
+             comp: Completeness | None = None,
+             sig: SignMask | None = None) -> torch.Tensor:
     """(tr, tc) selection keys of the rows a (tr, W) against the columns
     b (tc, W) (k-planes of sketch words, rows contiguous, any row stride).
 
@@ -139,28 +190,33 @@ def knn_keys(a: torch.Tensor, b: torch.Tensor, *, row0: int = 0,
     and get -1, as does column == row with exclude_self. With comp
     (comp.c1 (tr,) for these rows, comp.c2 (>= nb_real,) for all columns)
     the keys are int64 corrected-Jaccard keys; otherwise int32 samebits
-    keys while nb_real fits the int32 column field, else int64. CUDA
-    tensors launch the kernel, CPU tensors run the twin."""
+    keys while nb_real fits the int32 column field, else int64. With sig
+    (sig.rows (tr,) for these rows, sig.cols for every column id) a pair
+    that shares no sign gets -1 too. CUDA tensors launch the kernel, CPU
+    tensors run the twin."""
     nb_real = col0 + b.shape[0] if nb_real is None else nb_real
-    _check_scan(a, b, min(row0, col0), nb_real, comp)
+    _check_scan(a, b, min(row0, col0), nb_real, comp, sig)
     if a.device.type == "cpu":
         return knn_keys_ref(a, b, row0=row0, col0=col0, nb_real=nb_real,
-                            exclude_self=exclude_self, comp=comp)
+                            exclude_self=exclude_self, comp=comp, sig=sig)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     if a.shape[0] == 0 or b.shape[0] == 0:
         dtype = key_layout(a.shape[1] // BBITS, nb_real, comp is not None)[0]
         return torch.full((a.shape[0], b.shape[0]), INVALID, dtype=dtype,
                           device=a.device)
-    out = _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp)
+    out = _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp,
+                           sig)
     knn_keys.launches += 1
+    knn_keys.masked_launches += sig is not None
     return out
 
 
 knn_keys.launches = 0
+knn_keys.masked_launches = 0
 
 
-def _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp):
+def _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp, sig):
     s64 = a.shape[1] // BBITS
     dtype, shift, colmask = key_layout(s64, nb_real, comp is not None)
     tr, tc = a.shape[0], b.shape[0]
@@ -172,7 +228,9 @@ def _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp):
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         out.data_ptr(), tc, tr, tc, ncols, s64, row0, col0,
         int(exclude_self), shift, colmask, out.element_size(),
-        *_comp_args(comp, col0), _build.stream_handle(a.device),
+        *_comp_args(comp, col0),
+        *(sig.args(col0) if sig is not None else _NO_SIG),
+        _build.stream_handle(a.device),
     )
     _build.check(err, "knn_keys")
     return out
@@ -182,6 +240,7 @@ def knn_select_ref(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
                    row0: int = 0, nb_real: int | None = None,
                    exclude_self: bool = False,
                    comp: Completeness | None = None,
+                   sig: SignMask | None = None,
                    row_tile: int = _REF_ROW_TILE,
                    col_tile: int = _REF_COL_TILE) -> torch.Tensor:
     """Plain PyTorch twin of knn_select(): per block of row_tile rows, the
@@ -198,16 +257,17 @@ def knn_select_ref(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
         carry = torch.full((part.shape[0], knn), INVALID, dtype=dtype,
                            device=rows.device)
         for c0 in range(0, min(cols.shape[0], nb_real), col_tile):
-            keys = knn_keys_ref(part, cols[c0 : c0 + col_tile], row0=row0 + r0,
-                                col0=c0, nb_real=nb_real,
-                                exclude_self=exclude_self, comp=c)
+            keys = knn_keys_ref(
+                part, cols[c0 : c0 + col_tile], row0=row0 + r0, col0=c0,
+                nb_real=nb_real, exclude_self=exclude_self, comp=c,
+                sig=sig.block(r0, r0 + row_tile) if sig is not None else None)
             carry = torch.topk(torch.cat([carry, keys], dim=1), knn, dim=1,
                                sorted=True).values
         blocks.append(carry)
     return torch.cat(blocks)
 
 
-def _check_scan(rows, cols, row0, nb_real, comp):
+def _check_scan(rows, cols, row0, nb_real, comp, sig=None):
     _check_words("a", rows, 2)
     _check_words("b", cols, 2)
     if rows.shape[1] != cols.shape[1] or rows.device != cols.device:
@@ -222,30 +282,33 @@ def _check_scan(rows, cols, row0, nb_real, comp):
                     or not c.is_contiguous() or c.device != rows.device):
                 raise ValueError(f"comp.{name} must be contiguous 1-D f32 "
                                  f"on {rows.device}")
+    if sig is not None:
+        sig.check(rows.shape[0], nb_real, rows.device)
 
 
 def knn_select(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
                row0: int = 0, nb_real: int | None = None,
                exclude_self: bool = False, comp: Completeness | None = None,
+               sig: SignMask | None = None,
                splits: int | None = None) -> torch.Tensor:
     """(tr, knn) keys: for every row of `rows` (tr, W) its knn largest
     knn_keys() keys over the whole column plane `cols` (nb, W), sorted
     descending, INVALID where the row has fewer valid columns.
 
     Row i has the global id row0 + i, column j the id j; columns with id
-    >= nb_real are never read. Key layout, validity and completeness
-    arithmetic are knn_keys()'s. CUDA tensors launch the kernel (at most
+    >= nb_real are never read. Key layout, validity, the sign mask and
+    completeness arithmetic are knn_keys()'s. CUDA tensors launch the kernel (at most
     MAX_KNN neighbours), CPU tensors run the twin. splits (the column
     ranges that separate blocks scan before a merge kernel joins them;
     default: enough to fill the card when there are few rows) changes no
     result."""
     nb_real = cols.shape[0] if nb_real is None else nb_real
-    _check_scan(rows, cols, row0, nb_real, comp)
+    _check_scan(rows, cols, row0, nb_real, comp, sig)
     if knn < 1:
         raise ValueError(f"knn={knn} must be positive")
     if rows.device.type == "cpu":
         return knn_select_ref(rows, cols, knn, row0=row0, nb_real=nb_real,
-                              exclude_self=exclude_self, comp=comp)
+                              exclude_self=exclude_self, comp=comp, sig=sig)
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
     if knn > MAX_KNN:
@@ -256,12 +319,14 @@ def knn_select(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
         return torch.full((rows.shape[0], knn), INVALID, dtype=dtype,
                           device=rows.device)
     out = _launch_knn_select(rows, cols, knn, row0, nb_real, exclude_self,
-                             comp, splits)
+                             comp, splits, sig)
     knn_select.launches += 1
+    knn_select.masked_launches += sig is not None
     return out
 
 
 knn_select.launches = 0
+knn_select.masked_launches = 0
 
 
 _COLD_TILES = 8  # a split's empty-list start costs about 8 column tiles
@@ -286,18 +351,20 @@ def default_splits(tr: int, ncols: int, rows_per_block: int,
 
 
 def _launch_knn_select(rows, cols, knn, row0, nb_real, exclude_self, comp,
-                       splits):
+                       splits, sig):
     s64 = rows.shape[1] // BBITS
     dtype, shift, colmask = key_layout(s64, nb_real, comp is not None)
     tr, ncols = rows.shape[0], min(cols.shape[0], nb_real)
     key_bytes = 4 if dtype == torch.int32 else 8
     if splits is None:
-        rows_per_block = _build.lib().stpu_knn_select_rows(knn, key_bytes)
+        rows_per_block = _build.lib().stpu_knn_select_rows(
+            knn, key_bytes, int(sig is not None))
         if rows_per_block < 1:
             raise RuntimeError(f"knn_select: knn={knn} does not fit a block")
         splits = default_splits(tr, ncols, rows_per_block,
                                 _block_slots(rows.device, knn, key_bytes,
-                                             comp is not None))
+                                             comp is not None,
+                                             sig is not None))
     splits = max(1, min(int(splits), -(-ncols // _TI)))
     out = torch.empty((tr, knn), dtype=dtype, device=rows.device)
     part = (torch.empty((splits, tr, knn), dtype=dtype, device=rows.device)
@@ -306,16 +373,19 @@ def _launch_knn_select(rows, cols, knn, row0, nb_real, exclude_self, comp,
         rows.data_ptr(), rows.stride(0), cols.data_ptr(), cols.stride(0),
         out.data_ptr(), part.data_ptr() if part is not None else None, tr,
         ncols, s64, knn, splits, row0, int(exclude_self), shift, colmask,
-        key_bytes, *_comp_args(comp, 0), _build.stream_handle(rows.device),
+        key_bytes, *_comp_args(comp, 0),
+        *(sig.args(0) if sig is not None else _NO_SIG),
+        _build.stream_handle(rows.device),
     )
     _build.check(err, "knn_select")
     return out
 
 
-def _block_slots(device, knn: int, key_bytes: int, comp: bool) -> int:
+def _block_slots(device, knn: int, key_bytes: int, comp: bool,
+                 mask: bool = False) -> int:
     """Selection blocks the card holds at once."""
     per_sm = _build.lib().stpu_knn_select_blocks_per_sm(knn, key_bytes,
-                                                        int(comp))
+                                                        int(comp), int(mask))
     if per_sm < 1:
         raise RuntimeError("knn_select: the kernel does not fit an SM")
     return per_sm * torch.cuda.get_device_properties(

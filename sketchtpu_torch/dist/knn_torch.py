@@ -1,15 +1,18 @@
 """Sparse kNN on the card (`dist --knn`): DeviceKnnEngine.
 
 Port of sketchtpu/dist/knn_jax.py::DeviceKnnEngine (self_knn, cross_knn,
-self_knn_coreacc, cross_knn_coreacc), without the precluster mixin. The
-database's sketch words live on the card once, as (n, nk, W). Only
-(rows, knn) results leave the card.
+self_knn_coreacc, cross_knn_coreacc) with its PreclusterKnnMixin
+(precluster_knn: the inverted index's candidates, the sign mask inside K3
+and K2). The database's sketch words live on the card once, as (n, nk, W).
+Only (rows, knn) results leave the card.
 
 Selection matches the host path (dist/api.py): a key holds its column,
 so keys are unique and the selection orders value descending, then column
 ascending, whatever order the keys were found in.
 - Single-k: K3 in selection mode (knn_kernels.knn_select) walks the whole
-  column plane and keeps each row's knn best keys inside the kernel. Keys
+  column plane and keeps each row's knn best keys inside the kernel (at
+  most MAX_KNN = 1024 on the card; past it, K3's tile mode and the
+  torch.topk merge, _select_tiles, give the same selection). Keys
   are samebits, which order distances exactly; printed values are the
   host's f64 chain on the selected samebits. With completeness the keys
   are the corrected f32 Jaccard, and the selected pairs' samebits are
@@ -31,7 +34,9 @@ from ..constants import BBITS
 from .coreacc_kernels import KEY_INVALID, coreacc_keys
 from .coreacc_torch import _f32
 from .jaccard_np import ani_pois, core_acc_from_jaccards, jaccard_from_samebits
-from .knn_kernels import COLMASK64, Completeness, key_layout, knn_select
+from .sign_words import pack_signs
+from .knn_kernels import (COLMASK64, INVALID, MAX_KNN, Completeness, SignMask,
+                          key_layout, knn_keys, knn_select)
 from .samebits_kernels import popcount64, to_device_words
 
 _NEG = -0x7FFFFFFF  # samebits of a missing candidate
@@ -172,14 +177,55 @@ def _merge(carry: torch.Tensor, keys: torch.Tensor, knn: int):
     return torch.topk(torch.cat([carry, keys], dim=1), knn, dim=1, sorted=True)
 
 
+def _select_tiles(rows, cols, knn, *, row0, nb_real, exclude_self, comp,
+                  sig, row_tile: int = 2048, col_tile: int = 8192):
+    """knn_select's keys for any knn: per block of row_tile rows, K3's tile
+    keys (knn_keys) of each column tile merged into the running selection
+    by torch.topk (_merge). Keys are unique, so the selection is
+    knn_select's."""
+    s64 = rows.shape[1] // BBITS
+    dtype = key_layout(s64, nb_real, comp is not None)[0]
+    blocks = [torch.full((0, knn), INVALID, dtype=dtype, device=rows.device)]
+    for r0 in range(0, rows.shape[0], row_tile):
+        part = rows[r0 : r0 + row_tile]
+        c = (Completeness(comp.c1[r0 : r0 + row_tile], comp.c2, comp.cutoff,
+                          s64) if comp is not None else None)
+        sg = sig.block(r0, r0 + row_tile) if sig is not None else None
+        carry = torch.full((part.shape[0], knn), INVALID, dtype=dtype,
+                           device=rows.device)
+        for c0 in range(0, min(cols.shape[0], nb_real), col_tile):
+            keys = knn_keys(part, cols[c0 : c0 + col_tile], row0=row0 + r0,
+                            col0=c0, nb_real=nb_real,
+                            exclude_self=exclude_self, comp=c, sig=sg)
+            carry = _merge(carry, keys, knn).values
+        blocks.append(carry)
+    return torch.cat(blocks)
+
+
+def select_keys(rows, cols, knn, *, row0=0, nb_real=None,
+                exclude_self=False, comp=None, sig=None):
+    """The (na, knn) selection keys: one K3 selection launch up to MAX_KNN
+    neighbours on the card, K3's tiles and the top-k merge past it; the
+    twin on CPU tensors."""
+    nb_real = cols.shape[0] if nb_real is None else nb_real
+    if rows.device.type == "cuda" and knn > MAX_KNN:
+        return _select_tiles(rows, cols, knn, row0=row0, nb_real=nb_real,
+                             exclude_self=exclude_self, comp=comp, sig=sig)
+    return knn_select(rows, cols, knn, row0=row0, nb_real=nb_real,
+                      exclude_self=exclude_self, comp=comp, sig=sig)
+
+
 def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
              exclude_self: bool, comp_rows=None, comp_cols=None,
-             cutoff: float = 0.64):
+             cutoff: float = 0.64, row0: int = 0,
+             sig: SignMask | None = None):
     """Single-k selection: knn columns of the (nb, W) plane `cols` for every
     row of the (na, W) plane `rows`, on their device. Row i and column j
-    have the ids i and j (a self scan passes the same plane twice, with
-    exclude_self). comp_rows (na,) / comp_cols (nb,) switch to the
-    completeness keys. One K3 selection launch covers all rows.
+    have the ids row0 + i and j (a self scan passes the same plane twice,
+    with exclude_self). comp_rows (na,) / comp_cols (nb,) switch to the
+    completeness keys; sig restricts the candidates to the pairs that share
+    a sign of the inverted index. select_keys covers all rows: one K3
+    selection launch up to MAX_KNN neighbours.
 
     Returns (sb, idx) int32 (na, knn) numpy: the selected pairs' exact
     samebits and columns, value descending then column ascending (the
@@ -191,8 +237,8 @@ def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
     _dtype, shift, colmask = key_layout(s64, nb, comp_on)
     comp = (Completeness(_f32(comp_rows, dev), _f32(comp_cols, dev), cutoff,
                          s64) if comp_on else None)
-    keys = knn_select(rows, cols, knn, nb_real=nb, exclude_self=exclude_self,
-                      comp=comp)
+    keys = select_keys(rows, cols, knn, row0=row0, nb_real=nb,
+                       exclude_self=exclude_self, comp=comp, sig=sig)
     bad = keys < 0
     idx = torch.where(bad, _NO_COL, colmask - (keys & colmask)).long()
     if comp_on:
@@ -254,11 +300,13 @@ class DeviceKnnEngine:
     # --- multi-k core/accessory ---
 
     def _scan_coreacc(self, rows: torch.Tensor, knn: int, exclude_self: bool,
-                      c1=None, c2=None, cutoff: float = 0.64):
+                      c1=None, c2=None, cutoff: float = 0.64, row0: int = 0,
+                      sig: SignMask | None = None):
         """Select knn columns by f32 core distance for every row of the
-        (na, nk, W) words `rows`. Returns (core, acc, idx) numpy (na, knn):
-        f32 values of the selection, core = inf and idx = _NO_COL where a
-        row has fewer than knn candidates."""
+        (na, nk, W) words `rows` (ids row0 + i; sig: the precluster mask).
+        Returns (core, acc, idx) numpy (na, knn): f32 values of the
+        selection, core = inf and idx = _NO_COL where a row has fewer than
+        knn candidates."""
         na, n = rows.shape[0], self.n
         key_blocks, acc_blocks = [], []
         for r0 in range(0, na, self.row_tile):
@@ -274,7 +322,9 @@ class DeviceKnnEngine:
                     self.ms.sketch_size,
                     c1[r0:r1] if c1 is not None else None,
                     c2[c0:c1_] if c1 is not None else None, cutoff,
-                    row0=r0, col0=c0, nb_real=n, exclude_self=exclude_self,
+                    row0=row0 + r0, col0=c0, nb_real=n,
+                    exclude_self=exclude_self,
+                    sig=sig.block(r0, r1) if sig is not None else None,
                 )
                 keys, pos = _merge(keys, tile, knn)
                 accs = torch.gather(torch.cat([accs, acc], dim=1), 1, pos)
@@ -294,14 +344,15 @@ class DeviceKnnEngine:
                 idx.to(torch.int32).cpu().numpy())
 
     def _coreacc_rows(self, rows: torch.Tensor, knn: int, exclude_self: bool,
-                      c1_rows=None, c2_all=None, cutoff: float = 0.64):
+                      c1_rows=None, c2_all=None, cutoff: float = 0.64,
+                      row0: int = 0, sig: SignMask | None = None):
         """Scan in f32 on the card, then the f64 chain's values with the
         completeness values as given (f64), as the host path has them."""
         c1 = c2 = None
         if c1_rows is not None:
             c1, c2 = _f32(c1_rows, self.device), _f32(c2_all, self.device)
         core, acc, idx = self._scan_coreacc(rows, knn, exclude_self, c1, c2,
-                                            cutoff)
+                                            cutoff, row0, sig)
         core, acc, idx = exact_ca_values(
             self.kmers, self.ms.sketch_size, self.s64, idx, core, acc, rows,
             self._words, c1_rows, c2_all, cutoff,
@@ -326,3 +377,128 @@ class DeviceKnnEngine:
             c2 = np.asarray(ref_completeness_vec, dtype=np.float64)
         return self._coreacc_rows(to_device_words(query_ms, self.device), knn,
                                   False, c1, c2, completeness_cutoff)
+
+    # --- precluster (the inverted index's candidates) ---
+
+    def precluster_knn(self, inverted, skq_bins: np.ndarray, knn: int,
+                       dist_type, retain_unmatched: str | None = None,
+                       row_range: slice | None = None,
+                       completeness_vec=None,
+                       completeness_cutoff: float = 0.64) -> SparseKnnRows:
+        """kNN among the candidates of the inverted index: the pairs whose
+        rows share a u16 sign (distances/mod.rs:399-553), as the JAX
+        package's PreclusterKnnMixin.precluster_knn. skq_bins is the flat
+        u16 sign stream in .ski order; rows follow the .skd order.
+        row_range restricts the rows; candidates range over all samples.
+        Single-k rows hold knn (column, f32 value) entries, padded with
+        (row, 1.0); core/accessory rows (an extension: the reference
+        leaves it unimplemented) hold their candidates' (column, core,
+        acc). Rows with no candidate follow retain_unmatched."""
+        from .api import ski_skd_maps
+
+        n = self.n
+        lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
+        stride = inverted.sketch_size
+        ski_of_skd = np.asarray(ski_skd_maps(self.ms, inverted)[0])
+        signs = skq_bins.reshape(-1, stride)[ski_of_skd]  # (n, S), skd order
+        sig_all = pack_signs(signs, self.device)
+        sig = SignMask(sig_all[lo:hi], sig_all, stride)
+        comp = (np.asarray(completeness_vec, dtype=np.float64)
+                if completeness_vec is not None else None)
+        if dist_type.coreacc:
+            return self._pc_coreacc(sig, knn, lo, hi, retain_unmatched, comp,
+                                    completeness_cutoff)
+        sb, idx = self._pc_scan(dist_type, lo, hi, sig, knn, comp,
+                                completeness_cutoff)
+
+        def values(sb_, idx_, c1):
+            return rows_from_samebits(sb_, idx_, dist_type, self.s64,
+                                      c1_rows=c1, c2_all=comp,
+                                      cutoff=completeness_cutoff)
+
+        res = values(sb, idx, comp[lo:hi] if comp is not None else None)
+        idx, vals, valid = res.idx.copy(), res.vals.copy(), res.valid.copy()
+        # rows with no candidate (valid entries come first in a row)
+        empty = np.flatnonzero(~valid[:, 0])
+        if empty.size and retain_unmatched == "bruteforce":
+            sb2, idx2 = self._pc_scan_subset(dist_type, lo + empty,
+                                             min(knn + 1, n), comp,
+                                             completeness_cutoff)
+            # self exclusion by hand: the scan's exclude_self keys on the
+            # row id, which a gathered subset does not carry
+            for bi, r_loc in enumerate(empty):
+                keep = idx2[bi] != lo + r_loc
+                row = values(sb2[bi][keep][:knn][None, :],
+                             idx2[bi][keep][:knn][None, :],
+                             comp[lo + r_loc : lo + r_loc + 1]
+                             if comp is not None else None)
+                m = int(row.valid[0].sum())
+                idx[r_loc, :m] = row.idx[0, :m]
+                vals[r_loc, :m] = row.vals[0, :m]
+                valid[r_loc, :m] = True
+        # singleton and padding entries are raw 0.0 / 1.0 whatever the ANI
+        # mode (distance_matrix.rs:377-380; the printer skips (row, 1.0)
+        # self entries); indices are global
+        own = np.broadcast_to((lo + np.arange(hi - lo))[:, None], idx.shape)
+        if retain_unmatched == "singleton" and empty.size:
+            idx[empty, 0] = lo + empty
+            vals[empty, 0] = 0.0
+            valid[empty, 0] = True
+        idx = np.where(valid, idx, own).astype(np.int32)
+        vals = np.where(valid, vals, np.float32(1.0)).astype(np.float32)
+        return SparseKnnRows(idx, vals, None)
+
+    def _pc_scan(self, dist_type, lo, hi, sig, knn, comp, cutoff):
+        """The masked single-k scan of rows [lo, hi) against all columns."""
+        plane = self._words[:, dist_type.k_idx]
+        return knn_scan(plane[lo:hi], plane, knn, exclude_self=True, row0=lo,
+                        comp_rows=comp[lo:hi] if comp is not None else None,
+                        comp_cols=comp, cutoff=cutoff, sig=sig)
+
+    def _pc_scan_subset(self, dist_type, rows, knn, comp, cutoff):
+        """The unmasked single-k scan of the gathered rows (global ids) with
+        no self exclusion (the caller's)."""
+        plane = self._words[:, dist_type.k_idx]
+        sub = plane[torch.from_numpy(np.asarray(rows, np.int64)).to(
+            self.device)]
+        return knn_scan(sub, plane, knn, exclude_self=False,
+                        comp_rows=comp[rows] if comp is not None else None,
+                        comp_cols=comp, cutoff=cutoff)
+
+    def _pc_ca(self, lo, hi, sig, knn, comp, cutoff):
+        """The masked core/accessory scan of rows [lo, hi)."""
+        return self._coreacc_rows(
+            self._words[lo:hi], knn, True,
+            comp[lo:hi] if comp is not None else None, comp, cutoff,
+            row0=lo, sig=sig)
+
+    def _pc_ca_subset(self, rows, knn, comp, cutoff):
+        """The unmasked core/accessory scan of the gathered rows."""
+        sub = self._words[torch.from_numpy(np.asarray(rows, np.int64)).to(
+            self.device)]
+        return self._coreacc_rows(
+            sub, knn, False, comp[rows] if comp is not None else None, comp,
+            cutoff)
+
+    def _pc_coreacc(self, sig, knn, lo, hi, retain_unmatched, comp, cutoff):
+        res = self._pc_ca(lo, hi, sig, knn, comp, cutoff)
+        idx, vals = res.idx.copy(), res.vals.copy()
+        ok = np.isfinite(vals[:, :, 0]) & (idx != _NO_COL)  # a row's prefix
+        empty = np.flatnonzero(~ok.any(axis=1))
+        if empty.size and retain_unmatched == "bruteforce":
+            res2 = self._pc_ca_subset(lo + empty, min(knn + 1, self.n), comp,
+                                      cutoff)
+            for bi, r_loc in enumerate(empty):
+                # self exclusion by hand, as in the single-k path
+                keep = np.flatnonzero((res2.idx[bi] != lo + r_loc)
+                                      & np.isfinite(res2.vals[bi, :, 0])
+                                      & (res2.idx[bi] != _NO_COL))[:knn]
+                m = keep.size
+                idx[r_loc, :m] = res2.idx[bi, keep]
+                vals[r_loc, :m] = res2.vals[bi, keep]
+                ok[r_loc, :m] = True
+        if retain_unmatched == "singleton" and empty.size:
+            idx[empty, 0] = lo + empty
+            vals[empty, 0] = 0.0
+            ok[empty, 0] = True
+        return SparseKnnRows(idx, vals, ok)

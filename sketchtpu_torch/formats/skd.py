@@ -1,9 +1,10 @@
-""".skd flat binary sketch data files.
+""".skd / .skq flat binary sketch data files.
 
 Byte-compatible with the reference (sketchlib.rust
 src/sketch/sketch_datafile.rs):
 - .skd: little-endian u64 stream, no header. Sample-major; per sample, for
   each k (ascending), sketchsize64*BBITS words.
+- .skq: little-endian u16 stream, sample stride = sketch_size bins.
 """
 
 from __future__ import annotations
@@ -15,12 +16,13 @@ class SketchDataWriter:
     """Serial writer; returns the running sample index for each write,
     mirroring SketchArrayWriter (sketch_datafile.rs:48-96)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, dtype=np.uint64):
         self._f = open(path, "wb")
+        self._dtype = dtype
         self._index = 0
 
     def write_sketch(self, flat: np.ndarray) -> int:
-        arr = np.ascontiguousarray(flat, dtype=np.uint64)
+        arr = np.ascontiguousarray(flat, dtype=self._dtype)
         self._f.write(arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes())
         idx = self._index
         self._index += 1
@@ -40,6 +42,11 @@ def read_all_skd(path: str) -> np.ndarray:
     """Whole-file read of an .skd as a flat uint64 array."""
     data = np.fromfile(path, dtype="<u8")
     return data.astype(np.uint64, copy=False)
+
+
+def read_all_skq(path: str) -> np.ndarray:
+    """Whole-file read of an .skq as a flat uint16 array."""
+    return np.fromfile(path, dtype="<u2").astype(np.uint16, copy=False)
 
 
 def read_skd_batch(path: str, sample_indices, sample_stride: int) -> np.ndarray:

@@ -1,10 +1,11 @@
 """ntHash + sign + per-(k, genome, bin) minimum: the CUDA kernel
-csrc/nthash_bin.cu (one rolling-hash launch for every k of a batch) and its
-plain PyTorch twin.
+csrc/nthash_bin.cu (one rolling-hash launch for up to 128 k of a batch)
+and its plain PyTorch twin; and the kernel's signs mode, the in-order sign
+of every window for the reads path.
 
 Replaces sketchtpu/hash/nthash_jax.py::hash_bin_kernel together with its
 TPU workarounds (2-bit packing, sort-based bin minima): the card has a
-64-bit atomicMin.
+64-bit atomicMin; and nthash_jax.hash_signs_kernel (nthash_signs).
 
 Input layout (pack_group): one byte per base of a batch of concatenated
 genomes, code | break << 2, where a break at p forbids windows with
@@ -101,6 +102,42 @@ def nthash_bin_ref(seq: torch.Tensor, k: int, tf: torch.Tensor,
     return table.view(starts.numel(), nbins)
 
 
+def _window_signs(seq: torch.Tensor, k: int, rc: bool):
+    """(signs, ok) of the twin over the m = total - k + 1 windows of seq:
+    int64 signs and whether each window is clear of break flags."""
+    m = seq.numel() - k + 1
+    tf, tr = (torch.from_numpy(t).to(seq.device) for t in tap_tables(k))
+    v = seq.to(torch.int64)
+    codes = v & 3
+    fh = torch.zeros(m, dtype=torch.int64, device=seq.device)
+    rh = torch.zeros_like(fh)
+    for j in range(k):
+        cj = codes[j : j + m]
+        fh ^= tf[j][cj]
+        if rc:
+            rh ^= tr[j][cj]
+    h = torch.where((rh ^ _SIGN_FLIP) < (fh ^ _SIGN_FLIP), rh, fh) if rc else fh
+    x = (h & SIGN_MOD) + ((h >> 61) & 7)
+    x = torch.where(x >= SIGN_MOD, x - SIGN_MOD, x)
+    csum = torch.cumsum((v >> 2) & 1, 0)
+    ok = (csum[k - 1 : k - 1 + m] - csum[:m]) == 0
+    return x, ok
+
+
+def nthash_signs_ref(seq: torch.Tensor, kmers, rc: bool,
+                     n_out: int) -> torch.Tensor:
+    """Plain PyTorch twin of nthash_signs(): per k, the sign of each window
+    start below n_out, -1 (u64 max) where the window is not valid."""
+    out = torch.full((len(kmers), n_out), -1, dtype=torch.int64,
+                     device=seq.device)
+    for ki, k in enumerate(kmers):
+        m = min(seq.numel() - k + 1, n_out)
+        if m > 0:
+            x, ok = _window_signs(seq, k, rc)
+            out[ki, :m] = torch.where(ok[:m], x[:m], -1)
+    return out
+
+
 def nthash_bin_multi_ref(seq: torch.Tensor, kmers, rc: bool,
                          starts: torch.Tensor, nbins: int) -> torch.Tensor:
     """Plain PyTorch twin of nthash_bin_multi(): the single-k twin per k,
@@ -176,43 +213,74 @@ def _check_batch(seq: torch.Tensor, starts: torch.Tensor, nbins: int):
         raise ValueError(f"nbins={nbins} must be positive")
 
 
-def nthash_bin_multi(seq: torch.Tensor, kmers, rc: bool, starts: torch.Tensor,
-                     nbins: int) -> torch.Tensor:
-    """(len(kmers), genomes, nbins) int64 per-bin sign minima of a packed
-    batch at every k of kmers, from one launch. CUDA tensors launch the
-    kernel, CPU tensors run the twin."""
-    _check_batch(seq, starts, nbins)
+def _check_kmers(kmers) -> list[int]:
     kmers = [int(k) for k in kmers]
     if not kmers or min(kmers) < 1:
         raise ValueError(f"kmers={kmers} must be positive and not empty")
+    return kmers
+
+
+def _check_cuda_k(kmers, device):
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if max(kmers) > MAX_K_CUDA:
+        raise ValueError(
+            f"kmers={kmers}: the kernel's limit is k <= {MAX_K_CUDA}")
+
+
+def k_groups(kmers) -> list[list[int]]:
+    """The launches of a k list: positions of kmers, ascending by k, at
+    most MAX_NK_CUDA a launch."""
+    order = sorted(range(len(kmers)), key=kmers.__getitem__)
+    return [order[i : i + MAX_NK_CUDA]
+            for i in range(0, len(order), MAX_NK_CUDA)]
+
+
+def _in_kmers_order(out: torch.Tensor, groups) -> torch.Tensor:
+    """Rows of a result in ascending-k order, put back in kmers order."""
+    order = [p for g in groups for p in g]
+    if order == sorted(order):
+        return out
+    back = torch.empty(len(order), dtype=torch.int64)
+    back[torch.tensor(order)] = torch.arange(len(order))
+    return out[back.to(out.device)]
+
+
+def nthash_bin_multi(seq: torch.Tensor, kmers, rc: bool, starts: torch.Tensor,
+                     nbins: int) -> torch.Tensor:
+    """(len(kmers), genomes, nbins) int64 per-bin sign minima of a packed
+    batch at every k of kmers: one launch per MAX_NK_CUDA k (k_groups),
+    all writing into one output. CUDA tensors launch the kernel, CPU
+    tensors run the twin."""
+    _check_batch(seq, starts, nbins)
+    kmers = _check_kmers(kmers)
     if seq.device.type == "cpu":
         return nthash_bin_multi_ref(seq, kmers, rc, starts, nbins)
-    if seq.device.type != "cuda":
-        raise ValueError(f"unsupported device {seq.device}")
-    if max(kmers) > MAX_K_CUDA or len(kmers) > MAX_NK_CUDA:
-        raise ValueError(
-            f"kmers={kmers}: the kernel's limit is k <= {MAX_K_CUDA} and "
-            f"{MAX_NK_CUDA} k values")
-    if seq.numel() < min(kmers):  # no window fits: every bin stays empty
-        return torch.full((len(kmers), starts.numel(), nbins), -1,
-                          dtype=torch.int64, device=seq.device)
-    out = _launch_nthash_multi(seq, kmers, rc, starts, nbins)
-    nthash_bin_multi.launches += 1
-    return out
+    _check_cuda_k(kmers, seq.device)
+    groups = k_groups(kmers)
+    out = torch.full((len(kmers), starts.numel(), nbins), -1,
+                     dtype=torch.int64, device=seq.device)
+    g0 = 0
+    for g in groups:
+        ks = [kmers[p] for p in g]
+        if seq.numel() >= ks[0]:  # else no window fits: the rows stay empty
+            _launch_nthash_multi(seq, ks, rc, starts, nbins,
+                                 out[g0 : g0 + len(g)])
+            nthash_bin_multi.launches += 1
+        g0 += len(g)
+    return _in_kmers_order(out, groups)
 
 
 nthash_bin_multi.launches = 0
 
 
-def _launch_nthash_multi(seq, kmers, rc, starts, nbins):
-    order = sorted(range(len(kmers)), key=kmers.__getitem__)
-    ks = tuple(kmers[i] for i in order)
+def _launch_nthash_multi(seq, ks, rc, starts, nbins, out):
+    """One launch for at most MAX_NK_CUDA ascending ks into the rows out
+    (len(ks), genomes, nbins), filled with -1."""
     # a block first reduces its minima in a shared-memory table where that
     # fits the 48 KB beside the span; else they go to device memory directly
     smin = _smem_bytes(len(ks), ks[-1], nbins, True) <= _SMEM_LIMIT
-    ktab = torch.from_numpy(_k_table(ks)).to(seq.device)
-    out = torch.full((len(ks), starts.numel(), nbins), -1, dtype=torch.int64,
-                     device=seq.device)
+    ktab = torch.from_numpy(_k_table(tuple(ks))).to(seq.device)
     magic, mshift = magic_divisor(bin_size(nbins))
     err = _build.lib().stpu_nthash_multi(
         seq.data_ptr(), seq.numel(), ktab.data_ptr(), len(ks), ks[0],
@@ -222,11 +290,53 @@ def _launch_nthash_multi(seq, kmers, rc, starts, nbins):
         _build.stream_handle(seq.device),
     )
     _build.check(err, "nthash_bin_multi")
-    if list(ks) == kmers:
+
+
+def nthash_signs(seq: torch.Tensor, kmers, rc: bool,
+                 n_out: int | None = None) -> torch.Tensor:
+    """(len(kmers), n_out) int64: for every k and window start s < n_out
+    of the packed stream seq (pack_group's bytes of one stream, or of a
+    chunk of one with the k - 1 bases past its last start), the window's
+    sign (u64 bits), or -1 (u64 max) where the window crosses a break or
+    runs past seq. n_out defaults to the window starts of the smallest k.
+    One launch per MAX_NK_CUDA k on CUDA tensors; CPU tensors run the
+    twin."""
+    if seq.dtype != torch.uint8 or seq.dim() != 1 or not seq.is_contiguous():
+        raise ValueError("seq must be a contiguous 1-D uint8 tensor")
+    kmers = _check_kmers(kmers)
+    if n_out is None:
+        n_out = max(0, seq.numel() - min(kmers) + 1)
+    if seq.device.type == "cpu":
+        return nthash_signs_ref(seq, kmers, rc, n_out)
+    _check_cuda_k(kmers, seq.device)
+    out = torch.empty((len(kmers), n_out), dtype=torch.int64,
+                      device=seq.device)
+    if n_out == 0:
         return out
-    back = torch.empty(len(kmers), dtype=torch.int64)
-    back[torch.tensor(order)] = torch.arange(len(kmers))
-    return out[back.to(seq.device)]
+    if seq.numel() == 0:
+        return out.fill_(-1)
+    groups = k_groups(kmers)
+    g0 = 0
+    for g in groups:
+        _launch_nthash_signs(seq, [kmers[p] for p in g], rc, n_out,
+                             out[g0 : g0 + len(g)])
+        nthash_signs.launches += 1
+        g0 += len(g)
+    return _in_kmers_order(out, groups)
+
+
+def _launch_nthash_signs(seq, ks, rc, n_out, out):
+    """One signs-mode launch for at most MAX_NK_CUDA ascending ks into the
+    rows out (len(ks), n_out)."""
+    ktab = torch.from_numpy(_k_table(tuple(ks))).to(seq.device)
+    err = _build.lib().stpu_nthash_signs(
+        seq.data_ptr(), seq.numel(), ktab.data_ptr(), len(ks), int(rc),
+        _span_pitch(ks[-1]), _smem_bytes(len(ks), ks[-1], 0, False), n_out,
+        out.data_ptr(), _build.stream_handle(seq.device))
+    _build.check(err, "nthash_signs")
+
+
+nthash_signs.launches = 0
 
 
 def nthash_bin(seq: torch.Tensor, k: int, tf: torch.Tensor, tr: torch.Tensor,

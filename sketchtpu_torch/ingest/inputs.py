@@ -1,5 +1,5 @@
-"""Input list / auxiliary file parsing (rfiles, subsets, completeness;
-from sketchlib.rust src/io.rs)."""
+"""Input list / auxiliary file parsing (rfiles, subsets, completeness,
+species labels, metadata; from sketchlib.rust src/io.rs)."""
 
 from __future__ import annotations
 
@@ -135,3 +135,71 @@ def read_completeness_file(completeness_file: str, ms) -> list[float]:
             ", ".join(missing),
         )
     return completeness_vec
+
+
+def reorder_input_files(input_files, species_name_file: str):
+    """Reorder samples so equal labels are adjacent (io.rs:40-115).
+
+    Returns (sample_order, name->label map or None). sample_order[i] is the
+    index the i-th input sample should take.
+    """
+    input_names = {name for name, _ in input_files}
+    species_labels: dict[str, int] = {}
+    map_names_labels: dict[str, str] = {}
+    label_order: list[tuple[str, int]] = []
+    order_idx = 0
+    with open(species_name_file) as f:
+        for lineno, line in enumerate(f, 1):
+            fields = line.rstrip("\n").split("\t")
+            if len(fields) < 2:
+                raise ValueError(
+                    f"{species_name_file}:{lineno}: expected "
+                    f"'sample\\tspecies', got {line.rstrip()!r}"
+                )
+            if fields[0] in input_names:
+                if fields[0] in map_names_labels:
+                    # a repeated sample row would otherwise claim two
+                    # output indices, colliding with the fallthrough
+                    # new_idx assignment below (the reference's version
+                    # has exactly that collision — first row wins here)
+                    continue
+                if fields[1] in species_labels:
+                    label_order.append((fields[0], species_labels[fields[1]]))
+                else:
+                    species_labels[fields[1]] = order_idx
+                    label_order.append((fields[0], order_idx))
+                    order_idx += 1
+            map_names_labels[fields[0]] = fields[1]
+    log.info(
+        "%d samples with %d unique labels", len(label_order), len(species_labels)
+    )
+    label_order.sort(key=lambda kv: kv[1])
+    reordered = {name: idx for idx, (name, _) in enumerate(label_order)}
+    if not reordered:
+        log.warning("Could not find any sample names in %s", species_name_file)
+        return list(range(len(input_files))), None
+    sample_order = []
+    new_idx = len(reordered) - 1
+    for name, _files in input_files:
+        if name in reordered:
+            sample_order.append(reordered[name])
+        else:
+            new_idx += 1
+            sample_order.append(new_idx)
+    return sample_order, map_names_labels
+
+
+def parse_metadata_info(metadata_file: str) -> dict[str, str]:
+    out: dict[str, str] = {}
+    with open(metadata_file) as f:
+        for lineno, line in enumerate(f, 1):
+            fields = line.rstrip("\n").split("\t")
+            if len(fields) < 2:
+                raise ValueError(
+                    f"{metadata_file}:{lineno}: expected "
+                    f"'sample\\tmetadata', got {line.rstrip()!r}"
+                )
+            if fields[0] in out:
+                raise ValueError("Some entry in metadata is duplicated")
+            out[fields[0]] = fields[1]
+    return out

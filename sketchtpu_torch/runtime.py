@@ -12,7 +12,9 @@ A selector never falls back: an engine this port does not have yet raises
 NotImplementedError in cuda and cpu mode, naming its ROADMAP item. The
 only None results outside host mode are the JAX package's own routes to
 the exact host chain (fewer than two k for core/accessory, more than 32767
-bins for the int16 strip engines).
+bins for the int16 strip engines). Unlike the JAX package, no selector
+picks the host by sample count: in cuda mode every engine runs on the card
+at any n.
 """
 
 from __future__ import annotations
@@ -135,3 +137,14 @@ def select_engine(ms):
     from .dist.jaccard_torch import DeviceSamebitsEngine
 
     return DeviceSamebitsEngine(ms.sketchsize64, dev).matrix
+
+
+def select_inverted_engine(inv):
+    """Inverted-index query and `precluster --count` engine (csrc/signeq.cu
+    on the card), at any number of samples; None in host mode."""
+    dev = device()
+    if dev is None:
+        return None
+    from .inverted.device import DeviceInvertedEngine
+
+    return DeviceInvertedEngine(inv.sign_matrix, dev)

@@ -1,28 +1,46 @@
-"""Batched sketching of DNA assemblies on the card.
+"""Batched sketching of DNA on the card.
 
-Port of sketchtpu/sketchcore/sketch_jax.py::DeviceSketchBackend, the
-assemblies branch of sketch_dna_streams: genomes are packed into batches
-(one byte per base; PCIe carries that easily), each batch is uploaded once
-and gets one hash + sign + bin-minimum launch for all k, and densification
-and the bit-plane transpose run on the host exactly as in the JAX backend.
-Sketches are bit-identical to the host oracle (sketchcore/sketch.py).
+Port of sketchtpu/sketchcore/sketch_jax.py::DeviceSketchBackend.
+- Assemblies: genomes are packed into batches (one byte per base; PCIe
+  carries that easily), each batch is uploaded once and gets one hash +
+  sign + bin-minimum launch for all k (nthash_bin_multi).
+- Reads (FASTQ): the count filter depends on the order of the k-mers, so
+  the card writes the sign of every window in sequence order
+  (nthash_signs, all k in one launch) and the host filters them
+  (bin_minima_filtered, the native C++ loop) in a --threads pool. A read
+  stream is uploaded once and hashed in chunks of window starts, each
+  reading its k - 1 bases of overlap and emitting only the starts it owns,
+  so device and pinned memory stay bounded for long streams; chunk j + 1
+  is launched before chunk j is read back, and the filters run while the
+  next launches do.
+Densification and the bit-plane transpose run on the host exactly as in
+the JAX backend. Sketches are bit-identical to the host oracle
+(sketchcore/sketch.py).
 """
 
 from __future__ import annotations
+
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .._transfer import HostCopy
+from ..constants import SIGN_MOD
 from ..constants import num_bins as num_bins_fn
-from ..hash.nthash_torch import nthash_bin_multi, pack_group
-from .signs import densify, fill_usigs
+from ..hash.nthash_torch import nthash_bin_multi, nthash_signs, pack_group
+from .signs import bin_minima_filtered, densify, fill_usigs
 from .sketch import Sketch
 
 # bases and genomes per batch: bounds the device copy of the batch (one
 # byte per base) and its (genomes, nbins) minima table
 _BATCH_BASES = 1 << 26
 _MAX_GROUP = 1024
+# signs per chunk of a read stream, over all k (8 bytes each on the card
+# and in pinned memory), and chunk launches in flight
+_READ_CHUNK_SIGNS = 1 << 25
+_READ_AHEAD = 2
 
 _U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -40,9 +58,26 @@ def _groups(streams):
         start = end
 
 
+def read_chunks(n: int, kmers, chunk: int, n_starts: int | None = None):
+    """(first start, owned starts) of the chunks of a stream of n bases: the
+    window starts of the smallest k (at most n_starts of them), `chunk` a
+    chunk."""
+    starts = max(0, n - min(kmers) + 1)
+    if n_starts is not None:
+        starts = min(starts, n_starts)
+    return [(c0, min(chunk, starts - c0)) for c0 in range(0, starts, chunk)]
+
+
+def _chunk_starts(nk: int) -> int:
+    """Window starts a chunk of a read stream at nk k values."""
+    return max(1, _READ_CHUNK_SIGNS // nk)
+
+
 class DeviceSketchBackend:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
+
+    # --- assemblies ---
 
     def _dispatch(self, group, kmers, rc: bool, nbins: int):
         """One launch for the batch; the (nk, genomes, nbins) minima start
@@ -76,31 +111,135 @@ class DeviceSketchBackend:
         for ki, kk in enumerate(out):
             out[kk][start:end] = minima[ki]
 
+    # --- reads: in-order signs ---
+
+    def _launch_signs(self, stream, kmers, rc: bool,
+                      n_starts: int | None = None):
+        """Upload a read stream once and launch its chunks in order; yields
+        (owned starts, HostCopy of the (nk, owned) signs, last chunk) as
+        each chunk's launch is made."""
+        n = stream.seq_len
+        chunks = read_chunks(n, kmers, _chunk_starts(len(kmers)), n_starts)
+        if not chunks:
+            return
+        seq, _starts = pack_group([stream])
+        seq_d = torch.from_numpy(seq).to(self.device)
+        reach = max(kmers) - 1  # bases a chunk reads past its last start
+        for j, (c0, own) in enumerate(chunks):
+            part = seq_d[c0 : min(n, c0 + own + reach)]
+            yield (own, HostCopy(nthash_signs(part, kmers, rc, own)),
+                   j == len(chunks) - 1)
+
+    def _signs_streams(self, jobs, kmers, rc: bool, sink,
+                       n_starts: int | None = None):
+        """For each (key, stream) of jobs, in order, the valid signs of every
+        k in sequence order, of window starts [0, n_starts) (all by
+        default): sink(key, [signs per k]) as soon as the stream's last
+        chunk is read back. Up to _READ_AHEAD chunk launches are in flight
+        while the host compacts the oldest."""
+        pending = deque()
+
+        def collect():
+            key, parts, (own, copy, last) = pending.popleft()
+            signs = copy.numpy().view(np.uint64)
+            for ki in range(len(kmers)):
+                row = signs[ki, :own]
+                parts[ki].append(row[row != _U64_MAX])
+            if last:
+                sink(key, [np.concatenate(p) if p else np.zeros(0, np.uint64)
+                           for p in parts])
+
+        for key, stream in jobs:
+            parts = [[] for _ in kmers]
+            launched_any = False
+            for launched in self._launch_signs(stream, kmers, rc, n_starts):
+                launched_any = True
+                pending.append((key, parts, launched))
+                while len(pending) > _READ_AHEAD:
+                    collect()
+            if not launched_any:  # no window: every bin stays empty
+                sink(key, [np.zeros(0, np.uint64) for _ in kmers])
+        while pending:
+            collect()
+
+    def read_minima(self, jobs, kmers, rc: bool, nbins: int, min_count: int,
+                    pool) -> dict:
+        """{(k, key): future of the (nbins,) count-filtered bin minima} of
+        each (key, read stream) of jobs: the count filter, order-dependent
+        within one (stream, k) sign sequence and independent across them,
+        runs in `pool` for finished streams while later chunks launch."""
+        futs = {}
+
+        def sink(key, signs_per_k):
+            for kk, signs in zip(kmers, signs_per_k):
+                futs[kk, key] = pool.submit(bin_minima_filtered, signs, nbins,
+                                            min_count)
+
+        self._signs_streams(jobs, kmers, rc, sink)
+        return futs
+
+    def signs_in_order(self, stream, k: int, rc: bool,
+                       n_starts: int | None = None) -> np.ndarray:
+        """Valid-window signs of one (stream, k) in sequence order, of
+        window starts [0, n_starts) (all by default)."""
+        out = []
+        self._signs_streams([(0, stream)], [k], rc,
+                            lambda _key, signs: out.extend(signs), n_starts)
+        return out[0]
+
+    def dispatch_signs_maybe_filtered(self, stream, k: int, rc: bool,
+                                      n_starts: int | None = None):
+        """The JAX backend's handle interface over signs_in_order: the
+        JAX package's optional prefilter (off by default there) is not
+        ported, so the signs are never filtered on the card and the handle
+        is the signs themselves."""
+        return self.signs_in_order(stream, k, rc, n_starts)
+
+    @staticmethod
+    def collect_signs_maybe_filtered(handle) -> np.ndarray:
+        """The valid signs of a dispatch_signs_maybe_filtered handle, in
+        sequence order."""
+        return handle
+
     def sketch_dna_streams(self, streams, names, kmers, sketch_size: int,
                            rc: bool, min_count: int, threads: int = 1):
-        if any(s.reads for s in streams):
-            raise NotImplementedError(
-                "sketching reads (FASTQ) is not ported yet "
-                "(ROADMAP queue 1 item 5)"
-            )
         _s64, nbins, _u = num_bins_fn(sketch_size)
-        minima = self.bin_minima_multi_k(streams, kmers, rc, nbins)
+        assembly_idx = [i for i, s in enumerate(streams) if not s.reads]
+        read_idx = [i for i, s in enumerate(streams) if s.reads]
+        bins: dict[tuple[int, int], np.ndarray] = {}
+        if assembly_idx:
+            minima = self.bin_minima_multi_k(
+                [streams[i] for i in assembly_idx], kmers, rc, nbins)
+            for bi, i in enumerate(assembly_idx):
+                for kk in kmers:
+                    bins[kk, i] = minima[kk][bi]
+        if read_idx:
+            with ThreadPoolExecutor(max_workers=max(1, threads)) as pool:
+                futs = self.read_minima([(i, streams[i]) for i in read_idx],
+                                        list(dict.fromkeys(kmers)), rc, nbins,
+                                        min_count, pool)
+                for key, fut in futs.items():
+                    bins[key] = fut.result()
         out = []
         for i, (stream, name) in enumerate(zip(streams, names)):
             usigs_parts = []
+            minhash_sum = 0.0
             densified_any = False
             for kk in kmers:
-                binned = minima[kk][i].copy()
+                binned = bins[kk, i].copy()
                 if (binned == _U64_MAX).all():
                     raise ValueError("K-mer larger than smallest valid sequence")
                 densified_any |= densify(binned)
+                minhash_sum += float(binned[0]) / float(SIGN_MOD)
                 usigs_parts.append(fill_usigs(binned))
+            seq_length = (int(len(kmers) / minhash_sum) if stream.reads
+                          else stream.seq_len)
             out.append(
                 Sketch(
                     name=name,
                     rc=rc,
                     reads=stream.reads,
-                    seq_length=stream.seq_len,
+                    seq_length=seq_length,
                     densified=densified_any,
                     acgt=tuple(int(x) for x in stream.acgt),
                     non_acgt=stream.non_acgt,

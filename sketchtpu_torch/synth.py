@@ -135,3 +135,87 @@ def derive_database(parent_prefix: str, out_prefix: str, n: int,
             ))
     MultiSketch(sketches, ms.sketch_size, ms.kmer_lengths,
                 ms.hash_type).save_metadata(out_prefix)
+
+
+def write_fastq_gz(path, total: int, seed: int, read_len: int = 150,
+                   coverage: int = 25, genome: np.ndarray | None = None):
+    """Synthetic FASTQ.gz: `total` bases of `read_len` reads at `coverage`x
+    off one genome (random from the seed unless given as 2-bit codes),
+    every other read reverse-complemented, ~0.5 % substitutions, Q40."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    if genome is None:
+        glen = max(total // coverage, read_len + 1)
+        genome = rng.integers(0, 4, glen).astype(np.uint8)
+    glen = genome.shape[0]
+    n_reads = total // read_len
+    qual = b"I" * read_len
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        for i, s in enumerate(rng.integers(0, glen - read_len, n_reads)):
+            seg = genome[s : s + read_len]
+            if i % 2:
+                seg = 3 - seg[::-1]
+            err = rng.random(read_len) < 0.005
+            if err.any():
+                seg = seg.copy()
+                seg[err] = (seg[err] + rng.integers(1, 4, int(err.sum()))) % 4
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, _ACGT[seg].tobytes(), qual))
+
+
+def read_samples(out_dir, n: int, genome_len: int, coverage: int, seed: int,
+                 paired: bool = False, read_len: int = 150) -> list[str]:
+    """Write n read samples (FASTQ.gz at `coverage`x of their own random
+    genome of genome_len bases; with `paired`, the reads split into two
+    files) and return their rfile lines (name<TAB>path[<TAB>path])."""
+    out_dir = Path(out_dir).resolve()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n):
+        genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+        total = genome_len * coverage
+        name = f"reads_{i:02d}{'_pe' if paired else ''}"
+        paths = [out_dir / f"{name}_{e}.fq.gz" for e in ((1, 2) if paired
+                                                         else (1,))]
+        for e, path in enumerate(paths):
+            write_fastq_gz(path, total // len(paths), seed * 1000 + 2 * i + e,
+                           read_len, coverage, genome)
+        lines.append("\t".join([name, *map(str, paths)]) + "\n")
+    return lines
+
+
+def derive_signs(n: int, sketch_size: int, n_clusters: int, seed: int,
+                 redraw: float = 0.3) -> np.ndarray:
+    """(n, sketch_size) u16 inverted-index signs of n samples in n_clusters
+    independent clusters: sample i copies the random signs of cluster
+    i % n_clusters and re-draws each bin with probability `redraw`. Pairs
+    of one cluster share most bins; pairs of two share one with the chance
+    that two random u16 signs of S bins meet, about S / 65536."""
+    rng = np.random.default_rng(seed)
+    parents = rng.integers(0, 1 << 16, (n_clusters, sketch_size),
+                           dtype=np.uint16)
+    out = np.empty((n, sketch_size), dtype=np.uint16)
+    step = 1 << 16
+    for r0 in range(0, n, step):
+        rows = np.arange(r0, min(n, r0 + step))
+        sig = parents[rows % n_clusters]
+        fresh = rng.random(sig.shape) < redraw
+        sig[fresh] = rng.integers(0, 1 << 16, int(fresh.sum()), dtype=np.uint16)
+        out[rows] = sig
+    return out
+
+
+def write_derived_inverted(prefix: str, names: list[str], signs: np.ndarray,
+                           kmer: int) -> None:
+    """Write prefix.ski and prefix.skq for the sign matrix `signs` (rows in
+    the order of names)."""
+    from .formats.skd import SketchDataWriter
+    from .inverted.index import Inverted
+    from .sketchcore.sketch import HashType
+
+    inv = Inverted(sign_matrix=signs, sample_names=list(names),
+                   kmer_size=kmer, rc=True, hash_type=HashType("dna"))
+    inv.save(prefix)
+    with SketchDataWriter(f"{prefix}.skq", dtype=np.uint16) as w:
+        w.write_sketch(signs.reshape(-1))

@@ -476,12 +476,15 @@ def test_knn_select_kernel_matches_twin_across_knn(cuda, knn, comp):
 
 
 def test_knn_select_kernel_rows_per_block(cuda):
-    """Fewer rows per block where longer lists need the shared memory."""
+    """Fewer rows per block where longer lists need the shared memory; the
+    sign mask's staging leaves the same rows."""
     rows = _build.lib().stpu_knn_select_rows
-    assert rows(50, 4) == rows(50, 8) == rows(128, 4) == 64
-    assert rows(MAX_KNN, 4) == 32
-    assert rows(MAX_KNN, 8) == 16
-    assert rows(MAX_KNN + 1, 4) == 0
+    for mask in (0, 1):
+        assert rows(50, 4, mask) == rows(50, 8, mask) == rows(128, 4, mask) \
+            == 64
+        assert rows(MAX_KNN, 4, mask) == 32
+        assert rows(MAX_KNN, 8, mask) == 16
+        assert rows(MAX_KNN + 1, 4, mask) == 0
 
 
 def test_knn_select_kernel_rejects_knn_past_its_limit(cuda):
@@ -518,3 +521,326 @@ def test_knn_select_kernel_int64_plain_keys(cuda, monkeypatch):
     monkeypatch.setattr(knn_kernels, "pack_shift", lambda s64: 8)
     got = _select_case(cuda, 100, 400, 16, 12)
     assert got.dtype == torch.int64
+
+
+# --- the signs mode of the ntHash kernel (reads) ----------------------------
+
+def _reads_stream(n, seed, read_len=150):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    breaks = np.arange(read_len, n + 1, read_len)
+    breaks = np.unique(np.concatenate([breaks, rng.integers(1, n, n // 300),
+                                       [n]]))
+    return DnaStream(codes=codes, breaks=breaks.astype(np.int64), reads=True)
+
+
+def _signs_case(cuda, stream_seq, kmers, rc, n_out=None):
+    from sketchtpu_torch.hash.nthash_torch import nthash_signs, nthash_signs_ref
+
+    seq_d = torch.from_numpy(stream_seq).to(cuda)
+    got = nthash_signs(seq_d, kmers, rc, n_out)
+    torch.cuda.synchronize()
+    n = got.shape[1]
+    want = torch.stack([nthash_signs_ref(seq_d, [k], rc, n)[0]
+                        for k in kmers])
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 17, 31, 64, 4097])
+@pytest.mark.parametrize("rc", [True, False])
+def test_nthash_signs_kernel_matches_twin(cuda, k, rc):
+    """Breaks at every read end, N runs inside reads, a random assembly
+    with its own breaks: every window start's sign or u64 max (reads have
+    no window past their 150 bases)."""
+    breaks = 2000 if k < 500 else 50
+    for seq in (pack_group([_reads_stream(70_001, k)])[0],
+                pack_group(random_streams([123_457], seed=k,
+                                          breaks_per_mb=breaks))[0]):
+        got = _signs_case(cuda, seq, [k], rc)
+        assert (got != -1).any() or len(seq) == 70_001 and k > 150
+
+
+@pytest.mark.parametrize("n_out", [None, 1, 63, 64, 16_383, 16_384, 16_385,
+                                   40_000])
+def test_nthash_signs_kernel_multi_k_and_n_out(cuda, n_out):
+    """Several k (unsorted) in one launch, owned starts below, at and past
+    a thread's run and a block's span, and past the last window."""
+    seq = pack_group([_reads_stream(33_000, 5)])[0]
+    _signs_case(cuda, seq, [31, 17, 21, 129], True, n_out)
+
+
+def test_nthash_signs_kernel_on_chunks_of_a_stream(cuda):
+    """Chunks as the backend cuts them (views into one upload, k - 1 bases
+    of overlap) concatenate to the whole stream's signs."""
+    from sketchtpu_torch.hash.nthash_torch import nthash_signs
+    from sketchtpu_torch.sketchcore.sketch_torch import read_chunks
+
+    stream = _reads_stream(200_000, 6)
+    seq_d = torch.from_numpy(pack_group([stream])[0]).to(cuda)
+    kmers = [17, 25]
+    whole = nthash_signs(seq_d, kmers, True)
+    parts = [nthash_signs(seq_d[c0 : min(200_000, c0 + own + 24)], kmers,
+                          True, own)
+             for c0, own in read_chunks(200_000, kmers, 16_411)]
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+def test_nthash_split_past_128_k_on_the_card(cuda):
+    """129 k values: two launches of each mode, one result."""
+    from sketchtpu_torch.hash.nthash_torch import (
+        nthash_signs,
+        nthash_signs_ref,
+    )
+
+    kmers = list(range(3, 132))
+    seq = pack_group([_reads_stream(5000, 7)])[0]
+    seq_d = torch.from_numpy(seq).to(cuda)
+    before = nthash_signs.launches
+    got = nthash_signs(seq_d, kmers[::-1], True)
+    assert nthash_signs.launches == before + 2
+    assert torch.equal(got, nthash_signs_ref(seq_d, kmers[::-1], True,
+                                             got.shape[1]))
+    starts = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = nthash_bin_multi.launches
+    got = nthash_bin_multi(seq_d, kmers, True, starts, 256)
+    assert nthash_bin_multi.launches == before + 2
+    assert torch.equal(got, nthash_bin_multi_ref(seq_d, kmers, True, starts,
+                                                 256))
+
+
+def test_reads_backend_on_card_matches_cpu(cuda, monkeypatch):
+    from sketchtpu_torch.sketchcore import sketch_torch
+    from sketchtpu_torch.sketchcore.sketch_torch import DeviceSketchBackend
+
+    streams = [_reads_stream(n, 20 + n) for n in (30_000, 151, 80_000)]
+    streams.append(random_streams([50_000], seed=3)[0])
+    names = list("abcd")
+    want = DeviceSketchBackend(torch.device("cpu")).sketch_dna_streams(
+        streams, names, [17, 21, 25], 1024, True, 1)
+    for chunk in (None, 7_777):
+        if chunk is not None:
+            monkeypatch.setattr(sketch_torch, "_chunk_starts",
+                                lambda nk: chunk)
+        got = DeviceSketchBackend(cuda).sketch_dna_streams(
+            streams, names, [17, 21, 25], 1024, True, 1)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.usigs, w.usigs)
+            assert g.seq_length == w.seq_length
+
+
+# --- signeq.cu: the inverted index's sign equality ----------------------------
+
+def _sign_rows(n, s, alphabet, seed):
+    rng = np.random.default_rng(seed)
+    m = rng.integers(0, alphabet, (n, s)).astype(np.uint16)
+    m[rng.random((n, s)) < 0.01] = 0xFFFF
+    return m
+
+
+@pytest.mark.parametrize("s", [1, 2, 99, 100, 1000])
+@pytest.mark.parametrize("nq,n", [(1, 1), (63, 65), (64, 64), (65, 200),
+                                  (130, 63)])
+def test_signeq_kernel_matches_twin(cuda, s, nq, n):
+    from sketchtpu_torch.inverted.device import pack_signs, signeq, signeq_ref
+
+    alphabet = 4 if s < 50 else 40
+    m = _sign_rows(n, s, alphabet, s + n)
+    q = _sign_rows(nq, s, alphabet, s + nq + 1)
+    q[0] = m[min(n - 1, 3)]  # an all-bins match
+    qd, md = pack_signs(q, cuda), pack_signs(m, cuda)
+    for mode in ("count", "any", "all"):
+        got = signeq(qd, md, s, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, signeq_ref(qd, md, s, mode)), mode
+    assert signeq(qd, md, s, "all")[0, min(n - 1, 3)]
+
+
+@pytest.mark.parametrize("s", [1, 99, 100, 1000])
+@pytest.mark.parametrize("lo,hi", [(0, 700), (3, 700), (65, 129), (64, 64),
+                                   (699, 700), (200, 210)])
+def test_pair_count_kernel_matches_twin(cuda, s, lo, hi):
+    from sketchtpu_torch.inverted.device import (
+        pack_signs,
+        pair_count,
+        pair_count_ref,
+    )
+
+    m = pack_signs(_sign_rows(700, s, 3 if s < 50 else 500, s), cuda)
+    want = pair_count_ref(m, s, lo, hi)
+    for splits in (None, 1, 2, 7, 1000):
+        assert pair_count(m, s, lo, hi, splits=splits) == want
+
+
+def test_pair_count_kernel_past_2_31(cuda):
+    """Every pair shares a sign: n (n - 1) / 2 > 2^31 at n = 70,000; the
+    kernel's 64-bit total, against the closed form."""
+    from sketchtpu_torch.inverted.device import pack_signs, pair_count
+
+    n = 70_000
+    m = pack_signs(np.zeros((n, 3), np.uint16), cuda)
+    assert pair_count(m, 3) == n * (n - 1) // 2 > 1 << 31
+
+
+def test_device_inverted_engine_on_card_matches_cpu(cuda):
+    from sketchtpu_torch.inverted.device import DeviceInvertedEngine
+
+    mat = _sign_rows(1000, 100, 30, 1)
+    q = _sign_rows(9, 100, 30, 2)
+    q[4] = mat[500]
+    on_card = DeviceInvertedEngine(mat, cuda)
+    on_cpu = DeviceInvertedEngine(mat, torch.device("cpu"))
+    for name in ("match_counts", "any_shared_rows", "all_shared_rows"):
+        assert np.array_equal(getattr(on_card, name)(q),
+                              getattr(on_cpu, name)(q)), name
+    for rr in (None, slice(0, 1000), slice(333, 777)):
+        assert on_card.any_shared_bin_count(rr) == \
+            on_cpu.any_shared_bin_count(rr)
+
+
+# --- the precluster mask in K3 and K2 ----------------------------------------
+
+def _mask(cuda, n, s, seed, rows=None):
+    from sketchtpu_torch.dist.knn_kernels import SignMask
+    from sketchtpu_torch.inverted.device import pack_signs
+    from sketchtpu_torch.synth import derive_signs
+
+    sig = derive_signs(n, s, 5, seed, redraw=0.6)
+    sig[7] = np.random.default_rng(seed).integers(0, 1 << 16, s)
+    w = pack_signs(sig, cuda)
+    r0, r1 = rows if rows is not None else (0, n)
+    return SignMask(w[r0:r1], w, s)
+
+
+@pytest.mark.parametrize("s", [1, 99, 100, 1000])
+@pytest.mark.parametrize("comp", [False, True])
+@pytest.mark.parametrize(
+    "tr,tc,row0,col0,nb_real",
+    [(64, 64, 0, 0, 64), (70, 131, 0, 0, 131), (33, 100, 120, 50, 400),
+     (45, 160, 10, 40, 157), (20, 200, 0, 100, 165)],
+)
+def test_masked_knn_keys_kernel_matches_twin(cuda, s, comp, tr, tc, row0,
+                                             col0, nb_real):
+    from sketchtpu_torch.dist.knn_kernels import SignMask
+
+    w = _kwords(500, KMERS, 16, 6, cuda)[:, 0]
+    full = _mask(cuda, 500, s, s + tr)
+    sig = SignMask(full.cols[row0 : row0 + tr], full.cols, s)
+    c = None
+    if comp:
+        cv = _comp(500, tr, cuda)
+        c = Completeness(cv[row0 : row0 + tr].contiguous(), cv, 0.64, 16)
+    for excl in (False, True):
+        kw = dict(row0=row0, col0=col0, nb_real=nb_real, exclude_self=excl,
+                  comp=c, sig=sig)
+        got = knn_keys(w[row0 : row0 + tr], w[col0 : col0 + tc], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, knn_keys_ref(w[row0 : row0 + tr],
+                                             w[col0 : col0 + tc], **kw))
+
+
+@pytest.mark.parametrize("knn", [1, 50, MAX_KNN])
+@pytest.mark.parametrize("s", [1, 100, 1000])
+@pytest.mark.parametrize("comp", [False, True])
+def test_masked_knn_select_kernel_matches_twin(cuda, knn, s, comp):
+    w = _kwords(1500, KMERS, 16, 9, cuda)[:, 1]
+    sig = _mask(cuda, 1500, s, knn + s, rows=(200, 330))
+    c = None
+    if comp:
+        cv = _comp(1500, knn, cuda)
+        c = Completeness(cv[200:330].contiguous(), cv, 0.64, 16)
+    kw = dict(row0=200, exclude_self=True, comp=c, sig=sig)
+    got = knn_select(w[200:330], w, knn, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, knn_select_ref(w[200:330], w, knn, col_tile=300,
+                                           **kw))
+
+
+@pytest.mark.parametrize("comp", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_knn_past_max_knn_on_the_card(cuda, comp, masked):
+    """knn = MAX_KNN + 1: K3's tile keys merged by torch.topk, the
+    selection of the twin (and of the host)."""
+    from sketchtpu_torch.dist.knn_torch import select_keys
+
+    w = _kwords(1400, KMERS, 16, 10, cuda)[:, 0]
+    c = sig = None
+    if comp:
+        cv = _comp(1400, 3, cuda)
+        c = Completeness(cv[100:300].contiguous(), cv, 0.64, 16)
+    if masked:
+        sig = _mask(cuda, 1400, 100, 4, rows=(100, 300))
+    kw = dict(row0=100, exclude_self=True, comp=c, sig=sig)
+    select_before = knn_select.launches
+    tiles_before = knn_keys.launches
+    got = select_keys(w[100:300], w, MAX_KNN + 1, **kw)
+    assert knn_select.launches == select_before
+    assert knn_keys.launches > tiles_before
+    assert torch.equal(got, knn_select_ref(w[100:300], w, MAX_KNN + 1, **kw))
+
+
+@pytest.mark.parametrize("s", [1, 100, 1000])
+@pytest.mark.parametrize("comp", [False, True])
+@pytest.mark.parametrize(
+    "tr,tc,row0,col0,nb_real",
+    [(64, 64, 0, 0, 64), (70, 131, 0, 0, 131), (33, 100, 120, 50, 400),
+     (20, 200, 0, 100, 165)],
+)
+def test_masked_coreacc_keys_kernel_matches_twin(cuda, s, comp, tr, tc,
+                                                 row0, col0, nb_real):
+    from sketchtpu_torch.dist.knn_kernels import SignMask
+
+    w = _words(500, 16, 6, cuda)
+    full = _mask(cuda, 500, s, s + tc)
+    sig = SignMask(full.cols[row0 : row0 + tr], full.cols, s)
+    c1 = c2 = None
+    if comp:
+        c = _comp(500, tr * tc, cuda)
+        c1, c2 = c[row0 : row0 + tr].contiguous(), c[col0 : col0 + tc].contiguous()
+    kw = dict(row0=row0, col0=col0, nb_real=nb_real, exclude_self=True,
+              sig=sig)
+    keys, acc = coreacc_keys(w[row0 : row0 + tr], w[col0 : col0 + tc], KMERS,
+                             1024, c1, c2, **kw)
+    torch.cuda.synchronize()
+    want_keys, want_acc = coreacc_keys_ref(w[row0 : row0 + tr],
+                                           w[col0 : col0 + tc], KMERS, 1024,
+                                           c1, c2, **kw)
+    assert torch.equal(keys, want_keys)
+    assert torch.equal(acc, want_acc)
+
+
+@pytest.mark.parametrize("mode", ["k17", "ani", "comp", "singleton",
+                                  "bruteforce", "coreacc",
+                                  "coreacc_bruteforce"])
+def test_precluster_on_card_matches_cpu(cuda, mode):
+    from sketchtpu_torch.inverted.index import Inverted
+    from sketchtpu_torch.synth import derive_signs
+
+    n, s = 400, 100
+    ms = _engine_ms(n, (17, 21, 25), 12)
+    sig = derive_signs(n, s, 9, 13, redraw=0.7)
+    rng = np.random.default_rng(14)
+    for r in (5, 200):
+        sig[r] = rng.integers(0, 1 << 16, s)
+    inv = Inverted(sign_matrix=sig, sample_names=[f"g{i}" for i in range(n)],
+                   kmer_size=17, rc=True, hash_type=HashType("dna"))
+    comp = rng.uniform(0.6, 1, n) if "comp" in mode else None
+    retain = next((r for r in ("singleton", "bruteforce") if r in mode), None)
+    dt = (DistType() if mode.startswith("coreacc")
+          else DistType(k_idx=0, k=17.0, ani=mode == "ani"))
+    args = (inv, sig.reshape(-1), 10, dt, retain)
+    for rr in (None, slice(190, 260)):
+        got = DeviceKnnEngine(ms, cuda, row_tile=128, col_tile=300) \
+            .precluster_knn(*args, row_range=rr, completeness_vec=comp)
+        want = DeviceKnnEngine(ms, torch.device("cpu"), row_tile=128,
+                               col_tile=300) \
+            .precluster_knn(*args, row_range=rr, completeness_vec=comp)
+        # entries past a row's candidates are not printed; their slot
+        # order follows torch.topk's ties, which differ between devices
+        gi, gv, gm = got.as_arrays()
+        wi, wv, wm = want.as_arrays()
+        shown = np.ones(gi.shape, bool) if gm is None else gm
+        assert (gm is None) == (wm is None)
+        assert gm is None or np.array_equal(gm, wm)
+        assert np.array_equal(gi[shown], wi[shown])
+        assert np.array_equal(gv[shown], wv[shown])

@@ -133,13 +133,23 @@ def test_sketch_backend_matches_host(both_streams):
     assert dev[-1].densified  # the short genome leaves bins to densify
 
 
-def test_sketch_backend_refuses_reads(streams):
+def test_sketch_backend_sketches_reads(both_streams):
+    """A stream flagged as reads takes the in-order signs and the count
+    filter (the refusal this replaces is gone): the host oracle's sketch,
+    bit for bit, beside an assembly of the same batch."""
+    jax_streams, streams = both_streams
     reads = port_fastx.DnaStream(codes=streams[0].codes,
                                  breaks=streams[0].breaks, reads=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TorchSketchBackend(torch.device("cpu")).sketch_dna_streams(
-            [reads], ["r"], [17], 1024, True, 2
-        )
+    jax_reads = DnaStream(codes=jax_streams[0].codes,
+                          breaks=jax_streams[0].breaks, reads=True)
+    got = TorchSketchBackend(torch.device("cpu")).sketch_dna_streams(
+        [reads, streams[1]], ["r", "a"], [17, 21], NBINS, True, 1)
+    for sk, js in zip(got, (jax_reads, jax_streams[1])):
+        want = sketch_dna_sample(js, "x", [17, 21], NBINS, True, 1)
+        assert np.array_equal(sk.usigs, want.usigs)
+        assert (sk.reads, sk.seq_length, sk.densified) == \
+            (want.reads, want.seq_length, want.densified)
+    assert got[0].reads and not got[1].reads
 
 
 # --- the multi-k entry point ------------------------------------------------

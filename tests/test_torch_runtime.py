@@ -176,7 +176,7 @@ def test_coreacc_keys_wrapper_launches_for_cuda_tensors(monkeypatch):
                                        col0=5, nb_real=9, exclude_self=True)
     assert got == ("keys", "acc")
     assert coreacc_kernels.coreacc.launches == before + 1
-    assert calls[0][7:] == (False, 2, (5, 4, True))
+    assert calls[0][7:] == (False, 2, (5, 4, True), None)
 
 
 def test_coreacc_rejects_more_k_than_the_kernel_takes_on_cuda():
@@ -248,7 +248,21 @@ def test_knn_keys_wrapper_launches_for_cuda_tensors(monkeypatch, comp):
     assert knn_kernels.knn_keys(a, a, col0=3, nb_real=11, exclude_self=True,
                                 comp=c) == "out"
     assert knn_kernels.knn_keys.launches == before + 1
-    assert calls[0][2:] == (0, 3, 11, True, c)
+    assert calls[0][2:] == (0, 3, 11, True, c, None)
+
+
+def _fake_nthash_launch(monkeypatch, calls):
+    """A stand-in launch that fills its rows with their k (the result then
+    lives on the CPU, where torch.full leaves it)."""
+    full = torch.full
+
+    def launch(seq, ks, rc, starts, nbins, out):
+        calls.append((seq, ks, rc, starts, nbins))
+        out.copy_(torch.tensor(ks)[:, None, None].expand_as(out))
+
+    monkeypatch.setattr(nthash_torch, "_launch_nthash_multi", launch)
+    monkeypatch.setattr(torch, "full",
+                        lambda *a, device=None, **kw: full(*a, **kw))
 
 
 def test_nthash_wrapper_launches_for_cuda_tensors(monkeypatch):
@@ -256,30 +270,31 @@ def test_nthash_wrapper_launches_for_cuda_tensors(monkeypatch):
     calls = []
     monkeypatch.setattr(nthash_torch, "nthash_bin_ref", _refuse_twin)
     monkeypatch.setattr(nthash_torch, "nthash_bin_multi_ref", _refuse_twin)
-    monkeypatch.setattr(nthash_torch, "_launch_nthash_multi",
-                        lambda *a: calls.append(a) or ["out"])
+    _fake_nthash_launch(monkeypatch, calls)
     seq = _FakeCuda(torch.zeros(100, dtype=torch.uint8))
     tf = _FakeCuda(torch.zeros((5, 4), dtype=torch.int64))
     starts = _FakeCuda(torch.zeros(1, dtype=torch.int64))
     before = nthash_torch.nthash_bin_multi.launches
-    assert nthash_torch.nthash_bin(seq, 5, tf, tf, True, starts, 64) == "out"
+    got = nthash_torch.nthash_bin(seq, 5, tf, tf, True, starts, 64)
+    assert torch.equal(got, torch.full((1, 64), 5))
     assert nthash_torch.nthash_bin_multi.launches == before + 1
     assert len(calls) == 1 and calls[0][1] == [5]
 
 
 def test_nthash_multi_wrapper_launches_for_cuda_tensors(monkeypatch):
+    """One launch for the k list, ascending; the rows come back in kmers
+    order."""
     calls = []
     monkeypatch.setattr(nthash_torch, "nthash_bin_ref", _refuse_twin)
     monkeypatch.setattr(nthash_torch, "nthash_bin_multi_ref", _refuse_twin)
-    monkeypatch.setattr(nthash_torch, "_launch_nthash_multi",
-                        lambda *a: calls.append(a) or "out")
+    _fake_nthash_launch(monkeypatch, calls)
     seq = _FakeCuda(torch.zeros(100, dtype=torch.uint8))
     starts = _FakeCuda(torch.zeros(1, dtype=torch.int64))
     before = nthash_torch.nthash_bin_multi.launches
-    assert nthash_torch.nthash_bin_multi(seq, (21, 17), True, starts,
-                                         64) == "out"
+    got = nthash_torch.nthash_bin_multi(seq, (21, 17), True, starts, 64)
+    assert got.shape == (2, 1, 64) and got[:, 0, 0].tolist() == [21, 17]
     assert nthash_torch.nthash_bin_multi.launches == before + 1
-    assert calls[0][1:] == ([21, 17], True, starts, 64)
+    assert calls[0][1:] == ([17, 21], True, starts, 64)
 
 
 def test_nthash_multi_rejects_what_the_kernel_does_not_take():
@@ -288,9 +303,6 @@ def test_nthash_multi_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="limit"):
         nthash_torch.nthash_bin_multi(seq, (nthash_torch.MAX_K_CUDA + 1,),
                                       True, starts, 64)
-    with pytest.raises(ValueError, match="limit"):
-        nthash_torch.nthash_bin_multi(
-            seq, range(1, nthash_torch.MAX_NK_CUDA + 2), True, starts, 64)
     with pytest.raises(ValueError, match="not empty"):
         nthash_torch.nthash_bin_multi(seq, (), True, starts, 64)
 
@@ -325,7 +337,7 @@ def test_knn_select_wrapper_launches_for_cuda_tensors(monkeypatch, comp):
                                   comp=c) == "out"
     assert knn_kernels.knn_select.launches == before + 1
     assert knn_kernels.knn_keys.launches == tiles_before
-    assert calls[0][2:] == (5, 3, 11, True, c, None)
+    assert calls[0][2:] == (5, 3, 11, True, c, None, None)
 
 
 def test_knn_select_rejects_knn_past_its_limit_on_cuda():
@@ -371,14 +383,14 @@ def test_single_k_scan_makes_one_selection_launch(monkeypatch):
     w = torch.randint(-2**62, 2**62, (300, 28), generator=g)
     sb, idx = knn_torch.knn_scan(w, w, 4, exclude_self=True)
     assert sb.shape == idx.shape == (300, 4)
-    assert calls == [(300, 300, 4, dict(nb_real=300, exclude_self=True,
-                                        comp=None))]
+    assert calls == [(300, 300, 4, dict(row0=0, nb_real=300,
+                                        exclude_self=True, comp=None,
+                                        sig=None))]
 
 
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["inverted", "precluster", "x.ski", "--count"], "item 6"),
         (["warmup"], "item 10"),
         (["dist", "db", "--jax-profile", "p"], "item 10"),
         (["dist", "db", "--n-processes", "2", "--process-id", "0"], "item 8"),
@@ -387,6 +399,44 @@ def test_single_k_scan_makes_one_selection_launch(monkeypatch):
 def test_cli_refuses_unported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main(argv)
+
+
+def test_cli_runs_inverted_commands(tmp_path, monkeypatch, capsys):
+    """The inverted commands and info on a .ski run on the port (here its
+    cpu mode); multi-process inverted runs still refuse, naming item 8."""
+    from sketchtpu_torch.inverted.index import Inverted
+
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    mat = np.array([[1, 2, 3], [1, 5, 6], [7, 8, 9], [7, 8, 10]], np.uint16)
+    Inverted(sign_matrix=mat, sample_names=list("abcd"), kmer_size=17,
+             rc=True, hash_type=HashType("dna")).save(str(tmp_path / "x"))
+    assert port_cli.main(["inverted", "precluster", str(tmp_path / "x.ski"),
+                          "--count", "--quiet"]) == 0
+    assert port_cli.main(["info", str(tmp_path / "x.ski")]) == 0
+    out = capsys.readouterr().out
+    assert "Identified 2 prefilter pairs from a max of 6" in out
+    assert "n_samples=4" in out and "inverted=true" in out
+    with pytest.raises(NotImplementedError, match="item 8"):
+        port_cli.main(["inverted", "precluster", str(tmp_path / "x.ski"),
+                       "--count", "--n-processes", "2", "--process-id", "0"])
+
+
+def test_cli_refuses_k_past_the_card_at_parsing(monkeypatch, capsys):
+    """In cuda mode a k past MAX_K_CUDA is refused before any work (no
+    route to the host), with the limit in the message."""
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cuda")
+    monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
+    big = str(nthash_torch.MAX_K_CUDA + 1)
+    for argv in (["sketch", "x.fa", "-o", "o", "-k", f"17,{big}"],
+                 ["inverted", "build", "x.fa", "-o", "o", "-k", big]):
+        with pytest.raises(SystemExit) as exc:
+            port_cli.main(argv)
+        assert exc.value.code == 2
+        assert f"k <= {nthash_torch.MAX_K_CUDA}" in capsys.readouterr().err
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    port_cli.refuse_past_card_limits(
+        port_cli.build_parser().parse_args(["sketch", "x", "-o", "o", "-k",
+                                            big]), None)
 
 
 def _imports_of_jax_package(path: Path) -> list[str]:
