@@ -5,9 +5,9 @@
 
 1. Builds the port's CUDA kernels from sketchtpu_torch/csrc.
 2. Holds every kernel against its plain PyTorch twin on the card at the
-   main path's shapes (sketch size 1000 -> s64 = 16, k = 17..29 step 2;
-   K1 also on the first strip of a 100,000-sample dense run, K4 also at
-   40,000 bins), and times both with CUDA events, beside the least time
+   main path's shapes (sketch size 1000 -> s64 = 16, k = 17..29 step 2,
+   k = 6, 9, 12 for amino acids; K1 also on the first strip of a
+   100,000-sample dense run, K4 also at 40,000 bins), and times both with CUDA events, beside the least time
    the card could take (bound: operations at the table rate, or bytes at
    3.35 TB/s) and the integer-issue floor of the samebits kernels.
 3. Drives the two paths through the port's CLI and checks them against
@@ -43,6 +43,15 @@
    assemblies queried; `precluster --skd --knn 50` over phase 5's 100,000
    samples and --core-acc over its first 50,000, 512 rows of each against
    the host oracle.
+7. The amino-acid path: phase 2 holds the aaHash kernel against its twin
+   (16 x 1,200,000 residues, k = 6, 9, 12, levels 1 and 3, bins and
+   reachability flags bit for bit); phase 3 runs `sketch --seq-type aa`
+   at levels 1-3 with and without --concat-fasta, `--seq-type pdb` on 3Di
+   text, `append`, and dense -k 9, core/accessory and `-k 9 --knn 3` on the
+   AA database against the host oracle (a final-window-only record refused
+   by both); phase 7 sketches 256 synthetic proteomes of 1.2 M residues at
+   k = 6, 9, 12 (wall, Maa-k/s, the card's busy share; the first 8 rows
+   against the host oracle) and runs dense core/accessory `dist` on them.
 
 Each path's kernel launches are counted from 0 over its phases; the run
 fails if a kernel of a path was never launched there. Any failure exits
@@ -107,6 +116,8 @@ SOURCES = {
                           "sketchtpu/dist/pallas_kernels.py:47"),
     "coreacc_keys_masked": ("sketchtpu_torch/csrc/coreacc.cu",
                             "sketchtpu/dist/coreacc_pallas.py:100"),
+    "aahash_bin_multi": ("sketchtpu_torch/csrc/aahash_bin.cu",
+                         "sketchtpu/hash/aahash_jax.py:355"),
 }
 DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi", "samebits_full")
 # knn_keys: K3's tile mode, the route of `dist --knn` past MAX_KNN = 1024
@@ -114,6 +125,8 @@ KNN_PATH = ("knn_select", "coreacc", "knn_keys")
 INVERTED_PATH = ("nthash_signs", "nthash_bin_multi", "signeq_count",
                  "signeq_any", "signeq_all", "pair_count",
                  "knn_select_masked", "coreacc_keys_masked")
+# amino acids and 3Di: sketch, append, then dense -k, core/acc and --knn
+AA_PATH = ("aahash_bin_multi", "samebits", "coreacc", "knn_select")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
 # the 32-bit non-tensor rate, which bounds the 32-bit integer logic and
@@ -174,6 +187,7 @@ def kernel_wrappers() -> dict:
     from sketchtpu_torch.dist.coreacc_kernels import coreacc
     from sketchtpu_torch.dist.knn_kernels import knn_keys, knn_select
     from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_full
+    from sketchtpu_torch.hash.aahash_torch import aahash_bin_multi
     from sketchtpu_torch.hash.nthash_torch import nthash_bin_multi, nthash_signs
     from sketchtpu_torch.inverted.device import pair_count, signeq
 
@@ -187,7 +201,8 @@ def kernel_wrappers() -> dict:
             "signeq_all": Count(signeq, "mode_launches", "all"),
             "pair_count": Count(pair_count),
             "knn_select_masked": Count(knn_select, "masked_launches"),
-            "coreacc_keys_masked": Count(coreacc, "masked_launches")}
+            "coreacc_keys_masked": Count(coreacc, "masked_launches"),
+            "aahash_bin_multi": Count(aahash_bin_multi)}
 
 
 @contextlib.contextmanager
@@ -787,6 +802,91 @@ def phase2_nthash_signs(results):
           f"; {own * len(KMERS) * 8 / ms / 1e6:.1f} GB/s written")
     results["nthash_signs"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                    library_ms=None, **bd)
+
+
+# --- phase 2, the amino-acid kernel ------------------------------------------
+
+# 32-bit operations per window and k of the forward-only rolling aaHash:
+# ROLL_OPS less the reverse strand's rotation (8), its two XORs (4) and
+# the unsigned minimum of the two strands (4)
+AA_ROLL_OPS = ROLL_OPS - 16
+AA_KMERS = (6, 9, 12)  # bench/probe_aa.py:53-57's k
+AA_SAMPLES, AA_RESIDUES = 16, 1_200_000  # and its proteome size
+
+
+def aa_streams(n: int, length: int, seed: int, record: int = 300,
+               invalid: float = 0.001):
+    """n AaStreams of `length` residues as read_aa_sample gives them for a
+    proteome: either case, a SEQSEP after each record of about `record`
+    residues, and a share `invalid` of invalid residues (SEQSEP)."""
+    import numpy as np
+
+    from sketchtpu_torch.ingest.fastx import AaStream
+
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYacdefghiklmnpqrstvwy",
+                            dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        seq = letters[rng.integers(0, 40, length)]
+        bad = rng.random(length) < invalid
+        seq[bad] = 5
+        seq[np.cumsum(rng.integers(record // 2, 3 * record // 2,
+                                   length // record)) % length] = 5
+        out.append(AaStream(seq=seq, invalid_count=int(bad.sum())))
+    return out
+
+
+def phase2_aahash(results, lib_path: Path):
+    """aahash_bin_multi against its twin at 16 x 1,200,000 residues x
+    k = 6, 9, 12, levels 1 and 3: bins and reachability flags bit for bit;
+    timed at level 1."""
+    import torch
+
+    from sketchtpu_torch.hash.aahash_torch import (
+        aahash_bin_multi,
+        aahash_bin_multi_ref,
+        pack_aa_group,
+    )
+
+    info = ptxas_report(lib_path, "aahash_multi_kernel",
+                        {"aahash_multi_kernel": "plain"})["plain"]
+    print(f"phase2 aahash_bin_multi kernel: {info['registers']} registers, "
+          f"{info['spill_store_bytes']} bytes spilled")
+    check(info["spill_store_bytes"] == 0, "aahash_bin_multi spills")
+    codes, starts = pack_aa_group(aa_streams(AA_SAMPLES, AA_RESIDUES, SEED))
+    codes_d = torch.from_numpy(codes).cuda()
+    starts_d = torch.from_numpy(starts).cuda()
+    nbins = S64 * 64
+    for level in (1, 3):
+        # the twin's second run is timed: its first builds the tap tables
+        ref = (lambda: aahash_bin_multi_ref(codes_d, AA_KMERS, level,
+                                            starts_d, nbins))
+        want, want_reach = ref()
+        _, plain = timed_once(ref)
+        got, reach = aahash_bin_multi(codes_d, AA_KMERS, level, starts_d,
+                                      nbins)
+        check(torch.equal(got, want) and torch.equal(reach, want_reach),
+              f"aahash_bin_multi level {level}: kernel != twin")
+        check(bool(reach.all()) and not (got == -1).all(dim=2).any(),
+              f"aahash_bin_multi level {level}: an empty or unreachable row")
+        del want
+        ms = cuda_ms(lambda: aahash_bin_multi(codes_d, AA_KMERS, level,
+                                              starts_d, nbins), reps=10)
+        windows = codes.size * len(AA_KMERS)
+        bd = bound(windows * AA_ROLL_OPS,
+                   codes.size + len(AA_KMERS) * AA_SAMPLES * (nbins * 8 + 4))
+        print(f"phase2 aahash_bin_multi level {level}, {AA_SAMPLES} x "
+              f"{AA_RESIDUES} aa, k {AA_KMERS} in one launch: bins and "
+              f"flags bit-equal to twin; kernel {ms:.4f} ms, twin "
+              f"{plain:.2f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}): kernel at "
+              f"{100 * bd['bound_ms'] / ms:.1f}%; "
+              f"{windows / ms / 1e6:.3f} G aa-k/s")
+        if level == 1:
+            results["aahash_bin_multi"] = dict(max_abs_err=0.0, ms=ms,
+                                               plain_ms=plain,
+                                               library_ms=None, **bd)
 
 
 def index_signs(n: int, seed: int):
@@ -1519,25 +1619,50 @@ def scan_dist_file(path: Path, n_values: int) -> int:
     return lines
 
 
-def profile_dist(cli_main, argv, label: str, no_sort: bool = False) -> float:
-    """One more run of a dist command under torch.profiler: device time by
-    kernel against the host clock. Returns the device's busy share. With
-    no_sort the run fails if a top-k, sort or concatenation kernel ran."""
+def profiled_run(cli_main, argv, label: str):
+    """(wall, {device event name: [us, count]}) of one more CLI run under
+    torch.profiler. A trace holding fewer of the port's kernels than its
+    wrappers launched lost records: it is taken once more, and if it loses
+    them again the run's device time is reported as not measured (None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        check(cli_main(argv) == 0, f"profiled {label} failed")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    by_name: dict[str, list] = {}
-    for e in prof.events():  # device-side activity only: kernels, copies
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name != "Activity Buffer Request"):
-            tot = by_name.setdefault(e.name, [0.0, 0])
-            tot[0] += e.time_range.elapsed_us()
-            tot[1] += 1
+    for attempt in (1, 2):
+        before = sum(fn.launches for fn in kernel_wrappers().values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            check(cli_main(argv) == 0, f"profiled {label} failed")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launched = sum(fn.launches for fn in kernel_wrappers().values()) - before
+        by_name: dict[str, list] = {}
+        for e in prof.events():  # device-side activity only: kernels, copies
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.name != "Activity Buffer Request"):
+                tot = by_name.setdefault(e.name, [0.0, 0])
+                tot[0] += e.time_range.elapsed_us()
+                tot[1] += 1
+        traced = sum(n for name, (_, n) in by_name.items()
+                     if "(anonymous namespace)::" in name)
+        if traced >= launched:
+            return wall, by_name
+        print(f"{label} profile (attempt {attempt}): the trace holds {traced} "
+              f"of the port's {launched} kernel launches")
+    return wall, None
+
+
+def profile_dist(cli_main, argv, label: str, no_sort: bool = False) -> float:
+    """One more run of a CLI command under torch.profiler: device time by
+    kernel against the host clock. Returns the device's busy share. With
+    no_sort the run fails if a top-k, sort or concatenation kernel ran.
+    None where the profiler lost the run's kernel records."""
+    wall, by_name = profiled_run(cli_main, argv, label)
+    if by_name is None:
+        print(f"{label} profile: device time not measured (the profiler "
+              f"lost kernel records twice)")
+        check(not no_sort, f"{label}: no trace to check for sorts")
+        return None
     rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
                   reverse=True)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
@@ -1546,7 +1671,9 @@ def profile_dist(cli_main, argv, label: str, no_sort: bool = False) -> float:
           f"{100 * busy_ms / 1e3 / wall:.2f}% of wall")
     for us, count, key in rows[:6]:
         print(f"  {us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
-    for what, parts in (("K2 (coreacc_kernel)", ("coreacc_kernel",)),
+    for what, parts in (("aaHash (aahash_multi_kernel)",
+                         ("aahash_multi_kernel",)),
+                        ("K2 (coreacc_kernel)", ("coreacc_kernel",)),
                         ("K3 selection (knn_select_kernel, knn_merge_kernel)",
                          ("knn_select_kernel", "knn_merge_kernel")),
                         ("PyTorch elementwise kernels", ("elementwise",)),
@@ -1967,6 +2094,179 @@ def near_tie_row(got, want, host_row) -> bool:
     return all(abs(c - last) <= 1e-6 for c in swapped)
 
 
+# --- the amino-acid path: phase 3 against the host oracle, phase 7 at scale --
+
+def aa_sketch_commands(prefix: Path, d: Path):
+    """`sketch --seq-type aa` at levels 1-3, with and without
+    --concat-fasta, `--seq-type pdb` on 3Di text, a query database and an
+    `append` (AA_KMERS, -s SKETCH_SIZE)."""
+    p = str(prefix)
+    common = ["-k", ",".join(map(str, AA_KMERS)), "-s", str(SKETCH_SIZE),
+              "--quiet"]
+    cmds = []
+    for lv in (1, 2, 3):
+        cmds.append(["sketch", "-f", str(d / "rfile.txt"), "-o",
+                     f"{p}aa_l{lv}", "--seq-type", "aa", "--level",
+                     f"level{lv}", *common])
+        cmds.append(["sketch", "-f", str(d / "rfile_cat.txt"), "-o",
+                     f"{p}cat_l{lv}", "--seq-type", "aa", "--level",
+                     f"level{lv}", "--concat-fasta", *common])
+    cmds.append(["sketch", "-f", str(d / "rfile_3di.txt"), "-o", f"{p}pdb",
+                 "--seq-type", "pdb", *common])
+    cmds.append(["sketch", "-f", str(d / "rfile_q.txt"), "-o", f"{p}q",
+                 "--seq-type", "aa", *common])
+    return cmds
+
+
+AA_SKETCHES = ("aa_l1", "aa_l2", "aa_l3", "cat_l1", "cat_l2", "cat_l3",
+               "pdb", "q", "appended")
+AA_DIST_MODES = {"k9": ["-k", "9"], "coreacc": [],
+                 "knn_k9": ["-k", "9", "--knn", "3"]}
+
+
+def aa_dist_commands(prefix: Path):
+    p = str(prefix)
+    cmds = [["append", f"{p}aa_l1", "-f", str(WORK / "p3aa" / "rfile_x.txt"),
+             "-o", f"{p}appended", "--quiet"]]
+    for name, flags in AA_DIST_MODES.items():
+        cmds.append(["dist", f"{p}aa_l1", *flags, "-o",
+                     f"{p}self_{name}.txt", "--quiet"])
+        cmds.append(["dist", f"{p}aa_l1", f"{p}q", *flags, "-o",
+                     f"{p}cross_{name}.txt", "--quiet"])
+    return cmds
+
+
+def phase3_aa(cli_main) -> None:
+    """The amino-acid path on the CLI against the host oracle: 8 synthetic
+    proteomes (lower case, 'X' / '*' residues, 200 wrapped records each)
+    and a one-record sample of 12 residues (shorter than k + 1 at k = 12);
+    aa_sketch_commands, `append`, then dense -k 9, core/acc and
+    `-k 9 --knn 3`, self and ref-vs-query. .skd/.skm, -k 9 and --knn byte
+    for byte, f32 core/acc within 1e-5. A --concat-fasta record whose only
+    valid window is its final one is refused by both."""
+    import numpy as np
+
+    from sketchtpu_torch.synth import related_proteomes
+
+    d = WORK / "p3aa"
+    rfile = related_proteomes(d / "faa", 8, 200, 300, SEED + 30,
+                              invalid=0.002)
+    lines = rfile.read_text().splitlines()
+    (d / "short.faa").write_bytes(b">short\nMKVLAAGicdE\nW\n")
+    (d / "rfile.txt").write_text("\n".join(lines) + f"\nshort\t{d}/short.faa\n")
+    (d / "rfile_cat.txt").write_text("\n".join(lines[:4]) + "\n")
+    (d / "rfile_q.txt").write_text("\n".join(lines[5:]) + "\n")
+    extra = related_proteomes(d / "faa_x", 2, 150, 300, SEED + 31,
+                              gzipped=True)
+    (d / "rfile_x.txt").write_text("".join(
+        f"extra_{i}\t{ln.split(chr(9))[1]}\n"
+        for i, ln in enumerate(extra.read_text().splitlines())))
+    rng = np.random.default_rng(SEED + 32)
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+    di = []
+    for i in range(4):
+        path = d / f"struct_{i}.3di"
+        path.write_bytes(b"".join(b">chain%d\n%s\n" % (
+            c, letters[rng.integers(0, 20, 400)].tobytes()) for c in range(3)))
+        di.append(f"struct_{i}\t{path}\n")
+    (d / "rfile_3di.txt").write_text("".join(di))
+    port_s, host_s = run_port_and_host(
+        cli_main,
+        aa_sketch_commands(d / "port_", d) + aa_dist_commands(d / "port_"),
+        aa_sketch_commands(d / "host_", d), aa_dist_commands(d / "host_"))
+    for db in AA_SKETCHES:
+        for ext in (".skd", ".skm"):
+            check(same_bytes(d / f"port_{db}{ext}", d / f"host_{db}{ext}"),
+                  f"aa {db}{ext} differs from the host oracle")
+    for side in ("self", "cross"):
+        for name in ("k9", "knn_k9"):
+            check(same_bytes(d / f"port_{side}_{name}.txt",
+                             d / f"host_{side}_{name}.txt"),
+                  f"aa dist {side} {name} differs from the host oracle")
+        compare_coreacc(f"phase3 aa {side} vs host",
+                        d / f"port_{side}_coreacc.txt",
+                        d / f"host_{side}_coreacc.txt")
+    # the final-window quirk: the only valid 12-mer of the record is its
+    # final window, and the residue before it is invalid
+    bad = d / "final_only.faa"
+    bad.write_bytes(b">ok\nMKVLAAGICDEWQRST\n>final_only\nXMKVLAAGICDEW\n")
+    argv = ["sketch", str(bad), "-o", str(d / "bad"), "--seq-type", "aa",
+            "--concat-fasta", "-k", "12", "-s", "64", "--quiet"]
+    refused = "K-mer larger than smallest valid sequence"
+    try:
+        cli_main([*argv[:3], str(d / "bad_port"), *argv[4:]])
+        check(False, "the port sketched a final-window-only record")
+    except ValueError as exc:
+        check(refused in str(exc), f"the port raised {exc}")
+    proc = subprocess.run([sys.executable, "-m", "sketchtpu.cli", *argv],
+                          env=host_env(), capture_output=True, text=True)
+    check(proc.returncode != 0 and refused in proc.stderr,
+          "the host oracle sketched a final-window-only record")
+    print(f"phase3 aa: sketch --seq-type aa levels 1-3 with and without "
+          f"--concat-fasta, --seq-type pdb, append: .skd/.skm byte-identical "
+          f"({len(AA_SKETCHES)} databases); dist -k 9 and -k 9 --knn 3 self "
+          f"and cross byte-identical; a final-window-only record refused by "
+          f"both; {len(port_s)} commands: port {sum(port_s):.2f} s, host "
+          f"oracle {sum(host_s):.2f} process-s, {HOST_JOBS} at a time")
+
+
+P7_SAMPLES, P7_RECORDS, P7_RECORD_LEN = 256, 4000, 300
+P7_ORACLE_SAMPLES = 8
+
+
+def phase7_aa(cli_main, gpu: str) -> None:
+    """256 synthetic proteomes of about 1.2 M residues (4,000 records of
+    300) sketched at level 1, k = 6, 9, 12, -s 1000: wall, Maa-k/s and the
+    card's busy share from one profiled run; the first 8 samples' .skd rows
+    against the host oracle, byte for byte; then dense core/acc `dist`
+    over the 256."""
+    from sketchtpu_torch.synth import related_proteomes
+
+    d = WORK / "p7"
+    t0 = time.time()
+    rfile = related_proteomes(d / "faa", P7_SAMPLES, P7_RECORDS,
+                              P7_RECORD_LEN, SEED + 40, n_ancestors=8)
+    residues = P7_SAMPLES * P7_RECORDS * P7_RECORD_LEN
+    print(f"phase7 wrote {P7_SAMPLES} proteomes ({residues / 1e6:.1f} M "
+          f"residues) in {time.time() - t0:.1f} s (set-up)")
+    kmers = ",".join(map(str, AA_KMERS))
+    argv = ["sketch", "-f", str(rfile), "-o", str(d / "db"), "-k", kmers,
+            "-s", str(SKETCH_SIZE), "--seq-type", "aa", "--threads", THREADS,
+            "--quiet"]
+    wall = timed_cli(cli_main, argv, "phase7 sketch aa", expect=(
+        "aahash_bin_multi",))
+    print(f"phase7 sketch {P7_SAMPLES} proteomes x {len(AA_KMERS)} k: "
+          f"{wall:.2f} s = {residues * len(AA_KMERS) / wall / 1e6:.1f} "
+          f"Maa-k/s end to end (parse, pack, upload, kernel, densify, "
+          f".skd), {gpu}")
+    busy = profile_dist(cli_main, argv, "phase7 sketch aa")
+    if busy is not None:
+        print(f"phase7 sketch aa: the card busy {100 * busy:.2f}% of the "
+              f"profiled run")
+    lines = rfile.read_text().splitlines()
+    (d / "rfile8.txt").write_text("\n".join(lines[:P7_ORACLE_SAMPLES])
+                                  + "\n")
+    t0 = time.time()
+    host_oracle([["sketch", "-f", str(d / "rfile8.txt"), "-o",
+                  str(d / "host8"), "-k", kmers, "-s", str(SKETCH_SIZE),
+                  "--seq-type", "aa", "--threads", THREADS, "--quiet"]])
+    want = (d / "host8.skd").read_bytes()
+    got = (d / "db.skd").read_bytes()
+    check(len(got) == len(want) * P7_SAMPLES // P7_ORACLE_SAMPLES
+          and got[: len(want)] == want,
+          "phase7: the first .skd rows differ from the host oracle")
+    print(f"phase7: the first {P7_ORACLE_SAMPLES} samples' .skd rows "
+          f"byte-identical to the host oracle ({time.time() - t0:.1f} s)")
+    out = d / "coreacc.txt"
+    wall = timed_cli(cli_main, ["dist", str(d / "db"), "-o", str(out),
+                                "--quiet"], "phase7 dist core/acc",
+                     expect=("coreacc",))
+    pairs = P7_SAMPLES * (P7_SAMPLES - 1) // 2
+    check(scan_dist_file(out, 2) == pairs, "phase7 dist: pair count")
+    print(f"phase7 dist core/acc over the {P7_SAMPLES}: {pairs} pairs in "
+          f"{wall:.2f} s, {gpu}")
+
+
 def main() -> int:
     import torch
 
@@ -2014,6 +2314,7 @@ def main() -> int:
         phase2_nthash(results)
         phase2_nthash_signs(results)
         phase2_signeq(results, lib_path)
+        phase2_aahash(results, lib_path)
         torch.cuda.empty_cache()
         print(f"phase2: {time.time() - t0:.1f} s")
 
@@ -2032,6 +2333,10 @@ def main() -> int:
                       f"{path} path")
             return got, out
 
+        t0 = time.time()
+        aa, _ = counted("aa", AA_PATH, lambda: phase3_aa(cli_main),
+                        lambda: phase7_aa(cli_main, smi))
+        print(f"aa path phases 3, 7: {time.time() - t0:.1f} s")
         t0 = time.time()
         dense, (p3, _, _) = counted(
             "dense", DENSE_PATH, lambda: phase3_dense(cli_main),
@@ -2059,7 +2364,7 @@ def main() -> int:
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("sketchtpu", "jax")]
         check(not loaded, f"the port's phases loaded {loaded[:5]}")
-        launches = {name: dense[name] + knn[name] + inverted[name]
+        launches = {name: dense[name] + knn[name] + inverted[name] + aa[name]
                     for name in wrappers}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)

@@ -54,6 +54,9 @@ _SIGNATURES = {
         _P, _LL, _P, _I, _I, _I, _P, _I, _ULL, _I, _I, _I, _I, _I, _P, _P,
     ),
     "stpu_nthash_signs": (_P, _LL, _P, _I, _I, _I, _I, _LL, _P, _P),
+    "stpu_aahash_multi": (
+        _P, _LL, _P, _I, _I, _P, _I, _ULL, _I, _I, _I, _I, _I, _P, _P, _P,
+    ),
     "stpu_magic_div": (_P, _I, _ULL, _I, _P, _P),
     "stpu_knn_keys": (
         _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _LL,

@@ -48,6 +48,9 @@ _SIGNATURES = {
     "stpu_parse_dna": (ctypes.c_int,
                        [ctypes.c_char_p, _I64, ctypes.c_int, _P, ctypes.c_int,
                         _P, _P, _P, _P, _P, _P]),
+    "stpu_parse_aa": (ctypes.c_int,
+                      [ctypes.c_char_p, _I64, _P, ctypes.c_uint8, _P, _P, _P,
+                       _P, _P]),
     "stpu_format_dist_lines": (_I64,
                                [ctypes.c_char_p, _P, ctypes.c_char_p, _P, _P,
                                 _P, _P, _P, _I64, _P, _I64]),

@@ -1,11 +1,12 @@
 """Command line of the port: the subcommands and flags of the reference
 (sketchlib.rust src/cli.rs) that sketchtpu_torch serves, on its own engines.
 
-Subcommands: sketch (assemblies and reads), dist (dense and --knn), merge,
-append, delete, info (.skm and .ski), inverted build / query / precluster /
-serve. `warmup`, --jax-profile, AA/3Di input and multi-process runs parse
-but are refused with NotImplementedError naming their ROADMAP item; a k
-past the card's limit is refused at argument parsing in cuda mode.
+Subcommands: sketch (assemblies, reads, amino acids and 3Di), dist (dense
+and --knn), merge, append, delete, info (.skm and .ski), inverted build /
+query / precluster / serve. `warmup`, --jax-profile and multi-process runs
+parse but are refused with NotImplementedError naming their ROADMAP item;
+a k past the card's hash kernel (MAX_K_CUDA for DNA, MAX_K_AA_CUDA for
+--seq-type aa|pdb) is refused at argument parsing in cuda mode.
 """
 
 from __future__ import annotations
@@ -73,9 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     _add_kmers(p)
     p.add_argument("-s", "--sketch-size", type=int, default=DEFAULT_SKETCHSIZE)
     p.add_argument("--seq-type", choices=["dna", "aa", "pdb"], default="dna")
-    p.add_argument("--convert-pdb", action="store_true",
-                   help="Input files are .pdb (with --seq-type pdb, not "
-                   "ported yet)")
+    p.add_argument(
+        "--convert-pdb",
+        action="store_true",
+        help="Input files are .pdb; convert them to 3Di first (requires the "
+        "optional mini3di + biopython packages)",
+    )
     p.add_argument("--level", choices=["level1", "level2", "level3"], default="level1")
     p.add_argument("--single-strand", action="store_true")
     p.add_argument("--min-count", type=int, default=DEFAULT_MINCOUNT)
@@ -242,26 +246,37 @@ def refuse_unported(args) -> None:
 
 
 def refuse_past_card_limits(args, parser) -> None:
-    """A k past the card's hash kernel (MAX_K_CUDA, csrc/nthash_bin.cu) is
-    refused before any work in cuda mode; nothing else takes it there."""
+    """A k past the card's hash kernel (MAX_K_CUDA, csrc/nthash_bin.cu, or
+    for amino acids and 3Di MAX_K_AA_CUDA, csrc/aahash_bin.cu) is refused
+    before any work in cuda mode, for `sketch`, `inverted build` and
+    `append` (the database's k); nothing else takes it there."""
     from .runtime import mode
 
     if mode() != "cuda":
         return
+    seq_type = getattr(args, "seq_type", "dna")
     if args.command == "sketch" and (args.k_vals or args.k_seq):
         from .ingest.inputs import parse_kmers
 
         kmers = parse_kmers(args.k_vals, args.k_seq)
     elif args.command == "inverted" and args.inverted_command == "build":
         kmers = [args.kmer_length]
+    elif args.command == "append":
+        from .formats.skm import MultiSketch
+
+        db = MultiSketch.load_metadata(strip_sketch_extension(args.db))
+        kmers, seq_type = db.kmer_lengths, db.hash_type.kind
     else:
         return
-    from .hash.nthash_torch import MAX_K_CUDA
+    if seq_type == "dna":
+        from .hash.nthash_torch import MAX_K_CUDA as limit
+    else:
+        from .hash.aahash_torch import MAX_K_AA_CUDA as limit
 
-    past = [k for k in kmers if k > MAX_K_CUDA]
+    past = [k for k in kmers if k > limit]
     if past:
         parser.error(
-            f"k={past}: the card's hash kernel takes k <= {MAX_K_CUDA} "
+            f"k={past}: the card's hash kernel takes k <= {limit} "
             "(SKETCHTPU_TORCH_BACKEND=cpu or host sketch past it)"
         )
 
@@ -355,6 +370,7 @@ def _sketch_main(args, start: float) -> None:
         threads=args.threads,
         backend=backend,
         progress=tick,
+        convert_pdb=args.convert_pdb,
     )
     finish()
     elapsed = max(time.time() - start, 1e-9)

@@ -1,11 +1,12 @@
-"""Algorithm constants of the DNA path.
+"""Algorithm constants of the DNA and amino-acid paths.
 
 The published ntHash seeds (Mohamadi et al. 2016,
 doi:10.1093/bioinformatics/btw397) and the bindash-style binned
 bottom-MinHash parameters of the reference implementation (sketchlib.rust
 src/sketch/mod.rs:33-36, src/hashing/nthash_tables.rs:4-15). The per-tap
 rotation tables are computed from the seeds with the split-word rotation
-`srol`, not transcribed.
+`srol`, not transcribed. The aaHash seeds of the three reduced-alphabet
+levels are the reference's (src/hashing/aahash_tables.rs).
 """
 
 from __future__ import annotations
@@ -73,6 +74,100 @@ def nt_tap_tables(k: int) -> tuple[np.ndarray, np.ndarray]:
             fwd[j, b] = U64(srol(NT_HASH_SEEDS[b], k - 1 - j))
             rev[j, b] = U64(srol(NT_RC_HASH_SEEDS[b], j))
     return fwd, rev
+
+
+# --- aaHash seeds (src/hashing/aahash_tables.rs:38-58, 2020-2031, 3562-3571) ---
+_AA_SEEDS_L1 = {
+    "A": 0xF56D6192468323DF,
+    "C": 0x9B0B2FD724E1E1D2,
+    "D": 0xE8C583296B03C7AF,
+    "E": 0x06D8186850EE2F67,
+    "F": 0x921E1DA156B717AD,
+    "G": 0xA70DC450015E3FFE,
+    "H": 0x2242263A9D5638FF,
+    "I": 0x2469CA06D519CDEF,
+    "K": 0xD4E7F06AC0593D3B,
+    "L": 0xA5E19C0B1B40A97F,
+    "M": 0xFAB3D6D4DD74C000,
+    "N": 0x4B363F2CF7BC5200,
+    "P": 0x21AC8AF2ADB65CE4,
+    "Q": 0x1D3BAAE9AB7CD800,
+    "R": 0x049015253A9DBEDF,
+    "S": 0x5BF1F1D7AE699000,
+    "T": 0xDB0C63DD7282CF90,
+    "V": 0x7DF64DDF78874000,
+    "W": 0xEE9E700CAE6AA279,
+    "Y": 0x5852FFB781A97610,
+}
+
+# Level 2 groups T,S; D,E; Q,K,R; V,I,L,M; W,F,Y (src/hashing/mod.rs:19-27).
+_L2_GROUP_SEEDS = {
+    "C": 0x1D07FD644ABE9962,
+    "G": 0xF59C50929BDF4360,
+    "A": 0x6F735C82FE9C6C03,
+    "TS": 0xE7392F0BA1DBC3B0,
+    "N": 0x956DDCFCD4B3961F,
+    "DE": 0x4EC0EF1BAC4F5EFA,
+    "QKR": 0x1CD6CA491872ED78,
+    "VILM": 0x547EF17894921035,
+    "WFY": 0x419722EDB87BF79F,
+    "H": 0xDD5CCE5BFDC32DE1,
+    "P": 0x90E0C5E0C07D6598,
+}
+# Level 3 additionally groups A with T,S and N with D,E.
+_L3_GROUP_SEEDS = {
+    "C": 0x5713E4C10CEBBFA3,
+    "G": 0xBE084B869537379B,
+    "ATS": 0x985FD9EFA0FE5B82,
+    "NDE": 0x9ACA6C4F4EF69DF0,
+    "QKR": 0x917DE473B721DF0E,
+    "VILM": 0x37CDD84AA07C5BD7,
+    "WFY": 0x51A7955F1A67A896,
+    "H": 0x1D2A0BA493708FBF,
+    "P": 0xFE4C47DA16611245,
+}
+
+
+def _aa_seed_table(groups: dict[str, int]) -> np.ndarray:
+    """Build a 256-entry seed table from per-group seeds; invalid bytes get 0.
+
+    Upper- and lowercase letters share an entry, matching the reference's
+    generated AA_SEED_TABLE layout (src/hashing/aahash_tables.rs:60+).
+    """
+    table = np.zeros(256, dtype=U64)
+    for group, seed in groups.items():
+        for aa in group:
+            table[ord(aa.upper())] = U64(seed)
+            table[ord(aa.lower())] = U64(seed)
+    return table
+
+
+AA_SEED_TABLES = {
+    1: _aa_seed_table(_AA_SEEDS_L1),
+    2: _aa_seed_table(_L2_GROUP_SEEDS),
+    3: _aa_seed_table(_L3_GROUP_SEEDS),
+}
+
+
+def aa_tap_table(k: int, level: int) -> np.ndarray:
+    """Per-tap lookup table for aaHash: fh = XOR_j srol^(k-1-j)(SEED[aa_j]).
+
+    Shape (k, 256) uint64.
+    """
+    seeds = AA_SEED_TABLES[level]
+    out = np.zeros((k, 256), dtype=U64)
+    for j in range(k):
+        rot = (k - 1 - j) % 1023
+        r33 = np.uint64(rot % 33)
+        r31 = np.uint64(rot % 31)
+        lo = seeds & U64(_MASK33)
+        hi = seeds >> U64(33)
+        m33 = U64(_MASK33)
+        m31 = U64((1 << 31) - 1)
+        lo = ((lo << r33) | (lo >> (U64(33) - r33))) & m33 if rot % 33 else lo
+        hi = ((hi << r31) | (hi >> (U64(31) - r31))) & m31 if rot % 31 else hi
+        out[j] = (hi << U64(33)) | lo
+    return out
 
 
 def num_bins(sketch_size: int) -> tuple[int, int, int]:

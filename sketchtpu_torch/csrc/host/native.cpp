@@ -3,8 +3,9 @@
 // src/sketch/multisketch.rs:80-103), the FASTQ k-mer count filter, whose
 // result depends on read order (src/sketch/mod.rs:198-208 with
 // src/hashing/bloom_filter.rs), the bin minimum of the host sketch oracle,
-// f32 text formatting with the reference's digits, the DNA fastx parser,
-// and the .ski index codec (one bin's msgpack map of roaring bitmaps).
+// f32 text formatting with the reference's digits, the DNA and AA fastx
+// parsers, and the .ski index codec (one bin's msgpack map of roaring
+// bitmaps).
 //
 // Formats are implemented from their public specifications
 // (https://github.com/google/snappy/blob/main/format_description.txt).
@@ -645,6 +646,52 @@ int stpu_parse_dna(const uint8_t* buf, int64_t n, int fmt,
     *n_breaks = o.n_breaks;
     for (int i = 0; i < 4; i++) acgt[i] = o.acgt[i];
     *non_acgt = o.non_acgt;
+    return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// AA fasta parsing: like stpu_parse_dna but emits the record bytes with
+// invalid residues replaced by a separator byte (aahash_iterator.rs:100-107
+// keeps invalid residues in-stream as SEQSEP), plus per-record end offsets
+// so the caller can split records (--concat-fasta) or join them with SEQSEP.
+// Returns 0 on success, -1 on malformed input (caller falls back to Python).
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+int stpu_parse_aa(const uint8_t* buf, int64_t n, const uint8_t* valid_tab,
+                  uint8_t sep, uint8_t* seq, int64_t* rec_off,
+                  int64_t* n_seq, int64_t* n_rec, int64_t* invalid) {
+    int64_t pos = 0, o = 0, recs = 0, bad = 0;
+    bool started = false;
+    while (pos < n) {
+        int64_t e = pos;
+        while (e < n && buf[e] != '\n') e++;
+        int64_t s = pos, se = e;
+        strip_span(buf, s, se);
+        pos = e + 1;
+        if (s == se) continue;
+        if (buf[s] == '>') {
+            if (started) rec_off[recs++] = o;
+            started = true;
+            continue;
+        }
+        if (!started) return -1;
+        for (int64_t i = s; i < se; i++) {
+            if (valid_tab[buf[i]]) {
+                seq[o++] = buf[i];
+            } else {
+                seq[o++] = sep;
+                bad++;
+            }
+        }
+    }
+    if (started) rec_off[recs++] = o;
+    *n_seq = o;
+    *n_rec = recs;
+    *invalid = bad;
     return 0;
 }
 

@@ -35,7 +35,8 @@
 // - The break rule is the position of the last flag: a window at relative
 //   start w is valid when no flag lies past w among the bytes read so far.
 // - sign / binsize is a multiply-high by a host-computed magic number (see
-//   stpu_magic_div below for the proof); the genome comes from one binary
+//   stpu_magic_div below for the proof; rolling.cuh, shared with
+//   aahash_bin.cu); the genome comes from one binary
 //   search per run and a compare with the next start per window.
 // - Minima: a plain L2 read of the slot skips the atomic for every sign that
 //   cannot lower it; with smin the block first reduces the signs of its
@@ -46,46 +47,21 @@
 //   8 bytes a window and k that the host must read back.
 #include <cuda_runtime.h>
 
+#include "rolling.cuh"
+
+using namespace stpu;
+
 namespace {
 
-typedef unsigned long long u64;
-constexpr u64 M61 = (1ull << 61) - 1;
-constexpr u64 M33 = (1ull << 33) - 1;
-constexpr u64 M31 = (1ull << 31) - 1;
 constexpr int NT = 256;
 constexpr int KWORDS = 10;  // table words per k
 constexpr int LG = 6;       // log2 of the window starts per thread
 constexpr int L = 1 << LG;
 
-// One step of the split rotation: rotate left by one, then swap bits 0 and
-// 33 (the bit that left the high part and the one that left the low part).
-__device__ __forceinline__ u64 srol1(u64 x) {
-  const u64 y = (x << 1) | (x >> 63);
-  const u64 t = (y ^ (y >> 33)) & 1ull;
-  return y ^ (t | (t << 33));
-}
-
 __device__ __forceinline__ u64 sror1(u64 x) {
   const u64 t = (x ^ (x >> 33)) & 1ull;
   const u64 y = x ^ (t | (t << 33));
   return (y >> 1) | (y << 63);
-}
-
-// srol applied k times: r33 = k % 33, r31 = k % 31.
-__device__ __forceinline__ u64 srolk(u64 x, int r33, int r31) {
-  u64 lo = x & M33, hi = x >> 33;
-  lo = ((lo << r33) | (lo >> (33 - r33))) & M33;
-  hi = ((hi << r31) | (hi >> (31 - r31))) & M31;
-  return (hi << 33) | lo;
-}
-
-// floor(x / d) for x < 2^61 as (x * magic) >> (64 + shift).
-__device__ __forceinline__ u64 magic_div(u64 x, u64 magic, int shift) {
-  return __umul64hi(x, magic) >> shift;
-}
-
-__device__ __forceinline__ void global_min(u64* slot, u64 x) {
-  if (x < __ldcg(slot)) atomicMin(slot, x);
 }
 
 // ktab: per k (ascending) KWORDS words: srol^k(SEED[0..3]),

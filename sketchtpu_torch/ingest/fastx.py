@@ -1,4 +1,5 @@
-"""FASTA/FASTQ ingestion of DNA into packed base-code streams.
+"""FASTA/FASTQ ingestion of DNA into packed base-code streams, and of
+amino-acid (or 3Di) FASTA into raw residue streams.
 
 Mirrors the observable behaviour of the reference's sequence preprocessing
 (sketchlib.rust src/hashing/nthash_iterator.rs:204-251 add_dna_seq):
@@ -19,12 +20,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..constants import SEQSEP
 
 # (ascii >> 1) & 3 gives A=0, C=1, T=2, G=3 (U behaves as T).
 _VALID_DNA = np.zeros(256, dtype=bool)
 for _b in b"acgtuACGTU":
     _VALID_DNA[_b] = True
 _ENCODE_DNA = (np.arange(256, dtype=np.uint8) >> 1) & 3
+
+# Valid IUPAC amino-acid letters (src/hashing/aahash_iterator.rs:10-13).
+_VALID_AA = np.zeros(256, dtype=bool)
+for _c in b"acdefghiklmnpqrstvwyACDEFGHIKLMNPQRSTVWY":
+    _VALID_AA[_c] = True
 
 
 def open_maybe_gzip(path: str) -> io.BufferedReader:
@@ -334,3 +341,126 @@ def read_dna_sample(
         non_acgt=non_acgt,
         reads=reads,
     )
+
+
+@dataclass
+class AaStream:
+    """A sample's amino-acid sequence, kept as raw bytes with SEQSEP markers.
+
+    Unlike DNA, the reference keeps invalid residues in-stream as SEQSEP
+    bytes (aahash_iterator.rs:100-107), and appends SEQSEP after each record
+    unless concat_fasta splits records into separate samples.
+    """
+
+    seq: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.uint8))
+    invalid_count: int = 0
+
+    @property
+    def seq_len(self) -> int:
+        return int(self.seq.shape[0])
+
+
+def _refuse_fastq(path: str):
+    raise ValueError(
+        f"Unexpected quality information with AA sequences in {path}. "
+        "Correct sequence type set?"
+    )
+
+
+def _parse_aa_native(path: str) -> tuple | None:
+    """(residues with invalid bytes -> SEQSEP, record end offsets, invalid
+    count) of one file via the C++ parser, or None to fall back."""
+    import ctypes
+
+    from .._native import get_lib
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    with open_maybe_gzip(path) as f:
+        raw = f.read()
+    if raw[:1] == b"@":
+        _refuse_fastq(path)
+    n = len(raw)
+    seq = np.empty(n + 1, dtype=np.uint8)
+    rec_off = np.empty(n + 2, dtype=np.int64)
+    n_seq = ctypes.c_int64()
+    n_rec = ctypes.c_int64()
+    invalid = ctypes.c_int64()
+    rc = lib.stpu_parse_aa(
+        raw,
+        n,
+        _VALID_AA.ctypes.data,
+        SEQSEP,
+        seq.ctypes.data,
+        rec_off.ctypes.data,
+        ctypes.byref(n_seq),
+        ctypes.byref(n_rec),
+        ctypes.byref(invalid),
+    )
+    if rc != 0:
+        return None
+    return seq[: n_seq.value], rec_off[: n_rec.value], invalid.value
+
+
+def read_aa_sample(files: list[str], concat_fasta: bool) -> list[AaStream]:
+    """Read amino-acid fasta file(s) -> one AaStream (or one per record when
+    concat_fasta). Mirrors AaHashIterator::new (aahash_iterator.rs:84-124):
+    without concat_fasta every record is followed by one SEQSEP."""
+    parsed = []
+    for path in files:
+        one = _parse_aa_native(path)
+        if one is None:
+            return _read_aa_python(files, concat_fasta)
+        parsed.append(one)
+    if concat_fasta:
+        out = []
+        for seq, ends, _invalid in parsed:
+            start = 0
+            for end in ends.tolist():
+                rec = seq[start:end].copy()
+                out.append(AaStream(seq=rec,
+                                    invalid_count=int((rec == SEQSEP).sum())))
+                start = end
+        return out
+    parts = [np.insert(seq, ends, np.uint8(SEQSEP))
+             for seq, ends, _invalid in parsed]
+    return [AaStream(
+        seq=np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8),
+        invalid_count=sum(invalid for _s, _e, invalid in parsed))]
+
+
+def _read_aa_python(files: list[str], concat_fasta: bool) -> list[AaStream]:
+    """read_aa_sample without the native parser (identical streams)."""
+    out = []
+    parts = []
+    invalid = 0
+    for path in files:
+        if _sniff_format(path) == "fastq":
+            _refuse_fastq(path)
+        for seq, _ in iter_fastx(path):
+            arr = np.frombuffer(seq, dtype=np.uint8).copy()
+            bad = ~_VALID_AA[arr]
+            invalid += int(bad.sum())
+            arr[bad] = SEQSEP
+            if concat_fasta:
+                out.append(AaStream(seq=arr, invalid_count=invalid))
+                invalid = 0
+            else:
+                parts.append(arr)
+                parts.append(np.array([SEQSEP], dtype=np.uint8))
+    if not concat_fasta:
+        seq = np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8)
+        out.append(AaStream(seq=seq, invalid_count=invalid))
+    return out
+
+
+def aa_stream_from_string(sequence: str) -> AaStream:
+    """3Di string -> AaStream (no trailing separator), matching
+    AaHashIterator::from_3di_string (aahash_iterator.rs:132-136).
+
+    Invalid characters are not replaced here (the reference stores the raw
+    bytes); hashing treats any non-AA byte as a break.
+    """
+    arr = np.frombuffer(sequence.encode(), dtype=np.uint8).copy()
+    return AaStream(seq=arr, invalid_count=0)

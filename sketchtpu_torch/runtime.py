@@ -8,13 +8,11 @@ SKETCHTPU_TORCH_BACKEND picks one of three modes:
 - host: this package's NumPy oracle (sketchcore/sketch.py, dist/api.py);
   every selector returns None.
 
-A selector never falls back: an engine this port does not have yet raises
-NotImplementedError in cuda and cpu mode, naming its ROADMAP item. The
-only None results outside host mode are the JAX package's own routes to
-the exact host chain (fewer than two k for core/accessory, more than 32767
-bins for the int16 strip engines). Unlike the JAX package, no selector
-picks the host by sample count: in cuda mode every engine runs on the card
-at any n.
+A selector never falls back. The only None results outside host mode are
+the JAX package's own routes to the exact host chain (fewer than two k for
+core/accessory, more than 32767 bins for the int16 strip engines). Unlike
+the JAX package, no selector picks the host by sample count: in cuda mode
+every engine runs on the card at any n.
 """
 
 from __future__ import annotations
@@ -55,20 +53,16 @@ def device() -> torch.device | None:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _unported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to sketchtpu_torch yet (ROADMAP queue 1 "
-        f"item {item}); SKETCHTPU_TORCH_BACKEND=host runs the NumPy oracle"
-    )
-
-
 def select_backend(seq_type, n_samples: int):
-    """Batched sketching backend (DNA), or None for the host path."""
+    """Batched sketching backend (DNA, or AA/3Di), or None for the host
+    path."""
     dev = device()
     if dev is None:
         return None
     if seq_type.kind != "dna":
-        _unported("AA/3Di sketching", 7)
+        from .sketchcore.sketch_torch import DeviceAaSketchBackend
+
+        return DeviceAaSketchBackend(dev)
     from .sketchcore.sketch_torch import DeviceSketchBackend
 
     return DeviceSketchBackend(dev)

@@ -4,8 +4,7 @@ sign extraction -> .skd writing.
 Unlike the reference's rayon + mpsc + serial-writer arrangement
 (src/sketch/mod.rs:283-394), samples are written in deterministic input
 order; ingest/hashing is parallelised over a host thread pool, and the
-hash/bin compute can run on the device backend (sketch_torch) in batches.
-DNA only: AA and 3Di input is not ported yet.
+hash/bin compute can run on the device backends (sketch_torch) in batches.
 """
 
 from __future__ import annotations
@@ -14,8 +13,8 @@ import logging
 from concurrent.futures import ThreadPoolExecutor
 
 from ..formats.skd import SketchDataWriter
-from ..ingest.fastx import read_dna_sample
-from .sketch import HashType, Sketch, sketch_dna_sample
+from ..ingest.fastx import aa_stream_from_string, read_aa_sample, read_dna_sample
+from .sketch import HashType, Sketch, sketch_aa_sample, sketch_dna_sample
 
 log = logging.getLogger("sketchtpu")
 
@@ -33,27 +32,48 @@ def sketch_files(
     threads: int = 1,
     backend=None,
     progress=None,
+    convert_pdb: bool = False,
 ) -> list[Sketch]:
     """Sketch every input sample and write {output_prefix}.skd.
 
     Returns the sketch metadata list (with .skd indices assigned, usigs
-    dropped). `backend` optionally provides a batched device sketcher with a
-    `sketch_dna_streams(streams, kmers, sketch_bins, rc)` method.
+    dropped). `backend` optionally provides a batched device sketcher: for
+    DNA its `sketch_dna_streams(streams, names, kmers, sketch_bins, rc,
+    min_count, threads)`, for AA/3Di its `sketch_aa_streams(streams, names,
+    kmers, sketch_bins, level, rc)`.
     """
-    if seq_type.kind != "dna":
-        raise NotImplementedError(
-            "AA/3Di sketching is not ported to sketchtpu_torch yet (ROADMAP "
-            "queue 1 item 7)"
-        )
-    if concat_fasta:
+    if concat_fasta and seq_type.kind in ("dna", "pdb"):
         raise ValueError("--concat-fasta currently only supported with --seq-type aa")
+    split = concat_fasta and seq_type.kind == "aa"
+    level = seq_type.level if seq_type.kind == "aa" else 1
+
+    def sample_streams(name, files, threads=1):
+        """The streams of one input sample (one per record with
+        --concat-fasta) and their sketch names."""
+        if seq_type.kind == "dna":
+            return [read_dna_sample(files, min_qual, threads=threads)], [name]
+        if seq_type.kind == "pdb":  # 3Di sequences, hashed as AA level 1
+            streams = _pdb_streams(name, files, convert_pdb)
+        else:
+            streams = read_aa_sample(files, split)
+        if split:
+            return streams, [f"{name}_{i + 1}" for i in range(len(streams))]
+        return streams, [name] * len(streams)
 
     def build_sample(name_files):
         name, files = name_files
-        stream = read_dna_sample(files, min_qual)
-        if stream.seq_len == 0:
-            raise ValueError(f"{name} has no valid sequence")
-        return [sketch_dna_sample(stream, name, kmers, sketch_bins, rc, min_count)]
+        streams, names = sample_streams(name, files)
+        out = []
+        for stream, sample_name in zip(streams, names):
+            if stream.seq_len == 0:
+                raise ValueError(f"{sample_name} has no valid sequence")
+            if seq_type.kind == "dna":
+                out.append(sketch_dna_sample(stream, sample_name, kmers,
+                                             sketch_bins, rc, min_count))
+            else:
+                out.append(sketch_aa_sample(stream, sample_name, kmers,
+                                            sketch_bins, level, rc))
+        return out
 
     sketches: list[Sketch] = []
     with SketchDataWriter(f"{output_prefix}.skd") as writer:
@@ -74,8 +94,8 @@ def sketch_files(
                         per_file = max(1, threads // max(1, len(chunk)))
                         return list(
                             io_pool.map(
-                                lambda nf: read_dna_sample(
-                                    nf[1], min_qual, threads=per_file
+                                lambda nf: sample_streams(
+                                    nf[0], nf[1], threads=per_file
                                 ),
                                 chunk,
                             )
@@ -83,28 +103,35 @@ def sketch_files(
 
                     fut = ahead.submit(parse_chunk, chunks[0]) if chunks else None
                     for ci, chunk in enumerate(chunks):
-                        streams = fut.result()
+                        parsed = fut.result()
                         fut = (
                             ahead.submit(parse_chunk, chunks[ci + 1])
                             if ci + 1 < len(chunks)
                             else None
                         )
-                        for (name, _files), stream in zip(chunk, streams):
+                        streams = [s for ss, _ in parsed for s in ss]
+                        names = [n for _, nn in parsed for n in nn]
+                        for name, stream in zip(names, streams):
                             if stream.seq_len == 0:
                                 raise ValueError(f"{name} has no valid sequence")
-                        batch = backend.sketch_dna_streams(
-                            streams,
-                            [name for name, _ in chunk],
-                            kmers,
-                            sketch_bins,
-                            rc,
-                            min_count,
-                            threads=threads,
-                        )
-                        for sketch in batch:
-                            sketch.index = writer.write_sketch(sketch.usigs)
-                            sketch.usigs = None
-                            sketches.append(sketch)
+                        if seq_type.kind == "dna":
+                            batch = backend.sketch_dna_streams(
+                                streams, names, kmers, sketch_bins, rc,
+                                min_count, threads=threads,
+                            )
+                        else:
+                            batch = backend.sketch_aa_streams(
+                                streams, names, kmers, sketch_bins, level, rc
+                            )
+                        # progress ticks once per input sample, not per
+                        # sketch (--concat-fasta makes one per record)
+                        emitted = 0
+                        for ss, _ in parsed:
+                            for sketch in batch[emitted : emitted + len(ss)]:
+                                sketch.index = writer.write_sketch(sketch.usigs)
+                                sketch.usigs = None
+                                sketches.append(sketch)
+                            emitted += len(ss)
                             if progress is not None:
                                 progress()
             return sketches
@@ -167,3 +194,16 @@ def _chunk_inputs(
         chunks.append(cur)
     return chunks
 
+
+
+def _pdb_streams(name: str, files: list[str], convert_pdb: bool):
+    """3Di streams for one sample: from .pdb via mini3di when convert_pdb
+    (sketch/mod.rs:301-306), else the files already hold 3Di text."""
+    if convert_pdb:
+        from ..ingest.pdb3di import pdb_to_3di
+
+        # one sample = one 3Di stream; chains/files join on ',' (an invalid
+        # aa byte, so it breaks hash windows like the reference's comma join)
+        joined = ",".join(pdb_to_3di(name, f) for f in files)
+        return [aa_stream_from_string(joined)]
+    return read_aa_sample(files, False)

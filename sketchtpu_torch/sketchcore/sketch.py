@@ -1,8 +1,9 @@
 """Sketch objects and the per-sample sketching pipeline (host oracle path).
 
 Mirrors sketchlib.rust src/sketch/mod.rs (Sketch::new, get_signs) with the
-data-parallel hash formulation from hash/nthash_np.py. The batched device
-backend (sketchcore/sketch_torch.py) produces bit-identical signs.
+data-parallel hash formulations of hash/nthash_np.py and
+hash/aahash_np.py. The batched device backends (sketchcore/sketch_torch.py)
+produce bit-identical signs.
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..constants import SIGN_MOD, num_bins
+from ..hash.aahash_np import aahash_valid
 from ..hash.nthash_np import nthash_valid
-from ..ingest.fastx import DnaStream
+from ..ingest.fastx import AaStream, DnaStream
 from .signs import (
     bin_minima,
     bin_minima_filtered,
@@ -160,3 +162,35 @@ def sketch_dna_sample(
         usigs=np.concatenate(usigs_parts),
     )
 
+
+
+def sketch_aa_sample(
+    stream: AaStream,
+    name: str,
+    kmer_lengths: list[int],
+    sketch_size: int,
+    level: int,
+    rc: bool = True,
+) -> Sketch:
+    """Sketch one amino-acid (or 3Di) sample across k-mer lengths."""
+    if stream.seq_len == 0:
+        raise ValueError(f"{name} has no valid sequence")
+    _s64, bins, _usize = num_bins(sketch_size)
+    usigs_parts = []
+    densified_any = False
+    for k in kmer_lengths:
+        hashes = aahash_valid(stream, k, level)
+        signs = signs_from_hashes(hashes)
+        binned = bin_minima(signs, bins)
+        densified_any |= densify(binned)
+        usigs_parts.append(fill_usigs(binned))
+    return Sketch(
+        name=name,
+        rc=rc,
+        reads=False,
+        seq_length=stream.seq_len,
+        densified=densified_any,
+        acgt=(0, 0, 0, 0),
+        non_acgt=stream.invalid_count,
+        usigs=np.concatenate(usigs_parts),
+    )

@@ -1,6 +1,7 @@
-"""Batched sketching of DNA on the card.
+"""Batched sketching of DNA, amino acids and 3Di on the card.
 
-Port of sketchtpu/sketchcore/sketch_jax.py::DeviceSketchBackend.
+Port of sketchtpu/sketchcore/sketch_jax.py::DeviceSketchBackend and
+sketch_aa_jax.py::DeviceAaSketchBackend.
 - Assemblies: genomes are packed into batches (one byte per base; PCIe
   carries that easily), each batch is uploaded once and gets one hash +
   sign + bin-minimum launch for all k (nthash_bin_multi).
@@ -13,8 +14,11 @@ Port of sketchtpu/sketchcore/sketch_jax.py::DeviceSketchBackend.
   so device and pinned memory stay bounded for long streams; chunk j + 1
   is launched before chunk j is read back, and the filters run while the
   next launches do.
+- Amino acids and 3Di (DeviceAaSketchBackend): batches as for assemblies,
+  one aahash_bin_multi launch per batch for all k, whose per-(k, sample)
+  reachability flags stand in for the host oracle's emission-mask raise.
 Densification and the bit-plane transpose run on the host exactly as in
-the JAX backend. Sketches are bit-identical to the host oracle
+the JAX backends. Sketches are bit-identical to the host oracle
 (sketchcore/sketch.py).
 """
 
@@ -29,6 +33,7 @@ import torch
 from .._transfer import HostCopy
 from ..constants import SIGN_MOD
 from ..constants import num_bins as num_bins_fn
+from ..hash.aahash_torch import aahash_bin_multi, pack_aa_group
 from ..hash.nthash_torch import nthash_bin_multi, nthash_signs, pack_group
 from .signs import bin_minima_filtered, densify, fill_usigs
 from .sketch import Sketch
@@ -58,6 +63,24 @@ def _groups(streams):
         start = end
 
 
+def _pipelined_minima(streams, kmers, nbins: int, dispatch, collect):
+    """{k: (len(streams), nbins) u64} per-bin sign minima of the batches of
+    streams (_groups): dispatch(batch) launches one and returns its pending
+    copies, collect(out, start, end, *copies) reads them into out. Batch
+    i+1 is packed and launched before batch i is read back."""
+    out = {kk: np.empty((len(streams), nbins), dtype=np.uint64)
+           for kk in kmers}
+    pending = None
+    for start, end in _groups(streams):
+        launched = (start, end, *dispatch(streams[start:end]))
+        if pending is not None:
+            collect(out, *pending)
+        pending = launched
+    if pending is not None:
+        collect(out, *pending)
+    return out
+
+
 def read_chunks(n: int, kmers, chunk: int, n_starts: int | None = None):
     """(first start, owned starts) of the chunks of a stream of n bases: the
     window starts of the smallest k (at most n_starts of them), `chunk` a
@@ -85,25 +108,17 @@ class DeviceSketchBackend:
         seq, starts = pack_group(group)
         seq_d = torch.from_numpy(seq).to(self.device)
         starts_d = torch.from_numpy(starts).to(self.device)
-        return HostCopy(nthash_bin_multi(seq_d, kmers, rc, starts_d, nbins))
+        return (HostCopy(nthash_bin_multi(seq_d, kmers, rc, starts_d,
+                                          nbins)),)
 
     def bin_minima_multi_k(self, streams, kmers, rc: bool, nbins: int):
         """{k: (len(streams), nbins) u64} per-bin sign minima (u64::MAX for
-        empty bins). Batch i+1 is packed and launched before batch i's
-        minima are read back."""
+        empty bins)."""
         kmers = list(dict.fromkeys(kmers))  # one plane of minima per k
-        out = {kk: np.empty((len(streams), nbins), dtype=np.uint64)
-               for kk in kmers}
-        pending = None
-        for start, end in _groups(streams):
-            launched = (start, end,
-                        self._dispatch(streams[start:end], kmers, rc, nbins))
-            if pending is not None:
-                self._collect(out, *pending)
-            pending = launched
-        if pending is not None:
-            self._collect(out, *pending)
-        return out
+        return _pipelined_minima(
+            streams, kmers, nbins,
+            lambda group: self._dispatch(group, kmers, rc, nbins),
+            self._collect)
 
     @staticmethod
     def _collect(out, start, end, launched):
@@ -243,6 +258,76 @@ class DeviceSketchBackend:
                     densified=densified_any,
                     acgt=tuple(int(x) for x in stream.acgt),
                     non_acgt=stream.non_acgt,
+                    usigs=np.concatenate(usigs_parts),
+                )
+            )
+        return out
+
+
+class DeviceAaSketchBackend:
+    """Amino-acid and 3Di sketches: the batches of DeviceSketchBackend's
+    assemblies, each uploaded once with one aahash_bin_multi launch for
+    all k."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+
+    def _dispatch(self, group, kmers, level: int, nbins: int):
+        """One launch for the batch; its minima and reachability flags
+        start their copy to the host."""
+        codes, starts = pack_aa_group(group)
+        codes_d = torch.from_numpy(codes).to(self.device)
+        starts_d = torch.from_numpy(starts).to(self.device)
+        minima, reach = aahash_bin_multi(codes_d, kmers, level, starts_d,
+                                         nbins)
+        return HostCopy(minima), HostCopy(reach)
+
+    def bin_minima_multi_k(self, streams, kmers, level: int, nbins: int):
+        """{k: (len(streams), nbins) u64} per-bin sign minima (u64::MAX for
+        empty bins). Raises as the host oracle does where a sample has no
+        reachable window at some k."""
+        kmers = list(dict.fromkeys(kmers))  # one plane of minima per k
+        # m = seq_len - k + 1 <= 0: the host oracle's unconditional raise
+        # (aa_window_valid), checked before any launch
+        if any(s.seq_len < max(kmers) for s in streams):
+            raise ValueError("K-mer larger than smallest valid sequence")
+        return _pipelined_minima(
+            streams, kmers, nbins,
+            lambda group: self._dispatch(group, kmers, level, nbins),
+            self._collect)
+
+    @staticmethod
+    def _collect(out, start, end, minima, reach):
+        if not reach.numpy().all():
+            raise ValueError("K-mer larger than smallest valid sequence")
+        minima = minima.numpy().view(np.uint64)
+        for ki, kk in enumerate(out):
+            out[kk][start:end] = minima[ki]
+
+    def sketch_aa_streams(self, streams, names, kmers, sketch_size: int,
+                          level: int, rc: bool):
+        _s64, nbins, _u = num_bins_fn(sketch_size)
+        for s, name in zip(streams, names):
+            if s.seq_len == 0:
+                raise ValueError(f"{name} has no valid sequence")
+        bins = self.bin_minima_multi_k(streams, kmers, level, nbins)
+        out = []
+        for i, (stream, name) in enumerate(zip(streams, names)):
+            usigs_parts = []
+            densified_any = False
+            for kk in kmers:
+                binned = bins[kk][i].copy()
+                densified_any |= densify(binned)
+                usigs_parts.append(fill_usigs(binned))
+            out.append(
+                Sketch(
+                    name=name,
+                    rc=rc,
+                    reads=False,
+                    seq_length=stream.seq_len,
+                    densified=densified_any,
+                    acgt=(0, 0, 0, 0),
+                    non_acgt=stream.invalid_count,
                     usigs=np.concatenate(usigs_parts),
                 )
             )

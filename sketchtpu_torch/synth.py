@@ -1,4 +1,5 @@
-"""Synthetic related genomes and sketch databases, made from a seed.
+"""Synthetic related genomes, proteomes and sketch databases, made from a
+seed.
 
 Random bit-planes make every pair unrelated (every core/accessory
 regression then takes its no-fit branch), so the inputs here are related:
@@ -16,6 +17,7 @@ import numpy as np
 from .constants import BBITS
 
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+_AA = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
 
 
 def related_assemblies(out_dir, n: int, length: int, seed: int,
@@ -60,6 +62,64 @@ def related_assemblies(out_dir, n: int, length: int, seed: int,
                 f.write(f">{name}_contig{c + 1}\n".encode())
                 for p in range(0, len(contig), 80):
                     f.write(contig[p : p + 80] + b"\n")
+        lines.append(f"{name}\t{path}\n")
+    rfile = out_dir / "rfile.txt"
+    rfile.write_text("".join(lines))
+    return rfile
+
+
+def related_proteomes(out_dir, n: int, n_records: int, record_len: int,
+                      seed: int, n_ancestors: int = 2,
+                      divergence=(0.001, 0.05), invalid: float = 0.001,
+                      gzipped: bool = False) -> Path:
+    """Write n protein FASTAs (proteomes of n_records records of about
+    record_len residues) and an rfile listing them; returns its path.
+
+    Sample i copies ancestor i % n_ancestors with substitutions at a
+    divergence from `divergence` (log-spaced over the samples) and a few
+    replaced blocks (accessory proteins). About 1 % of residues are written
+    in lower case, and a share `invalid` of them as 'X' or '*' (invalid
+    residues); records are cut at random lengths of about record_len / 2
+    to 3 record_len / 2 (scaled to sum to the proteome) and wrapped at 60
+    columns."""
+    import gzip
+
+    out_dir = Path(out_dir).resolve()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    total = n_records * record_len
+    ancestors = [rng.integers(0, 20, total, dtype=np.uint8)
+                 for _ in range(n_ancestors)]
+    divs = np.geomspace(divergence[0], divergence[1], n)
+    lines = []
+    for i in range(n):
+        seq = ancestors[i % n_ancestors].copy()
+        mut = rng.random(total) < divs[i]
+        seq[mut] = (seq[mut] + rng.integers(1, 20, int(mut.sum()))) % 20
+        for _ in range(int(rng.integers(1, 6))):
+            blen = max(1, int(total * divs[i] * rng.uniform(0.2, 1.0)))
+            start = int(rng.integers(0, max(1, total - blen)))
+            seq[start : start + blen] = rng.integers(0, 20, blen,
+                                                     dtype=np.uint8)
+        text = _AA[seq]
+        text[rng.random(total) < 0.01] += 32  # lower case
+        bad = np.flatnonzero(rng.random(total) < invalid)
+        text[bad] = np.where(rng.random(bad.size) < 0.5, ord("X"), ord("*"))
+        lens = rng.integers(record_len // 2, record_len * 3 // 2 + 1,
+                            n_records)
+        ends = np.cumsum(lens) * total // int(lens.sum())  # ends[-1] = total
+        name = f"proteome_{i:03d}"
+        path = out_dir / f"{name}.faa{'.gz' if gzipped else ''}"
+        out, start = [], 0
+        for r, end in enumerate(ends.tolist()):
+            rec = text[start:end].tobytes()
+            out.append(b">%s_p%d\n" % (name.encode(), r + 1))
+            out.extend(rec[p : p + 60] + b"\n" for p in range(0, len(rec), 60))
+            start = end
+        data = b"".join(out)
+        if gzipped:
+            data = gzip.compress(data, compresslevel=1)
+        path.write_bytes(data)
         lines.append(f"{name}\t{path}\n")
     rfile = out_dir / "rfile.txt"
     rfile.write_text("".join(lines))

@@ -844,3 +844,116 @@ def test_precluster_on_card_matches_cpu(cuda, mode):
         assert gm is None or np.array_equal(gm, wm)
         assert np.array_equal(gi[shown], wi[shown])
         assert np.array_equal(gv[shown], wv[shown])
+
+
+# --- aaHash (csrc/aahash_bin.cu) -------------------------------------------
+
+_AA_LETTERS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYacdefghiklmnpqrstvwy",
+                            dtype=np.uint8)
+
+
+def _aa_streams(lens, seed, p_invalid=0.01, run=64):
+    """AaStreams of the given lengths with invalid residues (SEQSEP and raw
+    bytes), separators on the first, last and middle window start of a
+    thread's run, and the final-window quirk's cases."""
+    from sketchtpu_torch.ingest.fastx import AaStream
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in lens:
+        seq = _AA_LETTERS[rng.integers(0, _AA_LETTERS.size, n)]
+        bad = rng.random(n) < p_invalid
+        seq = np.where(bad, rng.choice([5, ord("X"), ord("*")], n), seq)
+        at = [p for p in (run - 1, run, 2 * run - 1, run + run // 2)
+              if p < n and rng.random() < 0.5]
+        seq[at] = 5
+        out.append(AaStream(seq=seq.astype(np.uint8)))
+    letters = bytes(_AA_LETTERS[:40])
+    for text in (letters[:13], b"\x05" + letters[:12], letters[:12] + b"*"):
+        out.append(AaStream(seq=np.frombuffer(text, np.uint8).copy()))
+    return out
+
+
+def _aa_case(cuda, streams, kmers, level, nbins):
+    from sketchtpu_torch.hash.aahash_torch import (
+        aahash_bin_multi,
+        aahash_bin_multi_ref,
+        pack_aa_group,
+    )
+
+    codes, starts = pack_aa_group(streams)
+    codes_d = torch.from_numpy(codes).to(cuda)
+    starts_d = torch.from_numpy(starts).to(cuda)
+    before = aahash_bin_multi.launches
+    got = aahash_bin_multi(codes_d, kmers, level, starts_d, nbins)
+    torch.cuda.synchronize()
+    want = aahash_bin_multi_ref(codes_d, kmers, level, starts_d, nbins)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    return got, aahash_bin_multi.launches - before
+
+
+# (a) run and block edges, a sample shorter than most k; (b) 300 samples
+# over many blocks; (c) one long sample, 8192 bins (no shared-memory table)
+AA_SHAPES = {
+    "edges": ([64 * 256 + 64, 45, 7, 64 * 2 + 1, 64 * 300 - 1, 20_001],
+              1000),
+    "many": ([int(n) for n in np.random.default_rng(9).integers(
+        200, 900, 300)], 1024),
+    "long": ([300_001], 8192),
+}
+
+
+@pytest.mark.parametrize("shape", list(AA_SHAPES))
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_aahash_kernel_matches_twin(cuda, level, shape):
+    lens, nbins = AA_SHAPES[shape]
+    streams = _aa_streams(lens, seed=level)
+    (mins, reach), launches = _aa_case(cuda, streams, (3, 6, 9, 12, 31, 64),
+                                       level, nbins)
+    assert launches == 1
+    # the final-only sample (second to last) is unreachable at k = 12
+    assert reach[3, -2] == 0 and reach[3, -3] == 1 and reach[3, 0] == 1
+    # the caller's k order, duplicates included
+    (mixed, mreach), _ = _aa_case(cuda, streams, (64, 3, 9, 3), level, nbins)
+    assert torch.equal(mixed, mins[[5, 0, 2, 0]])
+    assert torch.equal(mreach, reach[[5, 0, 2, 0]])
+
+
+def test_aahash_kernel_splits_past_128_k(cuda):
+    streams = _aa_streams([5000, 900, 70_000], seed=4)
+    _, launches = _aa_case(cuda, streams, list(range(133, 2, -1)), 2, 256)
+    assert launches == 2
+
+
+def test_aahash_kernel_at_its_largest_k(cuda):
+    from sketchtpu_torch.hash.aahash_torch import MAX_K_AA_CUDA
+
+    streams = _aa_streams([40_000, 300, 20_000], seed=5, p_invalid=1e-4)
+    (_, reach), _ = _aa_case(cuda, streams, (31, 4097, MAX_K_AA_CUDA), 1, 256)
+    assert reach[:, 0].tolist() == [1, 1, 1]
+
+
+def test_aahash_kernel_rejects_k_past_its_limit(cuda):
+    from sketchtpu_torch.hash.aahash_torch import MAX_K_AA_CUDA, aahash_bin_multi
+
+    codes = torch.zeros(1000, dtype=torch.uint8, device=cuda)
+    starts = torch.zeros(1, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="limit"):
+        aahash_bin_multi(codes, (9, MAX_K_AA_CUDA + 1), 1, starts, 64)
+
+
+@pytest.mark.parametrize("level", [1, 3])
+def test_aa_backend_on_card_matches_cpu(cuda, level):
+    from sketchtpu_torch.sketchcore.sketch_torch import DeviceAaSketchBackend
+
+    streams = _aa_streams([3000, 200, 64 * 256 + 7, 999], seed=6)[:-3]
+    names = [f"s{i}" for i in range(len(streams))]
+    got = DeviceAaSketchBackend(cuda).sketch_aa_streams(
+        streams, names, [6, 9, 12], 1000, level, True)
+    want = DeviceAaSketchBackend(torch.device("cpu")).sketch_aa_streams(
+        streams, names, [6, 9, 12], 1000, level, True)
+    for a, b in zip(got, want):
+        assert (a.name, a.densified, a.seq_length) == (b.name, b.densified,
+                                                       b.seq_length)
+        assert np.array_equal(a.usigs, b.usigs)

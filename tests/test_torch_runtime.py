@@ -1,5 +1,5 @@
 """The port's engine selection, CLI refusals and kernel wrappers'
-dispatch: no GPU means no cuda mode, unported engines raise, a CUDA tensor
+dispatch: no GPU means no cuda mode, unported commands raise, a CUDA tensor
 goes to the kernel launcher (never the twin) and is counted; and the port
 imports nothing of the JAX package."""
 
@@ -69,15 +69,38 @@ def test_unknown_mode_raises(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "call,item",
+    "argv,item",
     [
-        (lambda: runtime.select_backend(HashType("aa", 1), 1), "item 7"),
+        (["warmup"], "item 10"),
+        (["sketch", "x.fa", "-o", "o", "--jax-profile", "p"], "item 10"),
+        (["sketch", "x.fa", "-o", "o", "--n-processes", "2"], "item 8"),
     ],
 )
-def test_unported_selectors_raise(monkeypatch, call, item):
+def test_unported_selectors_raise(monkeypatch, argv, item):
+    """No engine selector refuses any more (AA/3Di sketching is ported);
+    what the port still lacks is refused before any selector runs,
+    naming its ROADMAP item."""
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
     with pytest.raises(NotImplementedError, match=item):
-        call()
+        port_cli.refuse_unported(port_cli.build_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("kind", ["aa", "pdb"])
+@pytest.mark.parametrize("mode", ["cpu", "cuda"])
+def test_aa_selects_the_aa_backend(monkeypatch, mode, kind):
+    """cpu and cuda mode select DeviceAaSketchBackend for AA and 3Di (on
+    the mode's device); host mode selects nothing."""
+    from sketchtpu_torch.sketchcore.sketch_torch import DeviceAaSketchBackend
+
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", mode)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    backend = runtime.select_backend(HashType(kind, 2), 1)
+    assert isinstance(backend, DeviceAaSketchBackend)
+    assert backend.device.type == mode
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "host")
+    assert runtime.select_backend(HashType(kind, 2), 1) is None
 
 
 def test_host_mode_selects_nothing(monkeypatch):
@@ -437,6 +460,45 @@ def test_cli_refuses_k_past_the_card_at_parsing(monkeypatch, capsys):
     port_cli.refuse_past_card_limits(
         port_cli.build_parser().parse_args(["sketch", "x", "-o", "o", "-k",
                                             big]), None)
+
+
+@pytest.mark.parametrize("seq_type", ["aa", "pdb"])
+def test_cli_refuses_aa_k_past_the_card_at_parsing(monkeypatch, capsys,
+                                                   seq_type):
+    """--seq-type aa|pdb is held to the AA kernel's limit, MAX_K_AA_CUDA,
+    in cuda mode only."""
+    from sketchtpu_torch.hash.aahash_torch import MAX_K_AA_CUDA
+
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cuda")
+    monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
+    big = str(MAX_K_AA_CUDA + 1)
+    argv = ["sketch", "x.faa", "-o", "o", "--seq-type", seq_type, "-k",
+            f"9,{big}"]
+    with pytest.raises(SystemExit) as exc:
+        port_cli.main(argv)
+    assert exc.value.code == 2
+    assert f"k <= {MAX_K_AA_CUDA}" in capsys.readouterr().err
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    port_cli.refuse_past_card_limits(port_cli.build_parser().parse_args(argv),
+                                     None)
+
+
+@pytest.mark.parametrize("kind", ["dna", "aa"])
+def test_cli_refuses_append_past_the_card_at_parsing(tmp_path, monkeypatch,
+                                                     capsys, kind):
+    """`append` to a database whose k pass the card's hash kernel (sketched
+    in cpu or host mode) is refused in cuda mode before any work."""
+    from sketchtpu_torch.hash.aahash_torch import MAX_K_AA_CUDA
+
+    limit = nthash_torch.MAX_K_CUDA if kind == "dna" else MAX_K_AA_CUDA
+    MultiSketch([Sketch(name="g0", index=0)], 64, [9, limit + 1],
+                HashType(kind)).save_metadata(str(tmp_path / "db"))
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cuda")
+    monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
+    with pytest.raises(SystemExit) as exc:
+        port_cli.main(["append", str(tmp_path / "db"), "x.fa", "-o", "o"])
+    assert exc.value.code == 2
+    assert f"k <= {limit}" in capsys.readouterr().err
 
 
 def _imports_of_jax_package(path: Path) -> list[str]:
