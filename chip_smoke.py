@@ -52,9 +52,22 @@
    by both); phase 7 sketches 256 synthetic proteomes of 1.2 M residues at
    k = 6, 9, 12 (wall, Maa-k/s, the card's busy share; the first 8 rows
    against the host oracle) and runs dense core/accessory `dist` on them.
+8. Multi-process runs: two ranks on the one card, each a spawned process
+   under torchrun's variables (one gloo process group), run phases 4-7's
+   commands and phase 3's index commands (`dist --knn 50` -k 17 at
+   100,000 and core/acc at 50,000, dense core/acc and -k 17 at 8192,
+   `precluster --count` at 661,000, `precluster --skd --knn 50`, `sketch
+   --seq-type aa` of the 256 proteomes, `inverted build` and `query`);
+   the parts in rank order, rank 0's merge or its printed total must
+   equal the single-process output byte for byte, and each rank must
+   launch its path's kernels; each rank's wall and compute window are
+   printed beside the single-process wall. Then 5 ranks by
+   --process-id/--n-processes on 3 samples: the surplus ranks write empty
+   parts and launch nothing.
 
-Each path's kernel launches are counted from 0 over its phases; the run
-fails if a kernel of a path was never launched there. Any failure exits
+Each path's kernel launches are counted from 0 over its phases (in each
+rank's process for phase 8); the run fails if a kernel of a path was
+never launched there. Any failure exits
 non-zero. The second-to-last stdout line is the kernels' JSON record, the
 last one {"ok": true, "device": {...}}.
 """
@@ -88,6 +101,11 @@ N_CLUSTERS = 2_000  # independent clusters of its signs
 READS_GENOME, READS_COVERAGE = 2_000_000, 25
 READS_ORACLE_KMERS = (17, 29)  # the host oracle's k at 50 Mb of reads
 THREADS = "8"
+# phase 8 reads these from the phases that ran each command in one
+# process: the wall of the run, and for phase 4's outputs (deleted to save
+# the disk) their SHA-256
+SINGLE_WALL: dict[str, float] = {}
+SINGLE_SHA256: dict[str, str] = {}
 
 SOURCES = {
     "samebits": ("sketchtpu_torch/csrc/samebits.cu",
@@ -1238,6 +1256,18 @@ def same_bytes(a: Path, b: Path) -> bool:
     return a.stat().st_size > 0 and a.read_bytes() == b.read_bytes()
 
 
+def sha256_of(paths) -> str:
+    """The SHA-256 of the files' bytes, concatenated in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as f:
+            while chunk := f.read(1 << 24):
+                h.update(chunk)
+    return h.hexdigest()
+
+
 def knife_edge(got, want):
     """Pairs whose f32 and f64 values differ only because the regression
     sits on a discontinuity of the reference's math, where rounding noise
@@ -1705,6 +1735,8 @@ def phase4(cli_main, parent_db: Path, gpu: str) -> None:
                                     "--quiet"], f"phase4 dist {name} n={N_SCALE}")
         lines = scan_dist_file(out, n_values)
         check(lines == pairs, f"{name}: {lines} lines, expected {pairs}")
+        SINGLE_WALL[f"dense_{name}"] = wall
+        SINGLE_SHA256[f"dense_{name}"] = sha256_of([out])
         print(f"phase4 dist {name} n={N_SCALE}: {pairs} pairs in {wall:.2f} s "
               f"= {pairs / wall / 1e6:.3f} M pairs/s end to end (load, "
               f"kernels, host format, {out.stat().st_size / 1e9:.2f} GB "
@@ -1748,6 +1780,7 @@ def phase5_run(cli_main, parent_db: Path, gpu: str) -> Path:
         argv = ["dist", str(d / "db"), *flags, "--knn", str(KNN), "-o",
                 str(d / f"{name}.txt"), "--quiet"]
         wall = timed_cli(cli_main, argv, f"phase5 dist --knn {KNN} {name} n={n}")
+        SINGLE_WALL[f"knn_{name}"] = wall
         print(f"phase5 dist --knn {KNN} {name} n={n}: {wall:.2f} s = "
               f"{n * n / wall / 1e6:.1f} M scanned pairs/s end to end (load, "
               f"upload, scan, selection, host f64 values, "
@@ -1925,6 +1958,7 @@ def phase6_index(cli_main, p3: Path, gpu: str) -> None:
     argv = ["inverted", "precluster", str(d / "idx.ski"), "--count", "--quiet"]
     wall = timed_cli(cli_main, argv, "phase6 precluster --count",
                      d / "count.txt", expect=("pair_count",))
+    SINGLE_WALL["count"] = wall
     line = (d / "count.txt").read_text().strip()
     count, total = int(line.split()[1]), int(line.split()[-1])
     check(total == N_INDEX * (N_INDEX - 1) // 2 and 0 < count < total // 50,
@@ -2030,6 +2064,7 @@ def phase6_precluster(cli_main, p5: Path, gpu: str) -> None:
         argv = ["inverted", "precluster", str(d / "pc.ski"), "--skd", str(db),
                 "--knn", str(KNN), *flags, "-o", str(out), "--quiet"]
         wall = timed_cli(cli_main, argv, f"phase6 precluster {name} n={n}")
+        SINGLE_WALL[f"precluster_{name}"] = wall
         pairs = n * (n - 1) // 2
         print(f"phase6 precluster --skd --knn {KNN} {name} n={n}: {wall:.2f} "
               f"s; {cand} candidate pairs of {pairs} "
@@ -2235,6 +2270,7 @@ def phase7_aa(cli_main, gpu: str) -> None:
             "--quiet"]
     wall = timed_cli(cli_main, argv, "phase7 sketch aa", expect=(
         "aahash_bin_multi",))
+    SINGLE_WALL["sketch_aa"] = wall
     print(f"phase7 sketch {P7_SAMPLES} proteomes x {len(AA_KMERS)} k: "
           f"{wall:.2f} s = {residues * len(AA_KMERS) / wall / 1e6:.1f} "
           f"Maa-k/s end to end (parse, pack, upload, kernel, densify, "
@@ -2265,6 +2301,260 @@ def phase7_aa(cli_main, gpu: str) -> None:
     check(scan_dist_file(out, 2) == pairs, "phase7 dist: pair count")
     print(f"phase7 dist core/acc over the {P7_SAMPLES}: {pairs} pairs in "
           f"{wall:.2f} s, {gpu}")
+
+
+# --- phase 8: two ranks on the one card ------------------------------------
+
+P8_RANKS = 2
+P8_DEADLINE_S = 480  # both ranks' runs, start-up included
+
+
+def phase8_commands(d: Path) -> list:
+    """(name, argv, kernels every rank must launch) of the rank runs, each
+    the argv of an earlier phase's single-process run with the output in
+    `d` (stdout, where a command prints its result, goes to
+    d/<name>.rank<r>.out)."""
+    p3inv, p4, p5 = WORK / "p3inv", WORK / "p4", WORK / "p5"
+    mixed = WORK / "p3reads" / "mixed.txt"
+    cmds = [
+        ("knn_k17", ["dist", p5 / "db", "-k", "17", "--knn", KNN, "-o",
+                     d / "knn_k17.txt"], ("knn_select",)),
+        ("knn_coreacc", ["dist", p5 / "db", "--subset", p5 / "first.txt",
+                         "--knn", KNN, "-o", d / "knn_coreacc.txt"],
+         ("coreacc",)),
+        ("dense_coreacc", ["dist", p4 / "db8k", "-o",
+                           d / "dense_coreacc.txt"], ("coreacc",)),
+        ("dense_k17", ["dist", p4 / "db8k", "-k", "17", "-o",
+                       d / "dense_k17.txt"], ("samebits",)),
+        ("count", ["inverted", "precluster", WORK / "p6inv" / "idx.ski",
+                   "--count"], ("pair_count",)),
+        ("precluster_k17", ["inverted", "precluster",
+                            WORK / "p6pc" / "pc.ski", "--skd", p5 / "db",
+                            "--knn", KNN, "-o", d / "pc_k17.txt"],
+         ("knn_select_masked",)),
+        ("sketch_aa", ["sketch", "-f", WORK / "p7" / "faa" / "rfile.txt",
+                       "-o", d / "aa", "-k", ",".join(map(str, AA_KMERS)),
+                       "-s", SKETCH_SIZE, "--seq-type", "aa", "--threads",
+                       THREADS], ("aahash_bin_multi",)),
+        ("inv", ["inverted", "build", "-f", mixed, "-o", d / "inv", "-s",
+                 "100", "-k", "17", "--write-skq", "--threads", THREADS],
+         ("nthash_bin_multi",)),
+        ("inv_sp", ["inverted", "build", "-f", mixed, "-o", d / "inv_sp",
+                    "-k", "17", "--write-skq", "--species-names",
+                    p3inv / "species.txt", "--metadata", p3inv / "meta.txt",
+                    "--threads", THREADS], ("nthash_bin_multi",)),
+    ]
+    for q, mode in (("match-count", "count"), ("all-bins", "all"),
+                    ("any-bins", "any")):
+        cmds.append((f"query_{q}", [
+            "inverted", "query", p3inv / "port_inv_sp.ski", "-f", mixed,
+            "--query-type", q, "--threads", THREADS, "-o",
+            d / f"query_{q}.txt"], ("nthash_bin_multi", f"signeq_{mode}")))
+    return [(name, [str(a) for a in argv] + ["--quiet"], expect)
+            for name, argv, expect in cmds]
+
+
+def phase8_rank(rank: int, port: int, d: Path, commands, queue) -> None:
+    """One rank of phase 8, in a process of its own (spawned, with the
+    parent's environment): torchrun's variables for a local process group,
+    then each command through the port's cli.main with the launch counts
+    from 0; its stdout and compute window go to `d`. Puts (rank, None,
+    [(name, wall s, compute window s, launches)], start-up s), or (rank,
+    the traceback, None, None)."""
+    import traceback
+
+    t0 = time.time()
+    try:
+        os.environ.update(WORLD_SIZE=str(P8_RANKS), RANK=str(rank),
+                          LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))
+        from sketchtpu_torch.cli import main as cli_main
+
+        wrappers = kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        ready, runs = time.time() - t0, []
+        for name, argv, _ in commands:
+            window = d / f"{name}.rank{rank}.window.json"
+            os.environ["SKETCHTPU_COMPUTE_WINDOW_FILE"] = str(window)
+            before = {k: fn.launches for k, fn in wrappers.items()}
+            with open(d / f"{name}.rank{rank}.out", "w") as f, \
+                    contextlib.redirect_stdout(f):
+                t = time.time()
+                check(cli_main(argv) == 0, f"rank {rank}: {name} failed")
+                wall = time.time() - t
+            runs.append((name, wall,
+                         json.loads(window.read_text())["compute_s"],
+                         {k: fn.launches - before[k]
+                          for k, fn in wrappers.items()}))
+        queue.put((rank, None, runs, ready))
+    except BaseException:
+        queue.put((rank, traceback.format_exc(), None, None))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(d: Path, commands) -> dict:
+    """Start P8_RANKS spawned ranks on the card and wait for their results
+    ({rank: (runs, start-up s)}); a rank that fails or dies fails the
+    phase, and every rank is stopped before this returns."""
+    import multiprocessing
+    import queue as queue_mod
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=phase8_rank,
+                         args=(r, port, d, commands, results))
+             for r in range(P8_RANKS)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.time() + P8_DEADLINE_S
+    try:
+        while len(got) < P8_RANKS:
+            check(time.time() < deadline,
+                  f"phase8: ranks {sorted(set(range(P8_RANKS)) - set(got))} "
+                  f"past {P8_DEADLINE_S} s")
+            try:
+                rank, error, runs, ready = results.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                check(not dead, f"phase8: rank(s) {dead} died "
+                      f"({[procs[r].exitcode for r in dead]})")
+                continue
+            check(error is None, f"phase8 rank {rank} failed:\n{error}")
+            got[rank] = (runs, ready)
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got
+
+
+def phase8(cli_main, gpu: str) -> dict:
+    """Two ranks on the one card, under torchrun's environment (a gloo
+    process group), run the commands of phases 4-7 and 3's index (
+    phase8_commands); the parts (or rank 0's merge, or its printed total)
+    must equal the single-process output byte for byte, and each rank must
+    have launched its path's kernels. Then `dist -k 17 --knn 3` on 3
+    samples as 5 ranks by --process-id/--n-processes in this process:
+    the surplus ranks write empty parts and launch nothing. Returns the
+    launches of every rank summed."""
+    d = WORK / "p8"
+    d.mkdir(parents=True, exist_ok=True)
+    commands = phase8_commands(d)
+    t0 = time.time()
+    got = run_ranks(d, commands)
+    wall = time.time() - t0
+    totals = {k: 0 for k in kernel_wrappers()}
+    for rank, (runs, ready) in sorted(got.items()):
+        print(f"phase8 rank {rank}: ready in {ready:.1f} s (spawn, imports)")
+        for (name, _, expect), (_, _, _, made) in zip(commands, runs):
+            print(f"phase8 {name} rank {rank}: launches "
+                  f"{ {k: v for k, v in made.items() if v} }")
+            for k in expect:
+                check(made[k] > 0, f"phase8 {name}: rank {rank} did not "
+                      f"launch {k}")
+            for k, v in made.items():
+                totals[k] += v
+    for i, (name, _, _) in enumerate(commands):
+        ranks = ", ".join(
+            f"rank {r} {got[r][0][i][1]:.2f} s (compute window "
+            f"{got[r][0][i][2]:.2f} s)" for r in sorted(got))
+        single = SINGLE_WALL.get(name)
+        print(f"phase8 {name}: {ranks}; one process "
+              + (f"{single:.2f} s" if single is not None else "not timed")
+              + f", {gpu}")
+    print(f"phase8: {P8_RANKS} ranks ran {len(commands)} commands in "
+          f"{wall:.1f} s of wall, {gpu}")
+    phase8_compare(d)
+    totals_surplus = phase8_surplus(cli_main, d)
+    return {k: totals[k] + totals_surplus[k] for k in totals}
+
+
+def phase8_compare(d: Path) -> None:
+    """Each rank run's output against the single-process one."""
+    parts = lambda name: [Path(f"{d / name}.part{r}")  # noqa: E731
+                          for r in range(P8_RANKS)]
+    for name, single in (("knn_k17.txt", WORK / "p5" / "k17.txt"),
+                         ("knn_coreacc.txt", WORK / "p5" / "coreacc.txt"),
+                         ("pc_k17.txt", WORK / "p6pc" / "k17.txt")):
+        check(single.stat().st_size > 0
+              and sha256_of(parts(name)) == sha256_of([single]),
+              f"phase8 {name}: the parts differ from {single.name}")
+    for name in ("dense_coreacc", "dense_k17"):
+        check(sha256_of(parts(f"{name}.txt")) == SINGLE_SHA256[name],
+              f"phase8 {name}: the parts differ from phase 4's output")
+        for p in parts(f"{name}.txt"):
+            p.unlink()
+    for q in ("match-count", "all-bins", "any-bins"):
+        check(sha256_of(parts(f"query_{q}.txt"))
+              == sha256_of([WORK / "p3inv" / f"port_query_{q}.txt"]),
+              f"phase8 query {q}: the parts differ from phase 3's")
+    merged = [(d / f"aa{e}", WORK / "p7" / f"db{e}") for e in (".skd", ".skm")]
+    for who in ("inv", "inv_sp"):
+        merged += [(d / f"{who}{e}", WORK / "p3inv" / f"port_{who}{e}")
+                   for e in (".ski", ".skq")]
+    for got, want in merged:
+        check(same_bytes(got, want), f"phase8 {got.name}: rank 0's merge "
+              f"differs from {want.name}")
+        check(not Path(f"{d / got.stem}.part0{got.suffix}").exists(),
+              f"phase8 {got.name}: shards left behind")
+    count = (WORK / "p6inv" / "count.txt").read_text()
+    check((d / "count.rank0.out").read_text() == count and count,
+          "phase8 precluster --count: rank 0's total differs from phase 6's")
+    check((d / "count.rank1.out").read_text() == "",
+          "phase8 precluster --count: rank 1 printed")
+    print(f"phase8: every rank-split output byte-identical to the "
+          f"single-process run (dist --knn 50 -k 17 at {N_KNN} and "
+          f"core/acc at {N_KNN_CA}, dense core/acc and -k 17 at {N_SCALE}, "
+          f"precluster --skd --knn 50 at {N_KNN}, queries: the parts in "
+          f"rank order; sketch --seq-type aa of {P7_SAMPLES} proteomes and "
+          f"both inverted builds: rank 0's merge; precluster --count at "
+          f"{N_INDEX}: rank 0's total, {count.strip()!r})")
+
+
+def phase8_surplus(cli_main, d: Path) -> dict:
+    """`dist -k 17 --knn 3` on the first 3 samples of phase 3's database
+    as 5 ranks by the flags (rank 0 last), here: the parts equal the
+    single run, ranks without rows write empty parts and launch nothing.
+    Returns the ranks' launches."""
+    slice_database(WORK / "p3" / "port_db", d / "tiny", 3)
+    argv = ["dist", str(d / "tiny"), "-k", "17", "--knn", "3", "--quiet"]
+    check(cli_main(argv + ["-o", str(d / "tiny.txt")]) == 0,
+          "phase8 tiny single failed")
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    made = {}
+    for rank in (1, 2, 3, 4, 0):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        check(cli_main(argv + ["-o", str(d / "tiny5.txt"), "--n-processes",
+                               "5", "--process-id", str(rank)]) == 0,
+              f"phase8 tiny rank {rank} failed")
+        made[rank] = sum(fn.launches - before[k]
+                         for k, fn in wrappers.items())
+    parts = [Path(f"{d / 'tiny5.txt'}.part{r}").read_bytes()
+             for r in range(5)]
+    check(b"".join(parts) == (d / "tiny.txt").read_bytes() and parts[0],
+          "phase8 tiny: 5 ranks' parts differ from the single run")
+    check(parts[3] == parts[4] == b"" and made[3] == made[4] == 0
+          and all(made[r] > 0 for r in range(3)),
+          f"phase8 tiny: surplus ranks wrote or launched ({made})")
+    print(f"phase8 dist -k 17 --knn 3 on 3 samples as 5 ranks: parts equal "
+          f"the single run; ranks 3 and 4 wrote empty parts and launched "
+          f"nothing; launches by rank {made}")
+    return {k: fn.launches for k, fn in wrappers.items()}
 
 
 def main() -> int:
@@ -2361,11 +2651,15 @@ def main() -> int:
             lambda: phase6_index(cli_main, p3, smi),
             lambda: phase6_precluster(cli_main, p5, smi))
         print(f"reads + inverted path phases 3, 6: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        ranks = phase8(cli_main, smi)
+        print(f"ranks path phase 8: {time.time() - t0:.1f} s")
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("sketchtpu", "jax")]
         check(not loaded, f"the port's phases loaded {loaded[:5]}")
         launches = {name: dense[name] + knn[name] + inverted[name] + aa[name]
-                    for name in wrappers}
+                    + ranks[name] for name in wrappers}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -4,7 +4,8 @@ Every `csrc/*.cu` file compiles into ONE shared library with a plain C
 interface (no PyTorch headers, so a cold build takes seconds). The library
 lands in `_build/` under a name keyed by a hash of the sources and the
 flags, and is built at first use: a fresh checkout needs nothing but
-`nvcc`. Nothing here runs at import time, so `import sketchtpu_torch` works
+`nvcc`. Processes that build at once wait for one build (`build_lock`).
+Nothing here runs at import time, so `import sketchtpu_torch` works
 on a machine with no CUDA toolkit; the CPU twins never reach this module.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, and
@@ -13,7 +14,9 @@ returns the `cudaError_t` of its launch; callers raise on a non-zero value.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -108,15 +111,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsketchtpu_kernels_{_digest()}.so"
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: Path):
+    """Hold the build directory's lock (an flock on `.lock` in it, which
+    the system drops when its process dies): processes that build into
+    one directory at once, such as the ranks of a multi-process run on a
+    fresh checkout, take turns, so only the first compiles."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hash-keyed library unless it exists: one
-    nvcc per source, all started together, then one link. Returns its path;
-    the compiler's report (registers, shared memory, spills from
-    -Xptxas -v) is kept next to it as a .log file."""
+    nvcc per source, all started together, then one link, under the build
+    directory's lock. Returns its path; the compiler's report (registers,
+    shared memory, spills from -Xptxas -v) is kept next to it as a .log
+    file."""
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        if not out.exists():  # else another process built it meanwhile
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = nvcc_path()
     jobs = []
@@ -153,7 +178,6 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(failed)
     os.replace(tmp, out)
-    return out
 
 
 def lib() -> ctypes.CDLL:

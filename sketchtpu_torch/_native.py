@@ -1,7 +1,8 @@
 """ctypes loader for the host helper library, csrc/host/native.cpp.
 
 g++ compiles it at first use into `_build/` under a name keyed by a hash of
-the source, so a stale build is never loaded. If compilation fails, or
+the source, so a stale build is never loaded; concurrent processes wait
+for one compile (`_build.build_lock`). If compilation fails, or
 SKETCHTPU_NO_NATIVE is set, get_lib() returns None and callers use their
 pure-Python implementations (identical output, slower).
 """
@@ -59,26 +60,31 @@ _SIGNATURES = {
 }
 
 
-def _lib_path() -> Path:
+def library_path() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     h.update(_SRC.read_bytes())
     return _BUILD_DIR / f"libsketchtpu_host_{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> bool:
-    # compile to a process-unique temp path and os.replace into place:
-    # concurrent processes on a fresh checkout must never CDLL a
-    # half-linked file or race g++ on the shared output
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
-    cmd = ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, out)
-        return True
-    except (OSError, subprocess.SubprocessError):
-        tmp.unlink(missing_ok=True)
-        return False
+    # one g++ at a time across processes (the build directory's lock): a
+    # process that waited finds the library built. Compile to a
+    # process-unique temp path and os.replace into place, so that nothing
+    # ever CDLLs a half-linked file
+    from ._build import build_lock
+
+    with build_lock(_BUILD_DIR):
+        if out.exists():
+            return True
+        tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
+        cmd = ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, out)
+            return True
+        except (OSError, subprocess.SubprocessError):
+            tmp.unlink(missing_ok=True)
+            return False
 
 
 def get_lib():
@@ -90,7 +96,7 @@ def get_lib():
         _tried = True
         if os.environ.get("SKETCHTPU_NO_NATIVE"):
             return None
-        out = _lib_path()
+        out = library_path()
         if not out.exists() and not _build(out):
             return None
         try:

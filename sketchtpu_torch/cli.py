@@ -3,10 +3,13 @@
 
 Subcommands: sketch (assemblies, reads, amino acids and 3Di), dist (dense
 and --knn), merge, append, delete, info (.skm and .ski), inverted build /
-query / precluster / serve. `warmup`, --jax-profile and multi-process runs
-parse but are refused with NotImplementedError naming their ROADMAP item;
-a k past the card's hash kernel (MAX_K_CUDA for DNA, MAX_K_AA_CUDA for
---seq-type aa|pdb) is refused at argument parsing in cuda mode.
+query / precluster / serve, and warmup (builds the kernels). sketch, dist
+and inverted build / query / precluster run as several ranks, under
+torchrun or by --process-id/--n-processes (shard/distributed.py);
+--jax-profile writes a torch.profiler trace. A k past the card's hash
+kernel (MAX_K_CUDA for DNA, MAX_K_AA_CUDA for --seq-type aa|pdb) is
+refused at argument parsing in cuda mode, as is a jax.distributed
+coordinator (JAX_COORDINATOR_ADDRESS) without torchrun's variables.
 """
 
 from __future__ import annotations
@@ -31,8 +34,13 @@ DEFAULT_SKETCHSIZE = 1000
 def _add_common(p):
     p.add_argument("-v", "--verbose", action="store_true", help="Show progress messages")
     p.add_argument("--quiet", action="store_true", help="Don't show any messages")
-    p.add_argument("--jax-profile", metavar="DIR",
-                   help="Device profile of the run (not ported yet)")
+    p.add_argument(
+        "--jax-profile",
+        metavar="DIR",
+        help="Write a PyTorch profiler trace of the run (torch.profiler, "
+        "CPU and CUDA activities) into DIR as a Chrome trace, one file per "
+        "rank; the flag keeps the JAX package's name",
+    )
 
 
 def _add_kmers(p):
@@ -49,13 +57,12 @@ def _add_kmers(p):
     )
 
 
-def _add_ranks(p):
+def _add_ranks(p, what: str):
     p.add_argument("--process-id", type=int, default=None,
-                   help="Multi-process sharding: this process's rank (not "
-                   "ported yet)")
+                   help="Multi-process sharding: this process's rank (read "
+                   "from torchrun's RANK when the flags are absent)")
     p.add_argument("--n-processes", type=int, default=None,
-                   help="Multi-process sharding: total process count (not "
-                   "ported yet)")
+                   help="Multi-process sharding: total process count; " + what)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-count", type=int, default=DEFAULT_MINCOUNT)
     p.add_argument("--min-qual", type=int, default=DEFAULT_MINQUAL)
     p.add_argument("--threads", type=int, default=1)
-    _add_ranks(p)
+    _add_ranks(p, "each process sketches its slice of the input list, "
+               "rank 0 merges")
     _add_common(p)
 
     # --- dist ---
@@ -110,14 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ref-completeness-file")
     p.add_argument("--query-completeness-file")
     p.add_argument("--completeness-cutoff", type=float, default=0.64)
-    _add_ranks(p)
+    _add_ranks(p, "each process computes a balanced block of output rows "
+               "and writes OUTPUT.partN; concatenate parts in rank order")
     _add_common(p)
 
     _add_inverted(sub)
-
-    # --- not ported: parsed only to be refused ---
-    p = sub.add_parser("warmup", help="Kernel pre-compilation (not ported yet)")
-    p.add_argument("rest", nargs=argparse.REMAINDER)
+    _add_warmup(sub)
 
     # --- merge ---
     p = sub.add_parser("merge", help="Merge two sketch databases")
@@ -173,7 +179,9 @@ def _add_inverted(sub) -> None:
     p.add_argument("--min-count", type=int, default=DEFAULT_MINCOUNT)
     p.add_argument("--min-qual", type=int, default=DEFAULT_MINQUAL)
     p.add_argument("--threads", type=int, default=1)
-    _add_ranks(p)
+    _add_ranks(p, "each process builds its slice of the sample rows, rank "
+               "0 merges the .ski (byte-identical to a single-process "
+               "build)")
     _add_common(p)
 
     p = inv_sub.add_parser("query")
@@ -189,7 +197,7 @@ def _add_inverted(sub) -> None:
     p.add_argument("--min-count", type=int, default=DEFAULT_MINCOUNT)
     p.add_argument("--min-qual", type=int, default=DEFAULT_MINQUAL)
     p.add_argument("--threads", type=int, default=1)
-    _add_ranks(p)
+    _add_ranks(p, _ROW_PARTS)
     _add_common(p)
 
     p = inv_sub.add_parser(
@@ -222,27 +230,78 @@ def _add_inverted(sub) -> None:
     p.add_argument(
         "--retain-unmatched", choices=["singleton", "bruteforce"], default=None
     )
-    _add_ranks(p)
+    _add_ranks(p, _ROW_PARTS)
     _add_common(p)
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for the parts of the CLI with no port."""
+_ROW_PARTS = ("each process handles a block of rows and writes OUTPUT.partN "
+              "(concatenate parts in rank order; only rank 0 prints the "
+              "header)")
+
+
+def _add_warmup(sub) -> None:
+    """`warmup` takes the JAX package's flags, so scripts written for it run
+    unchanged; the port's one-time cost is the kernels' build, which no
+    flag but --modes (checked) changes (warmup.py)."""
+    from .warmup import MODES
+
+    p = sub.add_parser(
+        "warmup",
+        help="Build the CUDA kernels (nvcc) and the host helper (g++) into "
+        "sketchtpu_torch/_build, so that later runs start at once "
+        "(see sketchtpu_torch/warmup.py)",
+    )
+    _add_kmers(p)
+    p.add_argument("-s", "--sketch-size", type=int, default=DEFAULT_SKETCHSIZE)
+    p.add_argument("--knn", type=int, default=DEFAULT_KNN)
+    p.add_argument("--db-size", type=int, default=10240)
+    p.add_argument("--genome-sizes", default="2000000")
+    p.add_argument("--modes", default="sketch,dense,knn",
+                   help="Comma-separated subset of " + ",".join(MODES)
+                   + " (each needs the same one build; an unknown name is "
+                   "an error)")
+    p.add_argument("--query-db-size", type=int, default=2048)
+    p.add_argument("--reads-bases", type=int, default=20_000_000)
+    p.add_argument("--inverted-sketch-size", type=int, default=100)
+    p.add_argument("--seq-type", choices=["dna", "aa"], default="dna")
+    p.add_argument("--level", choices=["level1", "level2", "level3"],
+                   default="level1")
+    p.add_argument("--threads", type=int, default=1)
+    _add_common(p)
+
+
+def refuse_unported(args, parser) -> None:
+    """Refuse, before any work, the rank settings that the port cannot
+    honour: a jax.distributed coordinator (JAX_COORDINATOR_ADDRESS) with
+    neither the rank flags nor torchrun's variables, where each rank would
+    silently write the whole output; --process-id without --n-processes;
+    and a rank outside [0, n). An unknown warmup mode is refused too."""
+    from .shard.distributed import TORCHRUN_ENV, torchrun_env
+
     if args.command == "warmup":
-        raise NotImplementedError(
-            "warmup is not ported yet (ROADMAP queue 1 item 10)"
+        from .warmup import parse_modes
+
+        try:
+            parse_modes(args.modes)
+        except ValueError as e:
+            parser.error(str(e))
+        return
+    if not hasattr(args, "n_processes"):
+        return
+    n_proc, proc_id = args.n_processes, args.process_id
+    if (n_proc is None and os.environ.get("JAX_COORDINATOR_ADDRESS")
+            and not torchrun_env()):
+        parser.error(
+            "JAX_COORDINATOR_ADDRESS is set, but the port does not join a "
+            "jax.distributed coordinator: start the ranks with torchrun "
+            f"(or set {', '.join(TORCHRUN_ENV)} for each rank), or pass "
+            "--process-id and --n-processes"
         )
-    if getattr(args, "jax_profile", None):
-        raise NotImplementedError(
-            "--jax-profile is not ported yet (ROADMAP queue 1 item 10)"
-        )
-    n_proc = getattr(args, "n_processes", None)
-    if (n_proc is not None and n_proc > 1) or os.environ.get(
-        "JAX_COORDINATOR_ADDRESS"
-    ):
-        raise NotImplementedError(
-            "multi-process runs are not ported yet (ROADMAP queue 1 item 8)"
-        )
+    if n_proc is None and proc_id is not None:
+        parser.error("--process-id needs --n-processes")
+    if n_proc is not None and not 0 <= (proc_id or 0) < n_proc:
+        parser.error(f"--process-id {proc_id or 0} is outside [0, {n_proc}) "
+                     f"for --n-processes {n_proc}")
 
 
 def refuse_past_card_limits(args, parser) -> None:
@@ -302,14 +361,73 @@ def _level_num(level_str: str) -> int:
     return int(level_str[-1])
 
 
+def _resolve_ranks(args):
+    """(proc_id, n_proc, multiproc): from the flags, else from torchrun's
+    environment (which joins its gloo process group)."""
+    n_proc, proc_id = args.n_processes, args.process_id
+    if n_proc is None:
+        from .shard.distributed import init_distributed
+
+        proc_id, n_proc = init_distributed()
+    return proc_id or 0, n_proc, n_proc > 1
+
+
+def _start_profile(args) -> None:
+    """torch.profiler over the whole run (CPU activity, and CUDA where torch
+    sees a card), written at exit, so that every early return closes it,
+    as a Chrome trace into the --jax-profile directory: one file per rank."""
+    import atexit
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .shard.distributed import torchrun_env
+
+    rank = None
+    if getattr(args, "n_processes", None) is not None:
+        rank = args.process_id or 0
+    elif hasattr(args, "n_processes") and torchrun_env():
+        rank = int(os.environ["RANK"])
+    name = args.command + (f".rank{rank}" if rank is not None else "")
+    path = os.path.join(args.jax_profile, f"{name}.pt.trace.json")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+
+    def stop():
+        prof.stop()
+        os.makedirs(args.jax_profile, exist_ok=True)
+        prof.export_chrome_trace(path)
+
+    atexit.register(stop)
+    log.info("PyTorch profiler tracing to %s", path)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    refuse_unported(args, parser)
     refuse_past_card_limits(args, parser)
     _setup_logging(args)
     start = time.time()
+    if args.jax_profile:
+        _start_profile(args)
+    try:
+        return _run(args, start)
+    finally:
+        window = os.environ.get("SKETCHTPU_COMPUTE_WINDOW_FILE")
+        if window:
+            # the post-import compute window, for rank-scaling measurements:
+            # interpreter start and imports are a fixed per-process cost
+            import json
 
+            with open(window, "w") as f:
+                json.dump({"compute_s": time.time() - start}, f)
+
+
+def _run(args, start: float) -> int:
     if args.command == "sketch":
         _sketch_main(args, start)
     elif args.command == "dist":
@@ -331,6 +449,10 @@ def main(argv=None) -> int:
     elif args.command == "info":
         _info_main(args)
         return 0
+    elif args.command == "warmup":
+        from .warmup import run_warmup
+
+        run_warmup(args)
 
     if not args.quiet:
         print(f"\U0001f9ec\U0001f58b️ sketchtpu done in {int(time.time() - start)}s", file=sys.stderr)
@@ -355,6 +477,11 @@ def _sketch_main(args, start: float) -> None:
         "Running sketching: k:%s; sketch_size:%s; seq:%s; threads:%s",
         kmers, sketch_bins, seq_type.debug_str(), args.threads,
     )
+    proc_id, n_proc, multiproc = _resolve_ranks(args)
+    if multiproc:
+        _sketch_ranks(args, input_files, kmers, sketch_bins, seq_type,
+                      proc_id, n_proc)
+        return
     backend = select_backend(seq_type, len(input_files))
     tick, finish = progress_printer(len(input_files), args.quiet, "Sketching ")
     sketches = sketch_files(
@@ -384,6 +511,48 @@ def _sketch_main(args, start: float) -> None:
     MultiSketch(sketches, sketch_bins, kmers, seq_type).save_metadata(args.output)
 
 
+def _sketch_ranks(args, input_files, kmers, sketch_bins, seq_type, proc_id,
+                  n_proc) -> None:
+    """This rank's slice of the input list into a shard; rank 0 merges
+    once every shard exists (byte-identical to a single-process sketch)."""
+    from .shard import distributed
+
+    distributed.sketch_shard(
+        args.output, input_files, proc_id, n_proc,
+        concat_fasta=args.concat_fasta, kmers=kmers, sketch_bins=sketch_bins,
+        seq_type=seq_type, rc=not args.single_strand,
+        min_count=args.min_count, min_qual=args.min_qual,
+        threads=args.threads, convert_pdb=args.convert_pdb,
+    )
+    _merge_on_rank0(args.output, proc_id, n_proc, ".skm",
+                    lambda: distributed.merge_shards(args.output, n_proc),
+                    "merge_shards")
+
+
+def _merge_on_rank0(output: str, proc_id: int, n_proc: int, ext: str, merge,
+                    what: str):
+    """After a barrier when a process group spans the ranks, rank 0 runs
+    merge() if every rank's shard exists; under the flags' own
+    orchestration a rank 0 that finishes first leaves the merge to the
+    caller. Returns merge()'s result, or None."""
+    from pathlib import Path
+
+    from .shard import distributed
+
+    if distributed.spans(n_proc):
+        distributed.barrier()
+    if proc_id != 0:
+        return None
+    if all(Path(f"{distributed.shard_prefix(output, i)}{ext}").exists()
+           for i in range(n_proc)):
+        return merge()
+    log.warning(
+        "shards incomplete; run sketchtpu_torch.shard.distributed.%s(%r, "
+        "%d) once all ranks finish", what, output, n_proc,
+    )
+    return None
+
+
 def _dist_main(args, start: float) -> None:
     from .dist import api
     from .dist import output as dist_output
@@ -399,6 +568,14 @@ def _dist_main(args, start: float) -> None:
     if args.ani and args.kmer is None:
         # clap: `ani` requires `kmer` (cli.rs:212)
         raise SystemExit("--ani requires -k (a single k-mer length)")
+    proc_id, n_proc, multiproc = _resolve_ranks(args)
+    if multiproc and args.output:
+        from .shard.distributed import shard_prefix
+
+        args.output = shard_prefix(args.output, proc_id)
+        log.info("Multi-process dist: rank %d/%d writing %s (concatenate "
+                 "parts in rank order for the full output)", proc_id, n_proc,
+                 args.output)
     out = open(args.output, "w") if args.output else sys.stdout
     ref_name = strip_sketch_extension(args.ref_db)
     references = MultiSketch.load_metadata(ref_name)
@@ -420,6 +597,15 @@ def _dist_main(args, start: float) -> None:
     engine = select_engine(references)
     names = [references.sketch_name(i) for i in range(n)]
     cutoff = args.completeness_cutoff
+    # a rank's rows: self dense by pair count (the upper triangle), kNN and
+    # ref-vs-query dense evenly; every rank loads all columns
+    tri_rows = uni_rows = None
+    if multiproc:
+        from .shard.distributed import process_slice, triangle_row_slice
+
+        tri_rows = triangle_row_slice(n, proc_id, n_proc)
+        uni_rows = process_slice(n, proc_id, n_proc)
+    row_names = names[uni_rows] if uni_rows is not None else names
 
     def log_pair_rate(n_pairs):
         el = max(time.time() - start, 1e-9)
@@ -436,16 +622,18 @@ def _dist_main(args, start: float) -> None:
         if ca_engine is not None:
             log.info("Using on-device core/accessory %s engine",
                      "exact-stream" if args.exact else "tile")
-            ca_engine.stream_self_dense(out, names)
+            ca_engine.stream_self_dense(out, names, row_range=tri_rows)
         elif stream_engine is not None:
             log.info("Using on-device dense streaming engine")
             stream_engine.stream_self_dense(out, names, dist_type, ref_comp,
-                                            cutoff)
+                                            cutoff, row_range=tri_rows)
         else:
             d = api.self_dists_all(references, dist_type, ref_comp, cutoff,
-                                   engine=engine)
-            dist_output.write_dense_self(out, names, d, dist_type.coreacc)
-        log_pair_rate(n * (n - 1) // 2)
+                                   engine=engine, row_range=tri_rows)
+            dist_output.write_dense_self(out, names, d, dist_type.coreacc,
+                                         row_range=tri_rows)
+        lo, hi = (tri_rows.start, tri_rows.stop) if tri_rows else (0, n)
+        log_pair_rate((hi - lo) * (n - 1) - (hi - lo) * (lo + hi - 1) // 2)
     elif args.query_db is None:
         nn = args.knn
         if nn >= n:
@@ -456,20 +644,31 @@ def _dist_main(args, start: float) -> None:
             log.info("Using on-device kNN engine")
             if dist_type.coreacc:
                 rows = knn_engine.self_knn_coreacc(
-                    nn, completeness_vec=ref_comp, completeness_cutoff=cutoff)
+                    nn, row_range=uni_rows, completeness_vec=ref_comp,
+                    completeness_cutoff=cutoff)
             else:
                 rows = knn_engine.self_knn(
-                    nn, dist_type, completeness_vec=ref_comp,
-                    completeness_cutoff=cutoff)
+                    nn, dist_type, row_range=uni_rows,
+                    completeness_vec=ref_comp, completeness_cutoff=cutoff)
         else:
             rows = api.self_dists_knn(references, nn, dist_type, ref_comp,
-                                      cutoff, engine=engine)
-        dist_output.write_sparse(out, names, names, rows, dist_type.coreacc)
-        log_pair_rate(n * n)
+                                      cutoff, engine=engine,
+                                      row_range=uni_rows)
+        dist_output.write_sparse(out, row_names, names, rows,
+                                 dist_type.coreacc)
+        log_pair_rate(len(row_names) * n)
     else:
         query_name = strip_sketch_extension(args.query_db)
         queries = MultiSketch.load_metadata(query_name)
-        queries.read_sketch_data(query_name)
+        if multiproc and args.knn is not None:
+            # kNN rows are queries: this rank loads only its block of them
+            from .shard.distributed import process_slice
+
+            all_q = [m.name for m in queries.sketch_metadata]
+            queries.read_sketch_data_block(
+                query_name, all_q[process_slice(len(all_q), proc_id, n_proc)])
+        else:
+            queries.read_sketch_data(query_name)
         q_comp = (
             io_inputs.read_completeness_file(args.query_completeness_file, queries)
             if args.query_completeness_file
@@ -515,24 +714,26 @@ def _dist_main(args, start: float) -> None:
             else:
                 stream_engine = select_dense_stream_engine(references,
                                                            dist_type)
+            # ref-vs-query dense rows are references: uni_rows
             if stream_engine is not None:
                 log.info("Using on-device dense streaming engine")
                 stream_engine.stream_cross_dense(
                     out, names, qnames, queries, dist_type, ref_comp, q_comp,
-                    cutoff)
+                    cutoff, row_range=uni_rows)
             elif ca_engine is not None:
                 log.info("Using on-device core/accessory %s engine (cross)",
                          "exact-stream" if args.exact else "tile")
                 ca_engine.stream_cross_dense(
                     out, names, qnames, queries, rcomp=ref_comp,
-                    qcomp=q_comp, cutoff=cutoff)
+                    qcomp=q_comp, cutoff=cutoff, row_range=uni_rows)
             else:
                 d = api.cross_dists_all(references, queries, dist_type,
                                         ref_comp, q_comp, cutoff,
-                                        engine=engine)
-                dist_output.write_dense_cross(out, names, qnames, d,
+                                        engine=engine, row_range=uni_rows)
+                dist_output.write_dense_cross(out, row_names, qnames, d,
                                               dist_type.coreacc)
-        log_pair_rate(n * len(qnames))
+        log_pair_rate((n if args.knn is not None else len(row_names))
+                      * len(qnames))
     if out is not sys.stdout:
         out.close()
 
@@ -668,6 +869,11 @@ def _inverted_main(args) -> None:
             metadata_vec = [""] * len(distinct)
             for idx, (name, _f) in zip(file_order, input_files):
                 metadata_vec[idx] = md[name]
+        proc_id, n_proc, multiproc = _resolve_ranks(args)
+        if multiproc:
+            _inverted_build_ranks(args, input_files, file_order, metadata_vec,
+                                  labels_vec, proc_id, n_proc)
+            return
         tick, finish = progress_printer(len(input_files), args.quiet,
                                         "Sketching ")
         inv = Inverted.build(
@@ -691,10 +897,22 @@ def _inverted_main(args) -> None:
         log.info("Index info:\n%s", inv.debug_str())
 
     elif args.inverted_command == "query":
+        proc_id, n_proc, multiproc = _resolve_ranks(args)
+        if multiproc and args.output:
+            from .shard.distributed import shard_prefix
+
+            args.output = shard_prefix(args.output, proc_id)
+            log.info("Multi-process query: rank %d/%d writing %s", proc_id,
+                     n_proc, args.output)
         out = _ostream(args.output)
         inv = Inverted.load(strip_sketch_extension(args.ski))
         input_files = io_inputs.get_input_list(args.file_list,
                                                args.seq_files or None)
+        if multiproc:
+            from .shard.distributed import process_slice
+
+            input_files = input_files[process_slice(len(input_files), proc_id,
+                                                    n_proc)]
         queries, query_names = inv.sketch_queries(
             input_files,
             args.min_count,
@@ -711,13 +929,14 @@ def _inverted_main(args) -> None:
                 batch_any = engine.any_shared_rows(queries)
             else:
                 batch_any = engine.all_shared_rows(queries)
-        out.write("Query")
-        if args.query_type == "match-count":
-            for name in inv.sample_names:
-                out.write(f"\t{name}")
-            out.write("\n")
-        else:
-            out.write("\tMatches\n")
+        if proc_id == 0:  # the header once, in the first part
+            out.write("Query")
+            if args.query_type == "match-count":
+                for name in inv.sample_names:
+                    out.write(f"\t{name}")
+                out.write("\n")
+            else:
+                out.write("\tMatches\n")
         for qi, q_name in enumerate(query_names):
             q = queries[qi]
             out.write(q_name)
@@ -751,6 +970,31 @@ def _inverted_main(args) -> None:
         _precluster_main(args)
 
 
+def _inverted_build_ranks(args, input_files, file_order, metadata_vec,
+                          labels_vec, proc_id, n_proc) -> None:
+    """This rank's slice of the sample rows into a shard; rank 0 merges
+    with the global metadata and labels (byte-identical to a
+    single-process build)."""
+    from .shard import distributed
+    from .sketchcore.sketch import HashType
+
+    distributed.inverted_build_shard(
+        args.output, input_files, file_order, proc_id, n_proc,
+        k=args.kmer_length, sketch_size=args.sketch_size,
+        rc=not args.single_strand, min_count=args.min_count,
+        min_qual=args.min_qual, write_skq=args.write_skq,
+        hash_type=HashType("dna"), threads=args.threads,
+    )
+    inv = _merge_on_rank0(
+        args.output, proc_id, n_proc, ".ski",
+        lambda: distributed.merge_inverted_shards(
+            args.output, n_proc, metadata=metadata_vec, labels=labels_vec,
+            write_skq=args.write_skq),
+        "merge_inverted_shards")
+    if inv is not None:
+        log.info("Index info:\n%s", inv.debug_str())
+
+
 def _precluster_main(args) -> None:
     from .dist import api
     from .dist import output as dist_output
@@ -758,7 +1002,7 @@ def _precluster_main(args) -> None:
     from .formats.skm import MultiSketch
     from .ingest import inputs as io_inputs
     from .inverted.index import Inverted
-    from .runtime import select_engine, select_inverted_engine, select_knn_engine
+    from .runtime import select_engine, select_knn_engine
 
     if args.count and args.skd:
         # clap: the "mode" ArgGroup is exclusive (cli.rs:416-420)
@@ -767,14 +1011,18 @@ def _precluster_main(args) -> None:
         raise SystemExit("--core-acc needs --skd, not --count")
     input_prefix = strip_sketch_extension(args.ski)
     inv = Inverted.load(input_prefix)
-    if args.count:
-        n = len(inv.sample_names)
-        count = inv.any_shared_bin_count(engine=select_inverted_engine(inv))
-        print(f"Identified {count} prefilter pairs from a max of "
-              f"{n * (n - 1) // 2}")
-        return
-    if not args.skd:
+    if not args.count and not args.skd:
         raise SystemExit("one of --skd or --count is required")
+    proc_id, n_proc, multiproc = _resolve_ranks(args)
+    if args.count:
+        _count_main(inv, proc_id, n_proc, multiproc)
+        return
+    if multiproc and args.output:
+        from .shard.distributed import shard_prefix
+
+        args.output = shard_prefix(args.output, proc_id)
+        log.info("Multi-process precluster: rank %d/%d writing %s", proc_id,
+                 n_proc, args.output)
     out = _ostream(args.output)
     skq_bins = skd_io.read_all_skq(f"{input_prefix}.skq")
     ref_name = strip_sketch_extension(args.skd)
@@ -806,25 +1054,58 @@ def _precluster_main(args) -> None:
         if args.ref_completeness_file
         else None
     )
+    pc_rows = None
+    if multiproc:
+        from .shard.distributed import process_slice
+
+        pc_rows = process_slice(n, proc_id, n_proc)
     knn_engine = select_knn_engine(references, dist_type)
     if knn_engine is not None:
         log.info("Using on-device preclustered kNN engine")
         rows = knn_engine.precluster_knn(
             inv, skq_bins, knn, dist_type, args.retain_unmatched,
-            completeness_vec=ref_comp,
+            row_range=pc_rows, completeness_vec=ref_comp,
             completeness_cutoff=args.completeness_cutoff,
         )
     else:
         rows = api.self_dists_knn_precluster(
             references, inv, skq_bins, inv.sketch_size, knn, dist_type,
             ref_comp, args.completeness_cutoff, args.retain_unmatched,
-            engine=select_engine(references),
+            engine=select_engine(references), row_range=pc_rows,
         )
     names = [references.sketch_name(i) for i in range(n)]
-    dist_output.write_sparse(out, names, names, rows,
-                             coreacc=dist_type.coreacc)
+    dist_output.write_sparse(out,
+                             names[pc_rows] if pc_rows is not None else names,
+                             names, rows, coreacc=dist_type.coreacc)
     if out is not sys.stdout:
         out.close()
+
+
+def _count_main(inv, proc_id: int, n_proc: int, multiproc: bool) -> None:
+    """`precluster --count`: a rank counts the pairs whose first sample is
+    in its block of the upper triangle's rows; when a process group spans
+    the ranks their partials are summed and rank 0 prints the total, else
+    each rank prints its partial."""
+    from .runtime import select_inverted_engine
+    from .shard import distributed
+
+    n = len(inv.sample_names)
+    row_range = (distributed.triangle_row_slice(n, proc_id, n_proc)
+                 if multiproc else None)
+    count = inv.any_shared_bin_count(engine=select_inverted_engine(inv),
+                                     row_range=row_range)
+    if not multiproc:
+        print(f"Identified {count} prefilter pairs from a max of "
+              f"{n * (n - 1) // 2}")
+    elif distributed.spans(n_proc):
+        count = distributed.allgather_sum(count)
+        if proc_id == 0:
+            print(f"Identified {count} prefilter pairs from a max of "
+                  f"{n * (n - 1) // 2}")
+    else:
+        print(f"Identified {count} prefilter pairs in rows "
+              f"[{row_range.start}, {row_range.stop}) of {n} (rank "
+              f"{proc_id}/{n_proc} partial; sum ranks for the total)")
 
 
 def _info_main(args) -> None:

@@ -87,6 +87,15 @@ class SparseKnnRows:
             yield self._row(r)
 
 
+def _no_rows(knn: int, n_values: int) -> SparseKnnRows:
+    """The result of an empty row slice (a rank with no rows), for
+    n_values values per entry: no launch is made for it."""
+    vals = np.zeros((0, knn) if n_values == 1 else (0, knn, n_values),
+                    dtype=np.float32)
+    return SparseKnnRows(np.zeros((0, knn), dtype=np.int32), vals,
+                         np.zeros((0, knn), dtype=bool))
+
+
 def rows_from_samebits(sb: np.ndarray, idx: np.ndarray, dist_type, s64: int,
                        c1_rows: np.ndarray | None = None,
                        c2_all: np.ndarray | None = None,
@@ -268,17 +277,23 @@ class DeviceKnnEngine:
 
     # --- single-k (Jaccard / ANI) ---
 
-    def self_knn(self, knn: int, dist_type, completeness_vec=None,
-                 completeness_cutoff: float = 0.64):
-        """Self kNN (Jaccard or ANI). With completeness the card selects by
-        the corrected f32 Jaccard and the host recomputes exact values."""
+    def self_knn(self, knn: int, dist_type, row_range: slice | None = None,
+                 completeness_vec=None, completeness_cutoff: float = 0.64):
+        """Self kNN (Jaccard or ANI). row_range restricts the rows to
+        [lo, hi) (a rank's block); neighbours range over all samples. With
+        completeness the card selects by the corrected f32 Jaccard and the
+        host recomputes exact values."""
         comp = (np.asarray(completeness_vec, dtype=np.float64)
                 if completeness_vec is not None else None)
+        lo, hi = (row_range.start, row_range.stop) if row_range else (0, self.n)
+        if hi <= lo:
+            return _no_rows(knn, 1)
+        c1 = comp[lo:hi] if comp is not None else None
         plane = self._words[:, dist_type.k_idx]
-        sb, idx = knn_scan(plane, plane, knn, exclude_self=True,
-                           comp_rows=comp, comp_cols=comp,
-                           cutoff=completeness_cutoff)
-        return rows_from_samebits(sb, idx, dist_type, self.s64, c1_rows=comp,
+        sb, idx = knn_scan(plane[lo:hi], plane, knn, exclude_self=True,
+                           comp_rows=c1, comp_cols=comp,
+                           cutoff=completeness_cutoff, row0=lo)
+        return rows_from_samebits(sb, idx, dist_type, self.s64, c1_rows=c1,
                                   c2_all=comp, cutoff=completeness_cutoff)
 
     def cross_knn(self, query_ms, knn: int, dist_type,
@@ -359,12 +374,20 @@ class DeviceKnnEngine:
         )
         return SparseKnnRows(idx, np.stack([core, acc], axis=-1), idx != _NO_COL)
 
-    def self_knn_coreacc(self, knn: int, completeness_vec=None,
+    def self_knn_coreacc(self, knn: int, row_range: slice | None = None,
+                         completeness_vec=None,
                          completeness_cutoff: float = 0.64):
+        """Self core/accessory kNN of the rows [lo, hi) of row_range (all
+        rows by default) against every sample."""
         comp = (np.asarray(completeness_vec, dtype=np.float64)
                 if completeness_vec is not None else None)
-        return self._coreacc_rows(self._words, knn, True, comp, comp,
-                                  completeness_cutoff)
+        lo, hi = (row_range.start, row_range.stop) if row_range else (0, self.n)
+        if hi <= lo:
+            return _no_rows(knn, 2)
+        return self._coreacc_rows(
+            self._words[lo:hi], knn, True,
+            comp[lo:hi] if comp is not None else None, comp,
+            completeness_cutoff, row0=lo)
 
     def cross_knn_coreacc(self, query_ms, knn: int, ref_completeness_vec=None,
                           query_completeness_vec=None,

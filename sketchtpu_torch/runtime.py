@@ -2,7 +2,8 @@
 
 SKETCHTPU_TORCH_BACKEND picks one of three modes:
 - cuda (the default): the device engines, with the hand-written kernels on
-  the card, at any size. Raises when torch sees no CUDA device.
+  the card, at any size. Raises when torch sees no CUDA device. Under
+  torchrun each rank runs on GPU LOCAL_RANK modulo the GPUs.
 - cpu: the same engine code on CPU tensors, where every kernel wrapper runs
   its plain PyTorch twin (what the tests drive).
 - host: this package's NumPy oracle (sketchcore/sketch.py, dist/api.py);
@@ -39,7 +40,10 @@ def mode() -> str:
 
 
 def device() -> torch.device | None:
-    """The device the engines run on, or None in host mode."""
+    """The device the engines run on, or None in host mode. In cuda mode
+    under torchrun (LOCAL_RANK set) that is the rank's GPU, LOCAL_RANK
+    modulo the GPUs, which this makes the current device (the kernels
+    launch on the current device's context)."""
     m = mode()
     if m == "host":
         return None
@@ -50,6 +54,11 @@ def device() -> torch.device | None:
             "SKETCHTPU_TORCH_BACKEND=cuda but torch sees no CUDA device "
             "(set SKETCHTPU_TORCH_BACKEND=cpu for the plain PyTorch twins)"
         )
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None:
+        index = int(local) % torch.cuda.device_count()
+        if index != torch.cuda.current_device():
+            torch.cuda.set_device(index)
     return torch.device("cuda", torch.cuda.current_device())
 
 

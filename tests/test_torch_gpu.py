@@ -957,3 +957,57 @@ def test_aa_backend_on_card_matches_cpu(cuda, level):
         assert (a.name, a.densified, a.seq_length) == (b.name, b.densified,
                                                        b.seq_length)
         assert np.array_equal(a.usigs, b.usigs)
+
+
+def test_two_ranks_on_the_card(cuda, tmp_path, monkeypatch):
+    """Two processes under torchrun's environment share the card (a gloo
+    process group): `sketch` merges on rank 0 into the single-process
+    database, and `dist -k 17 --knn 5` and core/accessory `--knn 5`
+    parts concatenate into the single-process output."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from sketchtpu_torch.cli import main as cli_main
+    from sketchtpu_torch.synth import related_assemblies
+
+    repo = Path(__file__).resolve().parent.parent
+    monkeypatch.chdir(tmp_path)
+    rfile = related_assemblies(tmp_path / "fa", 12, 200_000, 61)
+    runs = {  # name: (argv, output prefix of the single run)
+        "db": (["sketch", "-f", str(rfile), "-k", "17,21,25", "-s", "1000"],
+               "single"),
+        "knn": (["dist", "single", "-k", "17", "--knn", "5"], "knn.txt"),
+        "knn_ca": (["dist", "single", "--knn", "5"], "knn_ca.txt"),
+    }
+    for argv, out in runs.values():
+        assert cli_main(argv + ["-o", out, "--quiet"]) == 0
+    for name, (argv, out) in runs.items():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "sketchtpu_torch", *argv, "-o",
+             f"multi_{out}", "--quiet"], cwd=tmp_path,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            env=dict(os.environ, PYTHONPATH=str(repo), WORLD_SIZE="2",
+                     RANK=str(r), LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port), SKETCHTPU_TORCH_BACKEND="cuda"))
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        assert [p.returncode for p in procs] == [0, 0], outs
+        if name == "db":
+            for ext in (".skd", ".skm"):
+                assert (tmp_path / f"multi_single{ext}").read_bytes() == (
+                    tmp_path / f"single{ext}").read_bytes()
+        else:
+            parts = b"".join((tmp_path / f"multi_{out}.part{r}").read_bytes()
+                             for r in range(2))
+            want = (tmp_path / out).read_bytes()
+            assert want.count(b"\n") == 12 * 5 and parts == want

@@ -1,7 +1,7 @@
 """The port's engine selection, CLI refusals and kernel wrappers'
-dispatch: no GPU means no cuda mode, unported commands raise, a CUDA tensor
-goes to the kernel launcher (never the twin) and is counted; and the port
-imports nothing of the JAX package."""
+dispatch: no GPU means no cuda mode, what the port cannot honour is refused
+before any work, a CUDA tensor goes to the kernel launcher (never the twin)
+and is counted; and the port imports nothing of the JAX package."""
 
 import ast
 from pathlib import Path
@@ -68,22 +68,33 @@ def test_unknown_mode_raises(monkeypatch):
         runtime.device()
 
 
-@pytest.mark.parametrize(
-    "argv,item",
-    [
-        (["warmup"], "item 10"),
-        (["sketch", "x.fa", "-o", "o", "--jax-profile", "p"], "item 10"),
-        (["sketch", "x.fa", "-o", "o", "--n-processes", "2"], "item 8"),
-    ],
-)
-def test_unported_selectors_raise(monkeypatch, argv, item):
-    """No engine selector refuses any more (AA/3Di sketching is ported);
-    what the port still lacks is refused before any selector runs,
-    naming its ROADMAP item."""
+# argv, JAX_COORDINATOR_ADDRESS, what the refusal says
+REFUSED = [
+    (["warmup", "--modes", "sketch,bogus"], None, "unknown mode(s) bogus"),
+    (["sketch", "x.fa", "-o", "o"], "localhost:1234",
+     "WORLD_SIZE, RANK, MASTER_ADDR, MASTER_PORT"),
+    (["sketch", "x.fa", "-o", "o", "--n-processes", "2", "--process-id",
+      "2"], None, "outside [0, 2)"),
+]
+
+
+@pytest.mark.parametrize("argv,coordinator,message", REFUSED)
+def test_unported_selectors_raise(monkeypatch, capsys, argv, coordinator,
+                                  message):
+    """No engine selector refuses (every module is ported); what the port
+    cannot honour is refused before any selector runs: an unknown warmup
+    mode, a jax.distributed coordinator without torchrun's variables or
+    the rank flags, a rank outside the process count."""
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    if coordinator:
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", coordinator)
     monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.refuse_unported(port_cli.build_parser().parse_args(argv))
+    parser = port_cli.build_parser()
+    with pytest.raises(SystemExit) as exc:
+        port_cli.refuse_unported(parser.parse_args(argv), parser)
+    assert exc.value.code == 2 and message in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("kind", ["aa", "pdb"])
@@ -412,21 +423,35 @@ def test_single_k_scan_makes_one_selection_launch(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "argv,item",
+    "argv,coordinator,message",
     [
-        (["warmup"], "item 10"),
-        (["dist", "db", "--jax-profile", "p"], "item 10"),
-        (["dist", "db", "--n-processes", "2", "--process-id", "0"], "item 8"),
+        (["warmup", "--modes", "dense,inverted,sort"], None,
+         "unknown mode(s) sort"),
+        (["dist", "db", "--jax-profile", "p"], "localhost:1234",
+         "does not join a jax.distributed coordinator"),
+        (["dist", "db", "--process-id", "0"], None,
+         "--process-id needs --n-processes"),
     ],
 )
-def test_cli_refuses_unported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_cli_refuses_unported(monkeypatch, capsys, argv, coordinator,
+                              message):
+    """main() refuses them at argument parsing (exit code 2), before any
+    work: nothing is read, built or profiled."""
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    if coordinator:
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", coordinator)
+    monkeypatch.setattr(port_cli, "_start_profile",
+                        lambda args: pytest.fail("profiling began"))
+    with pytest.raises(SystemExit) as exc:
         port_cli.main(argv)
+    assert exc.value.code == 2 and message in capsys.readouterr().err
 
 
 def test_cli_runs_inverted_commands(tmp_path, monkeypatch, capsys):
     """The inverted commands and info on a .ski run on the port (here its
-    cpu mode); multi-process inverted runs still refuse, naming item 8."""
+    cpu mode), and so do their multi-process runs: a rank's partial
+    count."""
     from sketchtpu_torch.inverted.index import Inverted
 
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
@@ -439,9 +464,12 @@ def test_cli_runs_inverted_commands(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "Identified 2 prefilter pairs from a max of 6" in out
     assert "n_samples=4" in out and "inverted=true" in out
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_cli.main(["inverted", "precluster", str(tmp_path / "x.ski"),
-                       "--count", "--n-processes", "2", "--process-id", "0"])
+    assert port_cli.main(["inverted", "precluster", str(tmp_path / "x.ski"),
+                          "--count", "--n-processes", "2", "--process-id",
+                          "0", "--quiet"]) == 0
+    assert capsys.readouterr().out == (
+        "Identified 1 prefilter pairs in rows [0, 1) of 4 (rank 0/2 partial; "
+        "sum ranks for the total)\n")
 
 
 def test_cli_refuses_k_past_the_card_at_parsing(monkeypatch, capsys):
