@@ -10,6 +10,10 @@
    100,000-sample dense run, K4 also at 40,000 bins), and times both with CUDA events, beside the least time
    the card could take (bound: operations at the table rate, or bytes at
    3.35 TB/s) and the integer-issue floor of the samebits kernels.
+   Before any timing of `pair_count` and the signs mode it prints the
+   compare microbenchmark (XOR / IADD / LOP3 against the DPX
+   VIADDMNMX.U16x2 a word, at the full grid), pair_count's SASS (the DPX
+   opcode required) and both kernels' registers (no spills).
 3. Drives the two paths through the port's CLI and checks them against
    `python -m sketchtpu.cli` on its NumPy host oracle (run as a separate
    process): the dense path (`sketch` of 8 synthetic 2 Mb assemblies, then
@@ -762,6 +766,8 @@ def phase2_nthash_signs(results):
     launches in each mode."""
     import torch
 
+    from sketchtpu_torch import _build
+    from sketchtpu_torch.hash import nthash_torch as nt
     from sketchtpu_torch.hash.nthash_torch import (
         nthash_bin_multi,
         nthash_bin_multi_ref,
@@ -803,6 +809,13 @@ def phase2_nthash_signs(results):
           "129 k: not two launches of each mode")
     print("phase2 129 k (3..131): two launches of each mode, bit-equal to "
           "the twins")
+    # an odd n_out (every other k row not 16-byte aligned), not a multiple
+    # of a run, past the stream's last window
+    got = nthash_signs(reads[:1_000_000], [17, 21, 29], True, 1_000_001)
+    check(torch.equal(got, nthash_signs_ref(reads[:1_000_000], [17, 21, 29],
+                                            True, 1_000_001)),
+          "nthash_signs odd n_out: kernel != twin")
+    print("phase2 nthash_signs 3 k, n_out 1,000,001: bit-equal to twin")
     # the reads path's chunk: all 7 k of the main path in one launch
     own = _READ_CHUNK_SIGNS // len(KMERS)
     seq = reads[: own + max(KMERS) - 1]
@@ -813,11 +826,17 @@ def phase2_nthash_signs(results):
     ms = cuda_ms(lambda: nthash_signs(seq, KMERS, True, own), reps=10)
     bd = bound(own * len(KMERS) * SIGN_OPS,
                seq.numel() + own * len(KMERS) * 8)
+    smem = nt._signs_smem_bytes(len(KMERS), max(KMERS))
+    per_sm = _build.lib().stpu_nthash_signs_blocks_per_sm(smem)
+    blocks = nt.signs_blocks(own)
     print(f"phase2 nthash_signs chunk ({own} window starts, 7 k, "
           f"{own * len(KMERS) * 8 / 1e6:.0f} MB of signs): bit-equal to twin; "
-          f"kernel {ms:.4f} ms, twin {plain:.2f} ms, bound {bd['bound_ms']:.4f}"
-          f" ms ({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%"
-          f"; {own * len(KMERS) * 8 / ms / 1e6:.1f} GB/s written")
+          f"kernel {ms:.4f} ms ({PREVIOUS_SIGNEQ['nthash_signs']}), twin "
+          f"{plain:.2f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}):"
+          f" kernel at {100 * bd['bound_ms'] / ms:.1f}%; "
+          f"{own * len(KMERS) * 8 / ms / 1e6:.1f} GB/s written; {blocks} "
+          f"blocks of {256 << nt._SIGNS_RUN_LG} starts, {per_sm} a SM: "
+          f"{blocks / (per_sm * SMS):.2f} waves")
     results["nthash_signs"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                    library_ms=None, **bd)
 
@@ -922,7 +941,76 @@ def signeq_floor_ms(pair_words: float, ops: int) -> float:
     return pair_words * ops / (64 * SMS * CLOCK_HZ) * 1e3
 
 
-def phase2_signeq(results, lib_path: Path):
+# pair_count's previous design and the signs mode's (PERF.md's kernel
+# table, an H100 80GB HBM3 at 700 W): a 64 x 64 tile of 4 x 4 pairs a
+# thread with the XOR / IADD / LOP3 compare, both operands staged per
+# column tile; and runs of 64 starts a thread written one 8-byte word a
+# lane at a 512-byte stride
+PREVIOUS_SIGNEQ = {"pair_count": "previous design 73.2170 ms",
+                   "nthash_signs": "previous design 0.8907 ms"}
+COMPARE_ROUNDS = 32768  # rounds of 64 compares a thread in the microbenchmark
+
+
+def phase2_compare(lib_path: Path) -> float:
+    """Before any timing of pair_count and the signs mode: the compare
+    microbenchmark (XOR / IADD / LOP3 against one VIADDMNMX.U16x2 a word,
+    8 x 8 register accumulators a thread, the full grid), pair_count's
+    SASS (the DPX opcode required, no emulated vector compare) and both
+    kernels' registers (no spills). Returns the DPX compare's rate, word
+    compares per second."""
+    import torch
+
+    from sketchtpu_torch import _build
+
+    for kernel, modes in (
+            ("pair_count_kernel", {"ILb1E": "pair_count resident",
+                                   "ILb0E": "pair_count streamed"}),
+            ("nthash_signs_kernel", {"nthash_signs_kernel": "nthash_signs"}),
+            ("compare_rate_kernel", {"ILi0E": "compare_rate xor",
+                                     "ILi1E": "compare_rate dpx"})):
+        for mode, info in sorted(ptxas_report(lib_path, kernel, modes).items()):
+            print(f"phase2 {mode} kernel: {info['registers']} registers, "
+                  f"{info['spill_store_bytes']} bytes spilled")
+            check(info["spill_store_bytes"] == 0, f"{mode}: spills")
+    found = sass_counts(lib_path, "pair_count_kernel")
+    check(len(found) == 2, f"pair_count: {len(found)} instantiations in SASS")
+    for name, ops in found.items():
+        dpx = sum(v for k, v in ops.items() if k.startswith("VIADDMNMX"))
+        emulated = sum(v for k, v in ops.items()
+                       if k.startswith(("VSET", "VABS")))
+        top = sorted(((v, k) for k, v in ops.items()
+                      if not k.startswith("LUT")), reverse=True)[:8]
+        print(f"phase2 SASS {name[-45:]}: {dpx} VIADDMNMX.U16x2 (the DPX "
+              f"compare), {emulated} VSETP/VABSDIFF; top "
+              f"{', '.join(f'{k} x{v}' for v, k in top)}")
+        check(dpx >= 64, f"pair_count SASS: {dpx} VIADDMNMX, expected the "
+              f"8 x 8 compares of a word")
+        check(emulated == 0, "pair_count SASS: emulated vector compares")
+    lib = _build.lib()
+    per_sm = lib.stpu_compare_rate_blocks_per_sm()
+    check(per_sm > 0, "compare_rate: does not fit an SM")
+    blocks = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    compares = blocks * 256 * COMPARE_ROUNDS * 64
+    rates = {}
+    for mode, name in ((0, "XOR / IADD / LOP3"), (1, "VIADDMNMX.U16x2")):
+        def launch():
+            _build.check(lib.stpu_compare_rate(
+                mode, blocks, COMPARE_ROUNDS, out.data_ptr(),
+                _build.stream_handle(out.device)), "compare_rate")
+        ms = cuda_ms(launch, reps=3)
+        rates[mode] = compares / ms * 1e3
+        print(f"phase2 compare microbenchmark, {name}: {blocks} blocks x 256 "
+              f"threads x {COMPARE_ROUNDS} rounds x 64 word compares in "
+              f"{ms:.4f} ms: {rates[mode] / 1e12:.3f} T compares/s, "
+              f"{rates[mode] / (SMS * CLOCK_HZ):.2f} a clock and SM at "
+              f"{CLOCK_HZ / 1e9:.2f} GHz")
+    print(f"phase2 compare microbenchmark: the DPX compare issues "
+          f"{rates[1] / rates[0]:.2f}x as fast as XOR / IADD / LOP3")
+    return rates[1]
+
+
+def phase2_signeq(results, lib_path: Path, dpx_rate: float):
     """signeq.cu in every mode against its twin at S in {1, 99, 100, 1000}
     with ragged tile edges and unaligned row ranges; then timed at the main
     path's shapes: 8 queries against 661,000 rows at S = 100 (count, any,
@@ -940,16 +1028,15 @@ def phase2_signeq(results, lib_path: Path):
         signeq_ref,
     )
 
-    for kernel, modes in (("signeq_kernel", {"ILi0E": "count", "ILi1E": "any",
-                                             "ILi2E": "all"}),
-                          ("pair_count_kernel", {"pair_count": "pair_count"})):
-        for mode, info in sorted(ptxas_report(lib_path, kernel, modes).items()):
-            print(f"phase2 signeq {mode} kernel: {info['registers']} "
-                  f"registers, {info['spill_store_bytes']} bytes spilled")
-            check(info["spill_store_bytes"] == 0, f"signeq {mode}: spills")
-    # the SASS of signeq.cu's kernels: the compare as XOR / IADD3 / LOP3
-    # (any) or with an SHF and an IADD3 (count), no emulated vector compare
-    for name, ops in sass_counts(lib_path, "signeq_cu").items():
+    modes = {"ILi0E": "count", "ILi1E": "any", "ILi2E": "all"}
+    for mode, info in sorted(ptxas_report(lib_path, "signeq_kernel",
+                                          modes).items()):
+        print(f"phase2 signeq {mode} kernel: {info['registers']} "
+              f"registers, {info['spill_store_bytes']} bytes spilled")
+        check(info["spill_store_bytes"] == 0, f"signeq {mode}: spills")
+    # the SASS of the query modes: the compare as XOR / IADD3 / LOP3 (any)
+    # or with an SHF and an IADD3 (count), no emulated vector compare
+    for name, ops in sass_counts(lib_path, "signeq_kernel").items():
         top = sorted(((v, k) for k, v in ops.items()
                       if not k.startswith("LUT")), reverse=True)[:8]
         print(f"phase2 SASS {name[-45:]}: "
@@ -959,7 +1046,7 @@ def phase2_signeq(results, lib_path: Path):
               f"VSETP/VABSDIFF (emulated vector compares): "
               f"{sum(v for k, v in ops.items() if k.startswith(('VSET', 'VABS')))}")
     rng = np.random.default_rng(SEED)
-    for s in (1, 99, 100, 1000):
+    for s in (1, 99, 100, 250, 1000):
         alphabet = 4 if s < 50 else 60
         m_np = rng.integers(0, alphabet, (700, s)).astype(np.uint16)
         q_np = rng.integers(0, alphabet, (65, s)).astype(np.uint16)
@@ -970,11 +1057,12 @@ def phase2_signeq(results, lib_path: Path):
                 check(torch.equal(signeq(q[:nq], m[:n], s, mode),
                                   signeq_ref(q[:nq], m[:n], s, mode)),
                       f"signeq {mode} S={s} ({nq}, {n}): kernel != twin")
-        for lo, hi in ((0, 700), (3, 700), (65, 129), (64, 64), (699, 700)):
+        for lo, hi in ((0, 700), (3, 700), (65, 129), (64, 64), (699, 700),
+                       (127, 385), (128, 256)):
             check(pair_count(m, s, lo, hi) == pair_count_ref(m, s, lo, hi),
                   f"pair_count S={s} [{lo}, {hi}): kernel != twin")
         print(f"phase2 signeq S={s}: count, any, all at 4 shapes and "
-              f"pair_count at 5 row ranges equal to the twin")
+              f"pair_count at 7 row ranges equal to the twin")
 
     sig = index_signs(N_INDEX, SEED + 6)
     m = pack_signs(sig, "cuda")
@@ -1006,10 +1094,14 @@ def phase2_signeq(results, lib_path: Path):
     bd = bound(pairs * words * 3, N_INDEX * words * 4 + 8)
     print(f"phase2 pair_count rows [0, {hi}) of {N_INDEX} S={INDEX_SIZE}: "
           f"{got} of {pairs} pairs share a sign ({100 * got / pairs:.3f}%), "
-          f"equal to twin; kernel {ms:.4f} ms, twin {plain:.2f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}): kernel at "
-          f"{100 * bd['bound_ms'] / ms:.1f}%; integer-issue floor "
-          f"{signeq_floor_ms(pairs * words, 3):.4f} ms; "
+          f"equal to twin; kernel {ms:.4f} ms "
+          f"({PREVIOUS_SIGNEQ['pair_count']}), twin {plain:.2f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, 3 operations a "
+          f"word): kernel at {100 * bd['bound_ms'] / ms:.1f}%; 3-operation "
+          f"integer-issue floor {signeq_floor_ms(pairs * words, 3):.4f} ms; "
+          f"DPX issue floor at the measured rate "
+          f"{pairs * words / dpx_rate * 1e3:.4f} ms (kernel at "
+          f"{100 * pairs * words / dpx_rate * 1e3 / ms:.1f}%); "
           f"{pairs / ms / 1e6:.2f} G pair/s")
     results["pair_count"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                  library_ms=None, **bd)
@@ -2602,8 +2694,9 @@ def main() -> int:
         phase2_coreacc_masked(words, results)
         del words
         phase2_nthash(results)
+        dpx_rate = phase2_compare(lib_path)
         phase2_nthash_signs(results)
-        phase2_signeq(results, lib_path)
+        phase2_signeq(results, lib_path, dpx_rate)
         phase2_aahash(results, lib_path)
         torch.cuda.empty_cache()
         print(f"phase2: {time.time() - t0:.1f} s")

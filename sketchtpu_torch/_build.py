@@ -56,7 +56,8 @@ _SIGNATURES = {
     "stpu_nthash_multi": (
         _P, _LL, _P, _I, _I, _I, _P, _I, _ULL, _I, _I, _I, _I, _I, _P, _P,
     ),
-    "stpu_nthash_signs": (_P, _LL, _P, _I, _I, _I, _I, _LL, _P, _P),
+    "stpu_nthash_signs": (_P, _LL, _P, _I, _I, _I, _I, _I, _LL, _P, _P),
+    "stpu_nthash_signs_blocks_per_sm": (_I,),
     "stpu_aahash_multi": (
         _P, _LL, _P, _I, _I, _P, _I, _ULL, _I, _I, _I, _I, _I, _P, _P, _P,
     ),
@@ -72,7 +73,9 @@ _SIGNATURES = {
     "stpu_knn_select_rows": (_I, _I, _I),
     "stpu_signeq": (_P, _LL, _I, _P, _LL, _I, _I, _I, _I, _P, _P),
     "stpu_pair_count": (_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P),
-    "stpu_pair_count_blocks_per_sm": (),
+    "stpu_pair_count_blocks_per_sm": (_I,),
+    "stpu_compare_rate": (_I, _I, _I, _P, _P),
+    "stpu_compare_rate_blocks_per_sm": (),
     "stpu_knn_select_blocks_per_sm": (_I, _I, _I, _I),
 }
 

@@ -41,10 +41,16 @@
 // - Minima: a plain L2 read of the slot skips the atomic for every sign that
 //   cannot lower it; with smin the block first reduces the signs of its
 //   first genome in a shared-memory table per k and flushes that.
-// - Signs mode: the launch holds one stream (or a chunk of one); out is
-//   (nk, n_out), one row per k over the first n_out window starts, and a
-//   thread writes its run's 64 consecutive words per k. Bound there: the
-//   8 bytes a window and k that the host must read back.
+// - Signs mode, a kernel of its own (nthash_signs_kernel) with the same
+//   rolling (rolling.cuh): the launch holds one stream (or a chunk of one);
+//   out is (nk, n_out), one row per k over the first n_out window starts.
+//   Bound: the 8 bytes a window and k that the host must read back. A
+//   thread owns a shorter run, SL = 16 starts (of 16, 32 and 64 the
+//   fastest on an H100, see PERF.md), so that the reads path's chunk of
+//   4.8 M starts launches 1171 blocks, several waves; it stages each 16
+//   signs of its run in shared memory, and the block writes them back
+//   with 16-byte streaming stores (st.global.cs), eight lanes to a whole
+//   128-byte line, where one lane a line took 64 strided 8-byte stores.
 #include <cuda_runtime.h>
 
 #include "rolling.cuh"
@@ -58,24 +64,15 @@ constexpr int KWORDS = 10;  // table words per k
 constexpr int LG = 6;       // log2 of the window starts per thread
 constexpr int L = 1 << LG;
 
-__device__ __forceinline__ u64 sror1(u64 x) {
-  const u64 t = (x ^ (x >> 33)) & 1ull;
-  const u64 y = x ^ (t | (t << 33));
-  return (y >> 1) | (y << 63);
-}
-
 // ktab: per k (ascending) KWORDS words: srol^k(SEED[0..3]),
 // srol^(k-1)(RC[0..3]), k, (k % 33) | (k % 31) << 32; then SEED[0..3],
 // RC[0..3]. out is (nk, n_genomes, nbins), filled with u64 max.
-// Signs mode (SIGNS): out is (nk, n_out) and starts, magic and the bins
-// are unused; n_genomes is 1.
-template <bool SIGNS>
 __global__ void __launch_bounds__(NT)
     nthash_multi_kernel(const unsigned char* __restrict__ seq, long long total,
                         const u64* __restrict__ ktab, int nk, int rc,
                         const long long* __restrict__ starts, int n_genomes,
                         u64 magic, int mshift, int nbins, int pitch, int smin,
-                        long long n_out, u64* __restrict__ out) {
+                        u64* __restrict__ out) {
   extern __shared__ __align__(8) unsigned char smem[];
   u64* stab = reinterpret_cast<u64*>(smem);
   const u64* seed = stab + nk * KWORDS;
@@ -111,27 +108,18 @@ __global__ void __launch_bounds__(NT)
 
   const int q0 = tid * L;  // the run's first window start, block-relative
   const long long s0 = base + q0;
-  const int g0 = SIGNS ? 0 : genome_of(s0);
-  const int gblock = !SIGNS && smin ? genome_of(base) : -1;
-  // signs mode: the window starts of this run that have an output slot
-  const int nout = SIGNS ? (int)max(0ll, min((long long)L, n_out - s0)) : 0;
-  if (SIGNS && nout == 0) return;  // no barrier follows in signs mode
+  const int g0 = genome_of(s0);
+  const int gblock = smin ? genome_of(base) : -1;
   u64 fh = 0, v = 0;  // Horner state of the window at q0, j bases long
   int j = 0, last = 0;  // last: the last flag among bases 1..j-1 (0: none)
   for (int ki = 0; ki < nk; ++ki) {
     const u64* t = stab + ki * KWORDS;
     const int k = (int)t[8];
-    u64* srow = out + (long long)ki * n_out + s0;  // signs mode
-    if (SIGNS && s0 + k > total) {  // no window of this run fits at this k
-      for (int w = 0; w < nout; ++w) srow[w] = ~0ull;
-      continue;
-    }
     if (s0 + k <= total) {
       for (; j < k; ++j) {
         const unsigned b = byte_at(q0 + j);
         if (j > 0 && (b & 4u)) last = j;
-        fh = srol1(fh) ^ seed[b & 3u];
-        v = sror1(v ^ rcs[b & 3u]);
+        nt_extend(fh, v, b, seed, rcs);
       }
       u64 f = fh;
       u64 r = srolk(v, (int)(t[9] & 0xFFFFFFFFull), (int)(t[9] >> 32));
@@ -140,28 +128,15 @@ __global__ void __launch_bounds__(NT)
       const long long left = total - k + 1 - s0;  // windows from s0 on
       const int nwin = left < L ? (int)left : L;
       u64* plane = out + (long long)ki * n_genomes * nbins;
-      if (SIGNS) {
-        for (int w = nwin; w < nout; ++w) srow[w] = ~0ull;
-      }
-      for (int w = 0; w < (SIGNS ? min(nwin, nout) : nwin); ++w) {
+      for (int w = 0; w < nwin; ++w) {
         if (w > 0) {
           const unsigned bo = byte_at(q0 + w - 1) & 3u;
           const unsigned bi = byte_at(q0 + w + k - 1);
           if (bi & 4u) lf = w + k - 1;
-          f = srol1(f) ^ t[bo] ^ seed[bi & 3u];
-          r = sror1(r ^ rcs[bo]) ^ t[4 + (bi & 3u)];
+          nt_roll(f, r, bo, bi, t, seed, rcs);
         }
-        if (lf > w) {  // a flag inside the window
-          if (SIGNS) srow[w] = ~0ull;
-          continue;
-        }
-        const u64 h = (rc && r < f) ? r : f;
-        u64 x = (h & M61) + (h >> 61);
-        if (x >= M61) x -= M61;
-        if (SIGNS) {
-          srow[w] = x;
-          continue;
-        }
+        if (lf > w) continue;  // a flag inside the window
+        const u64 x = nt_sign(f, r, rc);
         const u64 bin = magic_div(x, magic, mshift);
         const long long s = s0 + w;
         while (s >= next && g + 1 < n_genomes) {
@@ -175,7 +150,7 @@ __global__ void __launch_bounds__(NT)
         }
       }
     }
-    if (!SIGNS && smin) {  // flush this k's table and reset it for the next
+    if (smin) {  // flush this k's table and reset it for the next
       __syncthreads();
       u64* row = out + ((long long)ki * n_genomes + gblock) * nbins;
       for (int e = tid; e < nbins; e += NT) {
@@ -183,6 +158,109 @@ __global__ void __launch_bounds__(NT)
         if (m != ~0ull) {
           global_min(row + e, m);
           stbl[e] = ~0ull;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Signs mode: its own kernel. A thread owns a run of SL window starts
+// (shorter runs than the bin mode's, so that a reads chunk launches a few
+// waves of blocks), computes ROUND signs of it at a time into shared
+// memory, and the block writes each round back as whole 128-byte lines.
+constexpr int SLG = 4;  // log2 of the window starts a run
+constexpr int SL = 1 << SLG;
+constexpr int ROUND = 16;  // a run's signs staged at a time: 128 bytes
+static_assert(SL % ROUND == 0, "a run is whole rounds");
+
+// out (nk, n_out): row ki holds k's signs of window starts [0, n_out).
+// Shared memory: the table, NT x ROUND staged signs (thread t's sign w at
+// t * ROUND + (w ^ t % ROUND): a round's stores and its 16-byte write-back
+// both fill whole bank rows), then the span transposed as in the bin mode
+// with SL rows of `pitch` bytes.
+__global__ void __launch_bounds__(NT)
+    nthash_signs_kernel(const unsigned char* __restrict__ seq, long long total,
+                        const u64* __restrict__ ktab, int nk, int rc,
+                        int pitch, long long n_out, u64* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* stab = reinterpret_cast<u64*>(smem);
+  const u64* seed = stab + nk * KWORDS;
+  const u64* rcs = seed + 4;
+  u64* sout = stab + nk * KWORDS + 8;
+  unsigned char* sseq = reinterpret_cast<unsigned char*>(sout + NT * ROUND);
+  const int tid = threadIdx.x;
+  for (int e = tid; e < nk * KWORDS + 8; e += NT) stab[e] = ktab[e];
+  __syncthreads();
+  const int kmax = (int)stab[(nk - 1) * KWORDS + 8];
+  const long long base = (long long)blockIdx.x * NT * SL;
+  const int span = NT * SL + kmax - 1;
+  for (int e = tid; e < span; e += NT) {
+    const long long p = base + e;
+    sseq[(e & (SL - 1)) * pitch + (e >> SLG)] = p < total ? seq[p] : 0;
+  }
+  __syncthreads();
+  auto byte_at = [&](int q) -> unsigned {
+    return sseq[(q & (SL - 1)) * pitch + (q >> SLG)];
+  };
+
+  const int q0 = tid * SL;  // the run's first window start, block-relative
+  const long long s0 = base + q0;
+  const long long nout = max(0ll, min((long long)SL, n_out - s0));
+  u64 fh = 0, v = 0;  // Horner state of the window at q0, j bases long
+  int j = 0, last = 0;  // last: the last flag among bases 1..j-1 (0: none)
+  for (int ki = 0; ki < nk; ++ki) {
+    const u64* t = stab + ki * KWORDS;
+    const int k = (int)t[8];
+    // the run's windows that have a slot and end inside the stream
+    const int nwin = (int)max(0ll, min(nout, total - k + 1 - s0));
+    u64 f = 0, r = 0;
+    int lf = 0;
+    if (nwin > 0) {
+      for (; j < k; ++j) {
+        const unsigned b = byte_at(q0 + j);
+        if (j > 0 && (b & 4u)) last = j;
+        nt_extend(fh, v, b, seed, rcs);
+      }
+      f = fh;
+      r = srolk(v, (int)(t[9] & 0xFFFFFFFFull), (int)(t[9] >> 32));
+      lf = last;
+    }
+    u64* row = out + (long long)ki * n_out;
+    const bool vec = (reinterpret_cast<unsigned long long>(row) & 15ull) == 0;
+    for (int rd = 0; rd < SL / ROUND; ++rd) {
+#pragma unroll
+      for (int ww = 0; ww < ROUND; ++ww) {
+        const int w = rd * ROUND + ww;
+        u64 x = ~0ull;  // no window, or a flag inside it
+        if (w < nwin) {
+          if (w > 0) {
+            const unsigned bo = byte_at(q0 + w - 1) & 3u;
+            const unsigned bi = byte_at(q0 + w + k - 1);
+            if (bi & 4u) lf = w + k - 1;
+            nt_roll(f, r, bo, bi, t, seed, rcs);
+          }
+          if (lf <= w) x = nt_sign(f, r, rc);
+        }
+        sout[tid * ROUND + (ww ^ (tid & (ROUND - 1)))] = x;
+      }
+      __syncthreads();
+      // the round's signs, two a lane: eight lanes write one run's 128
+      // bytes, streamed past L1 (the host reads them once)
+      for (int p = tid; p < NT * ROUND / 2; p += NT) {
+        const int g = p / (ROUND / 2), h = p % (ROUND / 2);
+        const long long s = base + (long long)g * SL + rd * ROUND + 2 * h;
+        if (s >= n_out) continue;
+        const u64* seg = sout + g * ROUND;
+        const int sw = g & (ROUND - 1);
+        const u64 v0 = seg[(2 * h) ^ sw], v1 = seg[(2 * h + 1) ^ sw];
+        if (vec && s + 1 < n_out) {
+          __stcs(reinterpret_cast<uint4*>(row + s),
+                 make_uint4((unsigned)v0, (unsigned)(v0 >> 32),
+                            (unsigned)v1, (unsigned)(v1 >> 32)));
+        } else {
+          __stcs(row + s, v0);
+          if (s + 1 < n_out) __stcs(row + s + 1, v1);
         }
       }
       __syncthreads();
@@ -214,12 +292,12 @@ extern "C" int stpu_nthash_multi(const void* seq, long long total,
   }
   const long long per_block = (long long)NT * L;
   const long long blocks = (windows + per_block - 1) / per_block;
-  nthash_multi_kernel<false><<<(unsigned)blocks, NT, smem_bytes,
-                               static_cast<cudaStream_t>(stream)>>>(
+  nthash_multi_kernel<<<(unsigned)blocks, NT, smem_bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(seq), total,
       static_cast<const u64*>(ktab), nk, rc,
       static_cast<const long long*>(starts), n_genomes, magic, mshift, nbins,
-      pitch, smin, 0, static_cast<u64*>(out));
+      pitch, smin, static_cast<u64*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -227,23 +305,40 @@ extern "C" int stpu_nthash_multi(const void* seq, long long total,
 // window start s < n_out, the sign of the window [s, s + k) of seq, or u64
 // max where that window crosses a break flag or runs past total. The
 // caller owns starts [0, n_out) and passes at least the max k - 1 bases
-// past them where the stream has them. smem_bytes: nk * 80 + 64 table
-// bytes, then the span as in the bin mode.
+// past them where the stream has them. run_lg must be the kernel's SLG
+// (a launch of another run length is refused); smem_bytes: nk * 80 + 64 table bytes,
+// 256 * 16 * 8 staged signs, then the span, 2^run_lg * pitch bytes with
+// pitch >= 256 + ((max k - 2) >> run_lg) + 1.
 extern "C" int stpu_nthash_signs(const void* seq, long long total,
-                                 const void* ktab, int nk, int rc, int pitch,
-                                 int smem_bytes, long long n_out, void* out,
-                                 void* stream) {
-  if (n_out < 1 || total < 1 || nk < 1 || smem_bytes > 48 * 1024) {
+                                 const void* ktab, int nk, int rc,
+                                 int run_lg, int pitch, int smem_bytes,
+                                 long long n_out, void* out, void* stream) {
+  if (n_out < 1 || total < 1 || nk < 1 || run_lg != SLG ||
+      smem_bytes > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long per_block = (long long)NT * L;
+  cudaFuncSetAttribute(nthash_signs_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes);
+  const long long per_block = (long long)NT * SL;
   const long long blocks = (n_out + per_block - 1) / per_block;
-  nthash_multi_kernel<true><<<(unsigned)blocks, NT, smem_bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+  nthash_signs_kernel<<<(unsigned)blocks, NT, smem_bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(seq), total,
-      static_cast<const u64*>(ktab), nk, rc, nullptr, 1, 0, 0, 1, pitch, 0,
-      n_out, static_cast<u64*>(out));
+      static_cast<const u64*>(ktab), nk, rc, pitch, n_out,
+      static_cast<u64*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident signs-mode blocks per SM at smem_bytes, or -1.
+extern "C" int stpu_nthash_signs_blocks_per_sm(int smem_bytes) {
+  int b = 0;
+  cudaFuncSetAttribute(nthash_signs_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &b, nthash_signs_kernel, NT, smem_bytes);
+  return err == cudaSuccess ? b : -1;
 }
 
 // out[i] = floor(x[i] / d) by the kernel's magic division, for its tests.

@@ -38,6 +38,9 @@ MAX_NK_CUDA = 128
 _NT = 256  # threads per block of nthash_bin.cu
 _KWORDS = 10  # table words per k
 _RUN_LG = 6  # log2 of the window starts per thread
+_SIGNS_RUN_LG = 4  # the same in the signs kernel (nthash_signs_kernel)
+_SIGNS_ROUND = 16  # signs of a run staged at a time, per thread
+_SMEM_MAX = 227 * 1024  # a block's shared memory past the 48 KB opt-in
 _SMEM_LIMIT = 48 * 1024
 _I64_MAX = (1 << 63) - 1
 _SIGN_FLIP = -(1 << 63)  # xor with it turns unsigned order into signed order
@@ -189,18 +192,30 @@ def _k_table(kmers: tuple[int, ...]) -> np.ndarray:
     return np.array(words, dtype=np.uint64).view(np.int64)
 
 
-def _span_pitch(kmax: int) -> int:
-    """Row pitch of the kernel's transposed span of bases: at least the
-    256 runs + the columns the largest window reaches past them, in whole
-    words, an odd number of them (consecutive rows fall in distinct
-    banks)."""
-    words = (_NT + ((kmax - 2) >> _RUN_LG) + 1 + 3) // 4
+def _span_pitch(kmax: int, lg: int = _RUN_LG) -> int:
+    """Row pitch of the kernel's transposed span of bases (runs of 2^lg
+    starts): at least the 256 runs + the columns the largest window
+    reaches past them, in whole words, an odd number of them (consecutive
+    rows fall in distinct banks)."""
+    words = (_NT + ((kmax - 2) >> lg) + 1 + 3) // 4
     return 4 * (words | 1)
 
 
 def _smem_bytes(nk: int, kmax: int, nbins: int, smin: bool) -> int:
     return ((nk * _KWORDS + 8) * 8 + (nbins * 8 if smin else 0)
             + (_span_pitch(kmax) << _RUN_LG))
+
+
+def _signs_smem_bytes(nk: int, kmax: int) -> int:
+    """The signs kernel's shared memory: the table, 256 x 16 staged signs
+    and the span in runs of 2^_SIGNS_RUN_LG."""
+    return ((nk * _KWORDS + 8) * 8 + _NT * _SIGNS_ROUND * 8
+            + (_span_pitch(kmax, _SIGNS_RUN_LG) << _SIGNS_RUN_LG))
+
+
+def signs_blocks(n_out: int) -> int:
+    """Blocks of one signs launch over n_out window starts."""
+    return -(-n_out // (_NT << _SIGNS_RUN_LG))
 
 
 def _check_batch(seq: torch.Tensor, starts: torch.Tensor, nbins: int):
@@ -331,8 +346,9 @@ def _launch_nthash_signs(seq, ks, rc, n_out, out):
     ktab = torch.from_numpy(_k_table(tuple(ks))).to(seq.device)
     err = _build.lib().stpu_nthash_signs(
         seq.data_ptr(), seq.numel(), ktab.data_ptr(), len(ks), int(rc),
-        _span_pitch(ks[-1]), _smem_bytes(len(ks), ks[-1], 0, False), n_out,
-        out.data_ptr(), _build.stream_handle(seq.device))
+        _SIGNS_RUN_LG, _span_pitch(ks[-1], _SIGNS_RUN_LG),
+        _signs_smem_bytes(len(ks), ks[-1]), n_out, out.data_ptr(),
+        _build.stream_handle(seq.device))
     _build.check(err, "nthash_signs")
 
 

@@ -29,7 +29,8 @@ from ..dist.sign_words import (
     signeq_ref,
 )
 
-_TILE = 64  # rows and columns of a signeq.cu tile
+_TILE = 64  # rows and columns of a signeq.cu count / any / all tile
+_PAIR_TILE = 128  # rows and columns of a pair_count tile
 _MODES = {"count": 0, "any": 1, "all": 2}
 _OUT_ELEMS = 1 << 26  # entries of one (queries, n) result on the card
 
@@ -117,14 +118,15 @@ def pair_count(m: torch.Tensor, nsigns: int, lo: int = 0,
         raise ValueError(f"unsupported device {m.device}")
     if hi <= lo:
         return 0
-    row_tiles = -(-(hi - lo) // _TILE)
+    row_tiles = -(-(hi - lo) // _PAIR_TILE)
     if splits is None:
-        per_sm = _build.lib().stpu_pair_count_blocks_per_sm()
+        per_sm = _build.lib().stpu_pair_count_blocks_per_sm(m.shape[1])
         if per_sm < 1:
             raise RuntimeError("pair_count: the kernel does not fit an SM")
         slots = per_sm * torch.cuda.get_device_properties(
             m.device).multi_processor_count
-        splits = default_pair_splits(row_tiles, -(-(n - lo) // _TILE), slots)
+        splits = default_pair_splits(row_tiles,
+                                     -(-(n - lo) // _PAIR_TILE), slots)
     total = torch.zeros(1, dtype=torch.int64, device=m.device)
     err = _build.lib().stpu_pair_count(
         m.data_ptr(), m.stride(0), n, m.shape[1], nsigns, lo, hi, int(splits),

@@ -570,6 +570,16 @@ def test_nthash_signs_kernel_multi_k_and_n_out(cuda, n_out):
     _signs_case(cuda, seq, [31, 17, 21, 129], True, n_out)
 
 
+@pytest.mark.parametrize("n_out", [17, 4095, 4097, 20_001, 33_001])
+@pytest.mark.parametrize("kmers", [[17], list(range(131, 2, -1))])
+def test_nthash_signs_kernel_ragged_runs(cuda, n_out, kmers):
+    """n_out not a multiple of a thread's run or of a block's starts, odd
+    (every other k row is not 16-byte aligned) and past the last window;
+    one k and 129 k (two launches)."""
+    seq = pack_group([_reads_stream(33_000, 8)])[0]
+    _signs_case(cuda, seq, kmers, True, n_out)
+
+
 def test_nthash_signs_kernel_on_chunks_of_a_stream(cuda):
     """Chunks as the backend cuts them (views into one upload, k - 1 bases
     of overlap) concatenate to the whole stream's signs."""
@@ -669,6 +679,42 @@ def test_pair_count_kernel_matches_twin(cuda, s, lo, hi):
     m = pack_signs(_sign_rows(700, s, 3 if s < 50 else 500, s), cuda)
     want = pair_count_ref(m, s, lo, hi)
     for splits in (None, 1, 2, 7, 1000):
+        assert pair_count(m, s, lo, hi, splits=splits) == want
+
+
+def _adversarial_signs(n, s, seed):
+    """Signs from {0, 1, 0x7FFF, 0x8000, 0xFFFF} and a wide alphabet: rows
+    equal only in their last real sign, rows that would match only in an
+    odd S's pad half, all-0 and all-0xFFFF rows."""
+    rng = np.random.default_rng(seed)
+    edge = np.array([0, 1, 0x7FFF, 0x8000, 0xFFFF], np.uint16)
+    m = rng.integers(0, 1 << 16, (n, s)).astype(np.uint16)
+    pick = rng.random((n, s)) < 0.05
+    m[pick] = edge[rng.integers(0, 5, int(pick.sum()))]
+    m[0], m[1] = 0, 0xFFFF
+    m[2] = (m[3].astype(np.int64) + 1).astype(np.uint16)
+    m[2, -1] = m[3, -1]  # equal only in the last real sign
+    m[4] = (m[5].astype(np.int64) + 7).astype(np.uint16)  # equal nowhere
+    return m
+
+
+@pytest.mark.parametrize("s", [1, 2, 67, 99, 100, 130, 250, 1000])
+@pytest.mark.parametrize("lo,hi", [(0, 900), (127, 129), (128, 384),
+                                   (1, 899), (255, 641), (896, 900)])
+def test_pair_count_kernel_tile_and_chunk_edges(cuda, s, lo, hi):
+    """Row ranges across the 128-row tile, word counts that the 32-word
+    chunk does not divide (S = 67: 2 x 17; 130: 22 + 22 + 21; 250: past
+    the resident row tile, 3 x 32 + 29), the values 0, 1, 0x7FFF, 0x8000
+    and 0xFFFF, and odd S whose only equal half would be the pad."""
+    from sketchtpu_torch.inverted.device import (
+        pack_signs,
+        pair_count,
+        pair_count_ref,
+    )
+
+    m = pack_signs(_adversarial_signs(900, s, s), cuda)
+    want = pair_count_ref(m, s, lo, hi)
+    for splits in (None, 1, 3, 1000):
         assert pair_count(m, s, lo, hi, splits=splits) == want
 
 

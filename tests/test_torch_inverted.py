@@ -252,18 +252,147 @@ def test_pair_count_twin_accumulates_in_int64(monkeypatch):
 
 
 def test_pair_count_kernel_sums_in_64_bits():
-    """The kernel's total is a u64 atomic; its per-thread tally (16 pairs a
-    tile, at most 2^31 / 64 column tiles) fits 32 bits."""
+    """The kernel's total is a u64 atomic; its per-thread tally (8 x 8
+    pairs a 128-column tile, at most 2^31 / 128 column tiles) fits 32
+    bits."""
     src = (REPO / "sketchtpu_torch" / "csrc" / "signeq.cu").read_text()
     assert "unsigned long long* __restrict__ total" in src
     assert "atomicAdd(total, block)" in src
-    assert 16 * ((1 << 31) // 64) < 1 << 32
+    assert "unsigned acc[8][8];" in src and "unsigned tally = 0u;" in src
+    pt = _signeq_constants()["PT"]
+    assert 64 * ((1 << 31) // pt) < 1 << 32
 
 
 def test_pair_count_splits():
     assert device.default_pair_splits(10_329, 10_329, 1056) == 1
     assert device.default_pair_splits(2, 10_000, 1056) == 1056
     assert device.default_pair_splits(3, 5, 1056) == 5
+    # the 128-row tile at 661,000 samples, two blocks an SM on 132 SMs:
+    # the whole count needs no split, phase 2's strip of 8192 rows nine
+    tiles = -(-661_000 // device._PAIR_TILE)
+    assert device.default_pair_splits(tiles, tiles, 264) == 1
+    assert device.default_pair_splits(8192 // device._PAIR_TILE, tiles,
+                                      264) == 9
+
+
+# --- pair_count's DPX compare, modelled in NumPy -----------------------------
+
+def _neg_halves(x):
+    """csrc/signeq.cu neg_halves on u32 words."""
+    x = x.astype(np.uint32)
+    return (((np.uint32(0) - x) & np.uint32(0xFFFF))
+            | ((np.uint32(0) - (x & np.uint32(0xFFFF0000)))
+               & np.uint32(0xFFFF0000)))
+
+
+def _dpx_any(rows, cols, s, pad_rule=True):
+    """(na, nb) bool, exactly as pair_count computes it on packed words:
+    the row word negated per half (its odd-S pad half staged as 1), the
+    column word as stored, then per word acc = min_u16x2(na + b, acc)
+    (wrapping u16 adds, per-half unsigned minimum, acc from 0xFFFFFFFF),
+    and a pair shares a sign where either half of acc is 0."""
+    a = pack_signs(rows, "cpu").numpy().view(np.uint32)
+    b = pack_signs(cols, "cpu").numpy().view(np.uint32)
+    na = _neg_halves(a)
+    if s % 2 and pad_rule:
+        na[:, -1] = (na[:, -1] & np.uint32(0xFFFF)) | np.uint32(0x10000)
+    acc_lo = np.full((a.shape[0], b.shape[0]), 0xFFFF, np.uint32)
+    acc_hi = acc_lo.copy()
+    for w in range(a.shape[1]):
+        lo = ((na[:, None, w] & 0xFFFF) + (b[None, :, w] & 0xFFFF)) & 0xFFFF
+        hi = ((na[:, None, w] >> 16) + (b[None, :, w] >> 16)) & 0xFFFF
+        acc_lo, acc_hi = np.minimum(lo, acc_lo), np.minimum(hi, acc_hi)
+    acc = acc_lo | (acc_hi << np.uint32(16))
+    return ((acc & 0xFFFF) == 0) | (acc < 0x10000)
+
+
+def _adversarial_signs(n, s, seed):
+    """Signs from {0, 1, 0x7FFF, 0x8000, 0xFFFF} and a wide alphabet: rows
+    equal only in their last real sign, rows equal nowhere (with an odd S,
+    their pad halves are both 0), all-0 and all-0xFFFF rows."""
+    rng = np.random.default_rng(seed)
+    edge = np.array([0, 1, 0x7FFF, 0x8000, 0xFFFF], np.uint16)
+    m = rng.integers(0, 1 << 16, (n, s)).astype(np.uint16)
+    pick = rng.random((n, s)) < 0.05
+    m[pick] = edge[rng.integers(0, 5, int(pick.sum()))]
+    m[0], m[1] = 0, 0xFFFF
+    m[2] = (m[3].astype(np.int64) + 1).astype(np.uint16)
+    m[2, -1] = m[3, -1]  # equal only in the last real sign
+    m[4] = (m[5].astype(np.int64) + 7).astype(np.uint16)  # equal nowhere
+    m[6] = 0x8000 - m[7].astype(np.int64)  # a + b = 0x8000, never equal
+    return m
+
+
+@pytest.mark.parametrize("s", [1, 2, 99, 100, 1000])
+def test_dpx_compare_model_matches_any_mask_and_count_strip(s):
+    """The NumPy model of pair_count's compare against any_mask_ref, the
+    host oracle's any-equal and the JAX package's _match_count_strip /
+    _match_count_schedule, with adversarial signs."""
+    n, tc = 150, 64
+    m = _adversarial_signs(n, s, s)
+    got = _dpx_any(m, m, s)
+    packed = pack_signs(m, "cpu")
+    assert np.array_equal(got, device.any_mask_ref(packed, packed, s).numpy())
+    assert np.array_equal(got, (m[:, None, :] == m[None, :, :]).any(2))
+    assert not got[4, 5] and not got[6, 7] and got[0, 0] and not got[0, 1]
+    if s > 1:
+        assert got[2, 3] and (m[2, :-1] != m[3, :-1]).all()
+    if s % 2:  # the pad rule: without it the pad halves (0 + 0) "match"
+        assert _dpx_any(m[4:5], m[5:6], s, pad_rule=False)[0, 0]
+    pairs = np.triu(got, 1)
+    lo, hi = 5, 131
+    want = int(pairs[lo:hi].sum())
+    strips = 0
+    padded = _pad(m, tc)
+    for i0 in range(lo, hi, tc):
+        na = min(tc, hi - i0)
+        a = np.zeros((tc, s), np.int32)
+        a[:na] = m[i0 : i0 + na]
+        strips += int(np.asarray(jax_device._match_count_strip(
+            jnp.asarray(a), jnp.asarray(padded), np.int32(i0), np.int32(na),
+            np.int32(n), tc=tc)).sum())
+    assert strips == want
+    subs = np.asarray(jax_device._match_count_schedule(
+        jnp.asarray(_pad(m, tc, extra=tc)), np.int32(0), np.int32(n),
+        np.int32(n), tc=tc, nstrips=-(-n // tc))).astype(np.int64)
+    assert int((subs[:, 1].sum() << 16) + subs[:, 0].sum()) == int(pairs.sum())
+    assert pair_count(packed, s, lo, hi) == want
+
+
+def _signeq_constants():
+    """pair_count's launch constants, read from csrc/signeq.cu."""
+    import re
+
+    src = (REPO / "sketchtpu_torch" / "csrc" / "signeq.cu").read_text()
+    found = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+             for k in ("PT", "PTH", "PCW", "PSTAGES", "PRES")}
+    found["PLD_PAD"] = int(re.search(r"constexpr int PLD = PT \+ (\d+);",
+                                     src).group(1))
+    return found
+
+
+@pytest.mark.parametrize("s,chunks", [(1, (1, 1)), (99, (25, 2)),
+                                      (100, (25, 2)), (130, (22, 3)),
+                                      (192, (32, 3)), (1000, (32, 16))])
+def test_pair_count_launch_arithmetic(s, chunks):
+    """The word chunks are balanced (S = 100: two of 25, no short tail),
+    the resident row tile and the ring fit two blocks an SM (227 KB of
+    shared memory), and the tile is 128 x 128 pairs of 8 x 8 a thread."""
+    c = _signeq_constants()
+    assert c["PT"] == device._PAIR_TILE == 8 * c["PTH"]
+    words = (s + 1) // 2
+    nc = -(-words // c["PCW"])
+    cw = -(-words // nc)
+    assert (cw, nc) == chunks
+    assert words - (nc - 1) * cw > cw // 2  # the last chunk is no tail
+    pitch = (c["PT"] + c["PLD_PAD"]) * 4
+    resident = words <= c["PRES"]
+    smem = ((words if resident else 0)
+            + c["PSTAGES"] * (1 if resident else 2) * cw) * pitch
+    assert 2 * (smem + 1024) <= 228 * 1024
+    assert (s <= 192) == resident
+
+
 
 
 def test_device_inverted_engine_on_cpu_matches_host():

@@ -336,6 +336,40 @@ def test_magic_division_is_exact_on_its_boundaries(nbins):
     assert magic_div(t, d).tolist() == [x // d for x in xs]
 
 
+def test_signs_kernel_layout_and_launch():
+    """The signs kernel's run (SL = 16 starts a thread, its own kernel) as
+    the wrapper and the source both state it, its span pitch covering
+    every byte a block reads, its shared memory within a block's opt-in
+    227 KB at 128 k of 16384, and the reads path's chunk at 7 k as the
+    blocks of at least two waves at the residency its threads, shared
+    memory and registers allow."""
+    from sketchtpu_torch.hash import nthash_torch as nt
+    from sketchtpu_torch.sketchcore.sketch_torch import _READ_CHUNK_SIGNS
+
+    src = (Path(nt.__file__).parents[1] / "csrc" / "nthash_bin.cu").read_text()
+    lg = nt._SIGNS_RUN_LG
+    assert f"constexpr int SLG = {lg};" in src
+    assert f"constexpr int ROUND = {nt._SIGNS_ROUND};" in src
+    assert "__global__ void __launch_bounds__(NT)\n    nthash_signs_kernel(" in src
+    assert "template <bool SIGNS>" not in src  # the bin mode has no signs branch
+    for kmax in (1, 2, 3, 31, 64, 513, nt.MAX_K_CUDA):
+        pitch = _span_pitch(kmax, lg)
+        span = (256 << lg) + kmax - 1
+        assert pitch >= ((span - 1) >> lg) + 1
+        assert pitch % 4 == 0 and (pitch // 4) % 2 == 1
+    assert nt._signs_smem_bytes(nt.MAX_NK_CUDA, nt.MAX_K_CUDA) <= nt._SMEM_MAX
+    own = _READ_CHUNK_SIGNS // 7
+    assert own == 4_793_490 and nt.signs_blocks(own) == 1171
+    assert nt.signs_blocks(1) == 1 and nt.signs_blocks(4096) == 1
+    assert nt.signs_blocks(4097) == 2
+    # resident blocks an SM: by threads 8, by shared memory 6, by the 78
+    # registers a thread that ptxas gives the kernel for sm_90a 3
+    smem = nt._signs_smem_bytes(7, 29)
+    per_sm = min(2048 // 256, (228 * 1024) // (smem + 1024),
+                 65536 // (256 * 80))
+    assert per_sm == 3 and nt.signs_blocks(own) >= 2 * 132 * per_sm
+
+
 def test_kernel_shared_memory_layout_fits():
     """The launch's span pitch covers every byte a block reads, in whole
     words, an odd number of them; the limits fit 48 KB."""
