@@ -874,53 +874,88 @@ def aa_streams(n: int, length: int, seed: int, record: int = 300,
     return out
 
 
+# the parent design's aaHash time (PERF.md's kernel table, an H100 80GB
+# HBM3 at 700 W): k as the outer loop, runs of 64 starts, 1.11 waves, a
+# shared-memory compare-and-swap minimum per window
+PREVIOUS_AAHASH = "previous design 0.3854 ms"
+
+
 def phase2_aahash(results, lib_path: Path):
     """aahash_bin_multi against its twin at 16 x 1,200,000 residues x
-    k = 6, 9, 12, levels 1 and 3: bins and reachability flags bit for bit;
-    timed at level 1."""
+    k = 6, 9, 12, levels 1 and 3 at 1024 bins (the shift mode) and level 1
+    at 1000 bins (the multiply-high mode): bins and reachability flags bit
+    for bit; its registers, blocks an SM, waves and SASS; timed at level
+    1, 1024 bins."""
     import torch
 
+    from sketchtpu_torch import _build
+    from sketchtpu_torch.hash import aahash_torch
     from sketchtpu_torch.hash.aahash_torch import (
         aahash_bin_multi,
         aahash_bin_multi_ref,
         pack_aa_group,
     )
 
-    info = ptxas_report(lib_path, "aahash_multi_kernel",
-                        {"aahash_multi_kernel": "plain"})["plain"]
-    print(f"phase2 aahash_bin_multi kernel: {info['registers']} registers, "
-          f"{info['spill_store_bytes']} bytes spilled")
-    check(info["spill_store_bytes"] == 0, "aahash_bin_multi spills")
+    for mode, info in sorted(ptxas_report(
+            lib_path, "aahash_multi_kernel",
+            {"ILb0E": "multiply-high", "ILb1E": "shift"}).items()):
+        print(f"phase2 aahash_bin_multi {mode} kernel: {info['registers']} "
+              f"registers, {info['spill_store_bytes']} bytes spilled")
+        check(info["spill_store_bytes"] == 0, f"aahash_bin_multi {mode}: "
+              f"spills")
+    for name, ops in sass_counts(lib_path, "aahash_multi_kernel").items():
+        top = sorted(((v, k) for k, v in ops.items()
+                      if not k.startswith("LUT")), reverse=True)[:10]
+        cas = sum(v for k, v in ops.items() if k.startswith("ATOMS"))
+        red = sum(v for k, v in ops.items() if k.startswith("RED"))
+        print(f"phase2 SASS {name[-40:]}: "
+              f"{sum(v for k, v in ops.items() if not k.startswith('LUT'))} "
+              f"instructions, {red} REDG (device-memory min), {cas} ATOMS "
+              f"(shared-memory atomics); top "
+              f"{', '.join(f'{k} x{v}' for v, k in top)}")
+        check(cas == 0 and red > 0, "aahash_bin_multi SASS: a shared-memory "
+              "atomic, or no device-memory min")
     codes, starts = pack_aa_group(aa_streams(AA_SAMPLES, AA_RESIDUES, SEED))
     codes_d = torch.from_numpy(codes).cuda()
     starts_d = torch.from_numpy(starts).cuda()
     nbins = S64 * 64
-    for level in (1, 3):
+    nk, kmax = len(AA_KMERS), max(AA_KMERS)
+    smin = min(aahash_torch._KG, nk) * nbins * 4 <= aahash_torch._SMIN_BYTES
+    slots = aahash_torch._slots(nk, kmax, nbins, smin, True, codes_d.device)
+    windows = codes.size - min(AA_KMERS) + 1
+    run, tiles = aahash_torch.run_shape(windows, slots, kmax, nk)
+    blocks = -(-windows // (tiles * 256 * run))
+    print(f"phase2 aahash_bin_multi launch at {AA_SAMPLES} x {AA_RESIDUES} "
+          f"aa, {nbins} bins: {slots // SMS} blocks an SM, runs of {run} "
+          f"starts, {tiles} tiles a block, {blocks} blocks: "
+          f"{blocks / slots:.2f} waves")
+    for level, bins in ((1, nbins), (3, nbins), (1, 1000)):
         # the twin's second run is timed: its first builds the tap tables
         ref = (lambda: aahash_bin_multi_ref(codes_d, AA_KMERS, level,
-                                            starts_d, nbins))
+                                            starts_d, bins))
         want, want_reach = ref()
         _, plain = timed_once(ref)
         got, reach = aahash_bin_multi(codes_d, AA_KMERS, level, starts_d,
-                                      nbins)
+                                      bins)
         check(torch.equal(got, want) and torch.equal(reach, want_reach),
-              f"aahash_bin_multi level {level}: kernel != twin")
+              f"aahash_bin_multi level {level}, {bins} bins: kernel != twin")
         check(bool(reach.all()) and not (got == -1).all(dim=2).any(),
               f"aahash_bin_multi level {level}: an empty or unreachable row")
         del want
         ms = cuda_ms(lambda: aahash_bin_multi(codes_d, AA_KMERS, level,
-                                              starts_d, nbins), reps=10)
-        windows = codes.size * len(AA_KMERS)
-        bd = bound(windows * AA_ROLL_OPS,
-                   codes.size + len(AA_KMERS) * AA_SAMPLES * (nbins * 8 + 4))
-        print(f"phase2 aahash_bin_multi level {level}, {AA_SAMPLES} x "
-              f"{AA_RESIDUES} aa, k {AA_KMERS} in one launch: bins and "
-              f"flags bit-equal to twin; kernel {ms:.4f} ms, twin "
-              f"{plain:.2f} ms, bound {bd['bound_ms']:.4f} ms "
+                                              starts_d, bins), reps=10)
+        work = codes.size * nk
+        bd = bound(work * AA_ROLL_OPS,
+                   codes.size + nk * AA_SAMPLES * (bins * 8 + 4))
+        print(f"phase2 aahash_bin_multi level {level}, {bins} bins, "
+              f"{AA_SAMPLES} x {AA_RESIDUES} aa, k {AA_KMERS} in one launch: "
+              f"bins and flags bit-equal to twin; kernel {ms:.4f} ms"
+              f"{' (' + PREVIOUS_AAHASH + ')' if bins == nbins else ''}, "
+              f"twin {plain:.2f} ms, bound {bd['bound_ms']:.4f} ms "
               f"({bd['bound_by']}): kernel at "
               f"{100 * bd['bound_ms'] / ms:.1f}%; "
-              f"{windows / ms / 1e6:.3f} G aa-k/s")
-        if level == 1:
+              f"{work / ms / 1e6:.3f} G aa-k/s")
+        if level == 1 and bins == nbins:
             results["aahash_bin_multi"] = dict(max_abs_err=0.0, ms=ms,
                                                plain_ms=plain,
                                                library_ms=None, **bd)
@@ -945,9 +980,18 @@ def signeq_floor_ms(pair_words: float, ops: int) -> float:
 # table, an H100 80GB HBM3 at 700 W): a 64 x 64 tile of 4 x 4 pairs a
 # thread with the XOR / IADD / LOP3 compare, both operands staged per
 # column tile; and runs of 64 starts a thread written one 8-byte word a
-# lane at a 512-byte stride
+# lane at a 512-byte stride. And the count / any / all kernel's previous
+# design at 8 queries: the same 64 x 64 pair tile (64 query rows a tile,
+# zero pads past nq), 16 words of both operands staged a barrier
 PREVIOUS_SIGNEQ = {"pair_count": "previous design 73.2170 ms",
-                   "nthash_signs": "previous design 0.8907 ms"}
+                   "nthash_signs": "previous design 0.8907 ms",
+                   "count": " (previous design 0.6563 ms)",
+                   "any": " (previous design 0.5458 ms)",
+                   "all": " (previous design 0.6607 ms)"}
+# 32-bit operations a (query, row) pair and sign word of the count / any /
+# all compares: two DPX VIADDMNMX and one IADD3 per two words (count), one
+# VIADDMNMX (any), one LOP3 (all)
+SIGNEQ_OPS = {"count": 1.5, "any": 1, "all": 1}
 COMPARE_ROUNDS = 32768  # rounds of 64 compares a thread in the microbenchmark
 
 
@@ -1011,11 +1055,13 @@ def phase2_compare(lib_path: Path) -> float:
 
 
 def phase2_signeq(results, lib_path: Path, dpx_rate: float):
-    """signeq.cu in every mode against its twin at S in {1, 99, 100, 1000}
-    with ragged tile edges and unaligned row ranges; then timed at the main
-    path's shapes: 8 queries against 661,000 rows at S = 100 (count, any,
-    all) and pair_count's first 8192 rows of the 661,000 (a strip of
-    `precluster --count`)."""
+    """signeq.cu in every mode against its twin at S in {1, 99, 100, 250,
+    1000} with ragged tile and query-group edges, an index with a row
+    stride past its words and unaligned row ranges; then timed at the main
+    path's shapes: 1, 8 and 101 queries against 661,000 rows at S = 100
+    (count, any, all; 101 is what `inverted query` sends a launch at
+    661,000 rows) and pair_count's first 8192 rows of the 661,000 (a strip
+    of `precluster --count`)."""
     import numpy as np
     import torch
 
@@ -1024,66 +1070,96 @@ def phase2_signeq(results, lib_path: Path, dpx_rate: float):
         pack_signs,
         pair_count,
         pair_count_ref,
+        query_group,
         signeq,
         signeq_ref,
     )
 
-    modes = {"ILi0E": "count", "ILi1E": "any", "ILi2E": "all"}
+    modes = {f"ILi{m}ELi{q}EEEv": f"{mode} {q} queries a block"
+             for m, mode in enumerate(("count", "any", "all"))
+             for q in (1, 2, 4, 8, 16)}
     for mode, info in sorted(ptxas_report(lib_path, "signeq_kernel",
                                           modes).items()):
         print(f"phase2 signeq {mode} kernel: {info['registers']} "
               f"registers, {info['spill_store_bytes']} bytes spilled")
         check(info["spill_store_bytes"] == 0, f"signeq {mode}: spills")
-    # the SASS of the query modes: the compare as XOR / IADD3 / LOP3 (any)
-    # or with an SHF and an IADD3 (count), no emulated vector compare
+    # the SASS of the query modes: the any and count compares as DPX
+    # VIADDMNMX, no emulated vector compare
     for name, ops in sass_counts(lib_path, "signeq_kernel").items():
         top = sorted(((v, k) for k, v in ops.items()
                       if not k.startswith("LUT")), reverse=True)[:8]
-        print(f"phase2 SASS {name[-45:]}: "
-              f"{sum(v for v, _ in top)} of "
+        dpx = ops["VIADDMNMX.U16"]  # the u16x2 form; a scalar one has none
+        emulated = sum(v for k, v in ops.items()
+                       if k.startswith(("VSET", "VABS")))
+        print(f"phase2 SASS {name[-40:]}: "
               f"{sum(v for k, v in ops.items() if not k.startswith('LUT'))} "
-              f"instructions in {', '.join(f'{k} x{v}' for v, k in top)}; "
-              f"VSETP/VABSDIFF (emulated vector compares): "
-              f"{sum(v for k, v in ops.items() if k.startswith(('VSET', 'VABS')))}")
+              f"instructions, {dpx} VIADDMNMX.U16x2; top "
+              f"{', '.join(f'{k} x{v}' for v, k in top)}")
+        check(emulated == 0, "signeq SASS: emulated vector compares")
+        check(("ILi2E" in name) == (dpx == 0), f"signeq SASS {name}: "
+              f"{dpx} VIADDMNMX.U16x2 (the count and any compares are DPX, "
+              f"all's a LOP3)")
     rng = np.random.default_rng(SEED)
     for s in (1, 99, 100, 250, 1000):
         alphabet = 4 if s < 50 else 60
-        m_np = rng.integers(0, alphabet, (700, s)).astype(np.uint16)
-        q_np = rng.integers(0, alphabet, (65, s)).astype(np.uint16)
+        m_np = rng.integers(0, alphabet, (1100, s)).astype(np.uint16)
+        q_np = rng.integers(0, alphabet, (130, s)).astype(np.uint16)
         q_np[0] = m_np[3]
         m, q = pack_signs(m_np, "cuda"), pack_signs(q_np, "cuda")
-        for nq, n in ((65, 700), (64, 63), (1, 1), (63, 129)):
+        wide = torch.zeros((m.shape[0], m.shape[1] + 3), dtype=torch.int32,
+                           device="cuda")
+        wide[:, : m.shape[1]] = m
+        strided = wide[:, : m.shape[1]]  # a row stride past the words
+        shapes = ((65, 700), (64, 63), (1, 1), (63, 129), (17, 1100),
+                  (101, 1100), (130, 257))
+        for nq, n in shapes:
             for mode in ("count", "any", "all"):
-                check(torch.equal(signeq(q[:nq], m[:n], s, mode),
-                                  signeq_ref(q[:nq], m[:n], s, mode)),
+                want = signeq_ref(q[:nq], m[:n], s, mode)
+                check(torch.equal(signeq(q[:nq], m[:n], s, mode), want)
+                      and torch.equal(signeq(q[:nq], strided[:n], s, mode),
+                                      want),
                       f"signeq {mode} S={s} ({nq}, {n}): kernel != twin")
         for lo, hi in ((0, 700), (3, 700), (65, 129), (64, 64), (699, 700),
                        (127, 385), (128, 256)):
-            check(pair_count(m, s, lo, hi) == pair_count_ref(m, s, lo, hi),
+            check(pair_count(m[:700], s, lo, hi)
+                  == pair_count_ref(m[:700], s, lo, hi),
                   f"pair_count S={s} [{lo}, {hi}): kernel != twin")
-        print(f"phase2 signeq S={s}: count, any, all at 4 shapes and "
-              f"pair_count at 7 row ranges equal to the twin")
+        print(f"phase2 signeq S={s}: count, any, all at {len(shapes)} shapes "
+              f"(contiguous and strided index) and pair_count at 7 row "
+              f"ranges equal to the twin")
 
     sig = index_signs(N_INDEX, SEED + 6)
     m = pack_signs(sig, "cuda")
-    q = pack_signs(sig[rng.choice(N_INDEX, 8, replace=False)], "cuda")
     words = m.shape[1]
-    for mode, ops in (("count", 6), ("any", 3), ("all", 6)):
-        got = signeq(q, m, INDEX_SIZE, mode)
-        want, plain = timed_once(lambda: signeq_ref(q, m, INDEX_SIZE, mode))
-        check(torch.equal(got, want), f"signeq {mode} at 661k: kernel != twin")
-        ms = cuda_ms(lambda: signeq(q, m, INDEX_SIZE, mode), reps=10)
-        pairs = 8 * N_INDEX
-        bd = bound(pairs * words * ops,
-                   (8 + N_INDEX) * words * 4 + pairs * got.element_size())
-        print(f"phase2 signeq {mode} (8, {N_INDEX}) S={INDEX_SIZE}: equal to "
-              f"twin; kernel {ms:.4f} ms, twin {plain:.2f} ms, bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}): kernel at "
-              f"{100 * bd['bound_ms'] / ms:.1f}%; integer-issue floor "
-              f"{signeq_floor_ms(pairs * words, ops):.4f} ms")
-        results[f"signeq_{mode}"] = dict(max_abs_err=0.0, ms=ms,
-                                         plain_ms=plain, library_ms=None,
-                                         **bd)
+    for nq in (1, 8, 101):
+        q = pack_signs(sig[rng.choice(N_INDEX, nq, replace=False)], "cuda")
+        for mode in ("count", "any", "all"):
+            got = signeq(q, m, INDEX_SIZE, mode)
+            want, plain = timed_once(lambda: signeq_ref(q, m, INDEX_SIZE,
+                                                        mode))
+            check(torch.equal(got, want),
+                  f"signeq {mode} ({nq}, {N_INDEX}): kernel != twin")
+            ms = cuda_ms(lambda: signeq(q, m, INDEX_SIZE, mode), reps=10)
+            pairs = nq * N_INDEX
+            ops = SIGNEQ_OPS[mode]
+            bd = bound(pairs * words * ops,
+                       (nq + N_INDEX) * words * 4 + pairs * got.element_size())
+            print(f"phase2 signeq {mode} ({nq}, {N_INDEX}) S={INDEX_SIZE}, "
+                  f"{query_group(nq, words)} queries a block: equal to twin; "
+                  f"kernel {ms:.4f} ms"
+                  f"{PREVIOUS_SIGNEQ[mode] if nq == 8 else ''}, twin "
+                  f"{plain:.2f} ms, bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']}): kernel at "
+                  f"{100 * bd['bound_ms'] / ms:.1f}%; integer-issue floor "
+                  f"of {ops} operations a word "
+                  f"{signeq_floor_ms(pairs * words, ops):.4f} ms; "
+                  f"{(nq + N_INDEX) * words * 4 / ms / 1e6:.1f} GB/s of "
+                  f"signs read")
+            if nq == 8:
+                results[f"signeq_{mode}"] = dict(max_abs_err=0.0, ms=ms,
+                                                 plain_ms=plain,
+                                                 library_ms=None, **bd)
+        del q
     hi = 8192
     got = pair_count(m, INDEX_SIZE, 0, hi)
     want, plain = timed_once(lambda: pair_count_ref(m, INDEX_SIZE, 0, hi,
@@ -1105,7 +1181,7 @@ def phase2_signeq(results, lib_path: Path, dpx_rate: float):
           f"{pairs / ms / 1e6:.2f} G pair/s")
     results["pair_count"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                  library_ms=None, **bd)
-    del m, q
+    del m
     torch.cuda.empty_cache()
 
 

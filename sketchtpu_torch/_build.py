@@ -59,8 +59,10 @@ _SIGNATURES = {
     "stpu_nthash_signs": (_P, _LL, _P, _I, _I, _I, _I, _I, _LL, _P, _P),
     "stpu_nthash_signs_blocks_per_sm": (_I,),
     "stpu_aahash_multi": (
-        _P, _LL, _P, _I, _I, _P, _I, _ULL, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _LL, _P, _I, _I, _P, _I, _ULL, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P,
     ),
+    "stpu_aahash_blocks_per_sm": (_I, _I),
     "stpu_magic_div": (_P, _I, _ULL, _I, _P, _P),
     "stpu_knn_keys": (
         _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _LL, _LL, _I, _I, _LL,
@@ -71,7 +73,8 @@ _SIGNATURES = {
         _P, _P, _F, _F, _F, _F, _P, _P, _I, _LL, _I, _P,
     ),
     "stpu_knn_select_rows": (_I, _I, _I),
-    "stpu_signeq": (_P, _LL, _I, _P, _LL, _I, _I, _I, _I, _P, _P),
+    "stpu_signeq": (_P, _LL, _I, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P),
+    "stpu_signeq_blocks_per_sm": (_I, _I, _I),
     "stpu_pair_count": (_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P),
     "stpu_pair_count_blocks_per_sm": (_I,),
     "stpu_compare_rate": (_I, _I, _I, _P, _P),

@@ -1,6 +1,7 @@
-// Sign equality over u16 inverted-index signs, shared by signeq.cu (the
-// inverted index's queries and `precluster --count`) and by the precluster
-// sign mask of K3 (knn_scan.cu) and K2's key mode (coreacc.cu).
+// Sign equality over u16 inverted-index signs, shared by the precluster
+// sign mask of K3 (knn_scan.cu) and K2's key mode (coreacc.cu); signeq.cu
+// (the inverted index's queries and `precluster --count`) takes AnyEq for
+// its compare microbenchmark.
 //
 // Signs arrive packed two to a 32-bit word (bin 2w in the low half, bin
 // 2w + 1 in the high half), `words` words a row at a row stride of `ld`
@@ -9,15 +10,11 @@
 // 0xFFFF, so the pad half of a ^ b is never zero and never matches.
 //
 // Per word x = a ^ b, a half is zero where the two signs are equal:
-// - any: (x - 0x00010001) & ~x has bit 15 or 31 set only if some half of
-//   x is zero (the borrow out of a zero low half can set bit 31 of a
-//   nonzero high half, but only when the low half is zero), so OR-ing it
-//   over the words and testing 0x80008000 at the end is exact: XOR, IADD
-//   and one LOP3 per two bins.
-// - count: ~(((x & 0x7FFF7FFF) + 0x7FFF7FFF) | x) & 0x80008000 has bit 15
-//   (31) set exactly where the low (high) half is zero, since neither
-//   15-bit sum carries out of its half; shifted down by 15 it adds one to
-//   each half's tally: six integer operations per two bins, no popcount.
+// (x - 0x00010001) & ~x has bit 15 or 31 set only if some half of x is
+// zero (the borrow out of a zero low half can set bit 31 of a nonzero high
+// half, but only when the low half is zero), so OR-ing it over the words
+// and testing 0x80008000 at the end is exact: XOR, IADD and one LOP3 per
+// two bins.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,18 +40,6 @@ struct AnyEq {
   }
   __device__ __forceinline__ static bool any(unsigned acc) {
     return (acc & 0x80008000u) != 0u;
-  }
-};
-
-struct CountEq {
-  __device__ __forceinline__ static void step(unsigned& acc, unsigned a,
-                                              unsigned b) {
-    const unsigned x = a ^ b;
-    const unsigned eq = ~(((x & 0x7FFF7FFFu) + 0x7FFF7FFFu) | x) & 0x80008000u;
-    acc += eq >> 15;  // one a half: low tally in bits 0-15, high in 16-31
-  }
-  __device__ __forceinline__ static int count(unsigned acc) {
-    return (int)(acc & 0xFFFFu) + (int)(acc >> 16);
   }
 };
 

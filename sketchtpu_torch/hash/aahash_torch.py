@@ -51,9 +51,10 @@ _PACK = np.where(AA_COMPACT == 20, 20 | INVALID, AA_COMPACT).astype(np.uint8)
 # largest k) and the per-k tables share the block's shared memory
 MAX_K_AA_CUDA = 16384
 _NT = 256  # threads per block of aahash_bin.cu
-_RUN_LG = 6  # log2 of the window starts per thread
+_KG = 4  # k rolled together
+_RUNS = tuple(range(4, 61, 8))  # run lengths: run / 4 odd (bank-free reads)
 _NC = 32  # table words per k, one per 5-bit code
-_SMEM_DEFAULT = 48 * 1024  # above it the launch opts in
+_SMIN_BYTES = 32 * 1024  # the most shared memory of the sign caches
 _I64_MAX = (1 << 63) - 1
 
 
@@ -148,17 +149,39 @@ def _k_table(kmers: tuple[int, ...], level: int) -> np.ndarray:
     return np.array(words, dtype=np.uint64).view(np.int64)
 
 
-def _span_pitch(kmax: int) -> int:
-    """Row pitch of the kernel's transposed span: at least the 256 runs +
-    the columns the residue before the block and the largest window reach
-    past them, in whole words, an odd number of them."""
-    words = (_NT + ((kmax - 1) >> _RUN_LG) + 1 + 3) // 4
-    return 4 * (words | 1)
+def _smem_bytes(nk: int, kmax: int, nbins: int, smin: bool,
+                run: int) -> int:
+    return ((nk * (_NC + 1) + _NC) * 8
+            + (min(_KG, nk) * nbins * 4 if smin else 0) + _NT * run + kmax + 1)
 
 
-def _smem_bytes(nk: int, kmax: int, nbins: int, smin: bool) -> int:
-    return ((nk * (_NC + 1) + _NC) * 8 + (nbins * 8 if smin else 0)
-            + (_span_pitch(kmax) << _RUN_LG))
+def run_shape(windows: int, slots: int, kmax: int, nk: int
+              ) -> tuple[int, int]:
+    """(run, tiles): window starts a thread and tiles of 256 runs a block,
+    for `windows` starts on a card of `slots` resident blocks. Of the run
+    lengths with run / 4 odd, the one with the least cost per slot: the
+    most tiles any slot walks (whole waves of equal blocks) times the run
+    plus the Horner start that each run pays (about 3 + kmax / (3 nk)
+    windows)."""
+    horner = 3 + kmax / (3 * nk)
+    best = None
+    for run in _RUNS:
+        runs = -(-windows // (_NT * run))  # tiles of the whole batch
+        tiles = -(-runs // slots)  # at one block a slot, one wave
+        cost = (tiles * (run + horner), run)
+        if best is None or cost < best[0]:
+            best = (cost, run, tiles)
+    return best[1], best[2]
+
+
+def pow2_shift(nbins: int) -> int:
+    """61 - log2(nbins) where nbins is a power of two, else -1: then sign
+    >> it is sign // bin_size(nbins) for every sign below 2^61 - 1
+    (bin_size is 2^(61 - log2 nbins), or 2^61 - 1 at one bin, where both
+    give bin 0)."""
+    if nbins & (nbins - 1):
+        return -1
+    return 61 - (nbins.bit_length() - 1)
 
 
 def aahash_bin_multi(codes: torch.Tensor, kmers, level: int,
@@ -200,16 +223,32 @@ aahash_bin_multi.launches = 0
 def _launch(codes, ks, level, starts, nbins, out, reach):
     """One launch for at most MAX_NK_CUDA ascending ks into the rows out
     (len(ks), samples, nbins), filled with -1, and reach, filled with 0."""
-    # a block first reduces its minima in a shared-memory table where the
-    # whole fits the default 48 KB; else they go to device memory directly
-    smin = _smem_bytes(len(ks), ks[-1], nbins, True) <= _SMEM_DEFAULT
+    # a block filters its first sample's signs through a shared-memory cache
+    # per k rolled together (4 bytes a bin) where the caches fit
+    # _SMIN_BYTES; else every sign reads its slot in device memory first
+    smin = min(_KG, len(ks)) * nbins * 4 <= _SMIN_BYTES
+    shift = pow2_shift(nbins)
+    slots = _slots(len(ks), ks[-1], nbins, smin, shift >= 0, codes.device)
+    run, tiles = run_shape(codes.numel() - ks[0] + 1, slots, ks[-1], len(ks))
     ktab = torch.from_numpy(_k_table(tuple(ks), level)).to(codes.device)
-    magic, mshift = magic_divisor(bin_size(nbins))
+    magic, mshift = magic_divisor(bin_size(nbins)) if shift < 0 else (0, shift)
     err = _build.lib().stpu_aahash_multi(
         codes.data_ptr(), codes.numel(), ktab.data_ptr(), len(ks), ks[0],
-        starts.data_ptr(), starts.numel(), magic, mshift, nbins,
-        _span_pitch(ks[-1]), int(smin),
-        _smem_bytes(len(ks), ks[-1], nbins, smin), out.data_ptr(),
+        starts.data_ptr(), starts.numel(), magic, mshift, int(shift >= 0),
+        nbins, run, tiles, int(smin),
+        _smem_bytes(len(ks), ks[-1], nbins, smin, run), out.data_ptr(),
         reach.data_ptr(), _build.stream_handle(codes.device),
     )
     _build.check(err, "aahash_bin_multi")
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(nk: int, kmax: int, nbins: int, smin: bool, pow2: bool,
+           device: torch.device) -> int:
+    """Resident blocks on the card at the longest run's shared memory."""
+    per_sm = _build.lib().stpu_aahash_blocks_per_sm(
+        _smem_bytes(nk, kmax, nbins, smin, _RUNS[-1]), int(pow2))
+    if per_sm < 1:
+        raise RuntimeError("aahash_bin_multi: the kernel does not fit an SM")
+    return per_sm * torch.cuda.get_device_properties(
+        device).multi_processor_count

@@ -18,6 +18,8 @@ dist/coreacc_kernels.py).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -29,10 +31,41 @@ from ..dist.sign_words import (
     signeq_ref,
 )
 
-_TILE = 64  # rows and columns of a signeq.cu count / any / all tile
+_QUERY_GROUPS = (1, 2, 4, 8, 16)  # queries a signeq.cu count / any / all block
+_SMEM_MAX = 227 * 1024  # a block's shared memory past the 48 KB opt-in
+_MAX_WORDS = 32768  # sign words of one launch; past it the words split
 _PAIR_TILE = 128  # rows and columns of a pair_count tile
 _MODES = {"count": 0, "any": 1, "all": 2}
 _OUT_ELEMS = 1 << 26  # entries of one (queries, n) result on the card
+
+
+def row_tile(qr: int) -> int:
+    """Index rows of a count / any / all tile: one a thread of 256, four
+    at 16 queries a block (csrc/signeq.cu rows_a_thread)."""
+    return 256 * (4 if qr >= 16 else 1)
+
+
+def query_group(nq: int, words: int) -> int:
+    """Queries a block of the count / any / all kernel holds: the least of
+    _QUERY_GROUPS that covers nq (16 past it), halved while they do not
+    fit beside the ring."""
+    qr = next(g for g in _QUERY_GROUPS if g >= min(nq, _QUERY_GROUPS[-1]))
+    qp = -(-words // 4) * 4
+    # the queries beside the least ring: two stages of 4 words a row
+    while qr > 1 and (qr * qp + 2 * row_tile(qr) * 4) * 4 > _SMEM_MAX:
+        qr //= 2
+    return qr
+
+
+def signeq_shape(nq: int, n: int, words: int, slots: int,
+                 qr: int | None = None) -> tuple[int, int, int]:
+    """(qr, query groups, row blocks) of a launch: the groups' blocks share
+    the card's `slots` resident blocks, each group's rows split in equal
+    ranges of at least one row tile."""
+    qr = query_group(nq, words) if qr is None else qr
+    groups = -(-nq // qr)
+    row_blocks = max(1, min(slots // groups, -(-n // row_tile(qr)), 65535))
+    return qr, groups, row_blocks
 
 
 def signeq(q: torch.Tensor, m: torch.Tensor, nsigns: int,
@@ -51,21 +84,50 @@ def signeq(q: torch.Tensor, m: torch.Tensor, nsigns: int,
         return signeq_ref(q, m, nsigns, mode)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    nq, n = q.shape[0], m.shape[0]
+    nq, n, words = q.shape[0], m.shape[0], q.shape[1]
     dtype = torch.int32 if mode == "count" else torch.uint8
     out = torch.empty((nq, n), dtype=dtype, device=q.device)
-    if nq == 0 or n == 0:
-        return out if mode == "count" else out.bool()
-    if -(-nq // _TILE) > 65535:
-        raise ValueError(f"signeq: {nq} queries exceed one launch")
+    if nq and n:
+        # past _MAX_WORDS the queries would not fit a block: the kernel runs
+        # on column slices, their counts summed, any ORed, all ANDed
+        for w0 in range(0, words, _MAX_WORDS):
+            w1 = min(words, w0 + _MAX_WORDS)
+            part = out if w0 == 0 else torch.empty_like(out)
+            _signeq_launch(q[:, w0:w1], m[:, w0:w1],
+                           min(nsigns, 2 * w1) - 2 * w0, mode, part)
+            if w0 and mode == "count":
+                out += part
+            elif w0 and mode == "any":
+                out |= part
+            elif w0:
+                out &= part
+    return out if mode == "count" else out.view(torch.bool)
+
+
+def _signeq_launch(q, m, nsigns, mode, out):
+    """One count / any / all launch into out."""
+    nq, n, words = q.shape[0], m.shape[0], q.shape[1]
+    qr = query_group(nq, words)
+    slots = _slots(_MODES[mode], qr, words, q.device)
+    qr, _, row_blocks = signeq_shape(nq, n, words, slots, qr)
     err = _build.lib().stpu_signeq(
-        q.data_ptr(), q.stride(0), nq, m.data_ptr(), m.stride(0), n,
-        q.shape[1], nsigns, _MODES[mode], out.data_ptr(),
-        _build.stream_handle(q.device))
+        q.data_ptr(), q.stride(0), nq, m.data_ptr(), m.stride(0), n, words,
+        nsigns, _MODES[mode], int(qr), int(row_blocks),
+        out.data_ptr(), _build.stream_handle(q.device))
     _build.check(err, "signeq")
     signeq.launches += 1
     signeq.mode_launches[mode] += 1
-    return out if mode == "count" else out.view(torch.bool)
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(mode: int, qr: int, words: int, device: torch.device) -> int:
+    """Resident count / any / all blocks on the card."""
+    per_sm = _build.lib().stpu_signeq_blocks_per_sm(mode, qr, words)
+    if per_sm < 1:
+        raise RuntimeError(f"signeq: {qr} queries of {words} words do not "
+                           f"fit an SM")
+    return per_sm * torch.cuda.get_device_properties(
+        device).multi_processor_count
 
 
 signeq.launches = 0

@@ -203,13 +203,16 @@ def test_packer_codes_and_flags():
                               13 | st, 13]
 
 
-def _kernel_model(codes, starts, kmers, level, nbins, nt=4, run=8,
-                  smin=True):
+def _kernel_model(codes, starts, kmers, level, nbins, nt=4, run=4, tiles=2,
+                  smin=True, kg=4, emitted=None):
     """csrc/aahash_bin.cu's control flow in Python integers, at nt threads
-    of `run` window starts a block: the staged span from the residue before
-    the block, the Horner start shared by ascending k, the O(1) roll from
-    the per-k table, the barrier rule with the final-window test, the
-    per-run reachability store and the block's first-sample table."""
+    of `run` window starts a tile and `tiles` tiles a block: the span from
+    the residue before a tile, the Horner start shared by ascending k, k
+    rolled in passes of kg chains by the O(1) roll from the per-k table,
+    the barrier rule with the final-window test, reachability marked
+    before each sample change and at a pass's end, and the block's filter
+    cache of 32-bit keys (sign >> 29) for its first sample in front of the
+    minima. `emitted`, when given, collects each emitted (k, start)."""
     from sketchtpu_torch.constants import srol
 
     m61, umax = (1 << 61) - 1, (1 << 64) - 1
@@ -226,57 +229,79 @@ def _kernel_model(codes, starts, kmers, level, nbins, nt=4, run=8,
     def sample_of(s):
         return int(np.searchsorted(starts, s, side="right")) - 1
 
-    per_block = nt * run
-    for base in range(0, total - ks[0] + 1, per_block):
-        def byte_at(q):
-            p = base + q
-            return int(codes[p]) if 0 <= p < total else 0
+    per_block = tiles * nt * run
+    for first in range(0, total - ks[0] + 1, per_block):
+        gtab = sample_of(first) if smin else -1
+        cache = [[(1 << 32) - 1] * nbins for _ in range(min(kg, len(ks)))]
+        for tile in range(tiles):
+            base = first + tile * nt * run
+            if base >= total:
+                break
+            for tid in range(nt):
+                s0 = base + tid * run
 
-        gblock = sample_of(base) if smin else -1
-        table = [{} for _ in ks]
-        for tid in range(nt):
-            q0 = tid * run
-            s0 = base + q0
-            fh, j = 0, 0
-            b = byte_at(q0 - 1)
-            bar = 0 if b & 0x20 else (-1 if b & 0x40 else -2)
-            for ki, k in enumerate(ks):
-                t = tab[ki * kw : ki * kw + 32]
-                if s0 + k > total:
-                    continue
-                while j < k:
-                    b = byte_at(q0 + j)
-                    bar = j + 1 if b & 0x20 else (j if b & 0x40 else bar)
-                    fh = srol(fh, 1) ^ seed[b & 31]
-                    j += 1
-                f, lb, g, flagged = fh, bar, sample_of(s0), -1
-                nxt = starts[g + 1] if g + 1 < n else total
-                for w in range(min(run, total - k + 1 - s0)):
-                    if w:
-                        bo, bi = byte_at(q0 + w - 1), byte_at(q0 + w + k - 1)
-                        lb = w + k if bi & 0x20 else (
-                            w + k - 1 if bi & 0x40 else lb)
-                        f = srol(f, 1) ^ t[bo & 31] ^ seed[bi & 31]
-                    if lb > w:
-                        continue
-                    while s0 + w >= nxt and g + 1 < n:
-                        g += 1
-                        nxt = starts[g + 1] if g + 1 < n else total
-                    if s0 + w + k == nxt:
-                        if lb == w:
-                            continue
-                    elif g != flagged:
-                        reach[ki][g], flagged = 1, g
-                    x = (f & m61) + (f >> 61)
-                    x -= m61 if x >= m61 else 0
-                    key = x // binsize
-                    if g == gblock:
-                        table[ki][key] = min(table[ki].get(key, umax), x)
-                    else:
-                        out[ki][g][key] = min(out[ki][g][key], x)
-        for ki in range(len(ks)):
-            for key, x in table[ki].items():
-                out[ki][gblock][key] = min(out[ki][gblock][key], x)
+                def rb(j):  # residue s0 + j, 0 past the batch
+                    p = s0 + j
+                    return int(codes[p]) if 0 <= p < total else 0
+
+                fh, j = 0, 0
+                b = rb(-1)
+                bar = 0 if b & 0x20 else (-1 if b & 0x40 else -2)
+                trel = total - s0
+                for k0 in range(0, len(ks), kg):
+                    kc = min(kg, len(ks) - k0)
+                    kk, f, lb = ks[k0 : k0 + kc], [0] * kc, [0] * kc
+                    for c in range(kc):
+                        if trel - kk[c] + 1 > 0:
+                            while j < kk[c]:
+                                b = rb(j)
+                                bar = j + 1 if b & 0x20 else (
+                                    j if b & 0x40 else bar)
+                                fh = srol(fh, 1) ^ seed[b & 31]
+                                j += 1
+                            f[c], lb[c] = fh, bar
+                    nw0 = max(0, min(trel - kk[0] + 1, run))
+                    g = sample_of(s0)
+                    nrel = (starts[g + 1] if g + 1 < n else total) - s0
+                    seen = set()
+                    for w in range(nw0):
+                        for c in range(kc):
+                            if w and w + kk[c] <= trel:
+                                bo, bi = rb(w - 1), rb(w + kk[c] - 1)
+                                lb[c] = w + kk[c] if bi & 0x20 else (
+                                    w + kk[c] - 1 if bi & 0x40 else lb[c])
+                                t = tab[(k0 + c) * kw : (k0 + c) * kw + 32]
+                                f[c] = srol(f[c], 1) ^ t[bo & 31] ^ seed[
+                                    bi & 31]
+                        while w >= nrel and g + 1 < n:
+                            for c in seen:
+                                reach[k0 + c][g] = 1
+                            seen = set()
+                            g += 1
+                            nrel = (starts[g + 1] if g + 1 < n else total) - s0
+                        for c in range(kc):
+                            valid = w + kk[c] <= trel and lb[c] <= w
+                            fin = w + kk[c] == nrel
+                            if valid and not fin:
+                                seen.add(c)
+                            if not valid or (fin and lb[c] == w):
+                                continue
+                            if emitted is not None:
+                                emitted.add((kk[c], s0 + w))
+                            x = (f[c] & m61) + (f[c] >> 61)
+                            x -= m61 if x >= m61 else 0
+                            key = x // binsize
+                            plane = out[k0 + c][g]
+                            if g == gtab:
+                                if x >> 29 <= cache[c][key]:
+                                    cache[c][key] = x >> 29
+                                    plane[key] = min(plane[key], x)
+                            else:
+                                plane[key] = min(plane[key], x)
+                    for c in seen:
+                        reach[k0 + c][g] = 1
+                    if len(ks) > kg:
+                        cache = [[(1 << 32) - 1] * nbins for _ in range(kc)]
     rows = [ks.index(k) for k in kmers]
     return (np.array(out, dtype=np.uint64)[rows].view(np.int64),
             np.array(reach, dtype=np.int32)[rows])
@@ -284,9 +309,10 @@ def _kernel_model(codes, starts, kmers, level, nbins, nt=4, run=8,
 
 @pytest.mark.parametrize("seed", range(6))
 def test_kernel_model_matches_twin(seed):
-    """The kernel's barrier rule and final-window test, run and block
-    edges included, against the twin (bit-exact): random batches with
-    separators, invalid residues and the quirk's samples."""
+    """The kernel's barrier rule and final-window test, run, tile and
+    block edges included, the k passes and the filter cache, against the
+    twin (bit-exact): random batches with separators, invalid residues and
+    the quirk's samples."""
     rng = np.random.default_rng(seed)
     streams = [_stream(rng, int(n), float(rng.choice([0, 0.05, 0.3])))
                for n in rng.integers(1, 80, int(rng.integers(1, 8)))]
@@ -297,11 +323,85 @@ def test_kernel_model_matches_twin(seed):
     level = int(rng.integers(1, 4))
     want = aahash_bin_multi_ref(torch.from_numpy(codes), kmers, level,
                                 torch.from_numpy(starts), 64)
-    for smin in (True, False):
+    for smin, kg in ((True, 4), (False, 4), (True, 1)):
         mins, reach = _kernel_model(codes, starts, kmers, level, 64,
-                                    smin=smin)
+                                    smin=smin, kg=kg)
         np.testing.assert_array_equal(mins, want[0].numpy())
         np.testing.assert_array_equal(reach, want[1].numpy())
+
+
+@pytest.mark.parametrize("run,tiles", [(4, 1), (4, 3), (12, 2)])
+def test_kernel_model_windows_are_the_oracles(run, tiles):
+    """Samples whose edges fall on run, tile and block edges (lengths of
+    whole runs and tiles, one past, one short): the model's emitted
+    windows are exactly the JAX package's aa_window_valid ones in every
+    sample, each start once, and reach is 0 exactly where it raises."""
+    nt, kmers = 4, [3, 5, 8]
+    rng = np.random.default_rng(run * 10 + tiles)
+    tile = nt * run
+    lens = [tile, run + 1, tiles * tile - 1, 2 * run, 9, tile + 1, 4,
+            run - 1 if run > 4 else 7]
+    streams = [_stream(rng, n, 0.08) for n in lens]
+    streams[1] = _raw(b"\x05" + bytes(_LETTERS[:run]))  # the quirk
+    codes, starts = pack_aa_group(streams)
+    emitted = set()
+    _, reach = _kernel_model(codes, starts, kmers, 2, 64, nt=nt, run=run,
+                             tiles=tiles, emitted=emitted)
+    assert len(emitted) == len(set(emitted))
+    for ki, k in enumerate(kmers):
+        got = {s for kk, s in emitted if kk == k}
+        for g, st in enumerate(streams):
+            mine = sorted(p - starts[g] for p in got
+                          if starts[g] <= p < starts[g] + len(st.seq))
+            try:
+                mask = jax_aahash_np.aa_window_valid(st.seq, k)
+            except ValueError:
+                assert reach[ki, g] == 0
+                continue
+            assert reach[ki, g] == 1
+            assert mine == np.flatnonzero(mask).tolist(), (k, g)
+
+
+@pytest.mark.parametrize("windows", [1, 255, 256 * 4 + 1, 9_000_000,
+                                     19_199_000, 77_777_777])
+@pytest.mark.parametrize("slots", [1, 660, 528])
+def test_run_shape_is_one_wave_that_covers_every_start(windows, slots):
+    """run_shape's runs have run / 4 odd (a warp's byte reads on 32 banks)
+    and at most 60 starts; its blocks of `tiles` tiles of 256 runs cover
+    every window start exactly once (starts past the batch hold no
+    window) in one wave of at most `slots` blocks."""
+    run, tiles = aahash_torch.run_shape(windows, slots, 12, 3)
+    assert run in aahash_torch._RUNS and run % 8 == 4 and run <= 60
+    per_block = tiles * 256 * run
+    blocks = -(-windows // per_block)
+    assert blocks <= slots and (blocks - 1) * per_block < windows
+    # block b, tile t, thread i, window w: start b * per_block + t * 256
+    # run + i * run + w, a bijection onto [0, blocks * per_block)
+    b, t, i, w = np.meshgrid(np.arange(min(blocks, 3)), np.arange(tiles),
+                             np.arange(256), np.arange(run), indexing="ij")
+    s = (b * per_block + t * 256 * run + i * run + w).ravel()
+    assert np.array_equal(np.sort(s), np.arange(min(blocks, 3) * per_block))
+
+
+def test_pow2_shift_is_the_exact_bin():
+    """For every power-of-two nbins the kernel takes (a C int), sign >>
+    pow2_shift(nbins) is sign // bin_size(nbins) at the edges of every bin
+    and at random signs below 2^61 - 1; any other nbins has no shift."""
+    m61 = (1 << 61) - 1
+    rng = np.random.default_rng(5)
+    rand = [int(x) for x in rng.integers(0, m61, 2000, dtype=np.int64)]
+    for p in range(31):
+        nbins = 1 << p
+        d = aahash_torch.bin_size(nbins)
+        shift = aahash_torch.pow2_shift(nbins)
+        assert d == 1 << shift or (nbins == 1 and d == m61)
+        for b in {0, 1, nbins // 2, nbins - 1}:
+            for x in (b * d - 1, b * d, b * d + 1, (b + 1) * d - 1):
+                if 0 <= x < m61:
+                    assert x >> shift == x // d
+        assert all(x >> shift == x // d for x in rand + [m61 - 1])
+    for nbins in (3, 1000, 1023, 1025, 24 * 64, 625 * 64):
+        assert aahash_torch.pow2_shift(nbins) == -1
 
 
 class _FakeCuda:

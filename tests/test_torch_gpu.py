@@ -650,8 +650,13 @@ def _sign_rows(n, s, alphabet, seed):
 
 @pytest.mark.parametrize("s", [1, 2, 99, 100, 1000])
 @pytest.mark.parametrize("nq,n", [(1, 1), (63, 65), (64, 64), (65, 200),
-                                  (130, 63)])
+                                  (130, 63), (1, 3000), (8, 2000),
+                                  (17, 300), (101, 1500)])
 def test_signeq_kernel_matches_twin(cuda, s, nq, n):
+    """1 (serve), 8 and 101 (inverted query at 661,000 rows) queries, a
+    query-group edge (17 = 16 + 1) and ragged row tiles, on a contiguous
+    index and on one whose row stride is past its words (4-byte copies
+    where the stride is odd)."""
     from sketchtpu_torch.inverted.device import pack_signs, signeq, signeq_ref
 
     alphabet = 4 if s < 50 else 40
@@ -659,11 +664,53 @@ def test_signeq_kernel_matches_twin(cuda, s, nq, n):
     q = _sign_rows(nq, s, alphabet, s + nq + 1)
     q[0] = m[min(n - 1, 3)]  # an all-bins match
     qd, md = pack_signs(q, cuda), pack_signs(m, cuda)
-    for mode in ("count", "any", "all"):
-        got = signeq(qd, md, s, mode)
-        torch.cuda.synchronize()
-        assert torch.equal(got, signeq_ref(qd, md, s, mode)), mode
+    for pad in (0, 1, 2):
+        wide = torch.zeros((n, md.shape[1] + pad), dtype=torch.int32,
+                           device=cuda)
+        wide[:, : md.shape[1]] = md
+        mv = wide[:, : md.shape[1]]
+        for mode in ("count", "any", "all"):
+            got = signeq(qd, mv, s, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, signeq_ref(qd, md, s, mode)), (mode, pad)
     assert signeq(qd, md, s, "all")[0, min(n - 1, 3)]
+
+
+@pytest.mark.parametrize("s", [99, 100])
+@pytest.mark.parametrize("qr", [1, 2, 4, 8, 16])
+def test_signeq_kernel_launch_shapes(cuda, monkeypatch, s, qr):
+    """Every query group size against every row split the wrapper makes:
+    groups with pad queries, row ranges shorter than a tile."""
+    from sketchtpu_torch.inverted import device
+
+    m = device.pack_signs(_sign_rows(2000, s, 40, s), cuda)
+    q = device.pack_signs(_sign_rows(19, s, 40, s + 1), cuda)
+    monkeypatch.setattr(device, "query_group", lambda nq, words: qr)
+    for slots in (1, 3 * -(-19 // qr), 7 * -(-19 // qr), 10_000):
+        monkeypatch.setattr(device, "_slots", lambda *a: slots)
+        for mode in ("count", "any", "all"):
+            got = device.signeq(q, m, s, mode)
+            assert torch.equal(got, device.signeq_ref(q, m, s, mode)), (
+                mode, slots)
+
+
+def test_signeq_kernel_splits_words(cuda, monkeypatch):
+    """Past _MAX_WORDS the wrapper runs the kernel on column slices and
+    sums the counts, ORs any and ANDs all."""
+    from sketchtpu_torch.inverted import device
+
+    monkeypatch.setattr(device, "_MAX_WORDS", 16)
+    for s in (99, 100):
+        m = _sign_rows(300, s, 3, s)
+        q = _sign_rows(5, s, 3, s + 1)
+        q[1] = m[7]
+        qd, md = device.pack_signs(q, cuda), device.pack_signs(m, cuda)
+        before = device.signeq.launches
+        for mode in ("count", "any", "all"):
+            got = device.signeq(qd, md, s, mode)
+            assert torch.equal(got, device.signeq_ref(qd, md, s, mode)), mode
+        assert device.signeq.launches == before + 3 * 4
+        assert device.signeq(qd, md, s, "all")[1, 7]
 
 
 @pytest.mark.parametrize("s", [1, 99, 100, 1000])
@@ -964,6 +1011,36 @@ def test_aahash_kernel_matches_twin(cuda, level, shape):
     (mixed, mreach), _ = _aa_case(cuda, streams, (64, 3, 9, 3), level, nbins)
     assert torch.equal(mixed, mins[[5, 0, 2, 0]])
     assert torch.equal(mreach, reach[[5, 0, 2, 0]])
+
+
+def test_aahash_kernel_many_waves_and_one_block(cuda, monkeypatch):
+    """Runs of 4 starts a tile and no tile loop: a 2.8 M batch launches
+    over 2700 blocks (four waves and more at 5 blocks an SM of 132); a
+    300-residue batch at the chosen shape is one block."""
+    from sketchtpu_torch.hash import aahash_torch
+
+    streams = _aa_streams([1_400_000, 700_000, 699_999, 3], seed=11)
+    monkeypatch.setattr(aahash_torch, "run_shape",
+                        lambda windows, slots, kmax, nk: (4, 1))
+    _aa_case(cuda, streams, (6, 9, 12), 1, 1024)
+    monkeypatch.undo()
+    _aa_case(cuda, _aa_streams([200, 100], seed=12), (6, 9, 12), 3, 1000)
+
+
+@pytest.mark.parametrize("run,tiles", [(12, 1), (12, 3), (60, 2)])
+def test_aahash_kernel_sample_edges_on_run_and_block_edges(cuda, monkeypatch,
+                                                           run, tiles):
+    """Samples that start and end on run, tile and block edges (and one
+    residue off them), at a fixed run length and tile count."""
+    from sketchtpu_torch.hash import aahash_torch
+
+    monkeypatch.setattr(aahash_torch, "run_shape",
+                        lambda windows, slots, kmax, nk: (run, tiles))
+    tile = 256 * run
+    lens = [run, tile, tile - 1, run + 1, tiles * tile, tiles * tile + 1,
+            2 * tile - run, 5 * run]
+    _aa_case(cuda, _aa_streams(lens, seed=run + tiles, run=run),
+             (3, 6, 9, 12), 2, 1024)
 
 
 def test_aahash_kernel_splits_past_128_k(cuda):

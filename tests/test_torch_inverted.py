@@ -359,6 +359,159 @@ def test_dpx_compare_model_matches_any_mask_and_count_strip(s):
     assert pair_count(packed, s, lo, hi) == want
 
 
+def _query_model(q, m, s, mode, cw):
+    """(nq, n) results exactly as signeq.cu's count / any / all compute
+    them on packed words: the query words in the compare's form (any,
+    count: negated per half with the odd-S pad half 1; all: as stored with
+    the pad half 0; the pad words past the row as never / always
+    matching), the index words in chunks of cw words zero-filled to a
+    multiple of 4, and per word any: acc = min_u16x2(nq + m, acc); count:
+    acc += min_u16x2(nq + m, 1), count = 2 words - both halves; all:
+    acc |= q ^ m, all = (acc == 0)."""
+    a = pack_signs(q, "cpu").numpy().view(np.uint32)
+    b = pack_signs(m, "cpu").numpy().view(np.uint32)
+    words = a.shape[1]
+    qp = -(-words // 4) * 4
+    if mode == "all":
+        qa = a.copy()
+        if s % 2:
+            qa[:, -1] &= np.uint32(0xFFFF)
+    else:
+        qa = _neg_halves(a)
+        if s % 2:
+            qa[:, -1] = (qa[:, -1] & np.uint32(0xFFFF)) | np.uint32(0x10000)
+    pad = np.uint32(0x00010001 if mode == "any" else 0)
+    qa = np.concatenate([qa, np.full((a.shape[0], qp - words), pad,
+                                     np.uint32)], axis=1)
+
+    def lo_hi(x):
+        return x & np.uint32(0xFFFF), x >> np.uint32(16)
+
+    init = 0xFFFFFFFF if mode == "any" else 0
+    acc = np.full((a.shape[0], b.shape[0]), init, np.uint64)
+    for w0 in range(0, words, cw):
+        cwc = min(cw, words - w0)
+        staged = np.zeros((b.shape[0], -(-cwc // 4) * 4), np.uint32)
+        staged[:, :cwc] = b[:, w0 : w0 + cwc]  # the rest zero-filled
+        for w in range(staged.shape[1]):
+            x = qa[:, None, w0 + w]
+            y = staged[None, :, w]
+            if mode == "all":
+                acc |= (x ^ y).astype(np.uint64)
+                continue
+            (xl, xh), (yl, yh) = lo_hi(x), lo_hi(y)
+            sl = (xl + yl) & np.uint32(0xFFFF)
+            sh = (xh + yh) & np.uint32(0xFFFF)
+            al, ah = lo_hi(acc.astype(np.uint32))
+            if mode == "any":
+                acc = (np.minimum(sl, al) | (np.minimum(sh, ah) << 16)
+                       ).astype(np.uint64)
+            else:
+                acc = ((al + np.minimum(sl, 1)) | ((ah + np.minimum(sh, 1))
+                                                    << 16)).astype(np.uint64)
+    acc = acc.astype(np.uint32)
+    if mode == "any":
+        return ((acc & 0xFFFF) == 0) | (acc < 0x10000)
+    if mode == "all":
+        return acc == 0
+    return (2 * words - ((acc & 0xFFFF) + (acc >> 16))).astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["count", "any", "all"])
+@pytest.mark.parametrize("s", [1, 2, 99, 100, 1000])
+def test_query_compare_model_matches_signeq_ref_and_scan(s, mode):
+    """The NumPy model of the count / any / all compares (in whole-row
+    stages and, past them, in chunks of 36 words) against signeq_ref, the
+    host oracle's equality and the JAX package's _match_matrix_scan, with
+    adversarial signs: without the odd-S pad rule an all-differing pair
+    would share its pad half."""
+    m = _adversarial_signs(70, s, s + 7)
+    q = np.concatenate([m[:9], _adversarial_signs(8, s, s + 8)[4:]])
+    want = signeq(pack_signs(q, "cpu"), pack_signs(m, "cpu"), s, mode).numpy()
+    tc = 64
+    scan = np.asarray(jax_device._match_matrix_scan(
+        jnp.asarray(q.astype(np.int32)), jnp.asarray(_pad(m, tc)), tc, mode)
+    )[:, : m.shape[0]]
+    eq = q[:, None, :] == m[None, :, :]
+    oracle = {"count": eq.sum(2), "any": eq.any(2), "all": eq.all(2)}[mode]
+    assert np.array_equal(want, scan) and np.array_equal(want, oracle)
+    for cw in {52, 36}:
+        got = _query_model(q, m, s, mode, cw)
+        assert np.array_equal(got, want), cw
+    if mode == "all":
+        assert got[:9].diagonal().all()
+    if s % 2 and mode != "all":  # the pad rule, as in pair_count
+        assert _dpx_any(m[4:5], m[5:6], s, pad_rule=False)[0, 0]
+
+
+def _signeq_shape_model(words, qr, rpt):
+    """csrc/signeq.cu signeq_shape: (qp, cw, nc, ld) within two blocks'
+    shared memory an SM."""
+    qp = -(-words // 4) * 4
+    room = (113 * 1024 - qr * qp * 4) // (2 * 256 * rpt * 4)
+    lmax = 4 if room < 12 else (room - 4) // 8 * 8 + 4
+    n0 = -(-qp // lmax)
+    cw = (-(-words // n0) + 3) & ~3
+    nc = -(-words // cw)
+    ld = cw if (cw // 4) % 2 else cw + 4
+    return qp, cw, nc, ld
+
+
+@pytest.mark.parametrize("s", [1, 2, 99, 100, 250, 1000, 65535])
+def test_signeq_stage_arithmetic(s):
+    """The stages of every query group: chunks of a multiple of 4 words
+    that cover the row (one chunk where S = 100's 50 words fit), a pitch
+    with pitch / 4 odd (bank-free 16-byte loads of consecutive rows), and
+    the queries and two stages within a block's shared memory (two blocks
+    an SM where the queries leave room)."""
+    words = (s + 1) // 2
+    for qr in device._QUERY_GROUPS:
+        if qr != device.query_group(qr, words):
+            continue  # the wrapper halves qr for so many words
+        rpt = device.row_tile(qr) // 256
+        qp, cw, nc, ld = _signeq_shape_model(words, qr, rpt)
+        assert cw % 4 == 0 and (nc - 1) * cw < words <= nc * cw
+        assert (ld // 4) % 2 == 1 and cw <= ld <= cw + 4
+        smem = (qr * qp + 2 * 256 * rpt * ld) * 4
+        assert smem <= 227 * 1024
+        if qr * qp * 4 <= 64 * 1024:
+            assert smem <= 113 * 1024
+        if s == 100 and rpt == 1:
+            assert nc == 1
+
+
+@pytest.mark.parametrize("nq", [1, 8, 64, 65, 101, 130])
+@pytest.mark.parametrize("n,slots", [(1, 264), (700, 264), (661_000, 264),
+                                     (5000, 3)])
+def test_signeq_launch_covers_every_pair_once(nq, n, slots):
+    """The launch of signeq.cu's count / any / all as the wrapper shapes
+    it: query groups (grid.x) times equal row ranges (grid.y), each walked
+    in tiles whose rows the threads own (lane l of warp v: v * 32 rpt + l
+    + 32 i); every (query, row) pair is computed and stored exactly once,
+    and no group holds more pad queries than it must."""
+    words = 50
+    qr, groups, row_blocks = device.signeq_shape(nq, n, words, slots)
+    assert groups * qr >= nq > (groups - 1) * qr
+    assert qr == min(16, 1 << (nq - 1).bit_length())
+    assert 1 <= row_blocks <= max(1, slots // groups)
+    rpt = device.row_tile(qr) // 256
+    tr = 256 * rpt
+    lane, warp = np.arange(256) % 32, np.arange(256) // 32
+    owned = (warp[:, None] * 32 * rpt + lane[:, None]
+             + 32 * np.arange(rpt)[None, :]).ravel()
+    assert np.array_equal(np.sort(owned), np.arange(tr))
+    hits = np.zeros(n, np.int64)
+    for by in range(row_blocks):
+        lo, hi = n * by // row_blocks, n * (by + 1) // row_blocks
+        for t0 in range(lo, hi, tr):
+            rows = t0 + owned
+            np.add.at(hits, rows[rows < hi], 1)
+    assert (hits == 1).all()  # per query group, so every pair once
+    queries = np.concatenate([np.arange(g * qr, min(nq, g * qr + qr))
+                              for g in range(groups)])
+    assert np.array_equal(queries, np.arange(nq))
+
+
 def _signeq_constants():
     """pair_count's launch constants, read from csrc/signeq.cu."""
     import re

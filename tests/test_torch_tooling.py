@@ -1,7 +1,8 @@
 """The port's tooling: the build directory's lock (processes that build at
 once wait for one compile), `warmup` (builds, reports, rejects an unknown
-mode) and `--jax-profile` (a torch.profiler Chrome trace, one file per
-rank)."""
+mode), `--jax-profile` (a torch.profiler Chrome trace, one file per
+rank), tools/kernel_variants.py's patches of the shipped sources and
+tools/kernel_ab.py's use."""
 
 import json
 import os
@@ -173,3 +174,37 @@ def test_device_is_the_ranks_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runtime.device()
+
+
+def _kernel_variants():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_variants", REPO / "tools" / "kernel_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", list(_kernel_variants().VARIANTS))
+def test_kernel_variant_patches_apply(tmp_path, monkeypatch, name):
+    """Every design variant still patches the shipped csrc (a patch that no
+    longer applies fails the tool on the card), and changes it."""
+    kv = _kernel_variants()
+    monkeypatch.setattr(kv, "WORK", tmp_path)
+    d = kv.prepare(name)
+    changed = [f.name for f in (d / "csrc").iterdir() if f.is_file()
+               and f.read_bytes() != (REPO / "sketchtpu_torch" / "csrc"
+                                     / f.name).read_bytes()]
+    patches, settings, kernels = kv.VARIANTS[name]
+    assert sorted(changed) == sorted(patches)
+    assert name == "shipped" or patches or settings
+    assert kernels
+
+
+def test_kernel_ab_without_a_checkout_prints_its_use():
+    """tools/kernel_ab.py needs the other checkout's root: without it, it
+    prints its use and exits 2 before touching a GPU."""
+    proc = subprocess.run([sys.executable, str(REPO / "tools" / "kernel_ab.py")],
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 2 and "OTHER_ROOT" in proc.stderr
