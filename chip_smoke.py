@@ -69,6 +69,19 @@
    --process-id/--n-processes on 3 samples: the surplus ranks write empty
    parts and launch nothing.
 
+9. One process on several devices (run before phase 8): the CLI with
+   runtime.devices giving every GPU, or on a host with one, slots of the
+   card (2 for the multi-device engines of shard/mesh.py, 3 for the
+   round-robin sketching), runs phases 3-7's commands at their full sizes
+   (`sketch` of the 8 assemblies, of the 2 read samples and of the 256
+   proteomes, dense core/acc at 8192, `dist -k 17` at 40,000 bins (K4),
+   `--knn 50` at 100,000 and core/acc at 50,000, `precluster --count` and
+   the 8 queries at 661,000, `precluster --skd --knn 50` at 100,000):
+   every output byte-identical to the one-device run, each wall printed
+   beside the one-device wall, and whether the devices were distinct
+   GPUs. Phase 3 also runs `--knn 0` (dist self and cross, precluster
+   plain, bruteforce and singleton) against the host oracle.
+
 Each path's kernel launches are counted from 0 over its phases (in each
 rank's process for phase 8); the run fails if a kernel of a path was
 never launched there. Any failure exits
@@ -827,7 +840,8 @@ def phase2_nthash_signs(results):
     bd = bound(own * len(KMERS) * SIGN_OPS,
                seq.numel() + own * len(KMERS) * 8)
     smem = nt._signs_smem_bytes(len(KMERS), max(KMERS))
-    per_sm = _build.lib().stpu_nthash_signs_blocks_per_sm(smem)
+    per_sm = _build.query(seq.device, "stpu_nthash_signs_blocks_per_sm",
+                          smem)
     blocks = nt.signs_blocks(own)
     print(f"phase2 nthash_signs chunk ({own} window starts, 7 k, "
           f"{own * len(KMERS) * 8 / 1e6:.0f} MB of signs): bit-equal to twin; "
@@ -1030,8 +1044,8 @@ def phase2_compare(lib_path: Path) -> float:
         check(dpx >= 64, f"pair_count SASS: {dpx} VIADDMNMX, expected the "
               f"8 x 8 compares of a word")
         check(emulated == 0, "pair_count SASS: emulated vector compares")
-    lib = _build.lib()
-    per_sm = lib.stpu_compare_rate_blocks_per_sm()
+    per_sm = _build.query(torch.device("cuda", 0),
+                          "stpu_compare_rate_blocks_per_sm")
     check(per_sm > 0, "compare_rate: does not fit an SM")
     blocks = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
@@ -1039,9 +1053,9 @@ def phase2_compare(lib_path: Path) -> float:
     rates = {}
     for mode, name in ((0, "XOR / IADD / LOP3"), (1, "VIADDMNMX.U16x2")):
         def launch():
-            _build.check(lib.stpu_compare_rate(
-                mode, blocks, COMPARE_ROUNDS, out.data_ptr(),
-                _build.stream_handle(out.device)), "compare_rate")
+            _build.launch(out.device, "stpu_compare_rate", mode, blocks,
+                          COMPARE_ROUNDS, out.data_ptr(),
+                          what="compare_rate")
         ms = cuda_ms(launch, reps=3)
         rates[mode] = compares / ms * 1e3
         print(f"phase2 compare microbenchmark, {name}: {blocks} blocks x 256 "
@@ -1493,6 +1507,7 @@ def phase3_dense(cli_main):
         sketch_commands(d / "host_", rfile, rfile_q),
         dist_commands(d / "host_", DIST_MODES),
     )
+    SINGLE_WALL["sketch_dna"] = port_s[0]
     mbk = 8 * 2.0 * len(KMERS)
     print(f"phase3 sketch 8 x 2 Mb x {len(KMERS)} k: port {port_s[0]:.3f} s "
           f"= {mbk / port_s[0]:.1f} Mbase-k/s end to end (parse, upload, "
@@ -1542,6 +1557,20 @@ def phase3_knn(cli_main, d: Path) -> None:
                       f"dist {side} {label} differs from the host oracle")
         print(f"phase3 {side}: --knn 3 -k 17, --ani, core/acc, each with "
               f"and without completeness, byte-identical")
+    port_cmds, host_cmds = [], []
+    for who, cmds in (("port", port_cmds), ("host", host_cmds)):
+        db, q = str(d / f"{who}_db"), str(d / f"{who}_q")
+        for side, dbs in (("self", [db]), ("cross", [db, q])):
+            cmds.append(["dist", *dbs, "-k", "17", "--knn", "0", "-o",
+                         str(d / f"{who}_{side}_knn0.txt"), "--quiet"])
+    run_port_and_host(cli_main, port_cmds, host_cmds)
+    for side in ("self", "cross"):
+        got = (d / f"port_{side}_knn0.txt").read_bytes()
+        check(got == b"" == (d / f"host_{side}_knn0.txt").read_bytes(),
+              f"dist {side} -k 17 --knn 0: output where the host oracle "
+              f"writes none")
+    print("phase3 dist -k 17 --knn 0, self and cross: exit 0 and no output, "
+          "as the host oracle")
 
 
 # 625 chunks: past the int16 strips (32,767 bins), where single-k dist and
@@ -1567,6 +1596,7 @@ def phase3_k4(cli_main, p3: Path) -> None:
         sketch_commands(d / "host_", rfile, rfile_q, K4_KMERS, K4_SKETCH_SIZE),
         dist_commands(d / "host_", K4_MODES),
     )
+    SINGLE_WALL["k4_k17"] = port_s[2]  # self -k 17, after the 2 sketches
     for db in ("db", "q"):
         for ext in (".skd", ".skm"):
             check(same_bytes(d / f"port_{db}{ext}", d / f"host_{db}{ext}"),
@@ -1639,6 +1669,13 @@ PRECLUSTER_FORMS = {  # the .ski's k, 17
 }
 
 
+# --knn 0: no neighbour; a singleton row still holds its own sample
+PRECLUSTER_KNN0 = {
+    "knn0": [], "knn0_bruteforce": ["--retain-unmatched", "bruteforce"],
+    "knn0_singleton": ["--retain-unmatched", "singleton"],
+}
+
+
 def phase3_inverted(cli_main, reads: Path) -> None:
     """The inverted index on the mixed inputs (8 assemblies + 2 read
     samples), every output byte for byte against the host oracle: build
@@ -1693,6 +1730,10 @@ def phase3_inverted(cli_main, reads: Path) -> None:
             files.append((["inverted", "precluster", f"{p}_inv.ski", "--skd",
                            str(skd_db), "--knn", "3", *flags, "-o",
                            f"{p}_pc_{form}.txt", "--quiet"], None))
+        for form, flags in PRECLUSTER_KNN0.items():
+            files.append((["inverted", "precluster", f"{p}_inv.ski", "--skd",
+                           str(skd_db), "--knn", "0", *flags, "-o",
+                           f"{p}_pc_{form}.txt", "--quiet"], None))
         return files
 
     pairs = kernel_wrappers()["pair_count"]
@@ -1717,10 +1758,17 @@ def phase3_inverted(cli_main, reads: Path) -> None:
     for name in outputs:
         check(same_bytes(d / f"port_{name}", d / f"host_{name}"),
               f"inverted {name} differs from the host oracle")
+    for form in PRECLUSTER_KNN0:
+        got = (d / f"port_pc_{form}.txt").read_bytes()
+        check(got == (d / f"host_pc_{form}.txt").read_bytes()
+              and bool(got) == (form == "knn0_singleton"),
+              f"precluster --knn 0 {form} differs from the host oracle")
     plain = (d / "port_pc_k17.txt").read_text()
     check(plain != (d / "port_pc_singleton.txt").read_text()
           and plain != (d / "port_pc_bruteforce.txt").read_text(),
           "precluster: no row without candidates (retain-unmatched unused)")
+    print(f"phase3 inverted: precluster --knn 0 (plain, bruteforce: no "
+          f"output; singleton: each row its own) as the host oracle")
     print(f"phase3 inverted: {', '.join(outputs)} byte-identical "
           f"({(d / 'port_count.txt').read_text().strip()}); port "
           f"{port_s:.2f} s, host oracle {host_s:.2f} s")
@@ -2073,6 +2121,7 @@ def phase6_reads(cli_main, gpu: str) -> None:
 
     full = argv(d / "port7", KMERS)
     wall = timed_cli(cli_main, full, "phase6 sketch reads 7 k")
+    SINGLE_WALL["sketch_reads"] = wall
     mbk = 2 * READS_GENOME * READS_COVERAGE / 1e6 * len(KMERS)
     print(f"phase6 sketch 2 x 50 Mb of reads x {len(KMERS)} k "
           f"--min-count 5: {wall:.2f} s = {mbk / wall:.1f} Mbase-k/s end to "
@@ -2163,6 +2212,7 @@ def phase6_index(cli_main, p3: Path, gpu: str) -> None:
 
     walls = {q: timed_cli(cli_main, qargv(q, "port"), f"phase6 query {q}")
              for q in types}
+    SINGLE_WALL.update({f"query661k_{q}": w for q, w in walls.items()})
     host_s = host_oracle([qargv(q, "host") for q in types])
     for q in types:
         check(same_bytes(d / f"port_{q}.txt", d / f"host_{q}.txt"),
@@ -2469,6 +2519,121 @@ def phase7_aa(cli_main, gpu: str) -> None:
     check(scan_dist_file(out, 2) == pairs, "phase7 dist: pair count")
     print(f"phase7 dist core/acc over the {P7_SAMPLES}: {pairs} pairs in "
           f"{wall:.2f} s, {gpu}")
+
+
+# --- phase 9: one process on every device ----------------------------------
+
+# the kernels the multi-device commands must launch
+MESH_PATH = ("nthash_bin_multi", "nthash_signs", "aahash_bin_multi",
+             "coreacc", "knn_select", "samebits_full", "pair_count",
+             "signeq_count", "signeq_any", "signeq_all", "knn_select_masked")
+
+
+@contextlib.contextmanager
+def visible_devices(devs):
+    """runtime.devices() gives devs inside: the selectors pick the
+    multi-device engines, sketching goes round-robin over devs."""
+    from sketchtpu_torch import runtime
+
+    saved = runtime.devices
+    runtime.devices = lambda: list(devs)
+    try:
+        yield
+    finally:
+        runtime.devices = saved
+
+
+def phase9_commands(d: Path) -> list:
+    """(name, argv, one-device outputs, output of this run or None for
+    stdout, sketch) of the multi-device runs: earlier phases' commands at
+    their full sizes."""
+    p3, p4, p5, p6i = WORK / "p3", WORK / "p4", WORK / "p5", WORK / "p6inv"
+    kmers = ",".join(map(str, KMERS))
+    cmds = [
+        ("sketch_dna", ["sketch", "-f", p3 / "fa" / "rfile.txt", "-o",
+                        d / "db", "-k", kmers, "-s", SKETCH_SIZE],
+         [p3 / f"port_db{e}" for e in (".skd", ".skm")],
+         [d / f"db{e}" for e in (".skd", ".skm")], True),
+        ("sketch_reads", ["sketch", "-f", WORK / "p6reads" / "reads.txt",
+                          "-o", d / "reads", "-k", kmers, "-s", SKETCH_SIZE,
+                          "--min-count", "5", "--threads", THREADS],
+         [WORK / "p6reads" / f"port7{e}" for e in (".skd", ".skm")],
+         [d / f"reads{e}" for e in (".skd", ".skm")], True),
+        ("sketch_aa", ["sketch", "-f", WORK / "p7" / "faa" / "rfile.txt",
+                       "-o", d / "aa", "-k", ",".join(map(str, AA_KMERS)),
+                       "-s", SKETCH_SIZE, "--seq-type", "aa", "--threads",
+                       THREADS],
+         [WORK / "p7" / f"db{e}" for e in (".skd", ".skm")],
+         [d / f"aa{e}" for e in (".skd", ".skm")], True),
+        ("dense_coreacc", ["dist", p4 / "db8k", "-o", d / "dense.txt"],
+         None, [d / "dense.txt"], False),
+        ("k4_k17", ["dist", WORK / "p3k4" / "port_db", "-k", "17", "-o",
+                    d / "k4_k17.txt"],
+         [WORK / "p3k4" / "port_self_k17.txt"], [d / "k4_k17.txt"], False),
+        ("knn_k17", ["dist", p5 / "db", "-k", "17", "--knn", KNN, "-o",
+                     d / "knn_k17.txt"], [p5 / "k17.txt"],
+         [d / "knn_k17.txt"], False),
+        ("knn_coreacc", ["dist", p5 / "db", "--subset", p5 / "first.txt",
+                         "--knn", KNN, "-o", d / "knn_coreacc.txt"],
+         [p5 / "coreacc.txt"], [d / "knn_coreacc.txt"], False),
+        ("count", ["inverted", "precluster", p6i / "idx.ski", "--count"],
+         [p6i / "count.txt"], None, False),
+        ("precluster_k17", ["inverted", "precluster",
+                            WORK / "p6pc" / "pc.ski", "--skd", p5 / "db",
+                            "--knn", KNN, "-o", d / "pc_k17.txt"],
+         [WORK / "p6pc" / "k17.txt"], [d / "pc_k17.txt"], False),
+    ]
+    for q in ("match-count", "all-bins", "any-bins"):
+        cmds.append((f"query661k_{q}", [
+            "inverted", "query", p6i / "idx.ski", "-f",
+            p3 / "fa" / "rfile.txt", "--query-type", q, "--threads", THREADS,
+            "-o", d / f"query_{q}.txt"], [p6i / f"port_{q}.txt"],
+            [d / f"query_{q}.txt"], False))
+    return [(name, [str(a) for a in argv] + ["--quiet"], want, got, sketch)
+            for name, argv, want, got, sketch in cmds]
+
+
+def phase9(cli_main, gpu: str) -> None:
+    """The in-process multi-device engines (sketchtpu_torch/shard/mesh.py)
+    and round-robin sketching, through the CLI with runtime.devices giving
+    every GPU, or on a host with one, slots of the card (2 for the
+    engines, 3 for the sketches): phases 3-7's commands at their full
+    sizes, each output byte-identical to the one-device run's (f32
+    core/accessory bit for bit: the same kernel on the same rows), each
+    wall printed beside the one-device wall."""
+    import torch
+
+    d = WORK / "p9"
+    d.mkdir(parents=True, exist_ok=True)
+    n_gpus = torch.cuda.device_count()
+    if n_gpus > 1:
+        engines = sketches = [torch.device("cuda", i) for i in range(n_gpus)]
+        kind = f"{n_gpus} distinct GPUs"
+    else:
+        engines = [torch.device("cuda", 0)] * 2
+        sketches = [torch.device("cuda", 0)] * 3
+        kind = ("slots of one card (2 for the engines, 3 for the "
+                "sketches): the split, order and joins, not distinct GPUs")
+    print(f"phase9 devices: {kind}; {gpu}")
+    for name, argv, want, got, sketch in phase9_commands(d):
+        with visible_devices(sketches if sketch else engines):
+            out = d / f"{name}.out" if got is None else None
+            wall = timed_cli(cli_main, argv, f"phase9 {name}", stdout=out)
+        got = got or [out]
+        if want is None:  # phase 4 kept only its output's digest
+            same = sha256_of(got) == SINGLE_SHA256[name]
+        else:
+            same = all(same_bytes(g, w) for g, w in zip(got, want))
+        check(same, f"phase9 {name}: output differs from the one-device run")
+        single = SINGLE_WALL.get(name)
+        print(f"phase9 {name}: {wall:.2f} s on "
+              f"{len(sketches if sketch else engines)} devices, one device "
+              + (f"{single:.2f} s" if single is not None else "not timed")
+              + f"; byte-identical; {gpu}")
+        if name == "dense_coreacc":
+            got[0].unlink()
+    print(f"phase9: every multi-device output byte-identical to the "
+          f"one-device run ({kind})")
 
 
 # --- phase 8: two ranks on the one card ------------------------------------
@@ -2822,13 +2987,18 @@ def main() -> int:
         print(f"reads + inverted path phases 3, 6: {time.time() - t0:.1f} s")
         t0 = time.time()
         torch.cuda.empty_cache()
+        mesh, _ = counted("multi-device", MESH_PATH,
+                          lambda: phase9(cli_main, smi))
+        print(f"multi-device path phase 9: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        torch.cuda.empty_cache()
         ranks = phase8(cli_main, smi)
         print(f"ranks path phase 8: {time.time() - t0:.1f} s")
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("sketchtpu", "jax")]
         check(not loaded, f"the port's phases loaded {loaded[:5]}")
         launches = {name: dense[name] + knn[name] + inverted[name] + aa[name]
-                    + ranks[name] for name in wrappers}
+                    + mesh[name] + ranks[name] for name in wrappers}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

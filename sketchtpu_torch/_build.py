@@ -9,7 +9,10 @@ Nothing here runs at import time, so `import sketchtpu_torch` works
 on a machine with no CUDA toolkit; the CPU twins never reach this module.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, and
-returns the `cudaError_t` of its launch; callers raise on a non-zero value.
+returns the `cudaError_t` of its launch. Modules reach them only through
+launch() and query(), which make the tensors' device current around the
+call: a kernel runs on the current device's context, and
+cudaFuncSetAttribute acts on the current device.
 """
 
 from __future__ import annotations
@@ -209,7 +212,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def stream_handle(device) -> int:
+def launch(device, name: str, *args, what: str | None = None) -> None:
+    """Call the entry point `name` with args and the current stream of
+    `device` (a CUDA torch.device) as its last argument, with `device`
+    current for the call; raise (as `what`, default name) on a CUDA
+    error."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib(), name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, what or name)
+
+
+def query(device, name: str, *args) -> int:
+    """The value of the entry point `name` (a kernel's resident blocks an
+    SM, a block's rows) with `device` current for the call."""
+    import torch
+
+    with torch.cuda.device(device):
+        return getattr(lib(), name)(*args)

@@ -315,10 +315,11 @@ cudaError_t configure() {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// at every launch and query: the attributes belong to the current device
+// only, and the caller makes the tensors' device current
 template <bool KEYS, bool MASK>
 cudaError_t configured() {
-  static const cudaError_t err = configure<KEYS, MASK>();  // once per process
-  return err;
+  return configure<KEYS, MASK>();
 }
 
 }  // namespace

@@ -439,14 +439,13 @@ cudaError_t allow_smem(Kernel kernel) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// at every launch and query: the attributes belong to the current device
+// only, and the caller makes the tensors' device current
 template <typename KeyT, bool COMP, bool MASK>
-cudaError_t configured() {  // once per process and instantiation
-  static const cudaError_t err = [] {
-    cudaError_t e = allow_smem(knn_keys_kernel<KeyT, COMP, MASK>);
-    return e != cudaSuccess ? e
-                            : allow_smem(knn_select_kernel<KeyT, COMP, MASK>);
-  }();
-  return err;
+cudaError_t configured() {
+  cudaError_t e = allow_smem(knn_keys_kernel<KeyT, COMP, MASK>);
+  return e != cudaSuccess ? e
+                          : allow_smem(knn_select_kernel<KeyT, COMP, MASK>);
 }
 
 // Rows per selection block: the most of 64, 32, 16 whose lists fit.

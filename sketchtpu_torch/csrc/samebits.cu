@@ -152,7 +152,8 @@ template <typename OutT>
 cudaError_t launch(const u64* a, long long lda, const u64* b, long long ldb,
                    OutT* out, long long ldo, int na, int nb, int s64,
                    int tri, long long row0, cudaStream_t st) {
-  static const cudaError_t configured = cudaFuncSetAttribute(
+  // every launch: the attribute belongs to the current device only
+  const cudaError_t configured = cudaFuncSetAttribute(
       samebits_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       RING_BYTES);
   if (configured != cudaSuccess) return configured;

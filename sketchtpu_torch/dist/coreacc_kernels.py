@@ -267,7 +267,8 @@ def _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0,
     else:
         out = torch.empty((na, nb), dtype=torch.int64, device=a.device)
         col0, ncols, exclude_self = keys
-    err = _build.lib().stpu_coreacc(
+    _build.launch(
+        a.device, "stpu_coreacc",
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), w, na, nb,
         ncols, s64, nk, _k_table(tuple(kmers)),
         c1.data_ptr() if c1 is not None else None,
@@ -276,7 +277,6 @@ def _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0,
         out.data_ptr(), acc.data_ptr(), nb, int(keys is not None), int(tri),
         int(row0), int(col0), int(exclude_self),
         *(sig.args(col0) if sig is not None else _NO_SIG),
-        _build.stream_handle(a.device),
+        what="coreacc",
     )
-    _build.check(err, "coreacc")
     return out, acc

@@ -54,37 +54,31 @@ class DeviceCoreAccEngine:
                             cutoff, **tri)
         return HostCopy(torch.stack([core, acc], dim=-1))
 
-    def _stream(self, out, ref_names, query_names, row_range, launch,
-                emit) -> None:
-        """Launch (tile x all columns) blocks over rows [lo, hi), each one
-        before the previous is written by emit(block, r0, r1, tab_r, tab_q,
-        pipe)."""
-        n = len(ref_names)
-        lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
-        starts = list(range(lo, hi, self.tile))
-        if not starts:
-            return
-        tab_r = tab_q = None
-        if get_lib() is not None:
-            tab_r = _name_table(ref_names)
-            tab_q = tab_r if query_names is ref_names else _name_table(query_names)
+    def tile_dists(self, rows: slice, cols: slice) -> np.ndarray:
+        """(rows, cols, 2) f32 core/accessory of the samples `rows`
+        against the samples `cols` (completeness of both, when given)."""
+        c1 = c2 = None
+        if self._comp is not None:
+            c1, c2 = self._comp[rows], self._comp[cols]
+        return self._block(self._words[rows], self._words[cols], c1, c2,
+                           self._cutoff).numpy()
 
-        def span(r0: int):
-            return r0, min(r0 + self.tile, hi)
+    def self_block(self, r0: int, r1: int) -> HostCopy:
+        """Launch rows [r0, r1) against every sample, only the pairs with
+        column > row computed (the upper triangle)."""
+        c1 = c2 = None
+        if self._comp is not None:
+            c1, c2 = self._comp[r0:r1], self._comp
+        return self._block(self._words[r0:r1], self._words, c1, c2,
+                           self._cutoff, tri=True, row0=r0)
 
-        blocks = [(span(starts[0]), launch(*span(starts[0])))]
-        pipe = None
-        if tab_r is not None:
-            pipe = OutputPipeline(out)
-        try:
-            for nxt in starts[1:] + [None]:
-                (r0, r1), copy = blocks.pop(0)
-                if nxt is not None:
-                    blocks.append((span(nxt), launch(*span(nxt))))
-                emit(copy.numpy(), r0, r1, tab_r, tab_q, pipe)
-        finally:
-            if pipe is not None:
-                pipe.close()
+    def cross_block(self, q: torch.Tensor, r0: int, r1: int, rcomp, qcomp,
+                    cutoff: float) -> HostCopy:
+        """Launch reference rows [r0, r1) against the query words q on
+        this device; rcomp / qcomp: both completeness vectors on this
+        device, or None."""
+        c1 = rcomp[r0:r1] if rcomp is not None else None
+        return self._block(self._words[r0:r1], q, c1, qcomp, cutoff)
 
     def stream_cross_dense(
         self,
@@ -106,15 +100,13 @@ class DeviceCoreAccEngine:
         rc_v = _f32(rcomp, self.device) if comp_on else None
         qc_v = _f32(qcomp, self.device) if comp_on else None
 
-        def launch(r0: int, r1: int) -> HostCopy:
-            c1 = rc_v[r0:r1] if comp_on else None
-            return self._block(self._words[r0:r1], q, c1, qc_v, cutoff)
-
         def emit(block, r0, r1, tab_r, tab_q, pipe):
             emit_coreacc_cross_block(out, ref_names, query_names, tab_r,
                                      tab_q, block, r0, r1, nq, pipe=pipe)
 
-        self._stream(out, ref_names, query_names, row_range, launch, emit)
+        stream_blocks(out, ref_names, query_names, row_range, self.tile,
+                      lambda r0, r1: self.cross_block(q, r0, r1, rc_v, qc_v,
+                                                      cutoff), emit)
 
     def stream_self_dense(
         self, out, names: list[str], row_range: slice | None = None
@@ -125,18 +117,45 @@ class DeviceCoreAccEngine:
         rows."""
         n = len(names)
 
-        def launch(r0: int, r1: int) -> HostCopy:
-            c1 = c2 = None
-            if self._comp is not None:
-                c1, c2 = self._comp[r0:r1], self._comp
-            return self._block(self._words[r0:r1], self._words, c1, c2,
-                               self._cutoff, tri=True, row0=r0)
-
         def emit(block, r0, r1, tab_r, tab_q, pipe):
             emit_coreacc_self_block(out, names, tab_r, block, r0, r1, n,
                                     pipe=pipe)
 
-        self._stream(out, names, names, row_range, launch, emit)
+        stream_blocks(out, names, names, row_range, self.tile,
+                      self.self_block, emit)
+
+
+def stream_blocks(out, ref_names, query_names, row_range, tile: int, launch,
+                  emit) -> None:
+    """Launch (tile x all columns) blocks over rows [lo, hi) (launch(r0,
+    r1) returns a pending copy with .numpy()), each one before the
+    previous is written by emit(block, r0, r1, tab_r, tab_q, pipe)."""
+    n = len(ref_names)
+    lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
+    starts = list(range(lo, hi, tile))
+    if not starts:
+        return
+    tab_r = tab_q = None
+    if get_lib() is not None:
+        tab_r = _name_table(ref_names)
+        tab_q = tab_r if query_names is ref_names else _name_table(query_names)
+
+    def span(r0: int):
+        return r0, min(r0 + tile, hi)
+
+    blocks = [(span(starts[0]), launch(*span(starts[0])))]
+    pipe = None
+    if tab_r is not None:
+        pipe = OutputPipeline(out)
+    try:
+        for nxt in starts[1:] + [None]:
+            (r0, r1), copy = blocks.pop(0)
+            if nxt is not None:
+                blocks.append((span(nxt), launch(*span(nxt))))
+            emit(copy.numpy(), r0, r1, tab_r, tab_q, pipe)
+    finally:
+        if pipe is not None:
+            pipe.close()
 
 
 class DeviceCoreAccExactStreamEngine:

@@ -224,15 +224,15 @@ def _launch_knn_keys(a, b, row0, col0, nb_real, exclude_self, comp, sig):
         raise ValueError(f"knn_keys: {tr} rows exceed one launch")
     out = torch.empty((tr, tc), dtype=dtype, device=a.device)
     ncols = max(0, min(tc, nb_real - col0))
-    err = _build.lib().stpu_knn_keys(
+    _build.launch(
+        a.device, "stpu_knn_keys",
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         out.data_ptr(), tc, tr, tc, ncols, s64, row0, col0,
         int(exclude_self), shift, colmask, out.element_size(),
         *_comp_args(comp, col0),
         *(sig.args(col0) if sig is not None else _NO_SIG),
-        _build.stream_handle(a.device),
+        what="knn_keys",
     )
-    _build.check(err, "knn_keys")
     return out
 
 
@@ -357,8 +357,9 @@ def _launch_knn_select(rows, cols, knn, row0, nb_real, exclude_self, comp,
     tr, ncols = rows.shape[0], min(cols.shape[0], nb_real)
     key_bytes = 4 if dtype == torch.int32 else 8
     if splits is None:
-        rows_per_block = _build.lib().stpu_knn_select_rows(
-            knn, key_bytes, int(sig is not None))
+        rows_per_block = _build.query(
+            rows.device, "stpu_knn_select_rows", knn, key_bytes,
+            int(sig is not None))
         if rows_per_block < 1:
             raise RuntimeError(f"knn_select: knn={knn} does not fit a block")
         splits = default_splits(tr, ncols, rows_per_block,
@@ -369,23 +370,23 @@ def _launch_knn_select(rows, cols, knn, row0, nb_real, exclude_self, comp,
     out = torch.empty((tr, knn), dtype=dtype, device=rows.device)
     part = (torch.empty((splits, tr, knn), dtype=dtype, device=rows.device)
             if splits > 1 else None)
-    err = _build.lib().stpu_knn_select(
+    _build.launch(
+        rows.device, "stpu_knn_select",
         rows.data_ptr(), rows.stride(0), cols.data_ptr(), cols.stride(0),
         out.data_ptr(), part.data_ptr() if part is not None else None, tr,
         ncols, s64, knn, splits, row0, int(exclude_self), shift, colmask,
         key_bytes, *_comp_args(comp, 0),
         *(sig.args(0) if sig is not None else _NO_SIG),
-        _build.stream_handle(rows.device),
+        what="knn_select",
     )
-    _build.check(err, "knn_select")
     return out
 
 
 def _block_slots(device, knn: int, key_bytes: int, comp: bool,
                  mask: bool = False) -> int:
     """Selection blocks the card holds at once."""
-    per_sm = _build.lib().stpu_knn_select_blocks_per_sm(knn, key_bytes,
-                                                        int(comp), int(mask))
+    per_sm = _build.query(device, "stpu_knn_select_blocks_per_sm", knn,
+                          key_bytes, int(comp), int(mask))
     if per_sm < 1:
         raise RuntimeError("knn_select: the kernel does not fit an SM")
     return per_sm * torch.cuda.get_device_properties(

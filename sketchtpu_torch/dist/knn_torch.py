@@ -87,13 +87,41 @@ class SparseKnnRows:
             yield self._row(r)
 
 
-def _no_rows(knn: int, n_values: int) -> SparseKnnRows:
-    """The result of an empty row slice (a rank with no rows), for
-    n_values values per entry: no launch is made for it."""
-    vals = np.zeros((0, knn) if n_values == 1 else (0, knn, n_values),
-                    dtype=np.float32)
-    return SparseKnnRows(np.zeros((0, knn), dtype=np.int32), vals,
-                         np.zeros((0, knn), dtype=bool))
+def _no_rows(knn: int, n_values: int, n_rows: int = 0) -> SparseKnnRows:
+    """A result with no entry, for n_values values per entry: an empty row
+    slice (a rank with no rows), or n_rows rows of no neighbour (knn < 1,
+    as the host oracle gives). No launch is made for it."""
+    knn = max(0, knn)
+    vals = np.zeros((n_rows, knn) if n_values == 1
+                    else (n_rows, knn, n_values), dtype=np.float32)
+    return SparseKnnRows(np.zeros((n_rows, knn), dtype=np.int32), vals,
+                         np.zeros((n_rows, knn), dtype=bool))
+
+
+def _no_neighbours(lo: int, hi: int, dist_type,
+                   retain_unmatched) -> SparseKnnRows:
+    """precluster_knn's rows [lo, hi) at knn < 1: no row has a neighbour,
+    so a singleton row holds only (row, 0.0), or (row, 0.0, 0.0) for
+    core/accessory, as the host oracle gives."""
+    if retain_unmatched != "singleton":
+        return _no_rows(0, 2 if dist_type.coreacc else 1, max(0, hi - lo))
+    shape = (hi - lo, 1, 2) if dist_type.coreacc else (hi - lo, 1)
+    return SparseKnnRows(np.arange(lo, hi, dtype=np.int32)[:, None],
+                         np.zeros(shape, np.float32), None)
+
+
+def _rows_of(rows: slice | None, n: int) -> slice:
+    """rows, or all n rows, as a slice with start and stop."""
+    return slice(0, n) if rows is None else slice(rows.start, rows.stop)
+
+
+def precluster_signs(ms, inverted, skq_bins: np.ndarray) -> np.ndarray:
+    """The (n, S) u16 signs of the flat .skq sign stream skq_bins (.ski
+    order) in the .skd order of ms."""
+    from .api import ski_skd_maps
+
+    ski_of_skd = np.asarray(ski_skd_maps(ms, inverted)[0])
+    return skq_bins.reshape(-1, inverted.sketch_size)[ski_of_skd]
 
 
 def rows_from_samebits(sb: np.ndarray, idx: np.ndarray, dist_type, s64: int,
@@ -286,8 +314,8 @@ class DeviceKnnEngine:
         comp = (np.asarray(completeness_vec, dtype=np.float64)
                 if completeness_vec is not None else None)
         lo, hi = (row_range.start, row_range.stop) if row_range else (0, self.n)
-        if hi <= lo:
-            return _no_rows(knn, 1)
+        if hi <= lo or knn < 1:
+            return _no_rows(knn, 1, max(0, hi - lo))
         c1 = comp[lo:hi] if comp is not None else None
         plane = self._words[:, dist_type.k_idx]
         sb, idx = knn_scan(plane[lo:hi], plane, knn, exclude_self=True,
@@ -298,13 +326,18 @@ class DeviceKnnEngine:
 
     def cross_knn(self, query_ms, knn: int, dist_type,
                   ref_completeness_vec=None, query_completeness_vec=None,
-                  completeness_cutoff: float = 0.64):
-        """Cross kNN: rows = queries, neighbours among refs. Correction
-        applies only when BOTH sides have values (jaccard.rs:36-42)."""
-        q = to_device_words(query_ms, self.device)[:, dist_type.k_idx]
+                  completeness_cutoff: float = 0.64,
+                  query_rows: slice | None = None):
+        """Cross kNN: rows = queries (those of query_rows, all by default),
+        neighbours among refs. Correction applies only when BOTH sides have
+        values (jaccard.rs:36-42)."""
+        qr = _rows_of(query_rows, query_ms.number_samples_loaded())
+        if knn < 1:
+            return _no_rows(knn, 1, qr.stop - qr.start)
+        q = to_device_words(query_ms, self.device, qr)[:, dist_type.k_idx]
         c1 = c2 = None
         if ref_completeness_vec is not None and query_completeness_vec is not None:
-            c1 = np.asarray(query_completeness_vec, dtype=np.float64)
+            c1 = np.asarray(query_completeness_vec, dtype=np.float64)[qr]
             c2 = np.asarray(ref_completeness_vec, dtype=np.float64)
         sb, idx = knn_scan(q, self._words[:, dist_type.k_idx], knn,
                            exclude_self=False, comp_rows=c1, comp_cols=c2,
@@ -391,15 +424,18 @@ class DeviceKnnEngine:
 
     def cross_knn_coreacc(self, query_ms, knn: int, ref_completeness_vec=None,
                           query_completeness_vec=None,
-                          completeness_cutoff: float = 0.64):
-        """Rows are queries. Like the reference (jaccard.rs:36-42), the
-        correction applies only when BOTH sides have completeness values."""
+                          completeness_cutoff: float = 0.64,
+                          query_rows: slice | None = None):
+        """Rows are queries (those of query_rows, all by default). Like the
+        reference (jaccard.rs:36-42), the correction applies only when BOTH
+        sides have completeness values."""
+        qr = _rows_of(query_rows, query_ms.number_samples_loaded())
         c1 = c2 = None
         if ref_completeness_vec is not None and query_completeness_vec is not None:
-            c1 = np.asarray(query_completeness_vec, dtype=np.float64)
+            c1 = np.asarray(query_completeness_vec, dtype=np.float64)[qr]
             c2 = np.asarray(ref_completeness_vec, dtype=np.float64)
-        return self._coreacc_rows(to_device_words(query_ms, self.device), knn,
-                                  False, c1, c2, completeness_cutoff)
+        return self._coreacc_rows(to_device_words(query_ms, self.device, qr),
+                                  knn, False, c1, c2, completeness_cutoff)
 
     # --- precluster (the inverted index's candidates) ---
 
@@ -417,17 +453,25 @@ class DeviceKnnEngine:
         (row, 1.0); core/accessory rows (an extension: the reference
         leaves it unimplemented) hold their candidates' (column, core,
         acc). Rows with no candidate follow retain_unmatched."""
-        from .api import ski_skd_maps
-
-        n = self.n
-        lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
-        stride = inverted.sketch_size
-        ski_of_skd = np.asarray(ski_skd_maps(self.ms, inverted)[0])
-        signs = skq_bins.reshape(-1, stride)[ski_of_skd]  # (n, S), skd order
-        sig_all = pack_signs(signs, self.device)
-        sig = SignMask(sig_all[lo:hi], sig_all, stride)
+        lo, hi = (row_range.start, row_range.stop) if row_range else (0, self.n)
+        if knn < 1:
+            return _no_neighbours(lo, hi, dist_type, retain_unmatched)
+        sig_all = pack_signs(precluster_signs(self.ms, inverted, skq_bins),
+                             self.device)
         comp = (np.asarray(completeness_vec, dtype=np.float64)
                 if completeness_vec is not None else None)
+        return self.precluster_rows(sig_all, inverted.sketch_size, knn,
+                                    dist_type, retain_unmatched, lo, hi, comp,
+                                    completeness_cutoff)
+
+    def precluster_rows(self, sig_all: torch.Tensor, nsigns: int, knn: int,
+                        dist_type, retain_unmatched, lo: int, hi: int,
+                        comp, completeness_cutoff: float) -> SparseKnnRows:
+        """precluster_knn of the rows [lo, hi), knn >= 1, given every
+        sample's packed signs on this engine's device (sig_all) and the
+        completeness values (f64, or None)."""
+        n = self.n
+        sig = SignMask(sig_all[lo:hi], sig_all, nsigns)
         if dist_type.coreacc:
             return self._pc_coreacc(sig, knn, lo, hi, retain_unmatched, comp,
                                     completeness_cutoff)

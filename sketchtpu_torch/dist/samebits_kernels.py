@@ -34,13 +34,13 @@ def words_to_device(words: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(words).to(device)
 
 
-def to_device_words(ms, device) -> torch.Tensor:
-    """A loaded MultiSketch's sketch words as an (n, nk, s64*BBITS) int64
-    tensor on `device`, in the .skd word order [sample][k][chunk][plane]."""
+def to_device_words(ms, device, rows: slice | None = None) -> torch.Tensor:
+    """A loaded MultiSketch's sketch words (of the samples `rows`, all by
+    default) as an (n, nk, s64*BBITS) int64 tensor on `device`, in the
+    .skd word order [sample][k][chunk][plane]."""
     n = ms.number_samples_loaded()
-    return words_to_device(
-        ms.sketch_bins.reshape(n, len(ms.kmer_lengths), ms.kmer_stride), device
-    )
+    words = ms.sketch_bins.reshape(n, len(ms.kmer_lengths), ms.kmer_stride)
+    return words_to_device(words if rows is None else words[rows], device)
 
 
 def popcount64(x: torch.Tensor) -> torch.Tensor:
@@ -159,10 +159,10 @@ def _launch_samebits(a, b, out_dtype, tri, row0) -> torch.Tensor:
     na, w = a.shape
     nb = b.shape[0]
     out = torch.empty((na, nb), dtype=out_dtype, device=a.device)
-    err = _build.lib().stpu_samebits(
+    _build.launch(
+        a.device, "stpu_samebits",
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         out.data_ptr(), nb, na, nb, w // BBITS, out.element_size(),
-        int(tri), int(row0), _build.stream_handle(a.device),
+        int(tri), int(row0), what="samebits",
     )
-    _build.check(err, "samebits")
     return out

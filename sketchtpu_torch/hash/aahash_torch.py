@@ -232,21 +232,22 @@ def _launch(codes, ks, level, starts, nbins, out, reach):
     run, tiles = run_shape(codes.numel() - ks[0] + 1, slots, ks[-1], len(ks))
     ktab = torch.from_numpy(_k_table(tuple(ks), level)).to(codes.device)
     magic, mshift = magic_divisor(bin_size(nbins)) if shift < 0 else (0, shift)
-    err = _build.lib().stpu_aahash_multi(
+    _build.launch(
+        codes.device, "stpu_aahash_multi",
         codes.data_ptr(), codes.numel(), ktab.data_ptr(), len(ks), ks[0],
         starts.data_ptr(), starts.numel(), magic, mshift, int(shift >= 0),
         nbins, run, tiles, int(smin),
         _smem_bytes(len(ks), ks[-1], nbins, smin, run), out.data_ptr(),
-        reach.data_ptr(), _build.stream_handle(codes.device),
+        reach.data_ptr(), what="aahash_bin_multi",
     )
-    _build.check(err, "aahash_bin_multi")
 
 
 @functools.lru_cache(maxsize=64)
 def _slots(nk: int, kmax: int, nbins: int, smin: bool, pow2: bool,
            device: torch.device) -> int:
     """Resident blocks on the card at the longest run's shared memory."""
-    per_sm = _build.lib().stpu_aahash_blocks_per_sm(
+    per_sm = _build.query(
+        device, "stpu_aahash_blocks_per_sm",
         _smem_bytes(nk, kmax, nbins, smin, _RUNS[-1]), int(pow2))
     if per_sm < 1:
         raise RuntimeError("aahash_bin_multi: the kernel does not fit an SM")

@@ -172,10 +172,8 @@ def magic_div(x: torch.Tensor, d: int) -> torch.Tensor:
         return torch.div(x, d, rounding_mode="floor")
     magic, shift = magic_divisor(d)
     out = torch.empty_like(x)
-    err = _build.lib().stpu_magic_div(x.data_ptr(), x.numel(), magic, shift,
-                                      out.data_ptr(),
-                                      _build.stream_handle(x.device))
-    _build.check(err, "magic_div")
+    _build.launch(x.device, "stpu_magic_div", x.data_ptr(), x.numel(), magic,
+                  shift, out.data_ptr(), what="magic_div")
     return out
 
 
@@ -297,14 +295,14 @@ def _launch_nthash_multi(seq, ks, rc, starts, nbins, out):
     smin = _smem_bytes(len(ks), ks[-1], nbins, True) <= _SMEM_LIMIT
     ktab = torch.from_numpy(_k_table(tuple(ks))).to(seq.device)
     magic, mshift = magic_divisor(bin_size(nbins))
-    err = _build.lib().stpu_nthash_multi(
+    _build.launch(
+        seq.device, "stpu_nthash_multi",
         seq.data_ptr(), seq.numel(), ktab.data_ptr(), len(ks), ks[0],
         int(rc), starts.data_ptr(), starts.numel(), magic, mshift, nbins,
         _span_pitch(ks[-1]), int(smin),
         _smem_bytes(len(ks), ks[-1], nbins, smin), out.data_ptr(),
-        _build.stream_handle(seq.device),
+        what="nthash_bin_multi",
     )
-    _build.check(err, "nthash_bin_multi")
 
 
 def nthash_signs(seq: torch.Tensor, kmers, rc: bool,
@@ -344,12 +342,12 @@ def _launch_nthash_signs(seq, ks, rc, n_out, out):
     """One signs-mode launch for at most MAX_NK_CUDA ascending ks into the
     rows out (len(ks), n_out)."""
     ktab = torch.from_numpy(_k_table(tuple(ks))).to(seq.device)
-    err = _build.lib().stpu_nthash_signs(
+    _build.launch(
+        seq.device, "stpu_nthash_signs",
         seq.data_ptr(), seq.numel(), ktab.data_ptr(), len(ks), int(rc),
         _SIGNS_RUN_LG, _span_pitch(ks[-1], _SIGNS_RUN_LG),
         _signs_smem_bytes(len(ks), ks[-1]), n_out, out.data_ptr(),
-        _build.stream_handle(seq.device))
-    _build.check(err, "nthash_signs")
+        what="nthash_signs")
 
 
 nthash_signs.launches = 0

@@ -110,11 +110,11 @@ def _signeq_launch(q, m, nsigns, mode, out):
     qr = query_group(nq, words)
     slots = _slots(_MODES[mode], qr, words, q.device)
     qr, _, row_blocks = signeq_shape(nq, n, words, slots, qr)
-    err = _build.lib().stpu_signeq(
+    _build.launch(
+        q.device, "stpu_signeq",
         q.data_ptr(), q.stride(0), nq, m.data_ptr(), m.stride(0), n, words,
-        nsigns, _MODES[mode], int(qr), int(row_blocks),
-        out.data_ptr(), _build.stream_handle(q.device))
-    _build.check(err, "signeq")
+        nsigns, _MODES[mode], int(qr), int(row_blocks), out.data_ptr(),
+        what="signeq")
     signeq.launches += 1
     signeq.mode_launches[mode] += 1
 
@@ -122,7 +122,8 @@ def _signeq_launch(q, m, nsigns, mode, out):
 @functools.lru_cache(maxsize=64)
 def _slots(mode: int, qr: int, words: int, device: torch.device) -> int:
     """Resident count / any / all blocks on the card."""
-    per_sm = _build.lib().stpu_signeq_blocks_per_sm(mode, qr, words)
+    per_sm = _build.query(device, "stpu_signeq_blocks_per_sm", mode, qr,
+                          words)
     if per_sm < 1:
         raise RuntimeError(f"signeq: {qr} queries of {words} words do not "
                            f"fit an SM")
@@ -182,7 +183,8 @@ def pair_count(m: torch.Tensor, nsigns: int, lo: int = 0,
         return 0
     row_tiles = -(-(hi - lo) // _PAIR_TILE)
     if splits is None:
-        per_sm = _build.lib().stpu_pair_count_blocks_per_sm(m.shape[1])
+        per_sm = _build.query(m.device, "stpu_pair_count_blocks_per_sm",
+                              m.shape[1])
         if per_sm < 1:
             raise RuntimeError("pair_count: the kernel does not fit an SM")
         slots = per_sm * torch.cuda.get_device_properties(
@@ -190,10 +192,10 @@ def pair_count(m: torch.Tensor, nsigns: int, lo: int = 0,
         splits = default_pair_splits(row_tiles,
                                      -(-(n - lo) // _PAIR_TILE), slots)
     total = torch.zeros(1, dtype=torch.int64, device=m.device)
-    err = _build.lib().stpu_pair_count(
+    _build.launch(
+        m.device, "stpu_pair_count",
         m.data_ptr(), m.stride(0), n, m.shape[1], nsigns, lo, hi, int(splits),
-        total.data_ptr(), _build.stream_handle(m.device))
-    _build.check(err, "pair_count")
+        total.data_ptr(), what="pair_count")
     pair_count.launches += 1
     return int(total.item())
 
@@ -217,26 +219,31 @@ class DeviceInvertedEngine:
         lo, hi = (row_range.start, row_range.stop) if row_range else (0, self.n)
         return pair_count(self._m, self.nsigns, lo, hi)
 
-    def _scan(self, queries: np.ndarray, mode: str) -> np.ndarray:
+    def scan(self, queries: np.ndarray, mode: str,
+             cols: slice | None = None) -> np.ndarray:
+        """signeq of the (nq, S) u16 query signs against the index rows
+        `cols` (all by default): (nq, len(cols)) int32 counts or bool
+        masks."""
+        m = self._m if cols is None else self._m[cols]
         q = pack_signs(queries, self.device)
-        step = max(1, _OUT_ELEMS // max(1, self.n))
-        parts = [signeq(q[r0 : r0 + step], self._m, self.nsigns, mode).cpu()
+        step = max(1, _OUT_ELEMS // max(1, m.shape[0]))
+        parts = [signeq(q[r0 : r0 + step], m, self.nsigns, mode).cpu()
                  for r0 in range(0, q.shape[0], step)]
         if not parts:
             dtype = torch.int32 if mode == "count" else torch.bool
-            return torch.empty((0, self.n), dtype=dtype).numpy()
+            return torch.empty((0, m.shape[0]), dtype=dtype).numpy()
         return torch.cat(parts).numpy()
 
     def match_counts(self, queries: np.ndarray) -> np.ndarray:
         """(nq, S) u16 query signs -> (nq, n) int64 shared-bin counts."""
-        return self._scan(queries, "count").astype(np.int64)
+        return self.scan(queries, "count").astype(np.int64)
 
     def any_shared_rows(self, queries: np.ndarray) -> np.ndarray:
         """(nq, S) u16 query signs -> (nq, n) bool any-shared-bin mask."""
-        return self._scan(queries, "any")
+        return self.scan(queries, "any")
 
     def all_shared_rows(self, queries: np.ndarray) -> np.ndarray:
         """(nq, S) u16 query signs -> (nq, n) bool all-bins-shared mask
         (inverted.rs:243-256); only real rows are compared, so a pad row
         never counts as an all-match."""
-        return self._scan(queries, "all")
+        return self.scan(queries, "all")

@@ -2,8 +2,12 @@
 
 SKETCHTPU_TORCH_BACKEND picks one of three modes:
 - cuda (the default): the device engines, with the hand-written kernels on
-  the card, at any size. Raises when torch sees no CUDA device. Under
-  torchrun each rank runs on GPU LOCAL_RANK modulo the GPUs.
+  the card, at any size. Raises when torch sees no CUDA device. One
+  process uses every visible GPU (devices()): with more than one, the
+  selectors return the in-process multi-device engines of shard/mesh.py
+  and sketching sends its batches round-robin over them, as the JAX
+  package does over its local devices. Under torchrun each rank runs on
+  its own GPU, LOCAL_RANK modulo the GPUs, and on that one only.
 - cpu: the same engine code on CPU tensors, where every kernel wrapper runs
   its plain PyTorch twin (what the tests drive).
 - host: this package's NumPy oracle (sketchcore/sketch.py, dist/api.py);
@@ -39,16 +43,17 @@ def mode() -> str:
     return m
 
 
-def device() -> torch.device | None:
-    """The device the engines run on, or None in host mode. In cuda mode
-    under torchrun (LOCAL_RANK set) that is the rank's GPU, LOCAL_RANK
-    modulo the GPUs, which this makes the current device (the kernels
-    launch on the current device's context)."""
+def devices() -> list[torch.device] | None:
+    """The devices the engines run on, or None in host mode: [cpu] in cpu
+    mode; in cuda mode every visible GPU, or under torchrun (LOCAL_RANK
+    set) the rank's one GPU, LOCAL_RANK modulo the GPUs, which this makes
+    the current device. So a GPU serves either ranks or one process's
+    multi-device engines, never both."""
     m = mode()
     if m == "host":
         return None
     if m == "cpu":
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     if not torch.cuda.is_available():
         raise RuntimeError(
             "SKETCHTPU_TORCH_BACKEND=cuda but torch sees no CUDA device "
@@ -59,31 +64,39 @@ def device() -> torch.device | None:
         index = int(local) % torch.cuda.device_count()
         if index != torch.cuda.current_device():
             torch.cuda.set_device(index)
-    return torch.device("cuda", torch.cuda.current_device())
+        return [torch.device("cuda", index)]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def device() -> torch.device | None:
+    """The first of devices(), or None in host mode."""
+    devs = devices()
+    return None if devs is None else devs[0]
 
 
 def select_backend(seq_type, n_samples: int):
-    """Batched sketching backend (DNA, or AA/3Di), or None for the host
-    path."""
-    dev = device()
-    if dev is None:
+    """Batched sketching backend (DNA, or AA/3Di) over devices(), or None
+    for the host path."""
+    devs = devices()
+    if devs is None:
         return None
     if seq_type.kind != "dna":
         from .sketchcore.sketch_torch import DeviceAaSketchBackend
 
-        return DeviceAaSketchBackend(dev)
+        return DeviceAaSketchBackend(devs)
     from .sketchcore.sketch_torch import DeviceSketchBackend
 
-    return DeviceSketchBackend(dev)
+    return DeviceSketchBackend(devs)
 
 
 def select_coreacc_engine(ms, completeness_vec=None,
                           completeness_cutoff: float = 0.64,
                           exact: bool = False):
-    """Dense core/accessory engine: the f32 fused kernel, or with
-    exact=True (`dist --exact`) per-k exact strips + the host f64 chain."""
-    dev = device()
-    if dev is None or len(ms.kmer_lengths) < 2:
+    """Dense core/accessory engine: the f32 fused kernel (over every
+    device when there are several), or with exact=True (`dist --exact`)
+    per-k exact strips + the host f64 chain on the first device."""
+    devs = devices()
+    if devs is None or len(ms.kmer_lengths) < 2:
         return None
     if exact and ms.sketchsize64 * 64 > INT16_MAX_BINS:
         log.info(
@@ -96,20 +109,27 @@ def select_coreacc_engine(ms, completeness_vec=None,
         from .dist.coreacc_torch import DeviceCoreAccExactStreamEngine
 
         return DeviceCoreAccExactStreamEngine(
-            ms, dev, completeness_vec=completeness_vec,
+            ms, devs[0], completeness_vec=completeness_vec,
+            completeness_cutoff=completeness_cutoff,
+        )
+    if len(devs) > 1:
+        from .shard.mesh import ShardedCoreAccEngine
+
+        return ShardedCoreAccEngine(
+            ms, devs, completeness_vec=completeness_vec,
             completeness_cutoff=completeness_cutoff,
         )
     from .dist.coreacc_torch import DeviceCoreAccEngine
 
     return DeviceCoreAccEngine(
-        ms, dev, completeness_vec=completeness_vec,
+        ms, devs[0], completeness_vec=completeness_vec,
         completeness_cutoff=completeness_cutoff,
     )
 
 
 def select_dense_stream_engine(ms, dist_type):
     """Streaming single-k dense engine (exact samebits on the card, the
-    f64 chain on the host)."""
+    f64 chain on the host), on the first device, as in the JAX package."""
     dev = device()
     if dev is None or dist_type.coreacc:
         return None
@@ -123,31 +143,45 @@ def select_dense_stream_engine(ms, dist_type):
 def select_knn_engine(ms, dist_type):
     """Sparse kNN engine (dist --knn): K3 keys for single-k, K2 tiles for
     core/accessory, at any n; fewer than two k for core/accessory take the
-    host chain."""
-    dev = device()
-    if dev is None or (dist_type.coreacc and len(ms.kmer_lengths) < 2):
+    host chain. Several devices split the rows."""
+    devs = devices()
+    if devs is None or (dist_type.coreacc and len(ms.kmer_lengths) < 2):
         return None
+    if len(devs) > 1:
+        from .shard.mesh import ShardedKnnEngine
+
+        return ShardedKnnEngine(ms, devs)
     from .dist.knn_torch import DeviceKnnEngine
 
-    return DeviceKnnEngine(ms, dev)
+    return DeviceKnnEngine(ms, devs[0])
 
 
 def select_engine(ms):
-    """samebits engine for the host distance functions, or None."""
-    dev = device()
-    if dev is None:
+    """samebits engine for the host distance functions (rows split over
+    the devices when there are several), or None."""
+    devs = devices()
+    if devs is None:
         return None
+    if len(devs) > 1:
+        from .shard.mesh import ShardedSamebitsEngine
+
+        return ShardedSamebitsEngine(ms.sketchsize64, devs).matrix
     from .dist.jaccard_torch import DeviceSamebitsEngine
 
-    return DeviceSamebitsEngine(ms.sketchsize64, dev).matrix
+    return DeviceSamebitsEngine(ms.sketchsize64, devs[0]).matrix
 
 
 def select_inverted_engine(inv):
     """Inverted-index query and `precluster --count` engine (csrc/signeq.cu
-    on the card), at any number of samples; None in host mode."""
-    dev = device()
-    if dev is None:
+    on the card, split over the devices when there are several), at any
+    number of samples; None in host mode."""
+    devs = devices()
+    if devs is None:
         return None
+    if len(devs) > 1:
+        from .shard.mesh import ShardedInvertedEngine
+
+        return ShardedInvertedEngine(inv.sign_matrix, devs)
     from .inverted.device import DeviceInvertedEngine
 
-    return DeviceInvertedEngine(inv.sign_matrix, dev)
+    return DeviceInvertedEngine(inv.sign_matrix, devs[0])

@@ -17,6 +17,11 @@ sketch_aa_jax.py::DeviceAaSketchBackend.
 - Amino acids and 3Di (DeviceAaSketchBackend): batches as for assemblies,
   one aahash_bin_multi launch per batch for all k, whose per-(k, sample)
   reachability flags stand in for the host oracle's emission-mask raise.
+- Several devices (the JAX backends' round-robin over the local devices):
+  batches, and the chunks of read streams, go to the devices in turn, with
+  up to max(8, 2 x devices) batches (2 x devices chunks) in flight, and are
+  read back in order. Launches are asynchronous, so one host thread keeps
+  every device busy, and the sketches are those of one device.
 Densification and the bit-plane transpose run on the host exactly as in
 the JAX backends. Sketches are bit-identical to the host oracle
 (sketchcore/sketch.py).
@@ -24,6 +29,7 @@ the JAX backends. Sketches are bit-identical to the host oracle
 
 from __future__ import annotations
 
+import itertools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -63,21 +69,33 @@ def _groups(streams):
         start = end
 
 
-def _pipelined_minima(streams, kmers, nbins: int, dispatch, collect):
+def _device_list(devices) -> list[torch.device]:
+    """A device, or a list of them (slots: one may repeat), as a list."""
+    if isinstance(devices, (list, tuple)):
+        if not devices:
+            raise ValueError("no device given")
+        return [torch.device(d) for d in devices]
+    return [torch.device(devices)]
+
+
+def _pipelined_minima(streams, kmers, nbins: int, devices, dispatch,
+                      collect):
     """{k: (len(streams), nbins) u64} per-bin sign minima of the batches of
-    streams (_groups): dispatch(batch) launches one and returns its pending
-    copies, collect(out, start, end, *copies) reads them into out. Batch
-    i+1 is packed and launched before batch i is read back."""
+    streams (_groups): dispatch(batch, device) launches one on the device
+    and returns its pending copies, collect(out, start, end, *copies)
+    reads them into out. Batches go to the devices in turn; up to
+    max(8, 2 x devices) are in flight, read back in order."""
     out = {kk: np.empty((len(streams), nbins), dtype=np.uint64)
            for kk in kmers}
-    pending = None
-    for start, end in _groups(streams):
-        launched = (start, end, *dispatch(streams[start:end]))
-        if pending is not None:
-            collect(out, *pending)
-        pending = launched
-    if pending is not None:
-        collect(out, *pending)
+    window = max(8, 2 * len(devices))
+    pending = deque()
+    for i, (start, end) in enumerate(_groups(streams)):
+        pending.append((start, end, *dispatch(streams[start:end],
+                                              devices[i % len(devices)])))
+        if len(pending) >= window:
+            collect(out, *pending.popleft())
+    while pending:
+        collect(out, *pending.popleft())
     return out
 
 
@@ -97,17 +115,20 @@ def _chunk_starts(nk: int) -> int:
 
 
 class DeviceSketchBackend:
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
+    """DNA sketches on a device, or round-robin over a list of them."""
+
+    def __init__(self, devices):
+        self.devices = _device_list(devices)
 
     # --- assemblies ---
 
-    def _dispatch(self, group, kmers, rc: bool, nbins: int):
-        """One launch for the batch; the (nk, genomes, nbins) minima start
-        their copy to the host."""
+    @staticmethod
+    def _dispatch(group, kmers, rc: bool, nbins: int, device):
+        """One launch for the batch on `device`; the (nk, genomes, nbins)
+        minima start their copy to the host."""
         seq, starts = pack_group(group)
-        seq_d = torch.from_numpy(seq).to(self.device)
-        starts_d = torch.from_numpy(starts).to(self.device)
+        seq_d = torch.from_numpy(seq).to(device)
+        starts_d = torch.from_numpy(starts).to(device)
         return (HostCopy(nthash_bin_multi(seq_d, kmers, rc, starts_d,
                                           nbins)),)
 
@@ -116,8 +137,8 @@ class DeviceSketchBackend:
         empty bins)."""
         kmers = list(dict.fromkeys(kmers))  # one plane of minima per k
         return _pipelined_minima(
-            streams, kmers, nbins,
-            lambda group: self._dispatch(group, kmers, rc, nbins),
+            streams, kmers, nbins, self.devices,
+            lambda group, dev: self._dispatch(group, kmers, rc, nbins, dev),
             self._collect)
 
     @staticmethod
@@ -128,20 +149,21 @@ class DeviceSketchBackend:
 
     # --- reads: in-order signs ---
 
-    def _launch_signs(self, stream, kmers, rc: bool,
+    def _launch_signs(self, stream, kmers, rc: bool, turn,
                       n_starts: int | None = None):
-        """Upload a read stream once and launch its chunks in order; yields
-        (owned starts, HostCopy of the (nk, owned) signs, last chunk) as
-        each chunk's launch is made."""
+        """Launch the chunks of a read stream in order, each uploaded (its
+        bases and the k - 1 past them) to the device whose turn it is
+        (next(turn)); yields (owned starts, HostCopy of the (nk, owned)
+        signs, last chunk) as each chunk's launch is made."""
         n = stream.seq_len
         chunks = read_chunks(n, kmers, _chunk_starts(len(kmers)), n_starts)
         if not chunks:
             return
         seq, _starts = pack_group([stream])
-        seq_d = torch.from_numpy(seq).to(self.device)
         reach = max(kmers) - 1  # bases a chunk reads past its last start
         for j, (c0, own) in enumerate(chunks):
-            part = seq_d[c0 : min(n, c0 + own + reach)]
+            part = torch.from_numpy(seq[c0 : min(n, c0 + own + reach)]).to(
+                next(turn))
             yield (own, HostCopy(nthash_signs(part, kmers, rc, own)),
                    j == len(chunks) - 1)
 
@@ -150,9 +172,12 @@ class DeviceSketchBackend:
         """For each (key, stream) of jobs, in order, the valid signs of every
         k in sequence order, of window starts [0, n_starts) (all by
         default): sink(key, [signs per k]) as soon as the stream's last
-        chunk is read back. Up to _READ_AHEAD chunk launches are in flight
-        while the host compacts the oldest."""
+        chunk is read back. Chunks go to the devices in turn; up to
+        max(_READ_AHEAD, 2 x devices) chunk launches are in flight while
+        the host compacts the oldest."""
         pending = deque()
+        ahead = max(_READ_AHEAD, 2 * len(self.devices))
+        turn = itertools.cycle(self.devices)
 
         def collect():
             key, parts, (own, copy, last) = pending.popleft()
@@ -167,10 +192,11 @@ class DeviceSketchBackend:
         for key, stream in jobs:
             parts = [[] for _ in kmers]
             launched_any = False
-            for launched in self._launch_signs(stream, kmers, rc, n_starts):
+            for launched in self._launch_signs(stream, kmers, rc, turn,
+                                               n_starts):
                 launched_any = True
                 pending.append((key, parts, launched))
-                while len(pending) > _READ_AHEAD:
+                while len(pending) > ahead:
                     collect()
             if not launched_any:  # no window: every bin stays empty
                 sink(key, [np.zeros(0, np.uint64) for _ in kmers])
@@ -267,17 +293,18 @@ class DeviceSketchBackend:
 class DeviceAaSketchBackend:
     """Amino-acid and 3Di sketches: the batches of DeviceSketchBackend's
     assemblies, each uploaded once with one aahash_bin_multi launch for
-    all k."""
+    all k, on a device or round-robin over a list of them."""
 
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
+    def __init__(self, devices):
+        self.devices = _device_list(devices)
 
-    def _dispatch(self, group, kmers, level: int, nbins: int):
-        """One launch for the batch; its minima and reachability flags
-        start their copy to the host."""
+    @staticmethod
+    def _dispatch(group, kmers, level: int, nbins: int, device):
+        """One launch for the batch on `device`; its minima and
+        reachability flags start their copy to the host."""
         codes, starts = pack_aa_group(group)
-        codes_d = torch.from_numpy(codes).to(self.device)
-        starts_d = torch.from_numpy(starts).to(self.device)
+        codes_d = torch.from_numpy(codes).to(device)
+        starts_d = torch.from_numpy(starts).to(device)
         minima, reach = aahash_bin_multi(codes_d, kmers, level, starts_d,
                                          nbins)
         return HostCopy(minima), HostCopy(reach)
@@ -292,8 +319,9 @@ class DeviceAaSketchBackend:
         if any(s.seq_len < max(kmers) for s in streams):
             raise ValueError("K-mer larger than smallest valid sequence")
         return _pipelined_minima(
-            streams, kmers, nbins,
-            lambda group: self._dispatch(group, kmers, level, nbins),
+            streams, kmers, nbins, self.devices,
+            lambda group, dev: self._dispatch(group, kmers, level, nbins,
+                                              dev),
             self._collect)
 
     @staticmethod

@@ -1134,3 +1134,159 @@ def test_two_ranks_on_the_card(cuda, tmp_path, monkeypatch):
                              for r in range(2))
             want = (tmp_path / out).read_bytes()
             assert want.count(b"\n") == 12 * 5 and parts == want
+
+
+# --- the in-process multi-device engines (shard/mesh.py) ---------------------
+
+def _device_lists(cuda):
+    """slots: two slots of the first card; distinct: every GPU (skips on a
+    host with one)."""
+    return {"slots": [cuda] * 2,
+            "distinct": [torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count())]}
+
+
+def _ms_pair(n, seed):
+    ms = _engine_ms(n, (17, 21, 25), seed)
+    q = _engine_ms(37, (17, 21, 25), seed + 1)
+    for i, sk in enumerate(q.sketch_metadata):
+        sk.name = f"q{i}"
+    return ms, q
+
+
+@pytest.mark.parametrize("kind", ["slots", "distinct"])
+def test_sharded_engines_equal_one_device(cuda, kind):
+    """Each multi-device engine on two slots of the card, or on every GPU,
+    gives the one-device engine's result bit for bit (samebits, core/acc
+    tiles and text, single-k and core/accessory kNN, precluster, the pair
+    count and the queries)."""
+    import io
+
+    from sketchtpu_torch.dist.coreacc_torch import DeviceCoreAccEngine
+    from sketchtpu_torch.dist.jaccard_torch import DeviceSamebitsEngine
+    from sketchtpu_torch.inverted.device import DeviceInvertedEngine
+    from sketchtpu_torch.inverted.index import Inverted
+    from sketchtpu_torch.shard import mesh
+    from sketchtpu_torch.synth import derive_signs
+
+    devs = _device_lists(cuda)[kind]
+    if len(devs) < 2:
+        pytest.skip("needs two GPUs")
+    one = torch.device("cuda", 0)
+    n, s = 1500, 100
+    ms, q = _ms_pair(n, 71)
+    names = [f"g{i}" for i in range(n)]
+    qnames = [f"q{i}" for i in range(37)]
+    a = ms.bins_matrix(1)
+    assert np.array_equal(
+        mesh.ShardedSamebitsEngine(ms.sketchsize64, devs).matrix(a[:700], a),
+        DeviceSamebitsEngine(ms.sketchsize64, one).matrix(a[:700], a))
+    comp = np.random.default_rng(72).uniform(0.6, 1, n)
+    for cv in (None, comp):
+        sh = mesh.ShardedCoreAccEngine(ms, devs, tile=512,
+                                       completeness_vec=cv)
+        single = DeviceCoreAccEngine(ms, one, tile=512, completeness_vec=cv)
+        assert np.array_equal(sh.tile_dists(slice(3, 900), slice(0, n)),
+                              single.tile_dists(slice(3, 900), slice(0, n)))
+        for call in (lambda e, o: e.stream_self_dense(o, names),
+                     lambda e, o: e.stream_cross_dense(
+                         o, names, qnames, q, rcomp=cv,
+                         qcomp=cv[:37] if cv is not None else None)):
+            texts = []
+            for eng in (sh, single):
+                out = io.StringIO()
+                call(eng, out)
+                texts.append(out.getvalue())
+            assert texts[0] and texts[0] == texts[1]
+    dt = DistType(k_idx=0, k=17.0)
+    sh = mesh.ShardedKnnEngine(ms, devs)
+    single = DeviceKnnEngine(ms, one)
+
+    def same(x, y):
+        for u, v in zip(x.as_arrays(), y.as_arrays()):
+            assert (u is None) == (v is None)
+            assert u is None or np.array_equal(u, v)
+
+    for cv in (None, comp):
+        same(sh.self_knn(10, dt, completeness_vec=cv),
+             single.self_knn(10, dt, completeness_vec=cv))
+        same(sh.self_knn_coreacc(10, completeness_vec=cv),
+             single.self_knn_coreacc(10, completeness_vec=cv))
+    same(sh.self_knn(1100, dt, row_range=slice(5, 260)),
+         single.self_knn(1100, dt, row_range=slice(5, 260)))
+    same(sh.cross_knn(q, 10, dt), single.cross_knn(q, 10, dt))
+    same(sh.cross_knn_coreacc(q, 10), single.cross_knn_coreacc(q, 10))
+    sig = derive_signs(n, s, 9, 73, redraw=0.7)
+    sig[[5, 700]] = np.random.default_rng(74).integers(0, 1 << 16, (2, s))
+    inv = Inverted(sign_matrix=sig, sample_names=names, kmer_size=17,
+                   rc=True, hash_type=HashType("dna"))
+    for retain in ("singleton", "bruteforce"):
+        for mode in (dt, DistType()):
+            args = (inv, sig.reshape(-1), 10, mode, retain)
+            same(sh.precluster_knn(*args), single.precluster_knn(*args))
+    shi = mesh.ShardedInvertedEngine(sig, devs)
+    singlei = DeviceInvertedEngine(sig, one)
+    assert shi.any_shared_bin_count() == singlei.any_shared_bin_count() > 0
+    queries = sig[[1, 2, 3, 400, 1499]]
+    for fn in ("match_counts", "any_shared_rows", "all_shared_rows"):
+        assert np.array_equal(getattr(shi, fn)(queries),
+                              getattr(singlei, fn)(queries))
+
+
+@pytest.mark.parametrize("kind", ["slots", "distinct"])
+def test_round_robin_sketching_equals_one_device(cuda, kind, monkeypatch):
+    """Assembly batches, read chunks and AA batches sent round-robin over
+    the slots or the GPUs give one device's sketches."""
+    from sketchtpu_torch.sketchcore import sketch_torch
+    from sketchtpu_torch.sketchcore.sketch_torch import (
+        DeviceAaSketchBackend,
+        DeviceSketchBackend,
+    )
+
+    devs = _device_lists(cuda)[kind]
+    if len(devs) < 2:
+        pytest.skip("needs two GPUs")
+    monkeypatch.setattr(sketch_torch, "_MAX_GROUP", 3)  # several batches
+    monkeypatch.setattr(sketch_torch, "_chunk_starts", lambda nk: 7_777)
+    streams = random_streams([40_000, 900, 70_000, 5_000, 12_000], seed=8)
+    streams += [_reads_stream(n, 30 + n) for n in (30_000, 151, 80_000)]
+    names = [f"s{i}" for i in range(len(streams))]
+    want = DeviceSketchBackend(cuda).sketch_dna_streams(
+        streams, names, [17, 21, 25], 1024, True, 1)
+    got = DeviceSketchBackend(devs).sketch_dna_streams(
+        streams, names, [17, 21, 25], 1024, True, 1)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.usigs, w.usigs)
+        assert g.seq_length == w.seq_length
+    aa = _aa_streams([3000, 5000, 4000, 3500], seed=6)[:-3]
+    aa_names = [f"p{i}" for i in range(len(aa))]
+    want = DeviceAaSketchBackend(cuda).sketch_aa_streams(
+        aa, aa_names, [6, 9, 12], 1000, 1, True)
+    got = DeviceAaSketchBackend(devs).sketch_aa_streams(
+        aa, aa_names, [6, 9, 12], 1000, 1, True)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.usigs, w.usigs)
+
+
+def test_kernels_launch_on_their_tensors_device(cuda):
+    """With the first GPU current, K1, K2 and K3 on tensors of the second
+    launch there (into its stream, with its shared-memory attributes) and
+    equal their twins on that GPU."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    w = _words(300, 16, 81, other)
+    a, b = w[:100, 1], w[:, 1]
+    got = samebits(a, b, out_dtype=torch.int16, tri=True, row0=7)
+    assert got.device == other
+    assert torch.equal(got, samebits_ref(a, b, out_dtype=torch.int16,
+                                         tri=True, row0=7))
+    got = coreacc(w[:100], w, KMERS, 1024)
+    torch.cuda.synchronize(other)
+    for g, r in zip(got, coreacc_ref(w[:100], w, KMERS, 1024)):
+        assert g.device == other and torch.equal(g, r)
+    got = knn_select(a, b, 20, exclude_self=True)
+    assert got.device == other
+    assert torch.equal(got, knn_select_ref(a, b, 20, exclude_self=True))
+    assert torch.cuda.current_device() == 0

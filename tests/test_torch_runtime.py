@@ -90,7 +90,7 @@ def test_unported_selectors_raise(monkeypatch, capsys, argv, coordinator,
         monkeypatch.delenv(var, raising=False)
     if coordinator:
         monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", coordinator)
-    monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
+    monkeypatch.setattr(runtime, "devices", lambda: pytest.fail("work began"))
     parser = port_cli.build_parser()
     with pytest.raises(SystemExit) as exc:
         port_cli.refuse_unported(parser.parse_args(argv), parser)
@@ -106,10 +106,11 @@ def test_aa_selects_the_aa_backend(monkeypatch, mode, kind):
 
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", mode)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
     backend = runtime.select_backend(HashType(kind, 2), 1)
     assert isinstance(backend, DeviceAaSketchBackend)
-    assert backend.device.type == mode
+    assert [d.type for d in backend.devices] == [mode]
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "host")
     assert runtime.select_backend(HashType(kind, 2), 1) is None
 
@@ -242,7 +243,7 @@ def test_coreacc_engines_past_the_k_limit_stay_on_the_card(monkeypatch):
     from sketchtpu_torch.dist import coreacc_torch, knn_torch
 
     many = tuple(range(3, 3 + coreacc_kernels.MAX_NK + 1))
-    monkeypatch.setattr(runtime, "device", lambda: torch.device("cuda", 0))
+    monkeypatch.setattr(runtime, "devices", lambda: [torch.device("cuda", 0)])
     monkeypatch.setattr(coreacc_torch, "DeviceCoreAccEngine",
                         lambda ms, dev, **kw: ("dense", dev))
     monkeypatch.setattr(knn_torch, "DeviceKnnEngine",
@@ -476,7 +477,7 @@ def test_cli_refuses_k_past_the_card_at_parsing(monkeypatch, capsys):
     """In cuda mode a k past MAX_K_CUDA is refused before any work (no
     route to the host), with the limit in the message."""
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cuda")
-    monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
+    monkeypatch.setattr(runtime, "devices", lambda: pytest.fail("work began"))
     big = str(nthash_torch.MAX_K_CUDA + 1)
     for argv in (["sketch", "x.fa", "-o", "o", "-k", f"17,{big}"],
                  ["inverted", "build", "x.fa", "-o", "o", "-k", big]):
@@ -498,7 +499,7 @@ def test_cli_refuses_aa_k_past_the_card_at_parsing(monkeypatch, capsys,
     from sketchtpu_torch.hash.aahash_torch import MAX_K_AA_CUDA
 
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cuda")
-    monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
+    monkeypatch.setattr(runtime, "devices", lambda: pytest.fail("work began"))
     big = str(MAX_K_AA_CUDA + 1)
     argv = ["sketch", "x.faa", "-o", "o", "--seq-type", seq_type, "-k",
             f"9,{big}"]
@@ -522,7 +523,7 @@ def test_cli_refuses_append_past_the_card_at_parsing(tmp_path, monkeypatch,
     MultiSketch([Sketch(name="g0", index=0)], 64, [9, limit + 1],
                 HashType(kind)).save_metadata(str(tmp_path / "db"))
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cuda")
-    monkeypatch.setattr(runtime, "device", lambda: pytest.fail("work began"))
+    monkeypatch.setattr(runtime, "devices", lambda: pytest.fail("work began"))
     with pytest.raises(SystemExit) as exc:
         port_cli.main(["append", str(tmp_path / "db"), "x.fa", "-o", "o"])
     assert exc.value.code == 2
@@ -553,3 +554,124 @@ def test_port_imports_nothing_of_the_jax_package(path):
     and not chip_smoke.py, imports sketchtpu or jax (a subprocess that runs
     the JAX CLI as the host oracle is allowed)."""
     assert _imports_of_jax_package(path) == []
+
+
+def test_port_import_check_covers_the_mesh_engines():
+    paths = sorted((REPO / "sketchtpu_torch").rglob("*.py"))
+    assert REPO / "sketchtpu_torch" / "shard" / "mesh.py" in paths
+    assert _imports_of_jax_package(
+        REPO / "sketchtpu_torch" / "shard" / "mesh.py") == []
+
+
+def _kernel_entry_calls(path: Path) -> list[str]:
+    """Where a module reaches the kernel library other than through
+    _build.launch / _build.query: `_build.lib` itself, `lib` imported
+    from _build, or an stpu_* attribute of a call's result."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if (isinstance(node, ast.Attribute) and node.attr == "lib"
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "_build"):
+            found.append(f"{path.name}:{node.lineno} _build.lib")
+        elif (isinstance(node, ast.ImportFrom)
+              and (node.module or "").endswith("_build")
+              and any(a.name == "lib" for a in node.names)):
+            found.append(f"{path.name}:{node.lineno} import lib")
+        elif (isinstance(node, ast.Attribute)
+              and node.attr.startswith("stpu_")
+              and isinstance(node.value, ast.Call)):
+            found.append(f"{path.name}:{node.lineno} {node.attr}")
+    return found
+
+
+@pytest.mark.parametrize(
+    "path",
+    [p for p in sorted((REPO / "sketchtpu_torch").rglob("*.py"))
+     if p.name != "_build.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_kernels_launch_only_through_the_device_guarded_helper(path):
+    """Every kernel entry point is called through _build.launch (or, for
+    the occupancy queries, _build.query), which makes the tensors' device
+    current around the call."""
+    assert _kernel_entry_calls(path) == []
+
+
+def test_the_launch_helper_makes_the_device_current(monkeypatch):
+    """_build.launch calls the entry point with the device current and
+    that device's stream as the last argument, and raises on a CUDA
+    error; _build.query returns the entry point's value with the device
+    current."""
+    from types import SimpleNamespace
+
+    from sketchtpu_torch import _build
+
+    current = []
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            current.append(self.dev)
+
+        def __exit__(self, *exc):
+            current.pop()
+
+    class Lib:
+        calls = []
+
+        def stpu_x(self, *args):
+            self.calls.append((current[-1], args))
+            return 0
+
+        def stpu_q(self, *args):
+            return (current[-1], args)
+
+        def stpu_fail(self, *args):
+            return 700
+
+        def stpu_error_string(self, err):
+            return b"an illegal memory access"
+
+    lib = Lib()
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev:
+                        SimpleNamespace(cuda_stream=1000 + dev.index))
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    dev = torch.device("cuda", 1)
+    _build.launch(dev, "stpu_x", 5, 6)
+    assert lib.calls == [(dev, (5, 6, 1001))] and not current
+    assert _build.query(dev, "stpu_q", 3) == (dev, (3,))
+    with pytest.raises(RuntimeError, match="pair_count kernel launch failed: "
+                       "an illegal memory access"):
+        _build.launch(dev, "stpu_fail", what="pair_count")
+    assert not current
+
+
+@pytest.mark.parametrize("local_rank", [None, "3"])
+def test_devices_are_every_gpu_or_the_ranks_one(monkeypatch, local_rank):
+    """cuda mode: every visible GPU in one process, the rank's one GPU
+    under torchrun (LOCAL_RANK); cpu mode one CPU device; host none."""
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cuda")
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    chosen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: chosen[-1] if chosen else 0)
+    monkeypatch.setattr(torch.cuda, "set_device", chosen.append)
+    devs = runtime.devices()
+    if local_rank is None:
+        assert devs == [torch.device("cuda", 0), torch.device("cuda", 1)]
+        assert chosen == []
+    else:
+        assert devs == [torch.device("cuda", 1)] and chosen == [1]
+    assert runtime.device() == devs[0]
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    assert runtime.devices() == [torch.device("cpu")]
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "host")
+    assert runtime.devices() is None and runtime.device() is None

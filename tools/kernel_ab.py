@@ -10,7 +10,9 @@ and runs in a process of its own, in the turns other, this, this, other:
 signeq in every mode with 1, 8 and 101 queries against chip_smoke.py's
 661,000-row index at S = 100 (each held against its twin first), and
 aahash_bin_multi at chip_smoke.py's phase 2 shape (16 x 1.2 M residues,
-k = 6, 9, 12, 1024 bins). Each checkout's aaHash kernel also reports its
+k = 6, 9, 12, 1024 bins), then K2 (plain, and masked key mode) and K3's
+masked selection at phase 2's shapes through each checkout's own
+chip_smoke.py phase 2 functions. Each checkout's aaHash kernel also reports its
 registers and its SASS atomics, and its SASS goes to
 chiprun_out/kernel_ab_<turn>_aahash.sass. Prints one JSON line per
 measurement and writes them all to chiprun_out/kernel_ab.json.
@@ -84,6 +86,20 @@ def measure(root: Path, label: str) -> list:
     out.append(dict(tree=label, kernel="aahash_bin_multi",
                     shape="16 x 1.2 M aa, k 6, 9, 12, 1024 bins", ms=ms,
                     gpu=gpu))
+    del cd, sd, got, want
+    # K2 (plain, key and masked key mode) and K3's masked selection at
+    # phase 2's shapes, each held against its twin there first
+    results: dict = {}
+    words = C.derived_words(16384, C.SEED)
+    C.phase2_coreacc(words, results, lib_path)
+    C.phase2_knn_masked(words, results, lib_path)
+    C.phase2_coreacc_masked(words, results)
+    for kernel, shape in (("coreacc", "plain, nk 7, 2048 x 16384"),
+                          ("knn_select_masked", "2048 x 8192, S = 1000"),
+                          ("coreacc_keys_masked",
+                           "2048 x 8192, nk 7, S = 1000")):
+        out.append(dict(tree=label, kernel=kernel, shape=shape,
+                        ms=results[kernel]["ms"], gpu=gpu))
     return out
 
 
