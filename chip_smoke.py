@@ -13,7 +13,11 @@
    Before any timing of `pair_count` and the signs mode it prints the
    compare microbenchmark (XOR / IADD / LOP3 against the DPX
    VIADDMNMX.U16x2 a word, at the full grid), pair_count's SASS (the DPX
-   opcode required) and both kernels' registers (no spills).
+   opcode required) and both kernels' registers (no spills). The reads
+   path's sign prefilter (its keep kernel and compaction) is held against
+   its twins at seeds and on a 2^24-window segment of phase 6's first
+   sample at k = 17, --min-count 5 (timed beside torch.sort of the same
+   keys), and that sample's kept fraction is printed by segment length.
 3. Drives the two paths through the port's CLI and checks them against
    `python -m sketchtpu.cli` on its NumPy host oracle (run as a separate
    process): the dense path (`sketch` of 8 synthetic 2 Mb assemblies, then
@@ -29,7 +33,9 @@
    (past K3's selection limit: its tile keys and the top-k merge), byte
    for byte. The reads + inverted path: `sketch` of synthetic FASTQ (a
    500 kb genome at 10x, single and paired files), alone and mixed with
-   the 8 assemblies, at --min-count 1, 2, 3; `inverted build` (-s 100 and
+   the 8 assemblies, at --min-count 1, 2, 3, each also with the sign
+   prefilter on (SKETCHTPU_FASTQ_PREFILTER=1, as both inverted builds);
+   `inverted build` (-s 100 and
    the default -s 1000 with --species-names and --metadata), `info` on the
    .ski, `inverted query` of every --query-type, `precluster --count`,
    `precluster --skd --knn 3` (-k 17, --ani, completeness, --retain-
@@ -41,7 +47,9 @@
    50,000, with the selection and values of 512 random rows checked
    against full rows.
 6. Reads and the inverted index at the sizes users run: 2 read samples of
-   50 Mb each (a 2 Mb genome at 25x) at 7 k and --min-count 5; an index
+   50 Mb each (a 2 Mb genome at 25x) at 7 k and --min-count 5, with the
+   sign prefilter off and on (byte-identical; walls, bytes copied to the
+   host, signs into the count filter, the card's busy share); an index
    of 661,000 samples at S = 100, k = 17 (the reference's published
    `precluster --count` size), with `info`, `precluster --count` and the 8
    assemblies queried; `precluster --skd --knn 50` over phase 5's 100,000
@@ -61,7 +69,8 @@
    commands and phase 3's index commands (`dist --knn 50` -k 17 at
    100,000 and core/acc at 50,000, dense core/acc and -k 17 at 8192,
    `precluster --count` at 661,000, `precluster --skd --knn 50`, `sketch
-   --seq-type aa` of the 256 proteomes, `inverted build` and `query`);
+   --seq-type aa` of the 256 proteomes, `sketch` of phase 6's reads with
+   the prefilter on, `inverted build` and `query`);
    the parts in rank order, rank 0's merge or its printed total must
    equal the single-process output byte for byte, and each rank must
    launch its path's kernels; each rank's wall and compute window are
@@ -73,8 +82,8 @@
    runtime.devices giving every GPU, or on a host with one, slots of the
    card (2 for the multi-device engines of shard/mesh.py, 3 for the
    round-robin sketching), runs phases 3-7's commands at their full sizes
-   (`sketch` of the 8 assemblies, of the 2 read samples and of the 256
-   proteomes, dense core/acc at 8192, `dist -k 17` at 40,000 bins (K4),
+   (`sketch` of the 8 assemblies, of the 2 read samples (prefilter off and
+   on) and of the 256 proteomes, dense core/acc at 8192, `dist -k 17` at 40,000 bins (K4),
    `--knn 50` at 100,000 and core/acc at 50,000, `precluster --count` and
    the 8 queries at 661,000, `precluster --skd --knn 50` at 100,000):
    every output byte-identical to the one-device run, each wall printed
@@ -153,13 +162,16 @@ SOURCES = {
                             "sketchtpu/dist/coreacc_pallas.py:100"),
     "aahash_bin_multi": ("sketchtpu_torch/csrc/aahash_bin.cu",
                          "sketchtpu/hash/aahash_jax.py:355"),
+    "sign_prefilter_keep": ("sketchtpu_torch/csrc/sign_prefilter.cu",
+                            "sketchtpu/sketchcore/sign_prefilter.py:118"),
 }
 DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi", "samebits_full")
 # knn_keys: K3's tile mode, the route of `dist --knn` past MAX_KNN = 1024
 KNN_PATH = ("knn_select", "coreacc", "knn_keys")
 INVERTED_PATH = ("nthash_signs", "nthash_bin_multi", "signeq_count",
                  "signeq_any", "signeq_all", "pair_count",
-                 "knn_select_masked", "coreacc_keys_masked")
+                 "knn_select_masked", "coreacc_keys_masked",
+                 "sign_prefilter_keep")
 # amino acids and 3Di: sketch, append, then dense -k, core/acc and --knn
 AA_PATH = ("aahash_bin_multi", "samebits", "coreacc", "knn_select")
 
@@ -225,6 +237,7 @@ def kernel_wrappers() -> dict:
     from sketchtpu_torch.hash.aahash_torch import aahash_bin_multi
     from sketchtpu_torch.hash.nthash_torch import nthash_bin_multi, nthash_signs
     from sketchtpu_torch.inverted.device import pair_count, signeq
+    from sketchtpu_torch.sketchcore.sign_prefilter import sign_prefilter_keep
 
     return {"samebits": Count(samebits), "coreacc": Count(coreacc),
             "knn_keys": Count(knn_keys), "knn_select": Count(knn_select),
@@ -237,7 +250,8 @@ def kernel_wrappers() -> dict:
             "pair_count": Count(pair_count),
             "knn_select_masked": Count(knn_select, "masked_launches"),
             "coreacc_keys_masked": Count(coreacc, "masked_launches"),
-            "aahash_bin_multi": Count(aahash_bin_multi)}
+            "aahash_bin_multi": Count(aahash_bin_multi),
+            "sign_prefilter_keep": Count(sign_prefilter_keep)}
 
 
 @contextlib.contextmanager
@@ -252,6 +266,63 @@ def uncounted():
     finally:
         for k, fn in wrappers.items():
             fn.launches = before[k]
+
+
+@contextlib.contextmanager
+def prefilter_knob():
+    """SKETCHTPU_FASTQ_PREFILTER=1 inside: the reads path's sign prefilter
+    (sketchcore/sign_prefilter.py) for --min-count >= 2."""
+    saved = os.environ.get("SKETCHTPU_FASTQ_PREFILTER")
+    os.environ["SKETCHTPU_FASTQ_PREFILTER"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["SKETCHTPU_FASTQ_PREFILTER"]
+        else:
+            os.environ["SKETCHTPU_FASTQ_PREFILTER"] = saved
+
+
+@contextlib.contextmanager
+def reads_traffic():
+    """Counts, inside, the reads path's copies to the host (bytes of every
+    HostCopy of a CUDA tensor made by sketch_torch) and the signs that
+    reach the host's count filter (bin_minima_filtered's input), and the
+    peak device memory allocated and reserved inside, in bytes (and what
+    was allocated on entry)."""
+    import threading
+
+    import torch
+
+    from sketchtpu_torch.sketchcore import sketch_torch
+
+    seen = {"d2h_bytes": 0, "filter_signs": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen["base_allocated"] = torch.cuda.memory_allocated()
+    lock = threading.Lock()
+    real_copy, real_filter = sketch_torch.HostCopy, sketch_torch.bin_minima_filtered
+
+    class Counted(real_copy):
+        def __init__(self, t):
+            super().__init__(t)
+            if t.device.type == "cuda":
+                seen["d2h_bytes"] += t.numel() * t.element_size()
+
+    def counted_filter(signs, nbins, min_count):
+        with lock:
+            seen["filter_signs"] += signs.size
+        return real_filter(signs, nbins, min_count)
+
+    sketch_torch.HostCopy = Counted
+    sketch_torch.bin_minima_filtered = counted_filter
+    try:
+        yield seen
+        seen["peak_allocated"] = torch.cuda.max_memory_allocated()
+        seen["peak_reserved"] = torch.cuda.max_memory_reserved()
+    finally:
+        sketch_torch.HostCopy = real_copy
+        sketch_torch.bin_minima_filtered = real_filter
 
 
 def timed_cli(cli_main, argv, what: str, stdout: Path | None = None,
@@ -853,6 +924,142 @@ def phase2_nthash_signs(results):
           f"{blocks / (per_sm * SMS):.2f} waves")
     results["nthash_signs"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                    library_ms=None, **bd)
+
+
+# --- phase 2, the reads path's sign prefilter ---------------------------------
+
+PF_SEGMENT = 1 << 24  # the record's segment: the JAX package's 2^24 windows
+PF_K, PF_MIN_COUNT = 17, 5  # phase 6's first k and --min-count
+# bytes of the keep kernel's work: the sorted key and the position of
+# each binned window read once (the rest sort past the last bin and are
+# never loaded), the flag of every window written once
+PF_BINNED_BYTES, PF_FLAG_BYTES = 8 + 8, 1
+
+
+def phase6_reads_files() -> Path:
+    """Phase 6's 2 read samples of 50 Mb (a 2 Mb genome at 25x in 150 bp
+    reads, FASTQ.gz), written at the first call (set-up): their rfile."""
+    from sketchtpu_torch.synth import read_samples
+
+    d = WORK / "p6reads"
+    rfile = d / "reads.txt"
+    if not rfile.exists():
+        t0 = time.time()
+        lines = read_samples(d / "fq", 2, READS_GENOME, READS_COVERAGE,
+                             SEED + 10)
+        rfile.write_text("".join(lines))
+        print(f"phase6 wrote 2 x {READS_GENOME * READS_COVERAGE / 1e6:.0f} "
+              f"Mb of 150 bp reads (FASTQ.gz) in {time.time() - t0:.1f} s "
+              f"(set-up)")
+    return rfile
+
+
+def phase2_sign_prefilter(results):
+    """The prefilter's keep kernel and its compaction against the twins,
+    bit for bit: heavy-collision rows at seeds (16, 64 and 1024 bins,
+    min_count 2, 3, 5, bins past a tile), then one 2^24-window segment of
+    phase 6's first sample at k = 17, --min-count 5 and 1024 bins (timed:
+    the kernel, torch.sort on the same keys, the whole prefilter, the
+    twin); and that sample's kept fraction by segment length."""
+    import numpy as np
+    import torch
+
+    from sketchtpu_torch.constants import num_bins
+    from sketchtpu_torch.hash.nthash_torch import (
+        bin_size,
+        nthash_signs,
+        pack_group,
+    )
+    from sketchtpu_torch.ingest.fastx import read_dna_sample
+    from sketchtpu_torch.sketchcore import sign_prefilter as sp
+
+    rng = np.random.default_rng(SEED + 20)
+    for nbins, m, distinct in ((16, 5000, 400), (64, 100_000, 400),
+                               (1024, 1_000_003, 200_000)):
+        values = rng.integers(0, bin_size(nbins) * nbins, distinct)
+        row = rng.choice(values, m)
+        row[rng.random(m) < 0.1] = -1
+        row = torch.from_numpy(row).cuda()
+        for mc in (2, 3, 5):
+            keys, pos = sp.sorted_keys(row, nbins)
+            check(torch.equal(sp.sign_prefilter_keep(keys, pos, mc, nbins),
+                              sp.sign_prefilter_keep_ref(keys, pos, mc,
+                                                         nbins)),
+                  f"sign_prefilter_keep {nbins} bins, m {m}, min_count "
+                  f"{mc}: kernel != twin")
+            check(torch.equal(sp.prefilter_signs(row, nbins, mc),
+                              sp.prefilter_signs_ref(row, nbins, mc)),
+                  f"prefilter_signs {nbins} bins, m {m}, min_count {mc}: "
+                  f"!= twin")
+    print("phase2 sign_prefilter_keep: flags and survivors bit-equal to the "
+          "twins at 16 / 64 / 1024 bins, m 5000 / 100,000 / 1,000,003, "
+          "min_count 2, 3, 5")
+
+    files = phase6_reads_files().read_text().splitlines()[0].split("\t")[1:]
+    stream = read_dna_sample(files, 20)
+    _s64, nbins, _u = num_bins(SKETCH_SIZE)
+    seq = torch.from_numpy(pack_group([stream])[0]).cuda()
+    row = nthash_signs(seq, [PF_K], True)[0]  # every window start
+    del seq
+    mc = PF_MIN_COUNT
+    seg = row[:PF_SEGMENT]
+    keys, pos = sp.sorted_keys(seg, nbins)
+    got = sp.sign_prefilter_keep(keys, pos, mc, nbins)
+    want, plain = timed_once(
+        lambda: sp.sign_prefilter_keep_ref(keys, pos, mc, nbins))
+    check(torch.equal(got, want), "sign_prefilter_keep segment: kernel != "
+          "twin")
+    kept = sp.prefilter_signs(seg, nbins, mc)
+    check(torch.equal(kept, sp.prefilter_signs_ref(seg, nbins, mc)),
+          "prefilter_signs segment: != twin")
+    valid = int((seg >= 0).sum())
+    check(0 < kept.numel() < valid, "prefilter segment: nothing dropped")
+    del want
+    ms = cuda_ms(lambda: sp.sign_prefilter_keep(keys, pos, mc, nbins),
+                 reps=20)
+    mapped = torch.where(seg >= 0, seg, torch.iinfo(torch.int64).max)
+    sort_ms = cuda_ms(lambda: torch.sort(mapped, stable=True), reps=10)
+    whole_ms = cuda_ms(lambda: sp.prefilter_signs(seg, nbins, mc), reps=5)
+    binned = int((keys < torch.iinfo(torch.int64).max).sum())
+    bd = bound(0, PF_BINNED_BYTES * binned + PF_FLAG_BYTES * PF_SEGMENT)
+    print(f"phase2 sign_prefilter_keep segment ({PF_SEGMENT} windows of "
+          f"phase 6's first sample, k {PF_K}, --min-count {mc}, {nbins} "
+          f"bins): bit-equal to twin; kernel {ms:.4f} ms, torch.sort of the "
+          f"same keys {sort_ms:.4f} ms, whole prefilter (map, sort, kernel, "
+          f"masked_select) {whole_ms:.4f} ms, twin {plain:.2f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: {binned} "
+          f"binned windows' key and position read, {PF_SEGMENT} flags "
+          f"written): kernel at "
+          f"{100 * bd['bound_ms'] / ms:.1f}%; kept {kept.numel()} of "
+          f"{valid} valid windows = {100 * kept.numel() / valid:.2f}%")
+    results["sign_prefilter_keep"] = dict(max_abs_err=0.0, ms=ms,
+                                          plain_ms=plain, library_ms=None,
+                                          sort_ms=sort_ms, **bd)
+    del keys, pos, got, kept, mapped
+    valid = int((row >= 0).sum())
+    # every segment length against the twins too: the reads path keeps
+    # segments of ~5 M (phase 3) to the whole sample (phase 6)
+    for length in (1 << 22, 1 << 23, 1 << 24, 1 << 25, row.numel()):
+        n_kept = 0
+        for a in range(0, row.numel(), length):
+            part = row[a : a + length]
+            keys, pos = sp.sorted_keys(part, nbins)
+            check(torch.equal(sp.sign_prefilter_keep(keys, pos, mc, nbins),
+                              sp.sign_prefilter_keep_ref(keys, pos, mc,
+                                                         nbins)),
+                  f"sign_prefilter_keep, {part.numel()} windows at {a}: "
+                  f"kernel != twin")
+            kept = sp.prefilter_signs(part, nbins, mc)
+            check(torch.equal(kept, sp.prefilter_signs_ref(part, nbins, mc)),
+                  f"prefilter_signs, {part.numel()} windows at {a}: != twin")
+            n_kept += kept.numel()
+        print(f"phase2 prefilter kept fraction, segments of {length} "
+              f"windows (each bit-equal to the twins): {n_kept} of {valid} "
+              f"= {100 * n_kept / valid:.2f}%")
+    del keys, pos, kept
+    whole_ms = cuda_ms(lambda: sp.prefilter_signs(row, nbins, mc), reps=3)
+    print(f"phase2 prefilter of the whole sample ({row.numel()} windows, one "
+          f"segment as the reads path takes it): {whole_ms:.4f} ms")
 
 
 # --- phase 2, the amino-acid kernel ------------------------------------------
@@ -1626,7 +1833,9 @@ def phase3_reads(cli_main, p3: Path) -> Path:
     """`sketch` of synthetic FASTQ (a 500 kb genome at 10x in 150 bp reads,
     one single-file and one paired sample), alone and mixed with phase 3's
     8 assemblies, at --min-count 1, 2 and 3: .skd/.skm byte for byte
-    against the host oracle."""
+    against the host oracle; then each once more with the sign prefilter
+    on (SKETCHTPU_FASTQ_PREFILTER=1), which must launch its kernel at
+    --min-count 2 and 3."""
     from sketchtpu_torch.synth import read_samples
 
     d = WORK / "p3reads"
@@ -1636,27 +1845,37 @@ def phase3_reads(cli_main, p3: Path) -> Path:
     (d / "mixed.txt").write_text((p3 / "fa" / "rfile.txt").read_text()
                                  + "".join(lines))
     kmers = ",".join(map(str, KMERS))
-    port_cmds, host_cmds = [], []
-    for inputs in ("reads", "mixed"):
-        for mc in (1, 2, 3):
-            for cmds, who in ((port_cmds, "port"), (host_cmds, "host")):
-                cmds.append(["sketch", "-f", str(d / f"{inputs}.txt"), "-o",
-                             str(d / f"{who}_{inputs}_{mc}"), "-k", kmers,
-                             "-s", str(SKETCH_SIZE), "--min-count", str(mc),
-                             "--threads", THREADS, "--quiet"])
-    port_s, host_s = run_port_and_host(cli_main, port_cmds, host_cmds)
-    for inputs in ("reads", "mixed"):
-        for mc in (1, 2, 3):
+    runs = [(inputs, mc) for inputs in ("reads", "mixed") for mc in (1, 2, 3)]
+
+    def cmds(who):
+        return [["sketch", "-f", str(d / f"{inputs}.txt"), "-o",
+                 str(d / f"{who}_{inputs}_{mc}"), "-k", kmers, "-s",
+                 str(SKETCH_SIZE), "--min-count", str(mc), "--threads",
+                 THREADS, "--quiet"] for inputs, mc in runs]
+
+    port_s, host_s = run_port_and_host(cli_main, cmds("port"), cmds("host"))
+    pf = kernel_wrappers()["sign_prefilter_keep"]
+    t0 = time.time()
+    with prefilter_knob():
+        for (_, mc), argv in zip(runs, cmds("pf")):
+            before = pf.launches
+            check(cli_main(argv) == 0, f"port {' '.join(argv)} failed")
+            check((pf.launches > before) == (mc >= 2),
+                  f"phase3 prefilter on, --min-count {mc}: "
+                  f"{pf.launches - before} launches of sign_prefilter_keep")
+    pf_s = time.time() - t0
+    for inputs, mc in runs:
+        for who in ("port", "pf"):
             for ext in (".skd", ".skm"):
-                check(same_bytes(d / f"port_{inputs}_{mc}{ext}",
+                check(same_bytes(d / f"{who}_{inputs}_{mc}{ext}",
                                  d / f"host_{inputs}_{mc}{ext}"),
-                      f"sketch {inputs} --min-count {mc}: {ext} differs "
-                      f"from the host oracle")
+                      f"sketch {inputs} --min-count {mc} ({who}): {ext} "
+                      f"differs from the host oracle")
     print(f"phase3 reads: `sketch` of 2 read samples (5 Mb of 150 bp reads "
           f"each, one paired) alone and with the 8 assemblies, --min-count "
           f"1, 2, 3, {len(KMERS)} k: .skd/.skm byte-identical; port "
-          f"{sum(port_s):.2f} s, host oracle {sum(host_s):.2f} process-s, {HOST_JOBS} "
-          f"at a time")
+          f"{sum(port_s):.2f} s, with the prefilter on {pf_s:.2f} s, host "
+          f"oracle {sum(host_s):.2f} process-s, {HOST_JOBS} at a time")
     return d
 
 
@@ -1737,6 +1956,13 @@ def phase3_inverted(cli_main, reads: Path) -> None:
         return files
 
     pairs = kernel_wrappers()["pair_count"]
+    pf = kernel_wrappers()["sign_prefilter_keep"]
+    with prefilter_knob():  # the default --min-count, 5
+        before = pf.launches
+        for argv, _ in builds("pf"):
+            check(cli_main(argv) == 0, f"port {' '.join(argv)} failed")
+        check(pf.launches > before, "phase3 inverted build with the "
+              "prefilter on did not launch sign_prefilter_keep")
     t0 = time.time()
     for argv, out in builds("port") + commands("port"):
         before = pairs.launches
@@ -1758,6 +1984,10 @@ def phase3_inverted(cli_main, reads: Path) -> None:
     for name in outputs:
         check(same_bytes(d / f"port_{name}", d / f"host_{name}"),
               f"inverted {name} differs from the host oracle")
+    for name in outputs[:4]:
+        check(same_bytes(d / f"pf_{name}", d / f"host_{name}"),
+              f"inverted {name} with the prefilter on differs from the host "
+              f"oracle")
     for form in PRECLUSTER_KNN0:
         got = (d / f"port_pc_{form}.txt").read_bytes()
         check(got == (d / f"host_pc_{form}.txt").read_bytes()
@@ -1769,6 +1999,8 @@ def phase3_inverted(cli_main, reads: Path) -> None:
           "precluster: no row without candidates (retain-unmatched unused)")
     print(f"phase3 inverted: precluster --knn 0 (plain, bruteforce: no "
           f"output; singleton: each row its own) as the host oracle")
+    print(f"phase3 inverted: both builds with the prefilter on "
+          f"({', '.join(outputs[:4])}) byte-identical to the host oracle")
     print(f"phase3 inverted: {', '.join(outputs)} byte-identical "
           f"({(d / 'port_count.txt').read_text().strip()}); port "
           f"{port_s:.2f} s, host oracle {host_s:.2f} s")
@@ -2102,41 +2334,77 @@ def phase5_check(d: Path) -> None:
 
 def phase6_reads(cli_main, gpu: str) -> None:
     """2 read samples of 50 Mb (a 2 Mb genome at 25x in 150 bp reads) at
-    7 k and --min-count 5: timed, profiled; the host oracle at k 17 and 29
-    only (its NumPy hash takes ~10 s per k and sample), byte for byte."""
-    from sketchtpu_torch.synth import read_samples
-
+    7 k and --min-count 5, with the sign prefilter off and on: each timed
+    (its copies to the host and the signs reaching the host's count
+    filter counted) and profiled, the two .skd/.skm byte-identical; the
+    host oracle at k 17 and 29 only (its NumPy hash takes ~10 s per k and
+    sample), byte for byte against both."""
     d = WORK / "p6reads"
-    t0 = time.time()
-    lines = read_samples(d / "fq", 2, READS_GENOME, READS_COVERAGE,
-                         SEED + 10)
-    (d / "reads.txt").write_text("".join(lines))
-    print(f"phase6 wrote 2 x {READS_GENOME * READS_COVERAGE / 1e6:.0f} Mb of "
-          f"150 bp reads (FASTQ.gz) in {time.time() - t0:.1f} s (set-up)")
+    rfile = phase6_reads_files()
 
     def argv(prefix, kmers):
-        return ["sketch", "-f", str(d / "reads.txt"), "-o", str(prefix),
+        return ["sketch", "-f", str(rfile), "-o", str(prefix),
                 "-k", ",".join(map(str, kmers)), "-s", str(SKETCH_SIZE),
                 "--min-count", "5", "--threads", THREADS, "--quiet"]
 
-    full = argv(d / "port7", KMERS)
-    wall = timed_cli(cli_main, full, "phase6 sketch reads 7 k")
-    SINGLE_WALL["sketch_reads"] = wall
     mbk = 2 * READS_GENOME * READS_COVERAGE / 1e6 * len(KMERS)
-    print(f"phase6 sketch 2 x 50 Mb of reads x {len(KMERS)} k "
-          f"--min-count 5: {wall:.2f} s = {mbk / wall:.1f} Mbase-k/s end to "
-          f"end (parse, upload, signs, copy back, compaction, count filter "
-          f"on {THREADS} threads, .skd), {gpu}")
-    profile_dist(cli_main, full, "phase6 sketch reads 7 k")
+    walls, traffic, busy = {"off": [], "on": []}, {}, {}
+    for who in ("off", "on", "on", "off"):  # in turns: off, on, on, off
+        full = argv(d / ("port7" if who == "off" else "port7_pf"), KMERS)
+        with prefilter_knob() if who == "on" else contextlib.nullcontext():
+            with reads_traffic() as seen:
+                walls[who].append(timed_cli(
+                    cli_main, full, f"phase6 sketch reads 7 k, prefilter "
+                    f"{who}", expect=("sign_prefilter_keep",) if who == "on"
+                    else ()))
+            print(f"phase6 sketch 2 x 50 Mb of reads x {len(KMERS)} k "
+                  f"--min-count 5, prefilter {who}: {walls[who][-1]:.2f} s "
+                  f"= {mbk / walls[who][-1]:.1f} Mbase-k/s end to end (parse,"
+                  f" upload, signs, {'sort, keep kernel, gather, ' if who == 'on' else ''}"
+                  f"copy back, compaction, count filter on {THREADS} "
+                  f"threads, .skd); {seen['d2h_bytes'] / 1e6:.1f} MB "
+                  f"copied to the host, {seen['filter_signs']} signs into "
+                  f"the count filter; peak device memory "
+                  f"{seen['peak_allocated'] / 2**30:.2f} GiB allocated ("
+                  f"{seen['base_allocated'] / 2**30:.2f} GiB on entry), "
+                  f"{seen['peak_reserved'] / 2**30:.2f} GiB reserved; {gpu}")
+            if who not in busy:
+                traffic[who] = seen
+                busy[who] = profile_dist(cli_main, full,
+                                         f"phase6 sketch reads 7 k, "
+                                         f"prefilter {who}")
+    SINGLE_WALL["sketch_reads"] = walls["off"][0]
+    SINGLE_WALL["sketch_reads_prefilter"] = walls["on"][0]
+    for ext in (".skd", ".skm"):
+        check(same_bytes(d / f"port7{ext}", d / f"port7_pf{ext}"),
+              f"phase6 reads {ext}: the prefilter on differs from off")
+    kept = traffic["on"]["filter_signs"] / traffic["off"]["filter_signs"]
+    check(kept < 1, "phase6 reads: the prefilter dropped no sign")
+    share = lambda b: "not measured" if b is None else f"{100 * b:.2f}%"  # noqa: E731
+    print(f"phase6 reads prefilter off / on: .skd/.skm byte-identical; walls "
+          f"in turns (off, on, on, off) {walls['off'][0]:.2f}, "
+          f"{walls['on'][0]:.2f}, {walls['on'][1]:.2f}, "
+          f"{walls['off'][1]:.2f} s; copied to the host "
+          f"{traffic['off']['d2h_bytes'] / 1e6:.1f} / "
+          f"{traffic['on']['d2h_bytes'] / 1e6:.1f} MB; into the count filter "
+          f"{traffic['off']['filter_signs']} / "
+          f"{traffic['on']['filter_signs']} signs: kept {100 * kept:.2f}% "
+          f"(one segment a stream); card busy {share(busy['off'])} / "
+          f"{share(busy['on'])} (profiled runs); {gpu}")
     port_s, host_s = run_port_and_host(
         cli_main, [argv(d / "port2", READS_ORACLE_KMERS)],
         [argv(d / "host2", READS_ORACLE_KMERS)])
-    for ext in (".skd", ".skm"):
-        check(same_bytes(d / f"port2{ext}", d / f"host2{ext}"),
-              f"phase6 reads {ext} differs from the host oracle")
-    print(f"phase6 reads at k {READS_ORACLE_KMERS}: .skd/.skm byte-identical "
-          f"to the host oracle (port {port_s[0]:.2f} s, host oracle "
-          f"{host_s[0]:.2f} s)")
+    with prefilter_knob():
+        pf_s = timed_cli(cli_main, argv(d / "port2_pf", READS_ORACLE_KMERS),
+                         "phase6 sketch reads k 17, 29, prefilter on",
+                         expect=("sign_prefilter_keep",))
+    for who in ("port2", "port2_pf"):
+        for ext in (".skd", ".skm"):
+            check(same_bytes(d / f"{who}{ext}", d / f"host2{ext}"),
+                  f"phase6 reads {who}{ext} differs from the host oracle")
+    print(f"phase6 reads at k {READS_ORACLE_KMERS}, prefilter off and on: "
+          f".skd/.skm byte-identical to the host oracle (port {port_s[0]:.2f}"
+          f" / {pf_s:.2f} s, host oracle {host_s[0]:.2f} s)")
 
 
 def phase6_index(cli_main, p3: Path, gpu: str) -> None:
@@ -2526,7 +2794,8 @@ def phase7_aa(cli_main, gpu: str) -> None:
 # the kernels the multi-device commands must launch
 MESH_PATH = ("nthash_bin_multi", "nthash_signs", "aahash_bin_multi",
              "coreacc", "knn_select", "samebits_full", "pair_count",
-             "signeq_count", "signeq_any", "signeq_all", "knn_select_masked")
+             "signeq_count", "signeq_any", "signeq_all", "knn_select_masked",
+             "sign_prefilter_keep")
 
 
 @contextlib.contextmanager
@@ -2559,6 +2828,13 @@ def phase9_commands(d: Path) -> list:
                           "--min-count", "5", "--threads", THREADS],
          [WORK / "p6reads" / f"port7{e}" for e in (".skd", ".skm")],
          [d / f"reads{e}" for e in (".skd", ".skm")], True),
+        ("sketch_reads_prefilter", ["sketch", "-f",
+                                    WORK / "p6reads" / "reads.txt", "-o",
+                                    d / "reads_pf", "-k", kmers, "-s",
+                                    SKETCH_SIZE, "--min-count", "5",
+                                    "--threads", THREADS],
+         [WORK / "p6reads" / f"port7{e}" for e in (".skd", ".skm")],
+         [d / f"reads_pf{e}" for e in (".skd", ".skm")], True),
         ("sketch_aa", ["sketch", "-f", WORK / "p7" / "faa" / "rfile.txt",
                        "-o", d / "aa", "-k", ",".join(map(str, AA_KMERS)),
                        "-s", SKETCH_SIZE, "--seq-type", "aa", "--threads",
@@ -2616,7 +2892,9 @@ def phase9(cli_main, gpu: str) -> None:
                 "sketches): the split, order and joins, not distinct GPUs")
     print(f"phase9 devices: {kind}; {gpu}")
     for name, argv, want, got, sketch in phase9_commands(d):
-        with visible_devices(sketches if sketch else engines):
+        knob = prefilter_knob if name.endswith("_prefilter") else \
+            contextlib.nullcontext
+        with visible_devices(sketches if sketch else engines), knob():
             out = d / f"{name}.out" if got is None else None
             wall = timed_cli(cli_main, argv, f"phase9 {name}", stdout=out)
         got = got or [out]
@@ -2669,6 +2947,11 @@ def phase8_commands(d: Path) -> list:
                        "-o", d / "aa", "-k", ",".join(map(str, AA_KMERS)),
                        "-s", SKETCH_SIZE, "--seq-type", "aa", "--threads",
                        THREADS], ("aahash_bin_multi",)),
+        ("sketch_reads_prefilter", [
+            "sketch", "-f", WORK / "p6reads" / "reads.txt", "-o",
+            d / "reads_pf", "-k", ",".join(map(str, KMERS)), "-s",
+            SKETCH_SIZE, "--min-count", "5", "--threads", THREADS],
+         ("nthash_signs", "sign_prefilter_keep")),
         ("inv", ["inverted", "build", "-f", mixed, "-o", d / "inv", "-s",
                  "100", "-k", "17", "--write-skq", "--threads", THREADS],
          ("nthash_bin_multi",)),
@@ -2711,8 +2994,10 @@ def phase8_rank(rank: int, port: int, d: Path, commands, queue) -> None:
             window = d / f"{name}.rank{rank}.window.json"
             os.environ["SKETCHTPU_COMPUTE_WINDOW_FILE"] = str(window)
             before = {k: fn.launches for k, fn in wrappers.items()}
+            knob = prefilter_knob if name.endswith("_prefilter") else \
+                contextlib.nullcontext
             with open(d / f"{name}.rank{rank}.out", "w") as f, \
-                    contextlib.redirect_stdout(f):
+                    contextlib.redirect_stdout(f), knob():
                 t = time.time()
                 check(cli_main(argv) == 0, f"rank {rank}: {name} failed")
                 wall = time.time() - t
@@ -2834,7 +3119,10 @@ def phase8_compare(d: Path) -> None:
         check(sha256_of(parts(f"query_{q}.txt"))
               == sha256_of([WORK / "p3inv" / f"port_query_{q}.txt"]),
               f"phase8 query {q}: the parts differ from phase 3's")
-    merged = [(d / f"aa{e}", WORK / "p7" / f"db{e}") for e in (".skd", ".skm")]
+    merged = [(d / f"{who}{e}", WORK / src / f"{single}{e}")
+              for who, src, single in (("aa", "p7", "db"),
+                                       ("reads_pf", "p6reads", "port7"))
+              for e in (".skd", ".skm")]
     for who in ("inv", "inv_sp"):
         merged += [(d / f"{who}{e}", WORK / "p3inv" / f"port_{who}{e}")
                    for e in (".ski", ".skq")]
@@ -2852,8 +3140,9 @@ def phase8_compare(d: Path) -> None:
           f"single-process run (dist --knn 50 -k 17 at {N_KNN} and "
           f"core/acc at {N_KNN_CA}, dense core/acc and -k 17 at {N_SCALE}, "
           f"precluster --skd --knn 50 at {N_KNN}, queries: the parts in "
-          f"rank order; sketch --seq-type aa of {P7_SAMPLES} proteomes and "
-          f"both inverted builds: rank 0's merge; precluster --count at "
+          f"rank order; sketch --seq-type aa of {P7_SAMPLES} proteomes, "
+          f"sketch of phase 6's reads with the prefilter on and both "
+          f"inverted builds: rank 0's merge; precluster --count at "
           f"{N_INDEX}: rank 0's total, {count.strip()!r})")
 
 
@@ -2937,6 +3226,7 @@ def main() -> int:
         phase2_nthash(results)
         dpx_rate = phase2_compare(lib_path)
         phase2_nthash_signs(results)
+        phase2_sign_prefilter(results)
         phase2_signeq(results, lib_path, dpx_rate)
         phase2_aahash(results, lib_path)
         torch.cuda.empty_cache()

@@ -13,15 +13,21 @@ sketch_aa_jax.py::DeviceAaSketchBackend.
   reading its k - 1 bases of overlap and emitting only the starts it owns,
   so device and pinned memory stay bounded for long streams; chunk j + 1
   is launched before chunk j is read back, and the filters run while the
-  next launches do.
+  next launches do. With SKETCHTPU_FASTQ_PREFILTER=1 and --min-count >= 2
+  (sign_prefilter.py, off by default as in the JAX package) a segment of
+  at least 2^24 window starts, up to the whole stream, is hashed on one
+  device, where each k's signs are cut to those the count filter could
+  consult (sort, the keep kernel, compaction); only those come back, and
+  the host filter gives the same bins from them.
 - Amino acids and 3Di (DeviceAaSketchBackend): batches as for assemblies,
   one aahash_bin_multi launch per batch for all k, whose per-(k, sample)
   reachability flags stand in for the host oracle's emission-mask raise.
 - Several devices (the JAX backends' round-robin over the local devices):
-  batches, and the chunks of read streams, go to the devices in turn, with
-  up to max(8, 2 x devices) batches (2 x devices chunks) in flight, and are
-  read back in order. Launches are asynchronous, so one host thread keeps
-  every device busy, and the sketches are those of one device.
+  batches, and the chunks (prefiltered: segments) of read streams, go to
+  the devices in turn, with up to max(8, 2 x devices) batches (2 x devices
+  chunks, a segment a device) in flight, and are read back in order.
+  Launches are asynchronous, so one host thread keeps every device busy,
+  and the sketches are those of one device.
 Densification and the bit-plane transpose run on the host exactly as in
 the JAX backends. Sketches are bit-identical to the host oracle
 (sketchcore/sketch.py).
@@ -41,6 +47,8 @@ from ..constants import SIGN_MOD
 from ..constants import num_bins as num_bins_fn
 from ..hash.aahash_torch import aahash_bin_multi, pack_aa_group
 from ..hash.nthash_torch import nthash_bin_multi, nthash_signs, pack_group
+from . import sign_prefilter
+from .sign_prefilter import keep_flags, survivors
 from .signs import bin_minima_filtered, densify, fill_usigs
 from .sketch import Sketch
 
@@ -52,6 +60,15 @@ _MAX_GROUP = 1024
 # and in pinned memory), and chunk launches in flight
 _READ_CHUNK_SIGNS = 1 << 25
 _READ_AHEAD = 2
+# window starts a segment of a prefiltered read stream: at least the JAX
+# package's segment (2^24 windows, sketch_jax.py:38-64), else as many as
+# keep _SEGMENT_SIGNS signs over all k on the card (8 bytes each: 4 GiB)
+# and at most _SEGMENT_STARTS (the whole of a 50 Mb sample), so that a
+# sign's min_count-th occurrence falls inside its segment as often as can
+# be; a row's sort and keep flags take about 48 bytes a start besides
+_SEGMENT_MIN_STARTS = 1 << 24
+_SEGMENT_STARTS = 1 << 26
+_SEGMENT_SIGNS = 1 << 29
 
 _U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -114,6 +131,13 @@ def _chunk_starts(nk: int) -> int:
     return max(1, _READ_CHUNK_SIGNS // nk)
 
 
+def _segment_starts(nk: int) -> int:
+    """Window starts a segment of a prefiltered read stream at nk k
+    values."""
+    return max(_SEGMENT_MIN_STARTS,
+               min(_SEGMENT_STARTS, _SEGMENT_SIGNS // nk))
+
+
 class DeviceSketchBackend:
     """DNA sketches on a device, or round-robin over a list of them."""
 
@@ -149,14 +173,15 @@ class DeviceSketchBackend:
 
     # --- reads: in-order signs ---
 
-    def _launch_signs(self, stream, kmers, rc: bool, turn,
+    def _launch_signs(self, stream, kmers, rc: bool, turn, chunk: int,
                       n_starts: int | None = None):
-        """Launch the chunks of a read stream in order, each uploaded (its
-        bases and the k - 1 past them) to the device whose turn it is
-        (next(turn)); yields (owned starts, HostCopy of the (nk, owned)
-        signs, last chunk) as each chunk's launch is made."""
+        """Launch the chunks of `chunk` window starts of a read stream in
+        order, each uploaded (its bases and the k - 1 past them) to the
+        device whose turn it is (next(turn)); yields (owned starts, the
+        (nk, owned) signs on the device, last chunk) as each chunk's
+        launch is made."""
         n = stream.seq_len
-        chunks = read_chunks(n, kmers, _chunk_starts(len(kmers)), n_starts)
+        chunks = read_chunks(n, kmers, chunk, n_starts)
         if not chunks:
             return
         seq, _starts = pack_group([stream])
@@ -164,27 +189,24 @@ class DeviceSketchBackend:
         for j, (c0, own) in enumerate(chunks):
             part = torch.from_numpy(seq[c0 : min(n, c0 + own + reach)]).to(
                 next(turn))
-            yield (own, HostCopy(nthash_signs(part, kmers, rc, own)),
-                   j == len(chunks) - 1)
+            yield own, nthash_signs(part, kmers, rc, own), j == len(chunks) - 1
 
-    def _signs_streams(self, jobs, kmers, rc: bool, sink,
-                       n_starts: int | None = None):
-        """For each (key, stream) of jobs, in order, the valid signs of every
-        k in sequence order, of window starts [0, n_starts) (all by
-        default): sink(key, [signs per k]) as soon as the stream's last
-        chunk is read back. Chunks go to the devices in turn; up to
-        max(_READ_AHEAD, 2 x devices) chunk launches are in flight while
-        the host compacts the oldest."""
+    def _stream_rows(self, jobs, kmers, rc: bool, sink, chunk: int,
+                     ahead: int, prepare, collect, n_starts: int | None,
+                     devices):
+        """For each (key, stream) of jobs, in order: sink(key, [signs per
+        k]) as soon as the stream's last chunk of `chunk` window starts
+        (of [0, n_starts)) is read back. Chunks go to the devices in turn;
+        prepare(own, signs) turns a launch's (nk, own) signs into what is
+        pending, collect(pending) into its per-k u64 arrays; up to `ahead`
+        launches stay in flight while the host reads the oldest."""
         pending = deque()
-        ahead = max(_READ_AHEAD, 2 * len(self.devices))
-        turn = itertools.cycle(self.devices)
+        turn = itertools.cycle(devices)
 
-        def collect():
-            key, parts, (own, copy, last) = pending.popleft()
-            signs = copy.numpy().view(np.uint64)
-            for ki in range(len(kmers)):
-                row = signs[ki, :own]
-                parts[ki].append(row[row != _U64_MAX])
+        def read():
+            key, parts, item, last = pending.popleft()
+            for ki, part in enumerate(collect(item)):
+                parts[ki].append(part)
             if last:
                 sink(key, [np.concatenate(p) if p else np.zeros(0, np.uint64)
                            for p in parts])
@@ -192,23 +214,68 @@ class DeviceSketchBackend:
         for key, stream in jobs:
             parts = [[] for _ in kmers]
             launched_any = False
-            for launched in self._launch_signs(stream, kmers, rc, turn,
-                                               n_starts):
+            for own, signs, last in self._launch_signs(
+                    stream, kmers, rc, turn, chunk, n_starts):
                 launched_any = True
-                pending.append((key, parts, launched))
+                pending.append((key, parts, prepare(own, signs), last))
                 while len(pending) > ahead:
-                    collect()
+                    read()
             if not launched_any:  # no window: every bin stays empty
                 sink(key, [np.zeros(0, np.uint64) for _ in kmers])
         while pending:
-            collect()
+            read()
+
+    def _signs_streams(self, jobs, kmers, rc: bool, sink,
+                       n_starts: int | None = None, devices=None):
+        """For each (key, stream) of jobs, in order, the valid signs of every
+        k in sequence order, of window starts [0, n_starts) (all by
+        default): sink(key, [signs per k]) as soon as the stream's last
+        chunk is read back. Up to max(_READ_AHEAD, 2 x devices) chunk
+        launches are in flight while the host compacts the oldest."""
+
+        def compact(item):
+            own, copy = item
+            return [row[row != _U64_MAX]
+                    for row in copy.numpy().view(np.uint64)[:, :own]]
+
+        devices = devices or self.devices
+        self._stream_rows(
+            jobs, kmers, rc, sink, _chunk_starts(len(kmers)),
+            max(_READ_AHEAD, 2 * len(devices)),
+            lambda own, signs: (own, HostCopy(signs)), compact, n_starts,
+            devices)
+
+    def _survivor_streams(self, jobs, kmers, rc: bool, nbins: int,
+                          min_count: int, sink, n_starts: int | None = None,
+                          devices=None):
+        """_signs_streams through the prefilter (sign_prefilter.py): for
+        each (key, stream) of jobs, in order, sink(key, [signs per k]) with
+        only the signs the count filter could consult, in sequence order.
+        A segment (_segment_starts) is hashed in one launch on the device
+        whose turn it is, where each k's signs are sorted and flagged
+        (nothing synchronised); the kept ones are gathered and copied back
+        once the next segment is launched: up to one segment a device and
+        one more are in flight."""
+
+        def gather(item):
+            signs, flags = item
+            return [HostCopy(kept).numpy().view(np.uint64)
+                    for kept in survivors(signs, flags)]
+
+        devices = devices or self.devices
+        self._stream_rows(
+            jobs, kmers, rc, sink, _segment_starts(len(kmers)), len(devices),
+            lambda _own, signs: (signs, keep_flags(signs, nbins, min_count)),
+            gather, n_starts, devices)
 
     def read_minima(self, jobs, kmers, rc: bool, nbins: int, min_count: int,
                     pool) -> dict:
         """{(k, key): future of the (nbins,) count-filtered bin minima} of
         each (key, read stream) of jobs: the count filter, order-dependent
         within one (stream, k) sign sequence and independent across them,
-        runs in `pool` for finished streams while later chunks launch."""
+        runs in `pool` for finished streams while later chunks launch; on
+        the signs the prefilter keeps where it is enabled
+        (sign_prefilter.enabled)."""
         futs = {}
 
         def sink(key, signs_per_k):
@@ -216,7 +283,10 @@ class DeviceSketchBackend:
                 futs[kk, key] = pool.submit(bin_minima_filtered, signs, nbins,
                                             min_count)
 
-        self._signs_streams(jobs, kmers, rc, sink)
+        if sign_prefilter.enabled(min_count):
+            self._survivor_streams(jobs, kmers, rc, nbins, min_count, sink)
+        else:
+            self._signs_streams(jobs, kmers, rc, sink)
         return futs
 
     def signs_in_order(self, stream, k: int, rc: bool,
@@ -229,17 +299,30 @@ class DeviceSketchBackend:
         return out[0]
 
     def dispatch_signs_maybe_filtered(self, stream, k: int, rc: bool,
+                                      nbins: int, min_count: int, dev=None,
                                       n_starts: int | None = None):
-        """The JAX backend's handle interface over signs_in_order: the
-        JAX package's optional prefilter (off by default there) is not
-        ported, so the signs are never filtered on the card and the handle
-        is the signs themselves."""
-        return self.signs_in_order(stream, k, rc, n_starts)
+        """The JAX backend's interface for the count filter of one (stream,
+        k) (sketch_jax.py:615, called as inverted/index.py:555 does): the
+        signs of window starts [0, n_starts) in sequence order, only those
+        the prefilter keeps where it is enabled (sign_prefilter.enabled),
+        on `dev` or in turn on the backend's devices. The work is done
+        here; the handle is the signs, whose filtered bins are the full
+        stream's."""
+        devices = None if dev is None else [torch.device(dev)]
+        out = []
+        sink = lambda _key, signs: out.extend(signs)  # noqa: E731
+        if sign_prefilter.enabled(min_count):
+            self._survivor_streams([(0, stream)], [k], rc, nbins, min_count,
+                                   sink, n_starts, devices)
+        else:
+            self._signs_streams([(0, stream)], [k], rc, sink, n_starts,
+                                devices)
+        return out[0]
 
     @staticmethod
     def collect_signs_maybe_filtered(handle) -> np.ndarray:
-        """The valid signs of a dispatch_signs_maybe_filtered handle, in
-        sequence order."""
+        """The signs of a dispatch_signs_maybe_filtered handle, in sequence
+        order."""
         return handle
 
     def sketch_dna_streams(self, streams, names, kmers, sketch_size: int,

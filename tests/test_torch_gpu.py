@@ -1290,3 +1290,103 @@ def test_kernels_launch_on_their_tensors_device(cuda):
     assert got.device == other
     assert torch.equal(got, knn_select_ref(a, b, 20, exclude_self=True))
     assert torch.cuda.current_device() == 0
+
+
+# --- sign_prefilter.cu: the reads path's sign prefilter -----------------------
+
+def _prefilter_case(cuda, row, nbins, mc):
+    """The keep kernel's flags and the compacted survivors of one row of
+    signs on the card, bit for bit against the twins there."""
+    from sketchtpu_torch.sketchcore import sign_prefilter as sp
+
+    keys, pos = sp.sorted_keys(row, nbins)
+    before = sp.sign_prefilter_keep.launches
+    got = sp.sign_prefilter_keep(keys, pos, mc, nbins)
+    torch.cuda.synchronize()
+    assert sp.sign_prefilter_keep.launches == before + (row.numel() > 0)
+    assert torch.equal(got, sp.sign_prefilter_keep_ref(keys, pos, mc, nbins))
+    kept = sp.prefilter_signs(row, nbins, mc)
+    assert torch.equal(kept, sp.prefilter_signs_ref(row, nbins, mc))
+    return kept
+
+
+@pytest.mark.parametrize("nbins,m,distinct", [
+    (1, 100, 5), (16, 5000, 400), (64, 100_000, 400), (100, 70_001, 50),
+    (1024, 300_001, 100_000), (1024, 2049, 2000)])
+@pytest.mark.parametrize("mc", [1, 2, 3, 5])
+def test_sign_prefilter_kernel_matches_twin(cuda, nbins, m, distinct, mc):
+    """Heavy collisions (runs across threads and 2048-window tiles, bins of
+    many tiles at 1 and 16 bins, empty bins at 1024), invalid windows,
+    signs past the last bin."""
+    from sketchtpu_torch.hash.nthash_torch import bin_size
+
+    rng = np.random.default_rng(m + mc)
+    top = bin_size(nbins) * nbins
+    row = rng.choice(rng.integers(0, top, distinct), m)
+    row[rng.random(m) < 0.1] = -1
+    row[rng.random(m) < 0.01] = top + 5
+    kept = _prefilter_case(cuda, torch.from_numpy(row).to(cuda), nbins, mc)
+    assert kept.numel() <= (row >= 0).sum()
+
+
+def test_sign_prefilter_kernel_on_empty_and_invalid_rows(cuda):
+    for row in (torch.zeros(0, dtype=torch.int64),
+                torch.full((5000,), -1, dtype=torch.int64)):
+        assert _prefilter_case(cuda, row.to(cuda), 1024, 3).numel() == 0
+
+
+def _genome_reads(genome_len, n_reads, seed):
+    """A reads stream: n_reads 150 bp reads of a random genome, half
+    reverse-complemented, a break at every read end."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+    starts = rng.integers(0, genome.size - 150, n_reads)
+    reads = genome[starts[:, None] + np.arange(150)]
+    flip = rng.random(n_reads) < 0.5
+    reads[flip] = 3 - reads[flip][:, ::-1]
+    return DnaStream(codes=reads.reshape(-1),
+                     breaks=np.arange(1, n_reads + 1, dtype=np.int64) * 150,
+                     reads=True)
+
+
+def test_sign_prefilter_kernel_at_a_2_24_window_segment(cuda):
+    """A 2^24-window segment of reads of a 2 Mb genome at k = 17,
+    --min-count 5, 1024 bins: the reads path's segment."""
+    from sketchtpu_torch.hash.nthash_torch import nthash_signs
+
+    stream = _genome_reads(2_000_000, ((1 << 24) + 16) // 150 + 1, 24)
+    seq = torch.from_numpy(pack_group([stream])[0]).to(cuda)
+    row = nthash_signs(seq, [17], True, 1 << 24)[0]
+    kept = _prefilter_case(cuda, row, 1024, 5)
+    assert 0 < kept.numel() < (row >= 0).sum() // 2
+
+
+@pytest.mark.parametrize("segment", [None, 20_000])
+def test_reads_backend_prefilter_on_card_matches_cpu(cuda, monkeypatch,
+                                                     segment):
+    """The reads path with the prefilter on: the card's sketches equal the
+    CPU twins' and the prefilter off's, in one segment a stream and in
+    segments of 20,000 window starts, on one device and round-robin over
+    two slots of the card."""
+    from sketchtpu_torch.sketchcore import sign_prefilter as sp
+    from sketchtpu_torch.sketchcore import sketch_torch
+    from sketchtpu_torch.sketchcore.sketch_torch import DeviceSketchBackend
+
+    streams = [_genome_reads(g, n, g) for g, n in ((5000, 400),
+                                                   (20_000, 800),
+                                                   (2000, 400))]
+    names = list("abc")
+    want = DeviceSketchBackend(torch.device("cpu")).sketch_dna_streams(
+        streams, names, [17, 21, 25], 1024, True, 3)
+    if segment is not None:
+        monkeypatch.setattr(sketch_torch, "_segment_starts",
+                            lambda nk: segment)
+    monkeypatch.setenv("SKETCHTPU_FASTQ_PREFILTER", "1")
+    for devs in (cuda, [cuda, cuda]):
+        before = sp.sign_prefilter_keep.launches
+        got = DeviceSketchBackend(devs).sketch_dna_streams(
+            streams, names, [17, 21, 25], 1024, True, 3)
+        assert sp.sign_prefilter_keep.launches > before
+        for g, w in zip(got, want):
+            assert np.array_equal(g.usigs, w.usigs)
+            assert g.seq_length == w.seq_length

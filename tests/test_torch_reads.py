@@ -135,7 +135,7 @@ def test_chunked_signs_equal_unchunked(chunk, n_starts, monkeypatch):
     monkeypatch.setattr(sketch_torch, "_chunk_starts", lambda nk: chunk)
     backend = DeviceSketchBackend(torch.device("cpu"))
     got = backend.collect_signs_maybe_filtered(
-        backend.dispatch_signs_maybe_filtered(stream, k, True,
+        backend.dispatch_signs_maybe_filtered(stream, k, True, 64, 1,
                                               n_starts=n_starts))
     row = _port_signs(stream, [k], True)[0]
     take = row.shape[0] if n_starts is None else min(n_starts, row.shape[0])
