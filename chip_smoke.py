@@ -14,10 +14,12 @@
    compare microbenchmark (XOR / IADD / LOP3 against the DPX
    VIADDMNMX.U16x2 a word, at the full grid), pair_count's SASS (the DPX
    opcode required) and both kernels' registers (no spills). The reads
-   path's sign prefilter (its keep kernel and compaction) is held against
-   its twins at seeds and on a 2^24-window segment of phase 6's first
-   sample at k = 17, --min-count 5 (timed beside torch.sort of the same
-   keys), and that sample's kept fraction is printed by segment length.
+   path's sign prefilter (its five kernels, one row of signs to its keep
+   flags, and the compaction) is held against its twins at seeds and on
+   a 2^24-window segment of phase 6's first sample at k = 17, --min-count
+   5 (timed, kernel by kernel too, beside torch.sort of the same keys),
+   and that sample's kept fraction is printed by segment length, every
+   segment and the whole row bit-equal.
 3. Drives the two paths through the port's CLI and checks them against
    `python -m sketchtpu.cli` on its NumPy host oracle (run as a separate
    process): the dense path (`sketch` of 8 synthetic 2 Mb assemblies, then
@@ -162,8 +164,8 @@ SOURCES = {
                             "sketchtpu/dist/coreacc_pallas.py:100"),
     "aahash_bin_multi": ("sketchtpu_torch/csrc/aahash_bin.cu",
                          "sketchtpu/hash/aahash_jax.py:355"),
-    "sign_prefilter_keep": ("sketchtpu_torch/csrc/sign_prefilter.cu",
-                            "sketchtpu/sketchcore/sign_prefilter.py:118"),
+    "sign_prefilter": ("sketchtpu_torch/csrc/sign_prefilter.cu",
+                       "sketchtpu/sketchcore/sign_prefilter.py:118"),
 }
 DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi", "samebits_full")
 # knn_keys: K3's tile mode, the route of `dist --knn` past MAX_KNN = 1024
@@ -171,7 +173,7 @@ KNN_PATH = ("knn_select", "coreacc", "knn_keys")
 INVERTED_PATH = ("nthash_signs", "nthash_bin_multi", "signeq_count",
                  "signeq_any", "signeq_all", "pair_count",
                  "knn_select_masked", "coreacc_keys_masked",
-                 "sign_prefilter_keep")
+                 "sign_prefilter")
 # amino acids and 3Di: sketch, append, then dense -k, core/acc and --knn
 AA_PATH = ("aahash_bin_multi", "samebits", "coreacc", "knn_select")
 
@@ -237,7 +239,7 @@ def kernel_wrappers() -> dict:
     from sketchtpu_torch.hash.aahash_torch import aahash_bin_multi
     from sketchtpu_torch.hash.nthash_torch import nthash_bin_multi, nthash_signs
     from sketchtpu_torch.inverted.device import pair_count, signeq
-    from sketchtpu_torch.sketchcore.sign_prefilter import sign_prefilter_keep
+    from sketchtpu_torch.sketchcore.sign_prefilter import sign_prefilter_flags
 
     return {"samebits": Count(samebits), "coreacc": Count(coreacc),
             "knn_keys": Count(knn_keys), "knn_select": Count(knn_select),
@@ -251,7 +253,7 @@ def kernel_wrappers() -> dict:
             "knn_select_masked": Count(knn_select, "masked_launches"),
             "coreacc_keys_masked": Count(coreacc, "masked_launches"),
             "aahash_bin_multi": Count(aahash_bin_multi),
-            "sign_prefilter_keep": Count(sign_prefilter_keep)}
+            "sign_prefilter": Count(sign_prefilter_flags)}
 
 
 @contextlib.contextmanager
@@ -287,14 +289,16 @@ def prefilter_knob():
 def reads_traffic():
     """Counts, inside, the reads path's copies to the host (bytes of every
     HostCopy of a CUDA tensor made by sketch_torch) and the signs that
-    reach the host's count filter (bin_minima_filtered's input), and the
+    reach the host's count filter (bin_minima_filtered's input), the
+    prefilter's rows and the device time of their step (CUDA events on
+    the stream around each row's launch: nothing is synchronised), and the
     peak device memory allocated and reserved inside, in bytes (and what
     was allocated on entry)."""
     import threading
 
     import torch
 
-    from sketchtpu_torch.sketchcore import sketch_torch
+    from sketchtpu_torch.sketchcore import sign_prefilter, sketch_torch
 
     seen = {"d2h_bytes": 0, "filter_signs": 0}
     torch.cuda.synchronize()
@@ -302,6 +306,19 @@ def reads_traffic():
     seen["base_allocated"] = torch.cuda.memory_allocated()
     lock = threading.Lock()
     real_copy, real_filter = sketch_torch.HostCopy, sketch_torch.bin_minima_filtered
+    real_flags = sketch_torch.keep_flags
+    events = []
+
+    def timed_step(row, nbins, min_count):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        flags = sign_prefilter.sign_prefilter_flags(row, nbins, min_count)
+        end.record()
+        events.append((start, end))
+        return flags
+
+    def timed_flags(signs, nbins, min_count):
+        return real_flags(signs, nbins, min_count, keep=timed_step)
 
     class Counted(real_copy):
         def __init__(self, t):
@@ -316,13 +333,18 @@ def reads_traffic():
 
     sketch_torch.HostCopy = Counted
     sketch_torch.bin_minima_filtered = counted_filter
+    sketch_torch.keep_flags = timed_flags
     try:
         yield seen
         seen["peak_allocated"] = torch.cuda.max_memory_allocated()
         seen["peak_reserved"] = torch.cuda.max_memory_reserved()
+        torch.cuda.synchronize()
+        seen["prefilter_rows"] = len(events)
+        seen["prefilter_ms"] = sum(a.elapsed_time(b) for a, b in events)
     finally:
         sketch_torch.HostCopy = real_copy
         sketch_torch.bin_minima_filtered = real_filter
+        sketch_torch.keep_flags = real_flags
 
 
 def timed_cli(cli_main, argv, what: str, stdout: Path | None = None,
@@ -930,10 +952,12 @@ def phase2_nthash_signs(results):
 
 PF_SEGMENT = 1 << 24  # the record's segment: the JAX package's 2^24 windows
 PF_K, PF_MIN_COUNT = 17, 5  # phase 6's first k and --min-count
-# bytes of the keep kernel's work: the sorted key and the position of
-# each binned window read once (the rest sort past the last bin and are
-# never loaded), the flag of every window written once
-PF_BINNED_BYTES, PF_FLAG_BYTES = 8 + 8, 1
+# bytes of the step's work: each window's sign read once, its flag
+# written once
+PF_BYTES = 8 + 1
+# the step's kernels, by the names they take in a profile
+PF_KERNELS = ("pf_count", "pf_scan_chunks", "pf_scan_sums", "pf_scatter",
+              "pf_bounds", "pf_keep")
 
 
 def phase6_reads_files() -> Path:
@@ -954,13 +978,42 @@ def phase6_reads_files() -> Path:
     return rfile
 
 
+def pf_kernel_ms(fn, reps: int) -> dict:
+    """Device milliseconds a call of fn() spends in each of the step's
+    kernels (torch.profiler over reps calls); {} where the profiler kept
+    no kernel record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        for name in PF_KERNELS:
+            if name in ev.key and us:
+                out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
 def phase2_sign_prefilter(results):
-    """The prefilter's keep kernel and its compaction against the twins,
-    bit for bit: heavy-collision rows at seeds (16, 64 and 1024 bins,
-    min_count 2, 3, 5, bins past a tile), then one 2^24-window segment of
-    phase 6's first sample at k = 17, --min-count 5 and 1024 bins (timed:
-    the kernel, torch.sort on the same keys, the whole prefilter, the
-    twin); and that sample's kept fraction by segment length."""
+    """The prefilter's kernels (sign_prefilter_flags: the stable partition
+    by bucket and the per-bucket order-and-keep) and the gather against
+    the twins, bit for bit: heavy-collision rows at seeds (16, 64, 1024 and
+    40,000 bins, min_count 2, 3, 5, each also with 2^6 buckets of at most
+    256 windows on chip, so that most take the path in device memory),
+    then one 2^24-window segment of phase 6's first sample at k = 17,
+    --min-count 5 and 1024 bins (timed: the kernels, each of them, the
+    parent design's torch.sort of the same keys, the whole prefilter, the
+    twin; its scratch's peak memory); and that sample's kept fraction by
+    segment length, every segment and the whole row bit-equal too."""
     import numpy as np
     import torch
 
@@ -975,25 +1028,27 @@ def phase2_sign_prefilter(results):
 
     rng = np.random.default_rng(SEED + 20)
     for nbins, m, distinct in ((16, 5000, 400), (64, 100_000, 400),
-                               (1024, 1_000_003, 200_000)):
+                               (1024, 1_000_003, 200_000),
+                               (40_000, 1_000_003, 300_000)):
         values = rng.integers(0, bin_size(nbins) * nbins, distinct)
         row = rng.choice(values, m)
         row[rng.random(m) < 0.1] = -1
         row = torch.from_numpy(row).cuda()
         for mc in (2, 3, 5):
-            keys, pos = sp.sorted_keys(row, nbins)
-            check(torch.equal(sp.sign_prefilter_keep(keys, pos, mc, nbins),
-                              sp.sign_prefilter_keep_ref(keys, pos, mc,
-                                                         nbins)),
-                  f"sign_prefilter_keep {nbins} bins, m {m}, min_count "
-                  f"{mc}: kernel != twin")
+            want = sp.sign_prefilter_flags_ref(row, nbins, mc)
+            for plan in ({}, {"bits": 6, "cap": 256}):
+                check(torch.equal(sp.sign_prefilter_flags(row, nbins, mc,
+                                                          **plan), want),
+                      f"sign_prefilter {nbins} bins, m {m}, min_count {mc} "
+                      f"{plan}: kernels != twin")
             check(torch.equal(sp.prefilter_signs(row, nbins, mc),
                               sp.prefilter_signs_ref(row, nbins, mc)),
                   f"prefilter_signs {nbins} bins, m {m}, min_count {mc}: "
                   f"!= twin")
-    print("phase2 sign_prefilter_keep: flags and survivors bit-equal to the "
-          "twins at 16 / 64 / 1024 bins, m 5000 / 100,000 / 1,000,003, "
-          "min_count 2, 3, 5")
+    print("phase2 sign_prefilter: flags and survivors bit-equal to the "
+          "twins at 16 / 64 / 1024 / 40,000 bins, m 5000 / 100,000 / "
+          "1,000,003, min_count 2, 3, 5, with the default buckets and with "
+          "2^6 buckets of at most 256 windows on chip")
 
     files = phase6_reads_files().read_text().splitlines()[0].split("\t")[1:]
     stream = read_dna_sample(files, 20)
@@ -1003,39 +1058,48 @@ def phase2_sign_prefilter(results):
     del seq
     mc = PF_MIN_COUNT
     seg = row[:PF_SEGMENT]
-    keys, pos = sp.sorted_keys(seg, nbins)
-    got = sp.sign_prefilter_keep(keys, pos, mc, nbins)
+    got = sp.sign_prefilter_flags(seg, nbins, mc)
     want, plain = timed_once(
-        lambda: sp.sign_prefilter_keep_ref(keys, pos, mc, nbins))
-    check(torch.equal(got, want), "sign_prefilter_keep segment: kernel != "
-          "twin")
+        lambda: sp.sign_prefilter_flags_ref(seg, nbins, mc))
+    check(torch.equal(got, want), "sign_prefilter segment: kernels != twin")
     kept = sp.prefilter_signs(seg, nbins, mc)
     check(torch.equal(kept, sp.prefilter_signs_ref(seg, nbins, mc)),
           "prefilter_signs segment: != twin")
     valid = int((seg >= 0).sum())
     check(0 < kept.numel() < valid, "prefilter segment: nothing dropped")
     del want
-    ms = cuda_ms(lambda: sp.sign_prefilter_keep(keys, pos, mc, nbins),
-                 reps=20)
-    mapped = torch.where(seg >= 0, seg, torch.iinfo(torch.int64).max)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = sp.sign_prefilter_flags(seg, nbins, mc)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(lambda: sp.sign_prefilter_flags(seg, nbins, mc), reps=20)
+    parts = pf_kernel_ms(lambda: sp.sign_prefilter_flags(seg, nbins, mc), 10)
+    top = nbins * bin_size(nbins)
+    mapped = torch.where((seg >= 0) & (seg < top), seg,
+                         torch.iinfo(torch.int64).max)
     sort_ms = cuda_ms(lambda: torch.sort(mapped, stable=True), reps=10)
+    del mapped
     whole_ms = cuda_ms(lambda: sp.prefilter_signs(seg, nbins, mc), reps=5)
-    binned = int((keys < torch.iinfo(torch.int64).max).sum())
-    bd = bound(0, PF_BINNED_BYTES * binned + PF_FLAG_BYTES * PF_SEGMENT)
-    print(f"phase2 sign_prefilter_keep segment ({PF_SEGMENT} windows of "
-          f"phase 6's first sample, k {PF_K}, --min-count {mc}, {nbins} "
-          f"bins): bit-equal to twin; kernel {ms:.4f} ms, torch.sort of the "
-          f"same keys {sort_ms:.4f} ms, whole prefilter (map, sort, kernel, "
-          f"masked_select) {whole_ms:.4f} ms, twin {plain:.2f} ms, "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: {binned} "
-          f"binned windows' key and position read, {PF_SEGMENT} flags "
-          f"written): kernel at "
-          f"{100 * bd['bound_ms'] / ms:.1f}%; kept {kept.numel()} of "
-          f"{valid} valid windows = {100 * kept.numel() / valid:.2f}%")
-    results["sign_prefilter_keep"] = dict(max_abs_err=0.0, ms=ms,
-                                          plain_ms=plain, library_ms=None,
-                                          sort_ms=sort_ms, **bd)
-    del keys, pos, got, kept, mapped
+    bd = bound(0, PF_BYTES * PF_SEGMENT)
+    split = ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or \
+        "not measured (no kernel record)"
+    print(f"phase2 sign_prefilter segment ({PF_SEGMENT} windows of phase "
+          f"6's first sample, k {PF_K}, --min-count {mc}, {nbins} bins, "
+          f"2^{sp.bucket_bits(PF_SEGMENT)} buckets): bit-equal to the twin; "
+          f"kernels {ms:.4f} ms (profile, ms a call: {split}); bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {PF_BYTES} B a "
+          f"window, each sign read and each flag written once): at "
+          f"{100 * bd['bound_ms'] / ms:.1f}%; torch.sort of the same keys "
+          f"{sort_ms:.4f} ms (the parent design's first step); whole "
+          f"prefilter (kernels, masked_select) {whole_ms:.4f} ms; twin "
+          f"{plain:.2f} ms; peak scratch and flags "
+          f"{scratch / 2**20:.1f} MiB; kept {kept.numel()} of {valid} valid "
+          f"windows = {100 * kept.numel() / valid:.2f}%")
+    results["sign_prefilter"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                     library_ms=None, sort_ms=sort_ms, **bd)
+    del got, kept
     valid = int((row >= 0).sum())
     # every segment length against the twins too: the reads path keeps
     # segments of ~5 M (phase 3) to the whole sample (phase 6)
@@ -1043,12 +1107,10 @@ def phase2_sign_prefilter(results):
         n_kept = 0
         for a in range(0, row.numel(), length):
             part = row[a : a + length]
-            keys, pos = sp.sorted_keys(part, nbins)
-            check(torch.equal(sp.sign_prefilter_keep(keys, pos, mc, nbins),
-                              sp.sign_prefilter_keep_ref(keys, pos, mc,
-                                                         nbins)),
-                  f"sign_prefilter_keep, {part.numel()} windows at {a}: "
-                  f"kernel != twin")
+            check(torch.equal(sp.sign_prefilter_flags(part, nbins, mc),
+                              sp.sign_prefilter_flags_ref(part, nbins, mc)),
+                  f"sign_prefilter, {part.numel()} windows at {a}: kernels "
+                  f"!= twin")
             kept = sp.prefilter_signs(part, nbins, mc)
             check(torch.equal(kept, sp.prefilter_signs_ref(part, nbins, mc)),
                   f"prefilter_signs, {part.numel()} windows at {a}: != twin")
@@ -1056,10 +1118,25 @@ def phase2_sign_prefilter(results):
         print(f"phase2 prefilter kept fraction, segments of {length} "
               f"windows (each bit-equal to the twins): {n_kept} of {valid} "
               f"= {100 * n_kept / valid:.2f}%")
-    del keys, pos, kept
+    del kept
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sp.sign_prefilter_flags(row, nbins, mc)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base
+    row_ms = cuda_ms(lambda: sp.sign_prefilter_flags(row, nbins, mc), reps=5)
+    parts = pf_kernel_ms(lambda: sp.sign_prefilter_flags(row, nbins, mc), 3)
     whole_ms = cuda_ms(lambda: sp.prefilter_signs(row, nbins, mc), reps=3)
+    split = ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or \
+        "not measured (no kernel record)"
     print(f"phase2 prefilter of the whole sample ({row.numel()} windows, one "
-          f"segment as the reads path takes it): {whole_ms:.4f} ms")
+          f"segment as the reads path takes it, 2^"
+          f"{sp.bucket_bits(row.numel())} buckets): kernels {row_ms:.4f} ms "
+          f"(profile: {split}), bound "
+          f"{bound(0, PF_BYTES * row.numel())['bound_ms']:.4f} ms; with "
+          f"masked_select {whole_ms:.4f} ms; peak scratch and flags "
+          f"{scratch / 2**20:.1f} MiB")
 
 
 # --- phase 2, the amino-acid kernel ------------------------------------------
@@ -1854,7 +1931,7 @@ def phase3_reads(cli_main, p3: Path) -> Path:
                  THREADS, "--quiet"] for inputs, mc in runs]
 
     port_s, host_s = run_port_and_host(cli_main, cmds("port"), cmds("host"))
-    pf = kernel_wrappers()["sign_prefilter_keep"]
+    pf = kernel_wrappers()["sign_prefilter"]
     t0 = time.time()
     with prefilter_knob():
         for (_, mc), argv in zip(runs, cmds("pf")):
@@ -1862,7 +1939,7 @@ def phase3_reads(cli_main, p3: Path) -> Path:
             check(cli_main(argv) == 0, f"port {' '.join(argv)} failed")
             check((pf.launches > before) == (mc >= 2),
                   f"phase3 prefilter on, --min-count {mc}: "
-                  f"{pf.launches - before} launches of sign_prefilter_keep")
+                  f"{pf.launches - before} launches of sign_prefilter")
     pf_s = time.time() - t0
     for inputs, mc in runs:
         for who in ("port", "pf"):
@@ -1956,13 +2033,13 @@ def phase3_inverted(cli_main, reads: Path) -> None:
         return files
 
     pairs = kernel_wrappers()["pair_count"]
-    pf = kernel_wrappers()["sign_prefilter_keep"]
+    pf = kernel_wrappers()["sign_prefilter"]
     with prefilter_knob():  # the default --min-count, 5
         before = pf.launches
         for argv, _ in builds("pf"):
             check(cli_main(argv) == 0, f"port {' '.join(argv)} failed")
         check(pf.launches > before, "phase3 inverted build with the "
-              "prefilter on did not launch sign_prefilter_keep")
+              "prefilter on did not launch sign_prefilter")
     t0 = time.time()
     for argv, out in builds("port") + commands("port"):
         before = pairs.launches
@@ -2130,17 +2207,22 @@ def profiled_run(cli_main, argv, label: str):
     return wall, None
 
 
-def profile_dist(cli_main, argv, label: str, no_sort: bool = False) -> float:
+def profile_dist(cli_main, argv, label: str, no_sort: bool = False,
+                 forbid: tuple = ()) -> float:
     """One more run of a CLI command under torch.profiler: device time by
     kernel against the host clock. Returns the device's busy share. With
-    no_sort the run fails if a top-k, sort or concatenation kernel ran.
-    None where the profiler lost the run's kernel records."""
+    no_sort the run fails if a top-k, sort or concatenation kernel ran,
+    and if a kernel whose name holds one of `forbid` ran. None where the
+    profiler lost the run's kernel records."""
     wall, by_name = profiled_run(cli_main, argv, label)
     if by_name is None:
         print(f"{label} profile: device time not measured (the profiler "
               f"lost kernel records twice)")
         check(not no_sort, f"{label}: no trace to check for sorts")
         return None
+    banned = [name for name in by_name
+              if any(part in name.lower() for part in forbid)]
+    check(not banned, f"{label}: kernels named {forbid} ran: {banned[:3]}")
     rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
                   reverse=True)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
@@ -2154,6 +2236,8 @@ def profile_dist(cli_main, argv, label: str, no_sort: bool = False) -> float:
                         ("K2 (coreacc_kernel)", ("coreacc_kernel",)),
                         ("K3 selection (knn_select_kernel, knn_merge_kernel)",
                          ("knn_select_kernel", "knn_merge_kernel")),
+                        (f"sign prefilter ({', '.join(PF_KERNELS)})",
+                         PF_KERNELS),
                         ("PyTorch elementwise kernels", ("elementwise",)),
                         ("top-k, sort and concatenation kernels",
                          ("topk", "sort", "catarray"))):
@@ -2355,24 +2439,27 @@ def phase6_reads(cli_main, gpu: str) -> None:
             with reads_traffic() as seen:
                 walls[who].append(timed_cli(
                     cli_main, full, f"phase6 sketch reads 7 k, prefilter "
-                    f"{who}", expect=("sign_prefilter_keep",) if who == "on"
+                    f"{who}", expect=("sign_prefilter",) if who == "on"
                     else ()))
             print(f"phase6 sketch 2 x 50 Mb of reads x {len(KMERS)} k "
                   f"--min-count 5, prefilter {who}: {walls[who][-1]:.2f} s "
                   f"= {mbk / walls[who][-1]:.1f} Mbase-k/s end to end (parse,"
-                  f" upload, signs, {'sort, keep kernel, gather, ' if who == 'on' else ''}"
+                  f" upload, signs, {'prefilter kernels, gather, ' if who == 'on' else ''}"
                   f"copy back, compaction, count filter on {THREADS} "
                   f"threads, .skd); {seen['d2h_bytes'] / 1e6:.1f} MB "
                   f"copied to the host, {seen['filter_signs']} signs into "
-                  f"the count filter; peak device memory "
+                  f"the count filter; the prefilter's step on "
+                  f"{seen['prefilter_rows']} rows {seen['prefilter_ms']:.2f} "
+                  f"ms of device time (CUDA events); peak device memory "
                   f"{seen['peak_allocated'] / 2**30:.2f} GiB allocated ("
                   f"{seen['base_allocated'] / 2**30:.2f} GiB on entry), "
                   f"{seen['peak_reserved'] / 2**30:.2f} GiB reserved; {gpu}")
             if who not in busy:
                 traffic[who] = seen
-                busy[who] = profile_dist(cli_main, full,
-                                         f"phase6 sketch reads 7 k, "
-                                         f"prefilter {who}")
+                # with the prefilter on, no sort runs on the card
+                busy[who] = profile_dist(
+                    cli_main, full, f"phase6 sketch reads 7 k, prefilter "
+                    f"{who}", forbid=("sort",) if who == "on" else ())
     SINGLE_WALL["sketch_reads"] = walls["off"][0]
     SINGLE_WALL["sketch_reads_prefilter"] = walls["on"][0]
     for ext in (".skd", ".skm"):
@@ -2397,7 +2484,7 @@ def phase6_reads(cli_main, gpu: str) -> None:
     with prefilter_knob():
         pf_s = timed_cli(cli_main, argv(d / "port2_pf", READS_ORACLE_KMERS),
                          "phase6 sketch reads k 17, 29, prefilter on",
-                         expect=("sign_prefilter_keep",))
+                         expect=("sign_prefilter",))
     for who in ("port2", "port2_pf"):
         for ext in (".skd", ".skm"):
             check(same_bytes(d / f"{who}{ext}", d / f"host2{ext}"),
@@ -2795,7 +2882,7 @@ def phase7_aa(cli_main, gpu: str) -> None:
 MESH_PATH = ("nthash_bin_multi", "nthash_signs", "aahash_bin_multi",
              "coreacc", "knn_select", "samebits_full", "pair_count",
              "signeq_count", "signeq_any", "signeq_all", "knn_select_masked",
-             "sign_prefilter_keep")
+             "sign_prefilter")
 
 
 @contextlib.contextmanager
@@ -2951,7 +3038,7 @@ def phase8_commands(d: Path) -> list:
             "sketch", "-f", WORK / "p6reads" / "reads.txt", "-o",
             d / "reads_pf", "-k", ",".join(map(str, KMERS)), "-s",
             SKETCH_SIZE, "--min-count", "5", "--threads", THREADS],
-         ("nthash_signs", "sign_prefilter_keep")),
+         ("nthash_signs", "sign_prefilter")),
         ("inv", ["inverted", "build", "-f", mixed, "-o", d / "inv", "-s",
                  "100", "-k", "17", "--write-skq", "--threads", THREADS],
          ("nthash_bin_multi",)),

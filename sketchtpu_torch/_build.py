@@ -83,7 +83,10 @@ _SIGNATURES = {
     "stpu_compare_rate": (_I, _I, _I, _P, _P),
     "stpu_compare_rate_blocks_per_sm": (),
     "stpu_knn_select_blocks_per_sm": (_I, _I, _I, _I),
-    "stpu_sign_prefilter_keep": (_P, _P, _LL, _I, _LL, _I, _P, _P),
+    "stpu_sign_prefilter": (
+        _P, _LL, _I, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
+    "stpu_sign_prefilter_limits": (_I,),
 }
 
 _lock = threading.Lock()

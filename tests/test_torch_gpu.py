@@ -1294,45 +1294,92 @@ def test_kernels_launch_on_their_tensors_device(cuda):
 
 # --- sign_prefilter.cu: the reads path's sign prefilter -----------------------
 
-def _prefilter_case(cuda, row, nbins, mc):
-    """The keep kernel's flags and the compacted survivors of one row of
-    signs on the card, bit for bit against the twins there."""
+def _prefilter_case(cuda, row, nbins, mc, **plan):
+    """The kernels' flags and the compacted survivors of one row of signs
+    on the card, bit for bit against the twins there, in one counted
+    launch (none for an empty row)."""
     from sketchtpu_torch.sketchcore import sign_prefilter as sp
 
-    keys, pos = sp.sorted_keys(row, nbins)
-    before = sp.sign_prefilter_keep.launches
-    got = sp.sign_prefilter_keep(keys, pos, mc, nbins)
+    before = sp.sign_prefilter_flags.launches
+    got = sp.sign_prefilter_flags(row, nbins, mc, **plan)
     torch.cuda.synchronize()
-    assert sp.sign_prefilter_keep.launches == before + (row.numel() > 0)
-    assert torch.equal(got, sp.sign_prefilter_keep_ref(keys, pos, mc, nbins))
+    assert sp.sign_prefilter_flags.launches == before + (row.numel() > 0)
+    assert torch.equal(got, sp.sign_prefilter_flags_ref(row, nbins, mc))
     kept = sp.prefilter_signs(row, nbins, mc)
     assert torch.equal(kept, sp.prefilter_signs_ref(row, nbins, mc))
     return kept
 
 
-@pytest.mark.parametrize("nbins,m,distinct", [
-    (1, 100, 5), (16, 5000, 400), (64, 100_000, 400), (100, 70_001, 50),
-    (1024, 300_001, 100_000), (1024, 2049, 2000)])
-@pytest.mark.parametrize("mc", [1, 2, 3, 5])
-def test_sign_prefilter_kernel_matches_twin(cuda, nbins, m, distinct, mc):
-    """Heavy collisions (runs across threads and 2048-window tiles, bins of
-    many tiles at 1 and 16 bins, empty bins at 1024), invalid windows,
-    signs past the last bin."""
-    from sketchtpu_torch.hash.nthash_torch import bin_size
-
-    rng = np.random.default_rng(m + mc)
+def _collisions(nbins, m, distinct, seed):
+    """m signs from `distinct` values of the bins' range, 10 % invalid and
+    1 % past the last bin."""
+    rng = np.random.default_rng(seed)
     top = bin_size(nbins) * nbins
     row = rng.choice(rng.integers(0, top, distinct), m)
     row[rng.random(m) < 0.1] = -1
     row[rng.random(m) < 0.01] = top + 5
+    return row
+
+
+@pytest.mark.parametrize("nbins,m,distinct", [
+    (1, 100, 5), (16, 5000, 400), (64, 100_000, 400), (100, 70_001, 50),
+    (1024, 300_001, 100_000), (1024, 2049, 2000),
+    (40_000, 1_000_003, 300_000)])
+@pytest.mark.parametrize("mc", [1, 2, 3, 5])
+def test_sign_prefilter_kernel_matches_twin(cuda, nbins, m, distinct, mc):
+    """Heavy collisions (runs across threads, buckets and bins, a bin over
+    many buckets at 1 and 16 bins, empty buckets, many bins a bucket at
+    40,000), invalid windows, signs past the last bin."""
+    row = _collisions(nbins, m, distinct, m + mc)
     kept = _prefilter_case(cuda, torch.from_numpy(row).to(cuda), nbins, mc)
     assert kept.numel() <= (row >= 0).sum()
+
+
+@pytest.mark.parametrize("bits,cap", [(0, 1), (4, 64), (9, 300), (16, 2000)])
+@pytest.mark.parametrize("mc", [2, 5])
+def test_sign_prefilter_past_the_capacity(cuda, bits, cap, mc):
+    """Buckets past `cap` windows take the path in device memory (radix
+    passes, two streaming scans) beside buckets ordered on chip, with
+    carries between both kinds; one and two partition passes."""
+    row = _collisions(64, 200_000, 20_000, bits + cap + mc)
+    _prefilter_case(cuda, torch.from_numpy(row).to(cuda), 64, mc, bits=bits,
+                    cap=cap)
+
+
+def test_sign_prefilter_constants_match_the_library(cuda):
+    """The wrapper sizes its workspace and checks its plan with the
+    kernels' own constants."""
+    from sketchtpu_torch.sketchcore import sign_prefilter as sp
+
+    assert [_build.query(cuda, "stpu_sign_prefilter_limits", i)
+            for i in range(5)] == [sp.MAX_BITS, sp.CAP, sp.TILE, sp.DIGITS,
+                                   sp.SCAN_SUMS]
 
 
 def test_sign_prefilter_kernel_on_empty_and_invalid_rows(cuda):
     for row in (torch.zeros(0, dtype=torch.int64),
                 torch.full((5000,), -1, dtype=torch.int64)):
         assert _prefilter_case(cuda, row.to(cuda), 1024, 3).numel() == 0
+
+
+def test_sign_prefilter_one_sign_repeated(cuda):
+    """One sign 2^22 times: one bucket far past the capacity, already in
+    order (no radix pass); its first min_count occurrences are kept."""
+    row = torch.full((1 << 22,), int(bin_size(64)) * 7 // 3,
+                     dtype=torch.int64, device=cuda)
+    kept = _prefilter_case(cuda, row, 64, 5)
+    assert kept.numel() == 1 << 22  # no earlier run in its bin: all kept
+
+
+def test_sign_prefilter_every_window_in_one_bin(cuda):
+    """4 M windows in bin 9 of 64: the bin over 128 buckets of 2^13."""
+    rng = np.random.default_rng(9)
+    bs = int(bin_size(64))
+    values = rng.integers(9 * bs, 10 * bs, 1 << 20)
+    row = torch.from_numpy(rng.choice(values, 1 << 22)).to(cuda)
+    for mc in (2, 5):
+        kept = _prefilter_case(cuda, row, 64, mc)
+        assert 0 < kept.numel() < row.numel()
 
 
 def _genome_reads(genome_len, n_reads, seed):
@@ -1349,14 +1396,18 @@ def _genome_reads(genome_len, n_reads, seed):
                      reads=True)
 
 
-def test_sign_prefilter_kernel_at_a_2_24_window_segment(cuda):
-    """A 2^24-window segment of reads of a 2 Mb genome at k = 17,
-    --min-count 5, 1024 bins: the reads path's segment."""
+@pytest.mark.parametrize("windows", [1 << 24, 1 << 26])
+def test_sign_prefilter_kernel_at_a_segment(cuda, windows):
+    """Reads of a 2 Mb genome at k = 17, --min-count 5, 1024 bins: a
+    2^24-window segment (the JAX package's) and a whole 2^26-window row
+    (the longest segment of the reads path)."""
     from sketchtpu_torch.hash.nthash_torch import nthash_signs
 
-    stream = _genome_reads(2_000_000, ((1 << 24) + 16) // 150 + 1, 24)
+    stream = _genome_reads(2_000_000, (windows + 16) // 150 + 1, 24)
     seq = torch.from_numpy(pack_group([stream])[0]).to(cuda)
-    row = nthash_signs(seq, [17], True, 1 << 24)[0]
+    row = nthash_signs(seq, [17], True, windows)[0]
+    del seq
+    assert row.numel() == windows
     kept = _prefilter_case(cuda, row, 1024, 5)
     assert 0 < kept.numel() < (row >= 0).sum() // 2
 
@@ -1383,10 +1434,14 @@ def test_reads_backend_prefilter_on_card_matches_cpu(cuda, monkeypatch,
                             lambda nk: segment)
     monkeypatch.setenv("SKETCHTPU_FASTQ_PREFILTER", "1")
     for devs in (cuda, [cuda, cuda]):
-        before = sp.sign_prefilter_keep.launches
+        before = sp.sign_prefilter_flags.launches
         got = DeviceSketchBackend(devs).sketch_dna_streams(
             streams, names, [17, 21, 25], 1024, True, 3)
-        assert sp.sign_prefilter_keep.launches > before
+        # one launch a (segment, k) row
+        rows = 3 * sum(len(sketch_torch.read_chunks(
+            s.seq_len, [17, 21, 25], sketch_torch._segment_starts(3)))
+            for s in streams)
+        assert sp.sign_prefilter_flags.launches - before == rows
         for g, w in zip(got, want):
             assert np.array_equal(g.usigs, w.usigs)
             assert g.seq_length == w.seq_length

@@ -6,9 +6,11 @@ prefilter_signs_device on JAX-CPU, survivor for survivor (the same signs
 given as (lo, hi, validbits) there and as int64 with -1 here); replay of
 the survivors through the host count filter, whole and over arbitrary
 segmentations, against the full stream's bins; a NumPy model of the
-kernel's control flow (csrc/sign_prefilter.cu: tiles, a thread's windows,
-the block scan of state maps) against the twin; the kernel wrapper's
-dispatch; the backend under the JAX package's own call pattern; and
+kernels' control flow (csrc/sign_prefilter.cu: the stable partition into
+buckets, each bucket ordered on chip or past its capacity in device
+memory, the block scan of state maps, the look-back's carries) against
+the twin; the kernels' wrapper's dispatch; the backend under the JAX
+package's own call pattern; and
 `sketch` / `inverted build` of reads in cpu mode with the knob on,
 byte-identical to the knob off and to the JAX package's host oracle.
 Inputs are made from seeds with numpy."""
@@ -189,75 +191,306 @@ def test_sorted_keys_put_invalid_and_unbinned_signs_last():
     assert pos.tolist()[:5] == [3, 7, 0, 4, 5]
 
 
-def _kernel_model(keys, pos, mc, nbins, nt, ipt):
-    """csrc/sign_prefilter.cu's control flow in NumPy on Python ints: a
-    block per bin (its span by binary search), tiles of nt threads x ipt
-    windows, each thread composing its windows' maps of the state (before,
-    running) with Then, an exclusive scan of the threads' maps in the
-    tree order of a Hillis-Steele scan (not left to right), and the state
-    carried from tile to tile."""
-    keys, pos = keys.tolist(), pos.tolist()
-    flags = np.zeros(len(keys), bool)
-    bs = int(bin_size(nbins))
-    ident = (NONE, NONE, 0)  # (a, x, f)
+NONE32 = 0xFFFFFFFF
+RR, RS, RA = 1, 2, 4  # csrc/sign_prefilter.cu's map flags
+IDENT = (NONE32, NONE32, 0)  # (a, x, flags)
 
-    def then(s1, s2):
-        return (min(s1[1], s2[0]) if s2[2] else s1[0], min(s1[1], s2[1]),
-                s1[2] | s2[2])
 
-    for b in range(nbins):
-        lo = int(np.searchsorted(keys, b * bs))
-        hi = int(np.searchsorted(keys, (b + 1) * bs))
-        before = running = NONE
-        for t0 in range(lo, hi, nt * ipt):
-            mine, windows = [], []
-            for t in range(nt):
-                step, ws = ident, []
-                for j in range(ipt):
-                    i = t0 + t * ipt + j
-                    if i >= hi:
-                        continue
-                    start = i == lo or keys[i] != keys[i - 1]
-                    s = i - (mc - 1)
-                    c = (pos[i] if s >= lo and keys[s] == keys[i]
-                         and (s == lo or keys[s - 1] != keys[i]) else NONE)
-                    step = then(step, (NONE, c, int(start)))
-                    ws.append((start, c, pos[i]))
+def _then(s1, s2):
+    """Then: the map s1, then s2, of the state (bf, rn)."""
+    a1, x1, f1 = s1
+    a2, x2, f2 = s2
+    x = x2 if f2 & RR else min(x1, x2)
+    rr = (f1 | f2) & RR
+    if f2 & RS:
+        return (a2 if f2 & RA else min(x1, a2), x,
+                rr | RS | (RA if f2 & RA or f1 & RR else 0))
+    return a1, x, rr | (f1 & (RS | RA))
+
+
+def _apply(s, state):
+    a, x, f = s
+    bf, rn = state
+    return ((a if f & RA else min(rn, a)) if f & RS else bf,
+            x if f & RR else min(rn, x))
+
+
+def _window(sign, k, mc, bsz, p):
+    """Run start, bin start, and p if window k is its run's mc-th."""
+    v = sign(k)
+    rs = k == 0 or sign(k - 1) != v
+    bs = rs and k > 0 and v // bsz != sign(k - 1) // bsz
+    r0 = k - (mc - 1)
+    mth = r0 >= 0 and sign(r0) == v and (r0 == 0 or sign(r0 - 1) != v)
+    return rs, bs, p if mth else NONE32
+
+
+def _block_scan(steps):
+    """Exclusive prefixes of the threads' maps in the tree order of a
+    Hillis-Steele scan (not left to right), and the total."""
+    incl, d = list(steps), 1
+    while d < len(steps):
+        incl = [incl[t] if t < d else _then(incl[t - d], incl[t])
+                for t in range(len(steps))]
+        d *= 2
+    return [IDENT] + incl[:-1], incl[-1]
+
+
+def _stable_split(keys, nwarps, span):
+    """The kernels' stable split (a partition pass, a radix pass in
+    device memory): the indices of keys >= 0 in key order. Tiles
+    of nwarps x span in stream order; in a tile, each key's cursor runs
+    over the warps in order, and a warp ranks its windows in rounds of 32
+    by the lanes below with the same key."""
+    valid = [k for k in keys if k >= 0]
+    counts = np.bincount(valid, minlength=1) if valid else np.zeros(1, int)
+    cursor = np.concatenate([[0], np.cumsum(counts)[:-1]]).tolist()
+    out = [-1] * len(valid)
+    for t0 in range(0, len(keys), nwarps * span):
+        spans = [(min(len(keys), t0 + w * span),
+                  min(len(keys), t0 + (w + 1) * span)) for w in range(nwarps)]
+        wcur = []
+        for w0, w1 in spans:  # the warps' counts, then their cursors
+            c = {}
+            for i in range(w0, w1):
+                if keys[i] >= 0:
+                    c[keys[i]] = c.get(keys[i], 0) + 1
+            wcur.append(c)
+        for key in {k for c in wcur for k in c}:
+            for c in wcur:
+                n = c.get(key, 0)
+                c[key] = cursor[key]
+                cursor[key] += n
+        for (w0, w1), cur in zip(spans, wcur):
+            for r in range(w0, w1, 32):
+                lanes = range(r, min(w1, r + 32))
+                for i in lanes:
+                    if keys[i] >= 0:
+                        rank = sum(keys[j] == keys[i] for j in lanes if j < i)
+                        out[cur[keys[i]] + rank] = i
+                for key in {keys[i] for i in lanes if keys[i] >= 0}:
+                    cur[key] += sum(keys[i] == key for i in lanes)
+    return out
+
+
+def _look_back(status, h, first, rng):
+    """The min pmc of bin `first` in the buckets before h, from their
+    status: each one's (last bin, aggregate, inclusive prefix), None if
+    empty; a predecessor shows its prefix or only its aggregate, at
+    random, as blocks that have or have not finished."""
+    acc = NONE32
+    for j in range(h - 1, -1, -1):
+        if status[j] is None:
+            continue
+        last, agg, pre = status[j]
+        if last != first:
+            return acc
+        if rng.random() < 0.5:
+            return min(acc, pre)
+        acc = min(acc, agg)
+    return acc
+
+
+def _kernel_model(row, nbins, mc, bits, cap, seed, pw=2, rounds=2, kw=4,
+                  sub_bits=3, kt=8, oipt=3, radix_rounds=2):
+    """csrc/sign_prefilter.cu's control flow in NumPy on Python ints, at
+    small sizes (pw warps of `rounds` rounds of 32 windows a partition
+    tile, kw warps and kt threads a keep block): the stable partition into
+    2^bits buckets of the top key bits in passes of at most 8 bits, low
+    digit first; the buckets' starts from the boundaries; per bucket in
+    ticket order, at most cap windows split stably by sub_bits more bits,
+    the windows of a group of more than one sign placed by their rank by
+    (sign, position), one thread range each, or past cap radix-sorted by
+    its varying 8-bit digits and
+    scanned in tiles of kt x oipt; the state maps' block scan; the carry
+    by look-back; flags."""
+    rng = np.random.default_rng(seed)
+    row = [int(v) for v in row]
+    m = len(row)
+    flags = np.zeros(m, bool)
+    bsz = int(bin_size(nbins))
+    top = nbins * bsz
+    shift = max(0, (min(top, 1 << 61) - 1).bit_length() - bits)
+    nb = 1 << bits
+
+    def key(s):
+        return min(s >> shift, nb - 1) if 0 <= s < top else -1
+
+    low = bits - 8 if bits > 8 else 0
+    order = list(range(m))
+    for dshift, dbits in ([(0, low), (low, bits - low)] if low else
+                          [(0, bits)]):
+        digits = [(key(row[i]) >> dshift) & ((1 << dbits) - 1)
+                  if key(row[i]) >= 0 else -1 for i in order]
+        order = [order[j] for j in _stable_split(digits, pw, 32 * rounds)]
+    part_s, part_p = [row[i] for i in order], order
+    n_all = len(order)
+    starts = [None] * (nb + 1)
+    for i in range(n_all):  # pf_bounds
+        for b in range(key(part_s[i - 1]) + 1 if i else 0,
+                       key(part_s[i]) + 1):
+            starts[b] = i
+    for b in range(key(part_s[-1]) + 1 if n_all else 0, nb + 1):
+        starts[b] = n_all
+    status = []
+    for h in range(nb):
+        lo, n = starts[h], starts[h + 1] - starts[h]
+        if n == 0:
+            status.append(None)
+            continue
+        S, P = part_s[lo : lo + n], part_p[lo : lo + n]
+        first, last = min(S) // bsz, max(S) // bsz
+        if n <= cap:
+            sh2 = max(shift - sub_bits, 0)
+            digits = [min((s >> sh2) - (h << (shift - sh2)),
+                          (1 << (shift - sh2)) - 1) for s in S]
+            idx = _stable_split(digits, kw, -(-n // kw))
+            g = 0
+            while g < n:  # a group of more than one sign: ranks
+                e = g
+                while e < n and digits[idx[e]] == digits[idx[g]]:
+                    e += 1
+                if any(S[idx[k - 1]] > S[idx[k]] for k in range(g + 1, e)):
+                    grp = idx[g:e]
+                    for i in grp:
+                        idx[g + sum((S[j], P[j]) < (S[i], P[i])
+                                    for j in grp)] = i
+                g = e
+            per = -(-n // kt)
+            tiles = [[(min(n, t * per), min(n, t * per + per))
+                      for t in range(kt)]]
+        else:
+            varying = 0
+            for s in S:
+                varying |= s ^ S[0]
+            idx = list(range(n))
+            for q in range(0, 64, 8):
+                if (varying >> q) & 0xFF:
+                    new = _stable_split([(S[i] >> q) & 0xFF for i in idx],
+                                        kw, 32 * radix_rounds)
+                    idx = [idx[j] for j in new]
+            tiles = [[(min(n, t0 + t * oipt), min(n, t0 + t * oipt + oipt))
+                      for t in range(kt)] for t0 in range(0, n, kt * oipt)]
+
+        def sign(k, idx=idx, S=S):
+            return S[idx[k]]
+
+        scans, agg = [], IDENT
+        for tile in tiles:
+            mine = []
+            for k0, k1 in tile:
+                step = IDENT
+                for k in range(k0, k1):
+                    rs, bs, c = _window(sign, k, mc, bsz, P[idx[k]])
+                    step = _then(step, (NONE32, c, (RR | RS | RA) if bs
+                                        else RS if rs else 0))
                 mine.append(step)
-                windows.append(ws)
-            incl, d = list(mine), 1
-            while d < nt:
-                incl = [incl[t] if t < d else then(incl[t - d], incl[t])
-                        for t in range(nt)]
-                d *= 2
-            prefix = [ident] + incl[:-1]
-            for t in range(nt):
-                a, x, f = prefix[t]
-                bf = min(running, a) if f else before
-                rn = min(running, x)
-                for start, c, p in windows[t]:
-                    if start:
-                        bf = rn
-                    rn = min(rn, c)
-                    if bf >= p:
-                        flags[p] = True
-            a, x, f = incl[-1]
-            before = min(running, a) if f else before
-            running = min(running, x)
+            prefix, total = _block_scan(mine)
+            scans.append((prefix, total))
+            agg = _then(agg, total)
+        carry = _look_back(status, h, first, rng)
+        status.append((last, agg[1],
+                       agg[1] if agg[2] & RR else min(carry, agg[1])))
+        entry = (NONE32, carry)
+        for tile, (prefix, total) in zip(tiles, scans):
+            for (k0, k1), pre in zip(tile, prefix):
+                bf, rn = _apply(pre, entry)
+                for k in range(k0, k1):
+                    p = P[idx[k]]
+                    rs, bs, c = _window(sign, k, mc, bsz, p)
+                    if bs:
+                        bf, rn = NONE32, c
+                    else:
+                        bf = rn if rs else bf
+                        rn = min(rn, c)
+                    flags[p] |= bf >= p
+            entry = _apply(total, entry)
     return flags
 
 
-@pytest.mark.parametrize("nt,ipt", [(4, 3), (8, 8), (32, 1)])
-@pytest.mark.parametrize("mc", [1, 2, 5])
-def test_kernel_model_equals_the_twin(nt, ipt, mc):
-    """Bins longer than a tile, tiles that end inside a run, runs that
-    start in one thread and end in another."""
-    signs, valid = _heavy(nt * ipt + mc, 1500, 4)
-    keys, pos = sp.sorted_keys(_as_row(signs, valid), 4)
-    want = sp.sign_prefilter_keep_ref(keys, pos, mc, 4)
-    assert np.array_equal(_kernel_model(keys, pos, mc, 4, nt, ipt),
-                          want.numpy())
-    assert want.sum() < valid.sum()
+def _one_sign(m, nbins):
+    return np.full(m, int(bin_size(nbins)) * 5 // 2, np.uint64), \
+        np.ones(m, bool)
+
+
+def _one_bin(m, nbins):
+    """Every window in bin 5 of nbins (the bin spans several buckets)."""
+    rng = np.random.default_rng(m)
+    bs = int(bin_size(nbins))
+    values = rng.integers(5 * bs, 6 * bs, m // 4, dtype=np.uint64)
+    return rng.choice(values, m), rng.random(m) >= 0.05
+
+
+def _crowded(m, nbins):
+    """Distinct signs below 2^20: one bucket, sorted by several digits."""
+    rng = np.random.default_rng(m + 1)
+    return rng.choice(rng.integers(0, 1 << 20, m // 3, dtype=np.uint64),
+                      m), np.ones(m, bool)
+
+
+def _past_2_61(m, nbins):
+    """Signs from 2^61 - 1 up to the last bin's end (top > 2^61 at nbins
+    = 40,000), crowded into the last bucket with the others of its range."""
+    rng = np.random.default_rng(m + 2)
+    top = int(bin_size(nbins)) * nbins
+    values = np.concatenate([
+        rng.integers((1 << 61) - 300, 1 << 61, 30, dtype=np.uint64),
+        rng.integers(1 << 61, top, 30, dtype=np.uint64),
+        rng.integers(0, top, 200, dtype=np.uint64)])
+    return rng.choice(values, m), rng.random(m) >= 0.05
+
+
+def _heavy_case(m, nbins):
+    return _heavy(m + nbins, m, nbins)
+
+
+@pytest.mark.parametrize("case,m,nbins,mc,bits,cap", [
+    (_heavy_case, 1500, 4, 1, 4, 96),      # pieces on chip and past cap
+    (_heavy_case, 3000, 1024, 2, 10, 64),  # two partition passes
+    (_heavy_case, 3000, 64, 5, 11, 3),
+    (_heavy_case, 1500, 4, 2, 4, 96),
+    (_heavy_case, 1500, 4, 5, 4, 96),
+    (_heavy_case, 2000, 1, 3, 5, 64),      # one bin over every bucket
+    (_heavy_case, 1200, 40_000, 2, 2, 400),  # many bins a bucket
+    (_heavy_case, 1200, 40_000, 4, 3, 100),
+    (_one_sign, 2000, 64, 3, 4, 48),       # one run past cap
+    (_one_sign, 300, 64, 1, 0, 400),       # one run on chip
+    (_one_bin, 1600, 64, 2, 8, 32),        # every window in one bin
+    (_one_bin, 1600, 64, 5, 8, 500),
+    (_crowded, 900, 16, 2, 3, 64),         # radix passes past cap
+    (_crowded, 900, 16, 3, 0, 1000),
+    (_past_2_61, 1500, 40_000, 3, 3, 1000),
+    (_past_2_61, 1500, 40_000, 2, 4, 48),
+    (_all_invalid, 0, 16, 3, 2, 48),
+    (_unique, 0, 16, 2, 3, 48),
+])
+def test_kernel_model_equals_the_twin(case, m, nbins, mc, bits, cap):
+    """The kernels' model at small capacities: bins split into pieces
+    (buckets) with their carries, the thread ranges and device-memory
+    tiles that end inside runs, one repeated sign, a row in one bin at 64
+    bins, 40,000 bins, min_count 1 to 5, and rows with no binned window."""
+    signs, valid = case(nbins) if m == 0 else case(m, nbins)
+    row = _as_row(signs, valid)
+    want = sp.sign_prefilter_flags_ref(row, nbins, mc)
+    got = _kernel_model(row.numpy(), nbins, mc, bits, cap, seed=m + mc)
+    assert np.array_equal(got, want.numpy())
+    if case is _all_invalid:
+        assert not got.any()
+
+
+def test_kernel_model_on_an_empty_row():
+    assert _kernel_model(np.zeros(0, np.int64), 64, 3, 0, 48, 0).size == 0
+    assert sp.sign_prefilter_flags_ref(torch.zeros(0, dtype=torch.int64),
+                                       64, 3).numel() == 0
+
+
+@pytest.mark.parametrize("m,bits", [(1, 0), (2048, 0), (2049, 1),
+                                    (1 << 24, 13), (49_999_934, 15),
+                                    (1 << 26, 15), (1 << 27, 16),
+                                    ((1 << 27) + 1, 16)])
+def test_bucket_bits(m, bits):
+    """2^bits buckets of at most 2048 windows on average, up to 2^16."""
+    assert sp.bucket_bits(m) == bits
 
 
 class _FakeCuda(_FakeTensor):
@@ -272,41 +505,72 @@ class _FakeCuda(_FakeTensor):
 
 
 def test_keep_wrapper_launches_on_cuda_tensors(monkeypatch):
-    """A CUDA tensor launches the kernel (one block a bin: nbins and the
-    bin size go with the pointers) and counts the launch; the twin is
-    never reached."""
+    """A CUDA row launches the kernels once (the row, its bins and the
+    bucket bits, then the workspace, look-back status, partition and
+    scratch buffers the wrapper allocates, and the flags) and counts the
+    launch; the twin is never reached."""
     calls = []
     monkeypatch.setattr(_build, "launch",
                         lambda dev, name, *args, what: calls.append(
                             (dev, name, args, what)))
     monkeypatch.setattr(sp, "sign_prefilter_keep_ref",
                         lambda *a: pytest.fail("twin reached"))
-    real_zeros = torch.zeros
-    monkeypatch.setattr(torch, "zeros",
-                        lambda *a, device=None, **kw: real_zeros(*a, **kw))
-    keys, pos = sp.sorted_keys(torch.tensor([4, 2, -1, 2]), 8)
-    before = sp.sign_prefilter_keep.launches
-    flags = sp.sign_prefilter_keep(_FakeCuda(keys, 111), _FakeCuda(pos, 222),
-                                   3, 8)
-    assert sp.sign_prefilter_keep.launches == before + 1
+    made = []
+    real_empty = torch.empty
+
+    def empty(*a, device=None, **kw):
+        made.append(real_empty(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(torch, "empty", empty)
+    row = torch.tensor([4, 2, -1, 2] * 10000)
+    before = sp.sign_prefilter_flags.launches
+    flags = sp.sign_prefilter_flags(_FakeCuda(row, 111), 8, 3)
+    assert sp.sign_prefilter_flags.launches == before + 1
     (dev, name, args, what), = calls
-    assert (dev.type, name, what) == ("cuda", "stpu_sign_prefilter_keep",
-                                      "sign_prefilter_keep")
-    assert args == (111, 222, 4, 3, int(bin_size(8)), 8, flags.data_ptr())
-    empty = torch.zeros(0, dtype=torch.int64)
-    sp.sign_prefilter_keep(_FakeCuda(empty, 1), _FakeCuda(empty, 2), 3, 8)
-    assert len(calls) == 1 and sp.sign_prefilter_keep.launches == before + 1
+    assert (dev.type, name, what) == ("cuda", "stpu_sign_prefilter",
+                                      "sign_prefilter")
+    flags_t, ws, status, ps, pp, ss, spos = made
+    assert flags_t is flags and flags.dtype == torch.bool
+    bits = sp.bucket_bits(40000)
+    assert bits == 5 and ws.numel() == 5 * 256 + 8192 + 32 + 4
+    assert status.dtype == torch.int64 and status.numel() == 32
+    for t, dt in ((ps, torch.int64), (pp, torch.int32), (ss, torch.int64),
+                  (spos, torch.int32)):
+        assert t.dtype == dt and t.numel() == 40000
+    assert args == (111, 40000, 3, int(bin_size(8)), 8, bits, sp.CAP,
+                    ws.data_ptr(), status.data_ptr(), ps.data_ptr(),
+                    pp.data_ptr(), ss.data_ptr(), spos.data_ptr(),
+                    flags.data_ptr())
+    sp.sign_prefilter_flags(_FakeCuda(torch.tensor([5, 6]), 1), 8, 3,
+                            bits=0, cap=7)
+    assert calls[-1][2][5:7] == (0, 7)
+    empty_row = torch.zeros(0, dtype=torch.int64)
+    assert sp.sign_prefilter_flags(_FakeCuda(empty_row, 1), 8,
+                                   3).numel() == 0
+    assert len(calls) == 2 and sp.sign_prefilter_flags.launches == before + 2
 
 
 def test_keep_wrapper_checks_its_input():
-    keys, pos = sp.sorted_keys(torch.tensor([4, 2, 2]), 8)
-    assert torch.equal(sp.sign_prefilter_keep(keys, pos, 2, 8),
-                       sp.sign_prefilter_keep_ref(keys, pos, 2, 8))
-    for bad in ((keys.int(), pos, 2, 8), (keys, pos[:2], 2, 8),
-                (keys, pos, 0, 8), (keys, pos, 2, 0),
-                (keys.view(1, 3), pos.view(1, 3), 2, 8)):
+    row = torch.tensor([4, 2, 2, -1])
+    assert torch.equal(sp.sign_prefilter_flags(row, 8, 2),
+                       sp.sign_prefilter_flags_ref(row, 8, 2))
+    assert sp.sign_prefilter_flags(row, 8, 2).tolist() == [True, True, True,
+                                                           False]
+    for bad in ((row.int(), 8, 2), (row, 8, 0), (row, 0, 2),
+                (row.view(2, 2), 8, 2), (row[::2], 8, 2),
+                (row, 1 << 30, 2)):
         with pytest.raises(ValueError):
-            sp.sign_prefilter_keep(*bad)
+            sp.sign_prefilter_flags(*bad)
+    fake = _FakeCuda(row, 1)
+    for kw in ({"bits": 17}, {"bits": -1}, {"cap": 0},
+               {"cap": sp.CAP + 1}):
+        with pytest.raises(ValueError):
+            sp.sign_prefilter_flags(fake, 8, 2, **kw)
+    huge = _FakeCuda(torch.zeros(1, dtype=torch.int64), 1)
+    huge.numel = lambda: sp.MAX_WINDOWS + 1
+    with pytest.raises(ValueError):
+        sp.sign_prefilter_flags(huge, 8, 2)
 
 
 def test_knob(monkeypatch):

@@ -23,7 +23,13 @@ own. The variants, against the shipped design:
 - aa_kg1: one k a pass (k as the outer loop, as the parent design rolled
   it) instead of up to four chains;
 - aa_runs124: runs of up to 124 starts (one tile a block at phase 2's
-  shape) instead of 60.
+  shape) instead of 60;
+- pf_subs256: the prefilter's keep block splits a bucket by 8 more key
+  bits (256 groups) instead of 11;
+- pf_ballots: that split finds a window's peers by one ballot a digit
+  bit instead of __match_any_sync;
+- pf_tile4096: the prefilter's partition passes stage tiles of 4096
+  windows (three blocks an SM) instead of 8192 (two).
 Each variant is held against the plain twin, then timed by CUDA events in
 turns (every variant once, then again) on the kernels it changes:
 nthash_signs over the reads path's chunk (4,793,490 window starts x 7 k)
@@ -31,8 +37,15 @@ of a stream that fills it, and of chip_smoke.py's 2 Mb stream; pair_count
 on rows [0, 8192) of chip_smoke.py's 661,000-row index at S = 100; signeq
 count / any / all with 1, 8 and 101 queries against that index; and
 aahash_bin_multi at chip_smoke.py's phase 2 shape (16 x 1.2 M residues,
-k = 6, 9, 12, 1024 bins). Prints one JSON line per measurement and writes
-them all to chiprun_out/kernel_variants.json.
+k = 6, 9, 12, 1024 bins); and the prefilter's step (sign_prefilter_flags)
+on a 2^24-window segment and a whole 50 M-window row of reads of a 2 Mb
+genome at 25x (tools/kernel_ab.py's row; k = 17, --min-count 5, 1024
+bins). Prints one JSON line per measurement and writes them all to
+kernel_variants.json in the output directory. Kernel names as arguments
+(nthash_signs, pair_count, signeq, aahash, prefilter) keep the variants
+of those alone:
+
+    python3 tools/kernel_variants.py prefilter
 """
 
 from __future__ import annotations
@@ -82,9 +95,14 @@ LMAX = "  const int lmax = room < 12 ? 4 : (room - 4) / 8 * 8 + 4;"
 AA_BLOCKS = "  return POW2 ? 5 : 4;"
 AA_KG = "constexpr int KG = 4;       // k rolled together"
 SIGNS = ("nthash_signs",)
+PF_ROUNDS = ("constexpr int ROUNDS = 32;", "constexpr int ROUNDS = 16;")
+PF_SCATTER_LB = ("__global__ void __launch_bounds__(PT, 2) pf_scatter(",
+                 "__global__ void __launch_bounds__(PT, 3) pf_scatter(")
+PF = ("prefilter",)
 # name: patches of csrc files, the wrapper settings, the kernels timed
 VARIANTS = {
-    "shipped": ({}, {}, ("nthash_signs", "pair_count", "signeq", "aahash")),
+    "shipped": ({}, {}, ("nthash_signs", "pair_count", "signeq", "aahash",
+                         "prefilter")),
     "signs_run32": ({"nthash_bin.cu": [(SIGNS_LG[0], SIGNS_LG[1].format(5))]},
                     {"signs_lg": 5}, SIGNS),
     "signs_run64": ({"nthash_bin.cu": [(SIGNS_LG[0], SIGNS_LG[1].format(6))]},
@@ -101,6 +119,14 @@ VARIANTS = {
     "aa_kg1": ({"aahash_bin.cu": [(AA_KG, AA_KG.replace("4;", "1;"))]},
                {"aa_kg": 1}, ("aahash",)),
     "aa_runs124": ({}, {"aa_runs": tuple(range(4, 125, 8))}, ("aahash",)),
+    "pf_subs256": ({"sign_prefilter.cu": [("constexpr int SUB_BITS = 11;",
+                                           "constexpr int SUB_BITS = 8;")]},
+                   {}, PF),
+    "pf_ballots": ({"sign_prefilter.cu": [(
+        "    const u32 peers = __match_any_sync(FULL, d);",
+        "    const u32 peers = peers_of(d, SUB_BITS);")]}, {}, PF),
+    "pf_tile4096": ({"sign_prefilter.cu": [PF_ROUNDS, PF_SCATTER_LB]},
+                    {"pf_tile": 4096}, PF),
 }
 
 
@@ -125,10 +151,12 @@ def use(name: str):
     """Point the port's builder and wrappers at the variant and build it."""
     from sketchtpu_torch import _build
     from sketchtpu_torch.hash import aahash_torch, nthash_torch
+    from sketchtpu_torch.sketchcore import sign_prefilter
 
     settings = VARIANTS[name][1]
     d = WORK / name
     _build.CSRC, _build.BUILD_DIR = d / "csrc", d / "build"
+    sign_prefilter.TILE = settings.get("pf_tile", sign_prefilter.TILE)
     nthash_torch._SIGNS_RUN_LG = settings.get("signs_lg", 4)
     aahash_torch._KG = settings.get("aa_kg", aahash_torch._KG)
     aahash_torch._RUNS = settings.get("aa_runs", aahash_torch._RUNS)
@@ -136,7 +164,7 @@ def use(name: str):
     return _build
 
 
-def measure(name: str, rep: int) -> list:
+def measure(name: str, rep: int, only=()) -> list:
     import numpy as np
     import torch
 
@@ -144,7 +172,7 @@ def measure(name: str, rep: int) -> list:
 
     use(name)
     gpu = torch.cuda.get_device_name(0)
-    kernels = VARIANTS[name][2]
+    kernels = [k for k in VARIANTS[name][2] if not only or k in only]
     out = []
 
     def record(kernel, shape, ms, **extra):
@@ -221,12 +249,29 @@ def measure(name: str, rep: int) -> list:
         ms = C.cuda_ms(lambda: aahash_bin_multi(cd, C.AA_KMERS, 1, sd, 1024),
                        reps=20)
         record("aahash_bin_multi", "16 x 1.2 M aa, k 6, 9, 12, 1024 bins", ms)
+    if "prefilter" in kernels:
+        sys.path.insert(0, str(ROOT / "tools"))
+        from kernel_ab import PF_BINS, PF_MIN_COUNT, reads_row
+
+        from sketchtpu_torch.sketchcore import sign_prefilter as sp
+
+        row = reads_row("cuda")
+        for label, part in (("2^24-window segment", row[: 1 << 24]),
+                            (f"whole row, {row.numel()} windows", row)):
+            got = sp.sign_prefilter_flags(part, PF_BINS, PF_MIN_COUNT)
+            if not torch.equal(got, sp.sign_prefilter_flags_ref(
+                    part, PF_BINS, PF_MIN_COUNT)):
+                raise SystemExit(f"{name}: sign_prefilter != twin ({label})")
+            ms = C.cuda_ms(lambda: sp.sign_prefilter_flags(
+                part, PF_BINS, PF_MIN_COUNT), reps=10)
+            record("sign_prefilter", f"{label}, k 17, --min-count 5, 1024 "
+                   f"bins", ms)
     return out
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--measure":
-        for rec in measure(sys.argv[2], int(sys.argv[3])):
+    if len(sys.argv) >= 4 and sys.argv[1] == "--measure":
+        for rec in measure(sys.argv[2], int(sys.argv[3]), sys.argv[4:]):
             print("RESULT " + json.dumps(rec), flush=True)
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--build":
@@ -237,18 +282,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
-    for name in VARIANTS:
+    only = sys.argv[1:]
+    names = [n for n in VARIANTS
+             if not only or set(VARIANTS[n][2]) & set(only)]
+    for name in names:
         prepare(name)
     builds = [subprocess.Popen([sys.executable, __file__, "--build", name])
-              for name in VARIANTS]
+              for name in names]
     if any(p.wait() for p in builds):
         return 1
     records = []
     for rep in range(2):
-        for name in VARIANTS:
+        for name in names:
             proc = subprocess.run(
-                [sys.executable, __file__, "--measure", name, str(rep)],
-                capture_output=True, text=True, cwd=ROOT)
+                [sys.executable, __file__, "--measure", name, str(rep),
+                 *only], capture_output=True, text=True, cwd=ROOT)
             if proc.returncode:
                 print(proc.stdout[-2000:], proc.stderr[-4000:])
                 return 1
