@@ -166,6 +166,10 @@ SOURCES = {
                          "sketchtpu/hash/aahash_jax.py:355"),
     "sign_prefilter": ("sketchtpu_torch/csrc/sign_prefilter.cu",
                        "sketchtpu/sketchcore/sign_prefilter.py:118"),
+    "samebits_dist": ("sketchtpu_torch/csrc/samebits.cu",
+                      "sketchtpu/dist/jaccard_jax.py:435"),
+    "coreacc_chain": ("sketchtpu_torch/csrc/coreacc.cu",
+                      "sketchtpu/dist/coreacc_jax.py:32"),
 }
 DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi", "samebits_full")
 # knn_keys: K3's tile mode, the route of `dist --knn` past MAX_KNN = 1024
@@ -176,6 +180,9 @@ INVERTED_PATH = ("nthash_signs", "nthash_bin_multi", "signeq_count",
                  "sign_prefilter")
 # amino acids and 3Di: sketch, append, then dense -k, core/acc and --knn
 AA_PATH = ("aahash_bin_multi", "samebits", "coreacc", "knn_select")
+# the words axis of shard/mesh.py (library surface, phase 10): each words
+# slot's K4 partial, then samebits_dist or coreacc_chain at the lead
+WORDS_PATH = ("samebits_full", "samebits_dist", "coreacc_chain")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
 # the 32-bit non-tensor rate, which bounds the 32-bit integer logic and
@@ -233,9 +240,13 @@ class Count:
 def kernel_wrappers() -> dict:
     """Every kernel (and kernel mode) of the port by name, with the launch
     count its wrapper keeps."""
-    from sketchtpu_torch.dist.coreacc_kernels import coreacc
+    from sketchtpu_torch.dist.coreacc_kernels import coreacc, coreacc_chain
     from sketchtpu_torch.dist.knn_kernels import knn_keys, knn_select
-    from sketchtpu_torch.dist.samebits_kernels import samebits, samebits_full
+    from sketchtpu_torch.dist.samebits_kernels import (
+        samebits,
+        samebits_dist,
+        samebits_full,
+    )
     from sketchtpu_torch.hash.aahash_torch import aahash_bin_multi
     from sketchtpu_torch.hash.nthash_torch import nthash_bin_multi, nthash_signs
     from sketchtpu_torch.inverted.device import pair_count, signeq
@@ -253,7 +264,9 @@ def kernel_wrappers() -> dict:
             "knn_select_masked": Count(knn_select, "masked_launches"),
             "coreacc_keys_masked": Count(coreacc, "masked_launches"),
             "aahash_bin_multi": Count(aahash_bin_multi),
-            "sign_prefilter": Count(sign_prefilter_flags)}
+            "sign_prefilter": Count(sign_prefilter_flags),
+            "samebits_dist": Count(samebits_dist),
+            "coreacc_chain": Count(coreacc_chain)}
 
 
 @contextlib.contextmanager
@@ -482,7 +495,8 @@ def phase2_samebits(words, big, results, lib_path: Path):
     )
 
     ptx = ptxas_report(lib_path, "samebits_kernel",
-                       {"IsE": "int16", "IiE": "int32"})
+                       {"IsLb0E": "int16", "IiLb0E": "int32",
+                        "IfLb1E": "f32 distance"})
     for mode, info in sorted(ptx.items()):
         print(f"phase2 samebits {mode} kernel: {info['registers']} registers, "
               f"{info['spill_store_bytes']} bytes spilled")
@@ -661,6 +675,172 @@ def phase2_coreacc(words, results, lib_path: Path):
           f"{na * bk.shape[0] / key_ms / 1e6:.3f} G pair/s")
     results["coreacc"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
                               beta0_pairs=jumps, library_ms=None, **bd)
+
+
+# --- phase 2, the words axis's kernels -----------------------------------------
+
+S64_WORDS = 1600  # 102,400 bins: the sketch size the words axis exists for
+N_WORDS = 4096  # phase 10's samples: 5.1 GB of words at 7 k
+
+
+def device_words(n: int, s64: int, seed: int, kmers=KMERS,
+                 device="cuda") -> "torch.Tensor":
+    """(n, nk, s64*14) int64 related sketch words made on `device` (as
+    synth.derive_words makes them on the host, too slowly for GBs): 8
+    parents; sample i copies parent i % 8 and re-draws each bin at k with
+    probability 1 - (1 - d_i)^k, d_i log-spaced in [0.001, 0.05]."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    nk = len(kmers)
+
+    def draw(*shape):
+        hi = torch.randint(0, 1 << 32, shape, generator=g, device=device)
+        return (hi << 32) | torch.randint(0, 1 << 32, shape, generator=g,
+                                          device=device)
+
+    parents = draw(8, nk, s64, 14)
+    d = torch.logspace(-3, float(torch.tensor(0.05).log10()), n,
+                       device=device)
+    d = d[torch.randperm(n, generator=g, device=device)]
+    bits = torch.arange(64, device=device)
+    out = torch.empty((n, nk, s64 * 14), dtype=torch.int64, device=device)
+    for ki, k in enumerate(kmers):
+        for r0 in range(0, n, 256):
+            rows = torch.arange(r0, min(r0 + 256, n), device=device)
+            p = 1.0 - (1.0 - d[rows]) ** k
+            redraw = torch.rand((rows.numel(), s64, 64), generator=g,
+                                device=device) < p[:, None, None]
+            mask = (redraw.long() << bits).sum(-1, keepdim=True)
+            fresh = draw(rows.numel(), s64, 14)
+            out[rows, ki] = ((parents[rows % 8, ki] & ~mask)
+                             | (fresh & mask)).reshape(rows.numel(), -1)
+    return out
+
+
+def dist_bound(na: int, nb: int, chunks: int, base: bool) -> dict:
+    """samebits_dist's least time: the samebits work of its chunks, or its
+    bytes (both operands, the base when given, the f32 output)."""
+    return bound(na * nb * chunks * SB_OPS,
+                 (na + nb) * chunks * 14 * 8 + na * nb * (8 if base else 4))
+
+
+def phase2_words(results, lib_path: Path):
+    """samebits_dist and coreacc_chain at phase 10's shapes, each against
+    its twin: the lead slot of a 2 x 2 grid over 4096 samples at s64 =
+    1600 (rows 2048, its 800 chunks, the other slot's summed partial as
+    base; Jaccard bit-equal, ANI within 2 ulp) and the chain on the
+    summed (7, 2048, 4096) samebits stack (bit-equal to K2 and to the
+    twin, with and without completeness); then jaccard_dist_block at
+    __graft_entry__.entry()'s tile, 128 x 128 at s64 = 16, k = 21."""
+    import torch
+
+    from sketchtpu_torch.dist.coreacc_kernels import (
+        coreacc,
+        coreacc_chain,
+        coreacc_chain_ref,
+    )
+    from sketchtpu_torch.dist.jaccard_torch import jaccard_dist_block
+    from sketchtpu_torch.dist.samebits_kernels import (
+        samebits_dist,
+        samebits_dist_ref,
+        samebits_full,
+    )
+
+    ptx = ptxas_report(lib_path, "coreacc_chain_kernel", {"": "chain"})
+    print(f"phase2 coreacc_chain kernel: {ptx['chain']['registers']} "
+          f"registers, {ptx['chain']['spill_store_bytes']} bytes spilled")
+    check(ptx["chain"]["spill_store_bytes"] == 0, "coreacc_chain: spills")
+    w = device_words(N_WORDS, S64_WORDS, SEED + 4)
+    na, half = N_WORDS // 2, S64_WORDS // 2 * 14
+    a, b = w[:na, 0, :half], w[:, 0, :half]
+    base = samebits_full(w[:na, 0, half:], w[:, 0, half:])
+    worst, times = 0.0, {}
+    for ani in (False, True):
+        got = samebits_dist(a, b, S64_WORDS, k=17.0, ani=ani, base=base)
+        want, plain = timed_once(lambda: samebits_dist_ref(
+            a, b, S64_WORDS, k=17.0, ani=ani, base=base))
+        ulps = int((got.view(torch.int32).long()
+                    - want.view(torch.int32).long()).abs().max())
+        check(ulps <= (2 if ani else 0),
+              f"samebits_dist ani={ani}: {ulps} ulp from the twin")
+        whole = jaccard_dist_block(w[:na, 0], w[:, 0], S64_WORDS, k=17.0,
+                                   ani=ani)
+        check(torch.equal(got, whole), f"samebits_dist ani={ani}: the split "
+              f"lead differs from jaccard_dist_block")
+        fitted = int(((got > 0) & (got < 1)).sum())
+        check(fitted > 0, "samebits_dist: no pair between 0 and 1")
+        worst = max(worst, float((got - want).abs().max()))
+        del got, want, whole
+        ms = cuda_ms(lambda: samebits_dist(a, b, S64_WORDS, k=17.0, ani=ani,
+                                           base=base), reps=5)
+        times[ani] = (ms, plain)
+        print(f"phase2 samebits_dist ({'ANI' if ani else 'Jaccard'}) "
+              f"({na}, {N_WORDS}) {S64_WORDS // 2} of {S64_WORDS} chunks + "
+              f"base: {'within 2 ulp of' if ani else 'equal to'} the twin "
+              f"({ulps} ulp, {fitted} pairs in (0, 1)), equal to the unsplit "
+              f"jaccard_dist_block; kernel {ms:.4f} ms, twin {plain:.2f} ms")
+    bd = dist_bound(na, N_WORDS, S64_WORDS // 2, True)
+    ms, plain = times[False]
+    print(f"phase2 samebits_dist bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%; "
+          f"integer-issue floor "
+          f"{integer_floor_ms(na * N_WORDS * S64_WORDS // 2):.4f} ms")
+    results["samebits_dist"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                                    library_ms=None, **bd)
+    del base
+
+    nk = len(KMERS)
+    sb = torch.stack([samebits_full(w[:na, ki], w[:, ki])
+                      for ki in range(nk)])
+    comp = torch.linspace(0.6, 1.0, N_WORDS, device=w.device)
+    comp = comp[torch.randperm(N_WORDS, device=w.device)]
+    times = {}
+    for label, c1, c2 in (("plain", None, None),
+                          ("completeness", comp[:na], comp)):
+        got = coreacc_chain(sb, KMERS, S64_WORDS * 64, S64_WORDS, c1, c2)
+        want = coreacc(w[:na], w, KMERS, S64_WORDS * 64, c1, c2)
+        twin, plain = timed_once(lambda: coreacc_chain_ref(
+            sb, KMERS, S64_WORDS * 64, S64_WORDS, c1, c2))
+        for g, x, t in zip(got, want, twin):
+            check(torch.equal(g, x), f"coreacc_chain {label}: != K2")
+            check(torch.equal(g, t), f"coreacc_chain {label}: != its twin")
+        fitted = int(((got[0] > 0) & (got[0] < 1)).sum())
+        check(fitted > 0, f"coreacc_chain {label}: no pair reached the fit")
+        del got, want, twin
+        ms = cuda_ms(lambda: coreacc_chain(sb, KMERS, S64_WORDS * 64,
+                                           S64_WORDS, c1, c2), reps=10)
+        times[label] = (ms, plain)
+        print(f"phase2 coreacc_chain {label} ({nk}, {na}, {N_WORDS}): equal "
+              f"to K2 on the whole words and to the twin on every pair "
+              f"({fitted} fitted); kernel {ms:.4f} ms, twin {plain:.2f} ms")
+    ms, plain = times["plain"]
+    # about 30 f32 operations a pair and k (the bias correction, logf, the
+    # early break and the sums); bytes: the int32 stack read, core and acc
+    # written
+    cb = bound(na * N_WORDS * nk * 30, na * N_WORDS * (nk * 4 + 8))
+    print(f"phase2 coreacc_chain bound {cb['bound_ms']:.4f} ms "
+          f"({cb['bound_by']}): kernel at {100 * cb['bound_ms'] / ms:.1f}%")
+    results["coreacc_chain"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                    library_ms=None, **cb)
+    del sb, w, a, b
+    torch.cuda.empty_cache()
+
+    # __graft_entry__.entry(): 128 x 128 random words, s64 = 16, k = 21
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ea, eb = (torch.from_numpy(rng.integers(0, 2**32, (128, 16 * 28),
+                                            dtype=np.uint32).view(np.int64))
+              .cuda() for _ in range(2))
+    got = jaccard_dist_block(ea, eb, 16, k=21.0, ani=False)
+    check(torch.equal(got, samebits_dist_ref(ea, eb, 16, k=21.0)),
+          "jaccard_dist_block at entry()'s tile: != the twin")
+    ms = cuda_ms(lambda: jaccard_dist_block(ea, eb, 16, k=21.0), reps=100)
+    eb_ = dist_bound(128, 128, 16, False)
+    print(f"phase2 jaccard_dist_block at entry()'s tile (128, 128) s64=16 "
+          f"k=21: equal to the twin; {ms:.4f} ms a call (launch-bound; "
+          f"bound {eb_['bound_ms']:.6f} ms, {eb_['bound_by']})")
 
 
 def phase2_knn_keys(words, results):
@@ -3001,6 +3181,233 @@ def phase9(cli_main, gpu: str) -> None:
           f"one-device run ({kind})")
 
 
+# --- phase 10: the words axis (library surface) -------------------------------
+
+WORDS_GRIDS = ((1, 2), (2, 2), (1, 4))
+N_WORDS_STREAM = 1024  # samples of the 2 x 2 stream_self_dense check
+
+
+def words_ms(words, kmers=KMERS):
+    """A MultiSketch of (n, nk, W) int64 words (a tensor), held on the
+    host as a loaded .skd is."""
+    import numpy as np
+
+    from sketchtpu_torch.formats.skm import MultiSketch
+    from sketchtpu_torch.sketchcore.sketch import HashType, Sketch
+
+    n, s64 = words.shape[0], words.shape[2] // 14
+    ms = MultiSketch([Sketch(name=f"w{i}", index=i) for i in range(n)],
+                     s64 * 64, list(kmers), HashType("dna"))
+    ms.sketch_bins = words.cpu().numpy().view(np.uint64).reshape(-1)
+    return ms
+
+
+def phase10_slots(device: str):
+    """Eight device slots: on one card all of it; with several GPUs slot i
+    on GPU i % count (4 distinct GPUs make the 1 x 4 and 2 x 2 grids' slots
+    distinct)."""
+    import torch
+
+    if device != "cuda":
+        return [torch.device(device)] * 8, "CPU slots"
+    n = torch.cuda.device_count()
+    slots = [torch.device("cuda", i % n) for i in range(8)]
+    return slots, (f"{n} distinct GPUs (slot i on GPU i % {n})" if n > 1
+                   else "slots of one card: the split, sums and joins, "
+                   "not distinct GPUs")
+
+
+def phase10(gpu: str, n: int = N_WORDS, s64: int = S64_WORDS,
+            device: str = "cuda") -> None:
+    """The words axis of shard/mesh.py at the width it exists for: 4096
+    samples at s = 102,400 bins (s64 = 1600) and 7 k, 5.1 GB of words made
+    on the card. Grids 1 x 2, 2 x 2 and 1 x 4 (phase10_slots) run
+    ShardedSamebitsEngine.matrix, sharded_dist_step (Jaccard and ANI) and
+    sharded_coreacc_step (plain and completeness), each bit-equal to the
+    unsplit K4, jaccard_dist_block or K2 (run uncounted); then
+    ShardedCoreAccEngine.stream_self_dense on 2 x 2 over the first 1024
+    samples, byte-identical to the one-device engine; then
+    dryrun_multichip's sequence on a 4 x 2 grid (phase10_dryrun).
+    device="cpu" rehearses it at a small n and s64 on the twins."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from sketchtpu_torch.dist.coreacc_kernels import coreacc
+    from sketchtpu_torch.dist.coreacc_torch import DeviceCoreAccEngine
+    from sketchtpu_torch.dist.jaccard_torch import jaccard_dist_block
+    from sketchtpu_torch.dist.samebits_kernels import samebits_full
+    from sketchtpu_torch.shard import mesh
+
+    slots, kind = phase10_slots(device)
+    first = slots[0]
+
+    def sync():
+        if device == "cuda":
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+
+    def timed(fn):
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        return out, time.time() - t0
+
+    t0 = time.time()
+    w = device_words(n, s64, SEED + 10, device=first)
+    comp = torch.linspace(0.6, 1.0, n, device=first)
+    comp = comp[torch.randperm(n, device=first)]
+    plane = w[:, 0]
+    host = plane.cpu().numpy().view(np.uint64)
+    sync()
+    print(f"phase10 made {n} x {len(KMERS)} k x {s64} chunks "
+          f"({w.numel() * 8 / 1e9:.2f} GB) in {time.time() - t0:.1f} s; "
+          f"{kind}; {gpu}")
+    with uncounted():
+        (want_sb, t_sb) = timed(lambda: samebits_full(plane, plane))
+        want_d = {ani: timed(lambda: jaccard_dist_block(
+            plane, plane, s64, k=17.0, ani=ani)) for ani in (False, True)}
+        want_ca = {}
+        for label, c in (("plain", None), ("completeness", comp)):
+            ca, wall = timed(lambda: coreacc(w, w, KMERS, s64 * 64, c, c))
+            want_ca[label] = (torch.stack(ca, dim=-1), wall)
+        want_host = want_sb.cpu().numpy()
+    print(f"phase10 unsplit ({n}, {n}): K4 {t_sb:.3f} s, "
+          f"jaccard_dist_block {want_d[False][1]:.3f} / ANI "
+          f"{want_d[True][1]:.3f} s, K2 {want_ca['plain'][1]:.3f} / "
+          f"completeness {want_ca['completeness'][1]:.3f} s")
+    for rows, words in WORDS_GRIDS:
+        grid = mesh.make_mesh(rows, words, devices=slots)
+        walls = {}
+        got, walls["matrix"] = timed(lambda: mesh.ShardedSamebitsEngine(
+            s64, grid).matrix(host, host))
+        check(np.array_equal(got, want_host),
+              f"phase10 {rows}x{words} matrix != K4")
+        for ani in (False, True):
+            got, walls[f"dist ani={ani}"] = timed(
+                lambda: mesh.sharded_dist_step(plane, plane, s64, grid,
+                                               17.0, ani))
+            check(torch.equal(got.to(first), want_d[ani][0]),
+                  f"phase10 {rows}x{words} dist ani={ani} != "
+                  f"jaccard_dist_block")
+        for label, c in (("plain", None), ("completeness", comp)):
+            got, walls[f"coreacc {label}"] = timed(
+                lambda: mesh.sharded_coreacc_step(w, w, s64, grid, KMERS,
+                                                  s64 * 64, c1=c, c2=c))
+            check(torch.equal(got.to(first), want_ca[label][0]),
+                  f"phase10 {rows}x{words} coreacc {label} != K2")
+        del got
+        print(f"phase10 grid {rows} x {words}: matrix, dist (Jaccard, ANI) "
+              f"and coreacc (plain, completeness) bit-equal to the unsplit "
+              f"kernels; walls "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    del want_sb, want_d, want_ca, host
+
+    sub = words_ms(w[:N_WORDS_STREAM])
+    names = [f"w{i}" for i in range(sub.number_samples_loaded())]
+    texts = {}
+    for label in ("one device", "2 x 2"):
+        with contextlib.ExitStack() as stack:
+            if label == "one device":
+                stack.enter_context(uncounted())
+                eng = DeviceCoreAccEngine(sub, first, tile=512)
+            else:
+                eng = mesh.ShardedCoreAccEngine(
+                    sub, mesh.make_mesh(2, 2, devices=slots), tile=512)
+            out = io.StringIO()
+            _, wall = timed(lambda: eng.stream_self_dense(out, names))
+            texts[label] = out.getvalue()
+        print(f"phase10 stream_self_dense {label} ({len(names)} samples, "
+              f"{texts[label].count(chr(10))} lines): {wall:.2f} s")
+    check(texts["2 x 2"] and texts["2 x 2"] == texts["one device"],
+          "phase10 2 x 2 stream_self_dense != the one-device engine")
+    del w, sub, texts
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    phase10_dryrun(slots)
+
+
+def phase10_dryrun(slots) -> None:
+    """__graft_entry__.dryrun_multichip's sequence on a 4 x 2 grid of the
+    slots: the distance step (row-sharded, words-sharded with the sum)
+    against the host chain within 1e-6, the core/acc step with and without
+    completeness bit-equal to K2 unsplit, the kNN step and its masked form
+    on the 8 rows-only slots against the host top-k, and the inverted
+    engine's count and match counts against the host."""
+    import numpy as np
+    import torch
+
+    from sketchtpu_torch.dist.coreacc_kernels import coreacc
+    from sketchtpu_torch.dist.jaccard_np import samebits_matrix
+    from sketchtpu_torch.shard import mesh
+
+    n_words, n_rows = 2, 4
+    grid = mesh.make_mesh(n_rows, n_words, devices=slots)
+    s64, na, nb = 16 * n_words, 8 * n_rows, 16
+    w2 = s64 * 14 * 2
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 2**32, (na, w2), dtype=np.uint32).view(np.uint64)
+    b = rng.integers(0, 2**32, (nb, w2), dtype=np.uint32).view(np.uint64)
+    out = mesh.sharded_dist_step(a, b, s64, grid, 21.0, False).cpu().numpy()
+    check(out.shape == (na, nb) and np.all((out >= 0) & (out <= 1)),
+          "phase10 dryrun: distances out of range")
+    sb = samebits_matrix(a, b).astype(np.float64)
+    maxnbits, expected = float(s64 * 64), float(int(s64 * 64) >> 14)
+    j = (np.maximum(sb - expected, 0.0) * maxnbits
+         / (maxnbits - expected)) / maxnbits
+    check(np.allclose(out, (1.0 - j).astype(np.float32), atol=1e-6, rtol=0),
+          "phase10 dryrun: the distance step != the host chain")
+    kmers = (17, 21, 25)
+    stack = rng.integers(0, 2**32, (len(kmers), na, w2), dtype=np.uint32)
+    x = np.ascontiguousarray(stack.transpose(1, 0, 2)).view(np.uint64)
+    xt = torch.from_numpy(x.view(np.int64)).to(slots[0])
+    comp = rng.uniform(0.7, 1.0, na).astype(np.float32)
+    for c in (None, comp):
+        got = mesh.sharded_coreacc_step(x, x, s64, grid, kmers, s64 * 64,
+                                        c1=c, c2=c)
+        ct = torch.from_numpy(c).to(slots[0]) if c is not None else None
+        with uncounted():
+            want = torch.stack(coreacc(xt, xt, kmers, s64 * 64, ct, ct), -1)
+        check(torch.equal(got.to(slots[0]), want),
+              "phase10 dryrun: the core/acc step != K2")
+    knn_grid = mesh.make_mesh(len(slots), 1, devices=slots)
+    knn = 4
+    sb_self = samebits_matrix(a, a).astype(np.int64)
+    np.fill_diagonal(sb_self, -(2**31))
+    sigs = rng.integers(0, 3, (na, 5)).astype(np.uint16)
+    shared = (sigs[:, None, :] == sigs[None, :, :]).any(axis=2)
+    for label, kw, want in (
+            ("plain", {}, sb_self),
+            ("masked", dict(a_sig=sigs, b_sig=sigs),
+             np.where(shared, sb_self, -(2**31)))):
+        v, _ = mesh.sharded_knn_step(a, a, s64, knn_grid, knn, n_real=na,
+                                     exclude_self=True, col_tile=na, **kw)
+        v = v.cpu().numpy().astype(np.int64)
+        v[v == -0x7FFFFFFF] = -(2**31)
+        for r in range(na):
+            check(np.array_equal(np.sort(v[r])[::-1],
+                                 np.sort(want[r])[::-1][:knn]),
+                  f"phase10 dryrun: the {label} kNN step, row {r}")
+    n_inv = 4 * knn_grid.shape["rows"] + 3
+    sign_mat = rng.integers(0, 7, (n_inv, 5), dtype=np.uint16)
+    inv = mesh.ShardedInvertedEngine(sign_mat, knn_grid)
+    shared_inv = (sign_mat[:, None, :] == sign_mat[None, :, :]).any(axis=2)
+    check(inv.any_shared_bin_count() == int(np.triu(shared_inv, 1).sum()),
+          "phase10 dryrun: the inverted count")
+    q = sign_mat[:3]
+    check(np.array_equal(inv.match_counts(q),
+                         (q[:, None, :] == sign_mat[None, :, :]).sum(axis=2)),
+          "phase10 dryrun: the inverted match counts")
+    print(f"phase10 dryrun_multichip's sequence on a {n_rows} x {n_words} "
+          f"grid (s64 {s64}, {na} x {nb}): the distance step within 1e-6 of "
+          f"the host chain, the core/acc step (plain, completeness) equal "
+          f"to K2, the kNN step (plain, masked) on {len(slots)} rows-only "
+          f"slots equal to the host top-k, the inverted count and match "
+          f"counts equal to the host's")
+
+
 # --- phase 8: two ranks on the one card ------------------------------------
 
 P8_RANKS = 2
@@ -3304,6 +3711,7 @@ def main() -> int:
         big = derived_words(N_KNN, SEED + 2, kmers=(17,))[:, 0]
         phase2_samebits(words, big, results, lib_path)
         phase2_coreacc(words, results, lib_path)
+        phase2_words(results, lib_path)
         phase2_knn_keys(words, results)
         phase2_knn_select(words, big, results, lib_path)
         del big
@@ -3369,13 +3777,18 @@ def main() -> int:
         print(f"multi-device path phase 9: {time.time() - t0:.1f} s")
         t0 = time.time()
         torch.cuda.empty_cache()
+        words_axis, _ = counted("words", WORDS_PATH, lambda: phase10(smi))
+        print(f"words path phase 10: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        torch.cuda.empty_cache()
         ranks = phase8(cli_main, smi)
         print(f"ranks path phase 8: {time.time() - t0:.1f} s")
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("sketchtpu", "jax")]
         check(not loaded, f"the port's phases loaded {loaded[:5]}")
         launches = {name: dense[name] + knn[name] + inverted[name] + aa[name]
-                    + mesh[name] + ranks[name] for name in wrappers}
+                    + mesh[name] + words_axis[name] + ranks[name]
+                    for name in wrappers}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -53,6 +53,17 @@
 // ptxas (-Xptxas -v, sm_90a, nvcc 12.9): 128 registers, no spills, in both
 // modes; with 112,000 bytes of dynamic shared memory each, 2 blocks of 256
 // threads are resident per SM. chip_smoke.py prints all three.
+//
+// coreacc_chain: the same chain from an int32 (nk, na, nb) stack of whole
+// samebits counts, the port of the regression chain of
+// sketchtpu/dist/coreacc_jax.py coreacc_tile after its psum over the mesh's
+// words axis (an XLA program; coreacc_jax.py:73-82 applies completeness
+// after the sum). A words split computes each slot's partial samebits with
+// K4 and sums them; this kernel then runs K2's chain on the sums, through
+// the same device functions (chain_y, chain_add, chain_finish) and the same
+// KTable, so a split core/acc is K2's bit for bit. One thread a pair, its
+// chain state in registers. Bound: bytes (nk * 4 read and 8 written a
+// pair against a few dozen float operations a pair and k).
 #include <math.h>
 #include <string.h>
 
@@ -101,6 +112,66 @@ struct KTable {
 };
 static_assert(sizeof(KTable) == (3 * MAX_NK + 3) * sizeof(float),
               "KTable is a flat float array on the host side");
+
+// The chain's constants: the whole sketch's Jaccard bias correction, the
+// early break's tolerance and the completeness cutoff.
+struct Chain {
+  float expected, maxnbits, denom, tolerance, cutoff;
+};
+
+// One k of the chain for one pair: the samebits count cnt to y = ln of the
+// bias-corrected Jaccard, completeness-corrected where comp and
+// c1 * c2 >= cutoff (c1p / c2p: the row's and the column's values).
+__device__ __forceinline__ float chain_y(int cnt, const Chain& ch, bool comp,
+                                        const float* c1p, const float* c2p) {
+  const float diff = fmaxf((float)cnt - ch.expected, 0.f);
+  float jac = (diff * ch.maxnbits / ch.denom) / ch.maxnbits;
+  if (comp) {
+    const float c1v = *c1p, c2v = *c2p;
+    const float prod = c1v * c2v;
+    const float factor = prod / (c1v + c2v - prod);
+    if (prod >= ch.cutoff) {
+      const float q = jac / factor;
+      jac = q > 1.f ? 1.f : q;  // NaN-propagating min, as jnp.minimum
+    }
+  }
+  return logf(jac);
+}
+
+// The early break and the running sums: k-plane ki (centred value kv)
+// counts only while every y so far is >= tolerance, i.e. while the
+// included-k count n is still ki.
+template <typename N>
+__device__ __forceinline__ void chain_add(N& n, float& ys, float& xy,
+                                          float& yy, int ki, float kv, float y,
+                                          float tolerance) {
+  if (n == ki && y >= tolerance) {
+    n = ki + 1;
+    ys += y;
+    xy += kv * y;
+    yy += y * y;
+  }
+}
+
+// The closed-form fit of the ninc included k and its branches:
+// coreacc_jax.coreacc_tile's core and acc.
+__device__ __forceinline__ void chain_finish(int ninc, float ysum,
+                                             float xysum, float yysum,
+                                             const KTable& kt, float& cd,
+                                             float& ad) {
+  const float xsum = kt.xs[ninc], xsq = kt.xq[ninc];
+  const float n = (float)ninc;
+  const float xbar = xsum / n + kt.kc;
+  const float ybar = ysum / n;
+  const float x_diff = xsq - xsum * xsum / n;
+  const float y_diff = yysum - ysum * ysum / n;
+  const float beta = (xysum - xsum * ysum / n) / x_diff;
+  const float alpha = -beta * xbar + ybar;
+  cd = beta < 0.f ? 1.f - expf(beta) : (beta > 0.f ? 1.f : 0.f);
+  ad = alpha < 0.f ? 1.f - expf(alpha) : 0.f;
+  if (y_diff <= 0.f) cd = ad = 0.f;
+  if (isnan(ysum) || (isinf(ysum) && ysum < 0.f) || n < 3.f) cd = ad = 1.f;
+}
 
 __device__ __forceinline__ int ordered_bits(float v) {
   const int b = __float_as_int(v);
@@ -167,6 +238,7 @@ __global__ void __launch_bounds__(NT, 2)
   }
 
   const bool comp = c1 != nullptr;
+  const Chain ch{expected, maxnbits, denom, tolerance, cutoff};
   for (int e = tid; e < TI; e += NT)
     s_c1[e] = comp && i0 + e < na ? c1[i0 + e] : 1.f;
   for (int e = tid; e < TJ; e += NT)
@@ -228,25 +300,11 @@ __global__ void __launch_bounds__(NT, 2)
       for (int i = 0; i < RM; ++i) {
 #pragma unroll
         for (int j = 0; j < RN; ++j) {
-          const float diff = fmaxf((float)cnt[i][j] - expected, 0.f);
-          float jac = (diff * maxnbits / denom) / maxnbits;
-          if (comp) {
-            const float c1v = s_c1[ty + i * TY], c2v = s_c2[tx + j * TX];
-            const float prod = c1v * c2v;
-            const float factor = prod / (c1v + c2v - prod);
-            if (prod >= cutoff) {
-              const float q = jac / factor;
-              jac = q > 1.f ? 1.f : q;  // NaN-propagating min, as jnp.minimum
-            }
-          }
-          const float y = logf(jac);
+          const float y = chain_y(cnt[i][j], ch, comp, s_c1 + ty + i * TY,
+                                  s_c2 + tx + j * TX);
           const int slot = (i * RN + j) * NT + tid;
-          if (s_n[slot] == ki && y >= tolerance) {
-            s_n[slot] = ki + 1;
-            s_y[slot] += y;
-            s_xy[slot] += kv * y;
-            s_yy[slot] += y * y;
-          }
+          chain_add(s_n[slot], s_y[slot], s_xy[slot], s_yy[slot], ki, kv, y,
+                    ch.tolerance);
           cnt[i][j] = 0;
         }
       }
@@ -270,20 +328,8 @@ __global__ void __launch_bounds__(NT, 2)
       const int gj = j0 + tx + j * TX;
       if (gi >= na || gj >= nb) continue;
       const int slot = (i * RN + j) * NT + tid;
-      const int ninc = s_n[slot];
-      const float ysum = s_y[slot];
-      const float xsum = kt.xs[ninc], xsq = kt.xq[ninc];
-      const float n = (float)ninc;
-      const float xbar = xsum / n + kt.kc;
-      const float ybar = ysum / n;
-      const float x_diff = xsq - xsum * xsum / n;
-      const float y_diff = s_yy[slot] - ysum * ysum / n;
-      const float beta = (s_xy[slot] - xsum * ysum / n) / x_diff;
-      const float alpha = -beta * xbar + ybar;
-      float cd = beta < 0.f ? 1.f - expf(beta) : (beta > 0.f ? 1.f : 0.f);
-      float ad = alpha < 0.f ? 1.f - expf(alpha) : 0.f;
-      if (y_diff <= 0.f) cd = ad = 0.f;
-      if (isnan(ysum) || (isinf(ysum) && ysum < 0.f) || n < 3.f) cd = ad = 1.f;
+      float cd, ad;
+      chain_finish(s_n[slot], s_y[slot], s_xy[slot], s_yy[slot], kt, cd, ad);
       const long long o = (long long)gi * ldo + gj;
       if (KEYS) {
         const long long col = col0 + gj;
@@ -302,6 +348,34 @@ __global__ void __launch_bounds__(NT, 2)
       acc[o] = ad;
     }
   }
+}
+
+// coreacc_chain: one thread a pair of the (na, nb) plane, the chain over
+// the nk planes of sb (plane stride na * nb) in registers.
+constexpr int CHAIN_NT = 256;
+
+__global__ void __launch_bounds__(CHAIN_NT)
+    coreacc_chain_kernel(const int* __restrict__ sb, int na, int nb, int nk,
+                         const __grid_constant__ KTable kt,
+                         const float* __restrict__ c1,
+                         const float* __restrict__ c2, const Chain ch,
+                         float* __restrict__ core, float* __restrict__ acc) {
+  const long long plane = (long long)na * nb;
+  const long long p = (long long)blockIdx.x * CHAIN_NT + threadIdx.x;
+  if (p >= plane) return;
+  const bool comp = c1 != nullptr;
+  const float* c1p = comp ? c1 + p / nb : nullptr;
+  const float* c2p = comp ? c2 + p % nb : nullptr;
+  int ninc = 0;
+  float ys = 0.f, xy = 0.f, yy = 0.f;
+  for (int ki = 0; ki < nk; ++ki) {
+    const float y = chain_y(sb[ki * plane + p], ch, comp, c1p, c2p);
+    chain_add(ninc, ys, xy, yy, ki, kt.kf[ki], y, ch.tolerance);
+  }
+  float cd, ad;
+  chain_finish(ninc, ys, xy, yy, kt, cd, ad);
+  core[p] = cd;
+  acc[p] = ad;
 }
 
 template <bool KEYS, bool MASK>
@@ -412,4 +486,28 @@ extern "C" int stpu_coreacc_blocks_per_sm(int keys) {
     }
   }
   return err == cudaSuccess ? n : -1;
+}
+
+// coreacc_chain: core and acc (na, nb) f32 from sb, an int32 (nk, na, nb)
+// stack of whole samebits counts; c1 (na) / c2 (nb) f32 completeness or
+// null; ktable as for stpu_coreacc; the constants are the whole sketch's.
+extern "C" int stpu_coreacc_chain(const void* sb, int na, int nb, int nk,
+                                  const float* ktable, const void* c1,
+                                  const void* c2, float cutoff,
+                                  float expected, float maxnbits, float denom,
+                                  float tolerance, void* core, void* acc,
+                                  void* stream) {
+  if (nk < 1 || nk > MAX_NK) return static_cast<int>(cudaErrorInvalidValue);
+  KTable kt;
+  memcpy(&kt, ktable, sizeof kt);
+  const long long blocks = ((long long)na * nb + CHAIN_NT - 1) / CHAIN_NT;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
+  const Chain ch{expected, maxnbits, denom, tolerance, cutoff};
+  coreacc_chain_kernel<<<(unsigned)blocks, CHAIN_NT, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(sb), na, nb, nk, kt,
+      static_cast<const float*>(c1), static_cast<const float*>(c2), ch,
+      static_cast<float*>(core), static_cast<float*>(acc));
+  return static_cast<int>(cudaGetLastError());
 }

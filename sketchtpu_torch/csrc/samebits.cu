@@ -1,7 +1,9 @@
 // K1 and K4: exact samebits, the port of sketchtpu/dist/pallas_kernels.py
 // samebits_strip_fused (K1, kernel _samebits_strip_kernel) and
 // samebits_pallas (K4, the same function with int32 output and no
-// triangle).
+// triangle); and samebits_dist, K4 with an f32 distance epilogue, the
+// counterpart of sketchtpu/dist/jaccard_jax.py jaccard_dist_block (an XLA
+// program) and of sharded_dist_step's per-device tile after its psum.
 //
 // out[i][j] = sum_c popcount(AND_p ~(a[i][c][p] ^ b[j][c][p])) as int16 (the
 // dense-stream strips; exact since samebits <= s64*64 <= 32767) or int32
@@ -9,6 +11,16 @@
 // row = row0 + i), pairs with column <= row are zero: tiles wholly at or
 // below the diagonal are written as zeros without computing them, and the
 // diagonal tiles zero those pairs in the epilogue.
+//
+// The distance epilogue (the DIST instantiation, stpu_samebits_dist):
+// sb = count + base[i][j] (base: the summed counts of the sketch's other
+// word slots, or none), then j = (max(sb - expected, 0) * maxnbits /
+// denom) / maxnbits and 1 - j, or the ANI max(0, 1 + inv_k * ln(2j /
+// (1 + j))), in f32; the constants are the whole sketch's, passed apart
+// from the chunks the launch reads. Every float operation is the twin's
+// (samebits_kernels.samebits_dist_ref), in its order, without FMA. The
+// mode is a template argument, so K1's and K4's instantiations keep their
+// code.
 //
 // Bound: integer issue. A pair costs s64 * BBITS * 2 LOP3 (one per 32-bit
 // word and plane: acc & ~(a ^ b) is one three-input logic op) plus 2
@@ -70,12 +82,29 @@ __device__ __forceinline__ void chunk_count(int (&cnt)[RM][RN],
     for (int j = 0; j < RN; ++j) cnt[i][j] += __popcll(acc[i][j]);
 }
 
-template <typename OutT>
+// The distance epilogue's arguments (unused by the count instantiations).
+struct DistArgs {
+  const int* base;  // (na, nb) partial counts to add, or null
+  long long ldbase;
+  float expected, maxnbits, denom, inv_k;
+  int ani;
+};
+
+// The f32 distance of a whole sketch's samebits count sb.
+__device__ __forceinline__ float dist_value(int sb, const DistArgs& d) {
+  const float diff = fmaxf((float)sb - d.expected, 0.f);
+  const float j = (diff * d.maxnbits / d.denom) / d.maxnbits;
+  if (!d.ani) return 1.f - j;
+  const float v = 1.f + d.inv_k * logf((2.f * j) / (1.f + j));
+  return v < 0.f ? 0.f : v;  // NaN-propagating max, as jnp.maximum
+}
+
+template <typename OutT, bool DIST>
 __global__ void __launch_bounds__(NT, 2)
     samebits_kernel(const u64* __restrict__ a, long long lda,
                     const u64* __restrict__ b, long long ldb,
                     OutT* __restrict__ out, long long ldo, int na, int nb,
-                    int s64, int tri, long long row0) {
+                    int s64, int tri, long long row0, const DistArgs d) {
   extern __shared__ __align__(16) unsigned char smem[];
   u64* sA = reinterpret_cast<u64*>(smem);
   u64* sB = sA + RING_OPERAND;
@@ -140,7 +169,12 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
     for (int j = 0; j < RN; ++j) {
       const int gj = j0 + tx + j * TX;
-      if (gj < nb) {
+      if (gj >= nb) continue;
+      if constexpr (DIST) {
+        const int sb =
+            cnt[i][j] + (d.base ? d.base[(long long)gi * d.ldbase + gj] : 0);
+        out[(long long)gi * ldo + gj] = dist_value(sb, d);
+      } else {
         out[(long long)gi * ldo + gj] =
             (OutT)(tri && gj <= diag ? 0 : cnt[i][j]);
       }
@@ -148,20 +182,21 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <typename OutT>
+template <typename OutT, bool DIST = false>
 cudaError_t launch(const u64* a, long long lda, const u64* b, long long ldb,
                    OutT* out, long long ldo, int na, int nb, int s64,
-                   int tri, long long row0, cudaStream_t st) {
+                   int tri, long long row0, cudaStream_t st,
+                   const DistArgs& d = DistArgs{}) {
   // every launch: the attribute belongs to the current device only
   const cudaError_t configured = cudaFuncSetAttribute(
-      samebits_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      RING_BYTES);
+      samebits_kernel<OutT, DIST>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
   if (configured != cudaSuccess) return configured;
   const long long blocks =
       (long long)((na + TI - 1) / TI) * ((nb + TJ - 1) / TJ);
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  samebits_kernel<OutT><<<(unsigned)blocks, NT, RING_BYTES, st>>>(
-      a, lda, b, ldb, out, ldo, na, nb, s64, tri, row0);
+  samebits_kernel<OutT, DIST><<<(unsigned)blocks, NT, RING_BYTES, st>>>(
+      a, lda, b, ldb, out, ldo, na, nb, s64, tri, row0, d);
   return cudaGetLastError();
 }
 
@@ -183,6 +218,23 @@ extern "C" int stpu_samebits(const void* a, long long lda, const void* b,
                  tri, row0, st);
   }
   return static_cast<int>(err);
+}
+
+// samebits_dist: f32 distances (out, row stride ldo) of the chunks s64 of
+// a and b that this launch reads, plus base (null, or int32 at row stride
+// ldbase), with the whole sketch's constants; ani 0: 1 - j, 1: ANI.
+extern "C" int stpu_samebits_dist(const void* a, long long lda,
+                                  const void* b, long long ldb, void* out,
+                                  long long ldo, int na, int nb, int s64,
+                                  const void* base, long long ldbase,
+                                  float expected, float maxnbits, float denom,
+                                  float inv_k, int ani, void* stream) {
+  const DistArgs d{static_cast<const int*>(base), ldbase, expected, maxnbits,
+                   denom, inv_k, ani};
+  return static_cast<int>(launch<float, true>(
+      static_cast<const u64*>(a), lda, static_cast<const u64*>(b), ldb,
+      static_cast<float*>(out), ldo, na, nb, s64, 0, 0,
+      static_cast<cudaStream_t>(stream), d));
 }
 
 extern "C" const char* stpu_error_string(int err) {

@@ -14,6 +14,12 @@ Two entry points launch the one kernel (one launch count, coreacc.launches):
   (-core, column) beside the f32 acc, which knn_torch merges by top-k;
   with a SignMask (the inverted index's precluster) a pair whose rows
   share no sign of the index is not a candidate.
+
+coreacc_chain() launches the second kernel of csrc/coreacc.cu: K2's chain
+on a stack of whole per-k samebits counts, which a words split of the
+sketch sums from its slots' partials (coreacc_jax.coreacc_tile after its
+psum). It shares K2's chain code, so its (core, acc) are K2's bit for bit;
+its twin coreacc_chain_ref is the second half of coreacc_ref.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from .samebits_kernels import _check_words, _tri_mask_, samebits_ref
 MAX_NK = 255  # k values per launch: the kernel's by-value k table
 _MAX_TILES = (1 << 31) - 1  # one-dimensional grid of 64 x 64 pair tiles
 _TILE = 64
+_CHAIN_NT = 256  # pairs a block of the chain kernel
 KEY_INVALID = -(1 << 63)  # key of a pair that is not a candidate
 
 
@@ -49,14 +56,14 @@ def k_centre(kmers) -> float:
     return float(kmers[len(kmers) // 2])
 
 
-def coreacc_ref(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
-                c1=None, c2=None, cutoff: float = 0.64, tri: bool = False,
-                row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of coreacc(): (core, acc) f32 (na, nb)."""
-    s64 = a.shape[2] // BBITS
+def coreacc_chain_ref(sb: torch.Tensor, kmers, sketch_size: int, s64: int,
+                      c1=None, c2=None, cutoff: float = 0.64
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of coreacc_chain(): (core, acc) f32 (na, nb) of
+    the int32 (nk, na, nb) samebits stack sb of a sketch of s64 chunks."""
     maxnbits, expected, tolerance = chain_constants(s64, sketch_size)
-    shape = (a.shape[0], b.shape[0])
-    dev = a.device
+    shape = tuple(sb.shape[1:])
+    dev = sb.device
     if c1 is not None:
         prod = c1[:, None] * c2[None, :]
         factor = prod / (c1[:, None] + c2[None, :] - prod)
@@ -72,8 +79,7 @@ def coreacc_ref(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
     kc = k_centre(kmers)
     denom, mnb = scalar_divisors(dev, maxnbits - expected, maxnbits)
     for ki, k in enumerate(kmers):
-        sb = samebits_ref(a[:, ki], b[:, ki]).to(torch.float32)
-        diff = torch.clamp_min(sb - expected, 0.0)
+        diff = torch.clamp_min(sb[ki].to(torch.float32) - expected, 0.0)
         j = (diff * maxnbits / denom) / mnb
         if c1 is not None:
             j = torch.where(comp_apply, torch.clamp(j / factor, max=1.0), j)
@@ -105,6 +111,24 @@ def coreacc_ref(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
     bad = torch.isnan(ysum) | torch.isneginf(ysum) | (n < 3.0)
     core = torch.where(bad, one, core)
     acc = torch.where(bad, one, acc)
+    return core, acc
+
+
+def samebits_stack_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The int32 (nk, na, nb) samebits of each k-plane of a (na, nk, W)
+    and b (nb, nk, W)."""
+    return torch.stack([samebits_ref(a[:, ki], b[:, ki])
+                        for ki in range(a.shape[1])])
+
+
+def coreacc_ref(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
+                c1=None, c2=None, cutoff: float = 0.64, tri: bool = False,
+                row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of coreacc(): (core, acc) f32 (na, nb), the
+    per-k samebits and then coreacc_chain_ref."""
+    core, acc = coreacc_chain_ref(samebits_stack_ref(a, b), kmers,
+                                  sketch_size, a.shape[2] // BBITS, c1, c2,
+                                  cutoff)
     if tri:
         _tri_mask_(core, row0)
         _tri_mask_(acc, row0)
@@ -227,6 +251,58 @@ def coreacc_keys(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
     coreacc.launches += 1
     coreacc.masked_launches += sig is not None
     return out
+
+
+def coreacc_chain(sb: torch.Tensor, kmers, sketch_size: int, s64: int,
+                  c1=None, c2=None, cutoff: float = 0.64
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(core, acc) f32 (na, nb) from sb, the int32 (nk, na, nb) stack of
+    whole samebits counts of a sketch of s64 chunks at each k (ascending):
+    K2's chain and fit, with c1 (na,) / c2 (nb,) f32 completeness applied
+    after the sum where c1*c2 >= cutoff. CUDA tensors launch the chain
+    kernel (at most MAX_NK k values), CPU tensors run the twin."""
+    nk = len(kmers)
+    if (sb.dtype != torch.int32 or sb.dim() != 3 or sb.shape[0] != nk
+            or not sb.is_contiguous()):
+        raise ValueError(f"sb must be a contiguous int32 ({nk}, na, nb) "
+                         f"stack, got {sb.dtype} {tuple(sb.shape)}")
+    if nk < 1 or list(kmers) != sorted(kmers):
+        raise ValueError("kmers must be ascending")
+    if (c1 is None) != (c2 is None):
+        raise ValueError("pass both c1 and c2, or neither")
+    if c1 is not None:
+        for name, c, m in (("c1", c1, sb.shape[1]), ("c2", c2, sb.shape[2])):
+            if (c.dtype != torch.float32 or c.shape != (m,)
+                    or c.device != sb.device or not c.is_contiguous()):
+                raise ValueError(f"{name} must be contiguous f32 ({m},)")
+    if sb.device.type == "cpu":
+        return coreacc_chain_ref(sb, kmers, sketch_size, s64, c1, c2, cutoff)
+    if sb.device.type != "cuda":
+        raise ValueError(f"unsupported device {sb.device}")
+    if nk > MAX_NK:
+        raise ValueError(f"coreacc_chain: {nk} k values exceed the kernel's "
+                         f"limit of {MAX_NK} (MAX_NK in csrc/coreacc.cu)")
+    na, nb = sb.shape[1:]
+    if -(-na * nb // _CHAIN_NT) > _MAX_TILES:
+        raise ValueError(f"coreacc_chain: {na} x {nb} pairs exceed one launch")
+    core = torch.empty((na, nb), dtype=torch.float32, device=sb.device)
+    acc = torch.empty_like(core)
+    if core.numel() == 0:
+        return core, acc
+    maxnbits, expected, tolerance = chain_constants(s64, sketch_size)
+    _build.launch(
+        sb.device, "stpu_coreacc_chain",
+        sb.data_ptr(), na, nb, nk, _k_table(tuple(kmers)),
+        c1.data_ptr() if c1 is not None else None,
+        c2.data_ptr() if c2 is not None else None,
+        cutoff, expected, maxnbits, maxnbits - expected, tolerance,
+        core.data_ptr(), acc.data_ptr(), what="coreacc_chain",
+    )
+    coreacc_chain.launches += 1
+    return core, acc
+
+
+coreacc_chain.launches = 0
 
 
 @functools.lru_cache(maxsize=64)

@@ -15,6 +15,21 @@ from ..constants import BBITS
 _U64 = np.uint64
 
 
+def samebits_pairs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Row-wise samebits between paired sketch slices.
+
+    a, b: (n_pairs, W) uint64 where W = sketchsize64 * BBITS, laid out as
+    [chunk][plane] (the .skd layout). Returns (n_pairs,) int64 counts of
+    bins whose low-BBITS sign bits agree (jaccard.rs:15-25).
+    """
+    n, w = a.shape
+    s64 = w // BBITS
+    x = ~(a ^ b)
+    x = x.reshape(n, s64, BBITS)
+    acc = np.bitwise_and.reduce(x, axis=2)
+    return np.bitwise_count(acc).sum(axis=1, dtype=np.int64)
+
+
 def samebits_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """All-pairs samebits: a (na, W), b (nb, W) -> (na, nb) int64.
 

@@ -7,7 +7,8 @@ strips while the host runs the oracle's f64 Jaccard/ANI/completeness chain
 and the output pipeline on each strip, so the text is identical to the
 host path's. stream_strips() is the strip loop it shares with the
 `--exact` core/accessory engine: the next strip is launched before the
-current one is formatted.
+current one is formatted. jaccard_dist_block() is the on-device f32
+distance tile (K4 with its distance epilogue), library surface only.
 """
 
 from __future__ import annotations
@@ -26,7 +27,12 @@ from .output import (
     row_spans,
     self_pair_indices,
 )
-from .samebits_kernels import samebits, samebits_full, words_to_device
+from .samebits_kernels import (
+    samebits,
+    samebits_dist,
+    samebits_full,
+    words_to_device,
+)
 
 
 def strip(mat: torch.Tensor, r0: int, tile: int,
@@ -109,6 +115,17 @@ def stream_strips(out, ref_names, query_names, n: int,
     finally:
         if pipe is not None:
             pipe.close()
+
+
+def jaccard_dist_block(a: torch.Tensor, b: torch.Tensor, s64: int,
+                       k: float = 0.0, ani: bool = False) -> torch.Tensor:
+    """Fully on-device Jaccard (or ANI) distance tile in f32, the port of
+    sketchtpu/dist/jaccard_jax.py::jaccard_dist_block: a (na, W) and b
+    (nb, W) int64 sketch words (W = s64 * BBITS, the .skd order) to the
+    (na, nb) f32 1 - j (or, with ani, the ANI at k). The CLI's exact output
+    takes the samebits path instead. CUDA tensors launch samebits_dist,
+    CPU tensors run its twin."""
+    return samebits_dist(a, b, s64, k=k, ani=ani)
 
 
 class DeviceSamebitsEngine:

@@ -26,7 +26,7 @@ import torch
 from .. import _build
 from ..constants import BBITS
 from .sign_words import any_mask_ref
-from .samebits_kernels import _check_words, samebits_ref
+from .samebits_kernels import _check_words, samebits_ref, scalar_divisors
 
 _MAX_GRID_Y = 65535
 _TI = 64  # rows per block of knn_scan.cu
@@ -112,15 +112,6 @@ def _ordered_bits(v: torch.Tensor) -> torch.Tensor:
     """int32 whose signed order is the f32 order of v."""
     b = v.view(torch.int32)
     return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
-
-
-def scalar_divisors(device, *values: float) -> tuple[torch.Tensor, ...]:
-    """f32 0-dim tensors to divide by. On CUDA, torch divides a tensor by a
-    Python scalar as a product with its f32 reciprocal, which is not the
-    IEEE quotient the kernels compute unless the divisor is a power of two;
-    a tensor divisor is divided exactly on every device."""
-    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
-                 for v in values)
 
 
 def corrected_jaccard(sb: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,

@@ -256,6 +256,16 @@ def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
              exclude_self: bool, comp_rows=None, comp_cols=None,
              cutoff: float = 0.64, row0: int = 0,
              sig: SignMask | None = None):
+    """knn_scan_tensors() as (sb, idx) int32 numpy arrays."""
+    return tuple(t.cpu().numpy() for t in knn_scan_tensors(
+        rows, cols, knn, exclude_self=exclude_self, comp_rows=comp_rows,
+        comp_cols=comp_cols, cutoff=cutoff, row0=row0, sig=sig))
+
+
+def knn_scan_tensors(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
+                     exclude_self: bool, comp_rows=None, comp_cols=None,
+                     cutoff: float = 0.64, row0: int = 0,
+                     sig: SignMask | None = None):
     """Single-k selection: knn columns of the (nb, W) plane `cols` for every
     row of the (na, W) plane `rows`, on their device. Row i and column j
     have the ids row0 + i and j (a self scan passes the same plane twice,
@@ -264,10 +274,10 @@ def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
     a sign of the inverted index. select_keys covers all rows: one K3
     selection launch up to MAX_KNN neighbours.
 
-    Returns (sb, idx) int32 (na, knn) numpy: the selected pairs' exact
-    samebits and columns, value descending then column ascending (the
-    JAX scans' (vals, idxs)); _NEG / _NO_COL where a row has fewer than
-    knn candidates."""
+    Returns (sb, idx) int32 (na, knn) tensors on the rows' device: the
+    selected pairs' exact samebits and columns, value descending then
+    column ascending (the JAX scans' (vals, idxs)); _NEG / _NO_COL where a
+    row has fewer than knn candidates."""
     nb, dev = cols.shape[0], rows.device
     comp_on = comp_rows is not None
     s64 = rows.shape[1] // BBITS
@@ -285,8 +295,51 @@ def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
                                    idx[vr, vc])[:, 0]
     else:
         sb = torch.where(bad, _NEG, keys >> shift)
-    return (sb.to(torch.int32).cpu().numpy(),
-            idx.to(torch.int32).cpu().numpy())
+    return sb.to(torch.int32), idx.to(torch.int32)
+
+
+def scan_coreacc(rows: torch.Tensor, cols: torch.Tensor, kmers,
+                 sketch_size: int, knn: int, exclude_self: bool, c1=None,
+                 c2=None, cutoff: float = 0.64, row0: int = 0,
+                 sig: SignMask | None = None, row_tile: int = 2048,
+                 col_tile: int = 8192):
+    """Select knn columns of the (n, nk, W) words `cols` by f32 core
+    distance for every row of the (na, nk, W) words `rows` (ids row0 + i;
+    c1 (na,) / c2 (n,) f32 completeness on their device; sig: the
+    precluster mask): K2's key tiles merged by torch.topk. Returns (core,
+    acc, idx) tensors (na, knn): f32 values of the selection, core = inf
+    and idx = _NO_COL where a row has fewer than knn candidates."""
+    na, n, dev = rows.shape[0], cols.shape[0], rows.device
+    key_blocks, acc_blocks = [], []
+    for r0 in range(0, na, row_tile):
+        r1 = min(r0 + row_tile, na)
+        keys = torch.full((r1 - r0, knn), KEY_INVALID, dtype=torch.int64,
+                          device=dev)
+        accs = torch.zeros((r1 - r0, knn), dtype=torch.float32, device=dev)
+        for c0 in range(0, n, col_tile):
+            c1_ = min(c0 + col_tile, n)
+            tile, acc = coreacc_keys(
+                rows[r0:r1], cols[c0:c1_], kmers, sketch_size,
+                c1[r0:r1] if c1 is not None else None,
+                c2[c0:c1_] if c1 is not None else None, cutoff,
+                row0=row0 + r0, col0=c0, nb_real=n,
+                exclude_self=exclude_self,
+                sig=sig.block(r0, r1) if sig is not None else None,
+            )
+            keys, pos = _merge(keys, tile, knn)
+            accs = torch.gather(torch.cat([accs, acc], dim=1), 1, pos)
+        key_blocks.append(keys)
+        acc_blocks.append(accs)
+    if not key_blocks:
+        empty = torch.zeros((0, knn), device=dev)
+        return empty, empty.clone(), empty.to(torch.int32)
+    keys = torch.cat(key_blocks)
+    bad = keys == KEY_INVALID
+    hi = (keys >> 32).to(torch.int32)
+    neg_core = torch.where(hi < 0, hi ^ 0x7FFFFFFF, hi).view(torch.float32)
+    core = torch.where(bad, torch.inf, -neg_core)
+    idx = torch.where(bad, _NO_COL, COLMASK64 - (keys & COLMASK64))
+    return core, torch.cat(acc_blocks), idx.to(torch.int32)
 
 
 class DeviceKnnEngine:
@@ -350,46 +403,12 @@ class DeviceKnnEngine:
     def _scan_coreacc(self, rows: torch.Tensor, knn: int, exclude_self: bool,
                       c1=None, c2=None, cutoff: float = 0.64, row0: int = 0,
                       sig: SignMask | None = None):
-        """Select knn columns by f32 core distance for every row of the
-        (na, nk, W) words `rows` (ids row0 + i; sig: the precluster mask).
-        Returns (core, acc, idx) numpy (na, knn): f32 values of the
-        selection, core = inf and idx = _NO_COL where a row has fewer than
-        knn candidates."""
-        na, n = rows.shape[0], self.n
-        key_blocks, acc_blocks = [], []
-        for r0 in range(0, na, self.row_tile):
-            r1 = min(r0 + self.row_tile, na)
-            keys = torch.full((r1 - r0, knn), KEY_INVALID, dtype=torch.int64,
-                              device=self.device)
-            accs = torch.zeros((r1 - r0, knn), dtype=torch.float32,
-                               device=self.device)
-            for c0 in range(0, n, self.col_tile):
-                c1_ = min(c0 + self.col_tile, n)
-                tile, acc = coreacc_keys(
-                    rows[r0:r1], self._words[c0:c1_], self.kmers,
-                    self.ms.sketch_size,
-                    c1[r0:r1] if c1 is not None else None,
-                    c2[c0:c1_] if c1 is not None else None, cutoff,
-                    row0=row0 + r0, col0=c0, nb_real=n,
-                    exclude_self=exclude_self,
-                    sig=sig.block(r0, r1) if sig is not None else None,
-                )
-                keys, pos = _merge(keys, tile, knn)
-                accs = torch.gather(torch.cat([accs, acc], dim=1), 1, pos)
-            key_blocks.append(keys)
-            acc_blocks.append(accs)
-        if not key_blocks:
-            empty = np.zeros((0, knn))
-            return (empty.astype(np.float32), empty.astype(np.float32),
-                    empty.astype(np.int32))
-        keys = torch.cat(key_blocks)
-        bad = keys == KEY_INVALID
-        hi = (keys >> 32).to(torch.int32)
-        neg_core = torch.where(hi < 0, hi ^ 0x7FFFFFFF, hi).view(torch.float32)
-        core = torch.where(bad, torch.inf, -neg_core)
-        idx = torch.where(bad, _NO_COL, COLMASK64 - (keys & COLMASK64))
-        return (core.cpu().numpy(), torch.cat(acc_blocks).cpu().numpy(),
-                idx.to(torch.int32).cpu().numpy())
+        """scan_coreacc() of the (na, nk, W) words `rows` against every
+        sample, as numpy arrays."""
+        return tuple(t.cpu().numpy() for t in scan_coreacc(
+            rows, self._words, self.kmers, self.ms.sketch_size, knn,
+            exclude_self, c1, c2, cutoff, row0, sig, self.row_tile,
+            self.col_tile))
 
     def _coreacc_rows(self, rows: torch.Tensor, knn: int, exclude_self: bool,
                       c1_rows=None, c2_all=None, cutoff: float = 0.64,

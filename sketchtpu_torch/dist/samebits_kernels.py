@@ -1,11 +1,14 @@
 """K1, exact samebits: the CUDA kernel csrc/samebits.cu and its plain
-PyTorch twin.
+PyTorch twin; K4 (samebits_full), and samebits_dist, K4 with an f32
+distance epilogue.
 
-Replaces sketchtpu/dist/pallas_kernels.py::samebits_strip_fused. Sketch
-words stay in the .skd order ([row][chunk][plane], u64 bit patterns held
-in int64 tensors) with no TPU relayout: the kernel reads rows through
-their stride, so a k-plane of a (n, nk, W) database tensor is used in
-place.
+Replaces sketchtpu/dist/pallas_kernels.py::samebits_strip_fused and
+samebits_pallas, and gives sketchtpu/dist/jaccard_jax.py's
+jaccard_dist_block (an XLA program) its kernel. Sketch words stay in the
+.skd order ([row][chunk][plane], u64 bit patterns held in int64 tensors)
+with no TPU relayout: the kernel reads rows through their stride, so a
+k-plane of a (n, nk, W) database tensor, or a range of its chunks, is used
+in place.
 """
 
 from __future__ import annotations
@@ -25,6 +28,15 @@ _M2 = 0x3333333333333333
 _M4 = 0x0F0F0F0F0F0F0F0F
 
 
+def scalar_divisors(device, *values: float) -> tuple[torch.Tensor, ...]:
+    """f32 0-dim tensors to divide by. On CUDA, torch divides a tensor by a
+    Python scalar as a product with its f32 reciprocal, which is not the
+    IEEE quotient the kernels compute unless the divisor is a power of two;
+    a tensor divisor is divided exactly on every device."""
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in values)
+
+
 def words_to_device(words: np.ndarray, device) -> torch.Tensor:
     """u64 sketch words (any shape) as an int64 tensor on `device` holding
     the same bit patterns."""
@@ -34,13 +46,19 @@ def words_to_device(words: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(words).to(device)
 
 
-def to_device_words(ms, device, rows: slice | None = None) -> torch.Tensor:
+def to_device_words(ms, device, rows: slice | None = None,
+                    cols: slice | None = None) -> torch.Tensor:
     """A loaded MultiSketch's sketch words (of the samples `rows`, all by
-    default) as an (n, nk, s64*BBITS) int64 tensor on `device`, in the
-    .skd word order [sample][k][chunk][plane]."""
+    default; of the words `cols` of each k, a range of whole chunks, all by
+    default) as an (n, nk, W) int64 tensor on `device`, in the .skd word
+    order [sample][k][chunk][plane]."""
     n = ms.number_samples_loaded()
     words = ms.sketch_bins.reshape(n, len(ms.kmer_lengths), ms.kmer_stride)
-    return words_to_device(words if rows is None else words[rows], device)
+    if rows is not None:
+        words = words[rows]
+    if cols is not None:
+        words = words[..., cols]
+    return words_to_device(words, device)
 
 
 def popcount64(x: torch.Tensor) -> torch.Tensor:
@@ -166,3 +184,74 @@ def _launch_samebits(a, b, out_dtype, tri, row0) -> torch.Tensor:
         int(tri), int(row0), what="samebits",
     )
     return out
+
+
+def dist_constants(s64: int) -> tuple[float, float]:
+    """(maxnbits, expected) of the whole sketch's Jaccard bias correction."""
+    return float(s64 * 64), float(int(s64 * 64) >> BBITS)
+
+
+def samebits_dist_ref(a: torch.Tensor, b: torch.Tensor, s64: int,
+                      k: float = 0.0, ani: bool = False,
+                      base: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of samebits_dist(), op for op
+    (jaccard_jax.jaccard_dist_block's chain)."""
+    sb = samebits_ref(a, b)
+    if base is not None:
+        sb = sb + base
+    maxnbits, expected = dist_constants(s64)
+    denom, mnb = scalar_divisors(a.device, maxnbits - expected, maxnbits)
+    diff = torch.clamp_min(sb.to(torch.float32) - expected, 0.0)
+    j = (diff * maxnbits / denom) / mnb
+    if not ani:
+        return 1.0 - j
+    return torch.clamp_min(1.0 + 1.0 / k * torch.log((2.0 * j) / (1.0 + j)),
+                           0.0)
+
+
+def samebits_dist(a: torch.Tensor, b: torch.Tensor, s64: int,
+                  k: float = 0.0, ani: bool = False,
+                  base: torch.Tensor | None = None) -> torch.Tensor:
+    """(na, nb) f32 distances from the samebits of a (na, W) and b (nb, W):
+    1 - j, or with ani the ANI max(0, 1 + (1/k) ln(2j / (1 + j))), where j
+    is the bias-corrected Jaccard of a sketch of s64 chunks. The rows may
+    hold only a range of the sketch's chunks (W <= s64 * BBITS): base, int32
+    (na, nb), adds the other chunks' samebits first (a words split's summed
+    partials). The constants come from s64, not from W. CUDA tensors launch
+    K4 with its distance epilogue, CPU tensors run the twin."""
+    _check_words("a", a, 2)
+    _check_words("b", b, 2)
+    if a.shape[1] != b.shape[1] or a.device != b.device:
+        raise ValueError("a and b need the same width and device")
+    if a.shape[1] > s64 * BBITS:
+        raise ValueError(f"rows of {a.shape[1] // BBITS} chunks exceed the "
+                         f"sketch's s64 = {s64}")
+    shape = (a.shape[0], b.shape[0])
+    if base is not None and (base.dtype != torch.int32 or base.shape != shape
+                             or base.device != a.device
+                             or base.stride(-1) != 1):
+        raise ValueError(f"base must be int32 {shape} with contiguous rows "
+                         f"on {a.device}")
+    if a.device.type == "cpu":
+        return samebits_dist_ref(a, b, s64, k, ani, base)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if 0 in shape:
+        return torch.zeros(shape, dtype=torch.float32, device=a.device)
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    maxnbits, expected = dist_constants(s64)
+    inv_k = 1.0 / k if ani else 0.0
+    _build.launch(
+        a.device, "stpu_samebits_dist",
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+        out.data_ptr(), shape[1], shape[0], shape[1], a.shape[1] // BBITS,
+        base.data_ptr() if base is not None else None,
+        base.stride(0) if base is not None else 0,
+        expected, maxnbits, maxnbits - expected, inv_k, int(ani),
+        what="samebits_dist",
+    )
+    samebits_dist.launches += 1
+    return out
+
+
+samebits_dist.launches = 0

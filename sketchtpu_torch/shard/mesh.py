@@ -1,23 +1,40 @@
-"""In-process multi-device engines: one process uses every GPU it sees.
+"""In-process multi-device engines and step functions over a rows x words
+grid of device slots.
 
-Port of sketchtpu/shard/mesh.py's ShardedSamebitsEngine,
-ShardedCoreAccEngine, ShardedKnnEngine and ShardedInvertedEngine, which
-the runtime selects when more than one device is visible. Where the JAX
-engines shard rows over a mesh's 'rows' axis and replicate the column
-operand (P("rows", ...) / P(None, ...)), each engine here keeps one
-single-device engine of the port per device (the column operand whole on
-each), gives every device slot a contiguous block of rows, runs the slots
-at once (one host thread each, with its device current) and joins the
-blocks in row order on the host. Every row sees every column, so nothing
-merges across devices, and each result is one device's, bit for bit.
+Port of sketchtpu/shard/mesh.py. make_mesh(n_rows, n_words) gives a Mesh,
+a rows x words grid of device slots whose .shape is the JAX mesh's
+({"rows": r, "words": w}); a list of devices, as runtime.py passes the
+engines, is a rows-only grid (words = 1). A device may fill more than one
+slot: its slots then share it (on one GPU they split the work).
 
-`devices` may name one device more than once: its slots then share that
-device's engine and split the rows on one GPU.
+The rows axis: where the JAX engines shard rows over 'rows' and replicate
+the column operand, each engine here keeps one single-device engine of
+the port per device (the column operand whole on each), gives every row
+of slots a contiguous block of rows, runs the slots at once (one host
+thread each, with its device current) and joins the blocks in row order.
+Every row sees every column, so each row block is one device's, bit for
+bit.
 
-The mesh's 'words' axis (samebits partials of a sharded word dimension,
-psum-reduced) is not carried: no CLI path reaches it, and the largest
-sketch the CLI takes (-s 40000: 35 KB a sample and k) fits every GPU
-whole.
+The words axis (the JAX package's psum over 'words'): the sketch's s64
+64-bin chunks split into n_words contiguous ranges, and word slot w holds
+only range w of every operand (only that slice is uploaded: on distinct
+GPUs, holding a share of each sketch is the axis's point). Each slot
+computes its partial samebits with K4 (samebits_full) in place; the
+partials go to the row block's lead slot (words slot 0), which sums them
+and finishes: samebits_dist with the sum as its base (the f32
+distances), or coreacc_chain (K2's regression chain on the summed per-k
+samebits). The counts are exact, so a split result equals the unsplit one
+bit for bit. A partial made on another GPU is copied after an event
+recorded on its producer's stream. A sketch whose chunks do not split
+evenly over the words slots is refused, as the JAX mesh cannot shard it
+either.
+
+No CLI flag, environment variable or runtime selection reaches the words
+axis: the runtime passes the engines a list of devices. make_mesh, the
+step functions, the words grids of ShardedSamebitsEngine and
+ShardedCoreAccEngine and dist/jaccard_torch.py's jaccard_dist_block are
+library surface, as in the JAX package. The kNN and inverted engines and
+steps refuse words != 1, as the JAX ones do.
 """
 
 from __future__ import annotations
@@ -27,23 +44,98 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .._transfer import HostCopy
+from ..constants import BBITS
+from ..dist.coreacc_kernels import coreacc, coreacc_chain
 from ..dist.coreacc_torch import (
     DeviceCoreAccEngine,
     _f32,
     stream_blocks,
 )
-from ..dist.jaccard_torch import DeviceSamebitsEngine
+from ..dist.knn_kernels import SignMask
 from ..dist.knn_torch import (
     DeviceKnnEngine,
     SparseKnnRows,
     _no_neighbours,
+    knn_scan_tensors,
     precluster_signs,
+    scan_coreacc,
 )
 from ..dist.output import emit_coreacc_cross_block, emit_coreacc_self_block
-from ..dist.samebits_kernels import to_device_words
+from ..dist.samebits_kernels import (
+    samebits_dist,
+    samebits_full,
+    to_device_words,
+    words_to_device,
+)
 from ..dist.sign_words import pack_signs
 from ..inverted.device import DeviceInvertedEngine
 from .distributed import process_slice
+
+
+class Mesh:
+    """A rows x words grid of device slots, grid[r][w]; .shape as the JAX
+    mesh reports it."""
+
+    def __init__(self, grid):
+        self.grid = [[torch.device(d) for d in row] for row in grid]
+        if not self.grid or not self.grid[0] or any(
+                len(row) != len(self.grid[0]) for row in self.grid):
+            raise ValueError("a mesh needs a non-empty rectangular grid of "
+                             "device slots")
+        self.shape = {"rows": len(self.grid), "words": len(self.grid[0])}
+
+    @property
+    def devices(self) -> list[torch.device]:
+        """Every slot's device, row by row."""
+        return [d for row in self.grid for d in row]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.grid})"
+
+
+def make_mesh(n_rows: int | None = None, n_words: int = 1,
+              devices=None) -> Mesh:
+    """A rows x words grid over `devices` (default: runtime.devices(), this
+    process's devices), filled row by row as the JAX make_mesh reshapes
+    its local devices; n_rows defaults to len(devices) // n_words. A
+    device may be named more than once."""
+    if devices is None:
+        from ..runtime import devices as visible
+
+        devices = visible() or []
+    devices = list(devices)
+    if n_rows is None:
+        n_rows = len(devices) // n_words
+    if n_rows < 1 or n_words < 1 or n_rows * n_words > len(devices):
+        raise ValueError(f"a {n_rows} x {n_words} mesh needs "
+                         f"{max(1, n_rows * n_words)} device slots, got "
+                         f"{len(devices)}")
+    return Mesh([devices[r * n_words:(r + 1) * n_words]
+                 for r in range(n_rows)])
+
+
+def as_mesh(devices) -> Mesh:
+    """A Mesh as it is; a list of devices as a rows-only grid; None as
+    make_mesh() over this process's devices."""
+    if isinstance(devices, Mesh):
+        return devices
+    if devices is None:
+        return make_mesh()
+    devices = list(devices)
+    if not devices:
+        raise ValueError("a multi-device engine needs at least one device")
+    return Mesh([[d] for d in devices])
+
+
+def word_ranges(s64: int, n_words: int) -> list[slice]:
+    """The u64 words ([chunk][plane], s64 chunks a sketch) of each words
+    slot: n_words contiguous ranges of s64 / n_words whole chunks."""
+    if s64 % n_words:
+        raise ValueError(f"a sketch of {s64} 64-bin chunks does not split "
+                         f"over {n_words} words slots")
+    step = s64 // n_words * BBITS
+    return [slice(w * step, (w + 1) * step) for w in range(n_words)]
 
 
 def split_rows(lo: int, hi: int, parts: int) -> list[slice]:
@@ -68,40 +160,99 @@ def split_pairs(lo: int, hi: int, n: int, parts: int) -> list[slice]:
 
 
 class DeviceSlots:
-    """The device slots of an engine: one single-device engine per
-    distinct device (made by make(device)), and a thread for each slot
-    that runs its work with its device current."""
+    """The device slots of an engine or a step over a Mesh: one
+    single-device engine per distinct (device, words slot), made by
+    make(device, w), and a thread for each slot that runs its work with
+    its device current."""
 
     def __init__(self, devices, make):
-        if devices is None:
-            from ..runtime import devices as visible
-
-            devices = visible()
-        if not devices:
-            raise ValueError("a multi-device engine needs at least one device")
-        self.devices = [torch.device(d) for d in devices]
-        self._pool = ThreadPoolExecutor(max_workers=len(self.devices),
+        self.mesh = as_mesh(devices)
+        grid = self.mesh.grid
+        self.rows, self.words = self.mesh.shape["rows"], self.mesh.shape["words"]
+        self._pool = ThreadPoolExecutor(max_workers=self.rows * self.words,
                                         thread_name_prefix="device-slot")
-        # the devices' engines are made (their data uploaded) at once
-        distinct = list(dict.fromkeys(self.devices))
-        made = [self._pool.submit(_on, d, make, d) for d in distinct]
-        self.engines = dict(zip(distinct,
-                                [f.result() for f in _wait_all(made)]))
+        # the engines are made (their data uploaded) at once
+        keys = list(dict.fromkeys((d, w) for row in grid
+                                  for w, d in enumerate(row)))
+        made = [self._pool.submit(_on, d, make, d, w) for d, w in keys]
+        self.engines = dict(zip(keys, [f.result() for f in _wait_all(made)]))
 
     def __len__(self) -> int:
-        return len(self.devices)
+        return self.rows
 
-    def submit(self, slot: int, fn, *args):
+    def distinct_devices(self) -> list[torch.device]:
+        return list(dict.fromkeys(d for d, _ in self.engines))
+
+    def submit(self, slot, fn, *args):
         """A future of fn(engine of the slot, *args), run on the slot's
-        thread with its device current."""
-        dev = self.devices[slot]
-        return self._pool.submit(_on, dev, fn, self.engines[dev], *args)
+        thread with its device current; slot is (row, words slot), or a row
+        (its lead slot)."""
+        r, w = slot if isinstance(slot, tuple) else (slot, 0)
+        dev = self.mesh.grid[r][w]
+        return self._pool.submit(_on, dev, fn, self.engines[(dev, w)], *args)
 
     def map(self, fn, items) -> list:
-        """[fn(engine, item) on slot i for the i-th item], run at once; the
-        first failure raises once every slot has stopped."""
+        """[fn(engine, item) on row slot i for the i-th item], run at once;
+        the first failure raises once every slot has stopped."""
         futures = [self.submit(i, fn, item) for i, item in enumerate(items)]
         return [f.result() for f in _wait_all(futures)]
+
+    def split_words(self, lo: int, hi: int, partial, finish) -> list:
+        """Futures, one a row block of [lo, hi) in order, of finish(lead
+        engine, rows, base) on the block's lead slot, where base is the sum
+        on the lead's device of partial(engine, rows) (a tensor) of the
+        block's other words slots, or None on a rows-only grid. Each
+        lead is submitted after the partials it waits for, so the lead
+        threads never hold up a partial."""
+        futures = []
+        for r, rows in enumerate(split_rows(lo, hi, self.rows)):
+            parts = [self.submit((r, w), _produce, partial, rows)
+                     for w in range(1, self.words)]
+            futures.append(self.submit((r, 0), _finish, finish, rows, parts))
+        return futures
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+
+def _produce(eng, partial, rows):
+    return _ready(partial(eng, rows))
+
+
+def _finish(eng, finish, rows, parts):
+    base = None
+    for f in _wait_all(parts):
+        (part,) = _fetch(f.result(), eng.device)
+        base = part if base is None else base + part
+    return finish(eng, rows, base)
+
+
+def _ready(*ts: torch.Tensor):
+    """(ts, an event recorded on the current stream of their CUDA device,
+    or None): another thread can then order a read of ts after the kernels
+    that wrote them."""
+    if ts[0].device.type != "cuda":
+        return ts, None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(ts[0].device))
+    return ts, done
+
+
+def _fetch(item, device: torch.device) -> tuple:
+    """The tensors of a _ready() item on `device`: the reading stream (a
+    copy's, which torch runs on the source device's current stream) waits
+    for the producer's event first."""
+    ts, done = item
+    if done is not None:
+        torch.cuda.current_stream(ts[0].device).wait_event(done)
+    return tuple(t if t.device == device else t.to(device) for t in ts)
+
+
+def _join(futures, device: torch.device) -> tuple:
+    """The row blocks (futures of _ready() items) joined in order on
+    `device`, one tensor a output."""
+    blocks = [_fetch(f.result(), device) for f in _wait_all(futures)]
+    return tuple(torch.cat(parts) for parts in zip(*blocks))
 
 
 def _on(device: torch.device, fn, *args):
@@ -141,45 +292,293 @@ def _join_rows(parts: list[SparseKnnRows]) -> SparseKnnRows:
                          np.concatenate([p.vals for p in parts]), valid)
 
 
+def _put(x, device, rows=slice(None), cols=slice(None)) -> torch.Tensor:
+    """The rows `rows` and last-axis words `cols` of u64 sketch words x (a
+    numpy array, or an int64 tensor) on `device`: only that slice moves."""
+    if isinstance(x, torch.Tensor):
+        return x[rows][..., cols].to(device)
+    return words_to_device(np.asarray(x)[rows][..., cols], device)
+
+
+def _vec(x, device, rows=slice(None)) -> torch.Tensor | None:
+    """f32 values x[rows] (numpy, or a tensor) contiguous on `device`."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x[rows].to(device=device, dtype=torch.float32).contiguous()
+    return _f32(np.asarray(x)[rows], device)
+
+
+def _host(x) -> np.ndarray | None:
+    return None if x is None else np.asarray(
+        x.cpu() if isinstance(x, torch.Tensor) else x)
+
+
+class _Operands:
+    """A step's operands as one slot sees them: the slot's words range
+    `cols` of the column operand b (and its packed signs) on its device,
+    uploaded once a device and words slot; of the row operand a, a row
+    block's on demand."""
+
+    def __init__(self, a, b, device, cols: slice, b_sig=None):
+        self.a, self.cols, self.device = a, cols, device
+        self.b = _put(b, device, cols=cols)
+        self.b_sig = (pack_signs(b_sig, device) if b_sig is not None
+                      else None)
+
+    def rows(self, rows: slice) -> torch.Tensor:
+        return _put(self.a, self.device, rows, self.cols)
+
+
+def _step(a, b, s64: int, mesh, partial, finish, b_sig=None) -> tuple:
+    """The rows of a over the mesh's row blocks and the words of a and b
+    over its words slots: finish at each lead (DeviceSlots.split_words),
+    the blocks joined on the grid's first slot."""
+    mesh = as_mesh(mesh)
+    ranges = word_ranges(s64, mesh.shape["words"])
+    if a.shape[-1] != s64 * BBITS or b.shape[-1] != s64 * BBITS:
+        raise ValueError(f"a and b need s64 * {BBITS} = {s64 * BBITS} words "
+                         f"a row, got {a.shape[-1]} and {b.shape[-1]}")
+    slots = DeviceSlots(mesh, lambda d, w: _Operands(a, b, d, ranges[w],
+                                                     b_sig))
+    try:
+        return _join(slots.split_words(0, a.shape[0], partial, finish),
+                     mesh.grid[0][0])
+    finally:
+        slots.close()
+
+
+def _samebits_stack(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4's int32 (nk, na, nb) samebits of each k-plane of a (na, nk, W)
+    and b (nb, nk, W)."""
+    return torch.stack([samebits_full(a[:, ki], b[:, ki])
+                        for ki in range(a.shape[1])])
+
+
+def sharded_samebits(a, b, s64: int, mesh) -> torch.Tensor:
+    """(na, nb) int32 samebits of the u64 sketch words a (na, W) and b
+    (nb, W) (numpy arrays or int64 tensors in the .skd order, W = s64 *
+    BBITS) over `mesh` (a Mesh, or a list of devices): the rows of a split
+    over its rows, the chunks of both over its words slots, each slot's
+    K4 partial summed at its row block's lead. A tensor on the grid's
+    first slot, rows joined in order (the JAX _sharded_samebits)."""
+    def partial(op, rows):
+        return samebits_full(op.rows(rows), op.b)
+
+    def finish(op, rows, base):
+        sb = partial(op, rows)
+        return _ready(sb if base is None else sb + base)
+
+    return _step(a, b, s64, mesh, partial, finish)[0]
+
+
+def sharded_dist_step(a, b, s64: int, mesh, k: float = 0.0,
+                      ani: bool = False) -> torch.Tensor:
+    """One sharded distance step, samebits to f32 distances, as
+    sharded_samebits lays it out: each row block's lead runs samebits_dist
+    on its own words range with the other words slots' summed partials as
+    its base, so the distances are jaccard_dist_block's bit for bit. (na,
+    nb) f32 1 - j, or with ani the ANI at k, on the grid's first slot."""
+    def partial(op, rows):
+        return samebits_full(op.rows(rows), op.b)
+
+    def finish(op, rows, base):
+        return _ready(samebits_dist(op.rows(rows), op.b, s64, k=k, ani=ani,
+                                    base=base))
+
+    return _step(a, b, s64, mesh, partial, finish)[0]
+
+
+def sharded_coreacc_step(a_stack, b_stack, s64: int, mesh, kmers,
+                         sketch_size: int, c1=None, c2=None,
+                         cutoff: float = 0.64) -> torch.Tensor:
+    """Multi-k core/accessory over `mesh`: a_stack (na, nk, W) and b_stack
+    (nb, nk, W) u64 words (numpy or int64 tensors, the .skd order, k
+    ascending). On a rows-only grid each row block runs K2; with words
+    slots each slot's per-k K4 partials are summed at the lead, which runs
+    coreacc_chain (K2's chain, bit for bit) with c1 (na,) / c2 (nb,) f32
+    completeness applied after the sum. (na, nb, 2) f32 (core, acc) on
+    the grid's first slot. The port's chain centres k (coreacc_kernels),
+    so values differ from the JAX step's within ~1e-5."""
+    def partial(op, rows):
+        return _samebits_stack(op.rows(rows), op.b)
+
+    def finish(op, rows, base):
+        v1, v2 = _vec(c1, op.device, rows), _vec(c2, op.device)
+        if base is None:
+            core, acc = coreacc(op.rows(rows), op.b, kmers, sketch_size, v1,
+                                v2, cutoff)
+        else:
+            core, acc = coreacc_chain(partial(op, rows) + base, kmers,
+                                      sketch_size, s64, v1, v2, cutoff)
+        return _ready(torch.stack([core, acc], dim=-1))
+
+    return _step(a_stack, b_stack, s64, mesh, partial, finish)[0]
+
+
+def _rows_only(mesh) -> Mesh:
+    mesh = as_mesh(mesh)
+    if mesh.shape["words"] != 1:
+        raise ValueError("sharded kNN requires an unsharded word axis")
+    return mesh
+
+
+def _sign_mask(a_sig, rows: slice, op) -> SignMask | None:
+    if a_sig is None:
+        return None
+    a_sig = np.asarray(a_sig)
+    return SignMask(pack_signs(a_sig[rows], op.device), op.b_sig,
+                    a_sig.shape[1])
+
+
+def sharded_knn_step(a, b, s64: int, mesh, knn: int, n_real: int,
+                     exclude_self: bool, col_tile: int = 2048,
+                     row_base: int = 0, c1=None, c2=None,
+                     cutoff: float = 0.64, a_sig=None, b_sig=None):
+    """Sparse kNN selection over a rows-only mesh: the rows of a (na, W)
+    split over its rows, the first n_real rows of b (the real columns) whole
+    on each; each row block is one K3 selection (knn_scan_tensors) with
+    global row ids row_base + i. Returns (values, indices) int32 (na, knn)
+    on the grid's first slot: the selected samebits and columns, value
+    descending then column ascending, -0x7FFFFFFF / 0x7FFFFFFF where a row
+    has fewer than knn candidates. c1 (na,) / c2 f32 select by the
+    completeness-corrected Jaccard; a_sig (na, S) / b_sig u16 signs of the
+    inverted index keep only pairs that share one. col_tile is the JAX
+    signature's: K3 walks every column in one launch."""
+    _rows_only(mesh)
+    c1, c2 = _host(c1), _host(c2)
+    cols = _host(b_sig)[:n_real] if b_sig is not None else None
+
+    def finish(op, rows, base):
+        return _ready(*knn_scan_tensors(
+            op.rows(rows), op.b, knn, exclude_self=exclude_self,
+            comp_rows=c1[rows] if c1 is not None else None,
+            comp_cols=c2[:n_real] if c2 is not None else None,
+            cutoff=cutoff, row0=row_base + rows.start,
+            sig=_sign_mask(a_sig, rows, op)))
+
+    return _step(a, b[:n_real], s64, mesh, None, finish, cols)
+
+
+def sharded_knn_ca_step(a_stack, b_stack, s64: int, mesh, knn: int,
+                        n_real: int, exclude_self: bool, kmers,
+                        sketch_size: int, col_tile: int = 2048,
+                        row_base: int = 0, c1=None, c2=None,
+                        cutoff: float = 0.64, a_sig=None, b_sig=None):
+    """Core/accessory kNN over a rows-only mesh: the rows of a_stack (na,
+    nk, W) split over its rows, the first n_real of b_stack whole on each;
+    each row block selects by f32 core distance over K2's key tiles
+    (knn_torch.scan_coreacc). Returns (core, acc, indices) (na, knn) on
+    the grid's first slot; core = inf and index 0x7FFFFFFF where a row has
+    fewer than knn candidates. c1 / c2, a_sig / b_sig and col_tile as in
+    sharded_knn_step."""
+    _rows_only(mesh)
+    cols = _host(b_sig)[:n_real] if b_sig is not None else None
+
+    def finish(op, rows, base):
+        return _ready(*scan_coreacc(
+            op.rows(rows), op.b, kmers, sketch_size, knn, exclude_self,
+            _vec(c1, op.device, rows),
+            _vec(c2, op.device, slice(0, n_real)), cutoff,
+            row_base + rows.start, _sign_mask(a_sig, rows, op)))
+
+    return _step(a_stack, b_stack[:n_real], s64, mesh, None, finish, cols)
+
+
 class ShardedSamebitsEngine:
-    """samebits engine over several devices: the rows of `a` split over
-    the slots, `b` whole on each. Drop-in `engine` for dist/api.py."""
+    """samebits engine over a Mesh, or a list of devices (rows only):
+    sharded_samebits of each call. Drop-in `engine` for dist/api.py."""
 
     def __init__(self, sketchsize64: int, devices=None):
         self.s64 = sketchsize64
-        self.slots = DeviceSlots(
-            devices, lambda d: DeviceSamebitsEngine(sketchsize64, d))
+        self.mesh = as_mesh(devices)
+        word_ranges(sketchsize64, self.mesh.shape["words"])
 
     def matrix(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
         """All-pairs samebits: a (na, W) u64, b (nb, W) u64 -> (na, nb)."""
-        blocks = split_rows(0, a.shape[0], len(self.slots))
-        return np.concatenate(self.slots.map(
-            lambda eng, rows: eng.matrix(a[rows], b), blocks))
+        return sharded_samebits(a, b, self.s64, self.mesh).cpu().numpy()
+
+
+class _WordsShare:
+    """One words slot of ShardedCoreAccEngine: every sample's words of the
+    slot's range (`cols`) on its device, and the completeness values."""
+
+    def __init__(self, ms, device, w: int, cols: slice, comp):
+        self.device, self.key, self.cols = torch.device(device), (device, w), cols
+        self.words = to_device_words(ms, self.device, cols=cols)
+        self.comp = _f32(comp, self.device) if comp is not None else None
 
 
 class ShardedCoreAccEngine:
-    """Dense multi-k core/accessory over several devices: each tile's rows
-    (tile rows at a time, as the JAX engine) split over the slots, every
-    sample's words on each device; the blocks of a tile are written in
-    row order while the next tile runs."""
+    """Dense multi-k core/accessory over a Mesh, or a list of devices (rows
+    only). Each tile's rows (tile rows at a time, as the JAX engine) split
+    over the row blocks; on a rows-only grid every sample's words are on
+    each device and each block runs K2; with words slots each slot holds
+    its words range of every sample, its per-k K4 partials are summed at
+    the block's lead and coreacc_chain finishes (K2's bits). The blocks of
+    a tile are written in row order while the next tile runs."""
 
     def __init__(self, ms, devices=None, tile: int = 4096,
                  completeness_vec=None, completeness_cutoff: float = 0.64):
         self.tile = tile
-        self.slots = DeviceSlots(devices, lambda d: DeviceCoreAccEngine(
-            ms, d, tile=tile, completeness_vec=completeness_vec,
-            completeness_cutoff=completeness_cutoff))
+        self.mesh = as_mesh(devices)
+        self.words = self.mesh.shape["words"]
+        self.kmers, self.sketch_size = tuple(ms.kmer_lengths), ms.sketch_size
+        self.s64 = ms.sketchsize64
+        self._cutoff = float(completeness_cutoff)
+        if self.words == 1:
+            def make(d, w):
+                return DeviceCoreAccEngine(
+                    ms, d, tile=tile, completeness_vec=completeness_vec,
+                    completeness_cutoff=completeness_cutoff)
+        else:
+            ranges = word_ranges(ms.sketchsize64, self.words)
+
+            def make(d, w):
+                return _WordsShare(ms, d, w, ranges[w], completeness_vec)
+        self.slots = DeviceSlots(self.mesh, make)
 
     def _launch(self, r0: int, r1: int, fn) -> _JoinedCopy:
-        """fn(engine, a, b) launched on each slot for its block [a, b) of
-        the rows [r0, r1)."""
+        """fn(engine, a, b) launched on each row slot for its block [a, b)
+        of the rows [r0, r1) (a rows-only grid)."""
         blocks = split_rows(r0, r1, len(self.slots))
         return _JoinedCopy([self.slots.submit(i, fn, b.start, b.stop)
                             for i, b in enumerate(blocks)])
 
+    def _split(self, r0: int, r1: int, cols_of, comp_of,
+               cutoff: float) -> _JoinedCopy:
+        """The (rows, cols, 2) core/accessory of the rows [r0, r1) against
+        the words cols_of(share) of each words slot: per-k partials on
+        every slot, coreacc_chain of their sum at each row block's lead
+        with the completeness comp_of(share, rows) -> (c1, c2) or (None,
+        None)."""
+        def partial(share, rows):
+            return _samebits_stack(share.words[rows], cols_of(share))
+
+        def finish(share, rows, base):
+            c1, c2 = comp_of(share, rows)
+            core, acc = coreacc_chain(partial(share, rows) + base,
+                                      self.kmers, self.sketch_size, self.s64,
+                                      c1, c2, cutoff)
+            return HostCopy(torch.stack([core, acc], dim=-1))
+
+        return _JoinedCopy(self.slots.split_words(r0, r1, partial, finish))
+
+    def _self_comp(self, cols: slice):
+        def comp_of(share, rows):
+            if share.comp is None:
+                return None, None
+            return share.comp[rows], share.comp[cols]
+
+        return comp_of
+
     def tile_dists(self, rows: slice, cols: slice) -> np.ndarray:
-        """(rows, cols, 2) f32 core/accessory, rows split over the
-        slots."""
+        """(rows, cols, 2) f32 core/accessory, rows split over the row
+        blocks."""
+        if self.words > 1:
+            return self._split(rows.start, rows.stop,
+                               lambda share: share.words[cols],
+                               self._self_comp(cols), self._cutoff).numpy()
         blocks = split_rows(rows.start, rows.stop, len(self.slots))
         return np.concatenate(self.slots.map(
             lambda eng, r: eng.tile_dists(r, cols), blocks))
@@ -194,11 +593,16 @@ class ShardedCoreAccEngine:
             emit_coreacc_self_block(out, names, tab_r, block, r0, r1, n,
                                     pipe=pipe)
 
-        stream_blocks(
-            out, names, names, row_range, self.tile,
-            lambda r0, r1: self._launch(r0, r1,
-                                        DeviceCoreAccEngine.self_block),
-            emit)
+        if self.words > 1:
+            every = slice(0, n)
+
+            def launch(r0, r1):
+                return self._split(r0, r1, lambda share: share.words,
+                                   self._self_comp(every), self._cutoff)
+        else:
+            def launch(r0, r1):
+                return self._launch(r0, r1, DeviceCoreAccEngine.self_block)
+        stream_blocks(out, names, names, row_range, self.tile, launch, emit)
 
     def stream_cross_dense(
         self,
@@ -212,28 +616,42 @@ class ShardedCoreAccEngine:
         row_range: slice | None = None,
     ) -> None:
         """Ref-major rectangular output (DeviceCoreAccEngine's): reference
-        rows split over the slots, the query words whole on each device.
-        Completeness applies only when both sides have values."""
+        rows split over the row blocks, the query words (of each words
+        slot's range) whole on each device. Completeness applies only when
+        both sides have values."""
         nq = query_ms.number_samples_loaded()
         comp_on = rcomp is not None and qcomp is not None
         on_device = {}
-        for dev in self.slots.engines:
-            on_device[dev] = (
-                to_device_words(query_ms, dev),
-                _f32(rcomp, dev) if comp_on else None,
-                _f32(qcomp, dev) if comp_on else None,
+        for key, eng in self.slots.engines.items():
+            on_device[key] = (
+                to_device_words(query_ms, eng.device,
+                                cols=getattr(eng, "cols", None)),
+                _f32(rcomp, eng.device) if comp_on else None,
+                _f32(qcomp, eng.device) if comp_on else None,
             )
-
-        def cross(eng, a, b):
-            q, rc_v, qc_v = on_device[eng.device]
-            return eng.cross_block(q, a, b, rc_v, qc_v, cutoff)
 
         def emit(block, r0, r1, tab_r, tab_q, pipe):
             emit_coreacc_cross_block(out, ref_names, query_names, tab_r,
                                      tab_q, block, r0, r1, nq, pipe=pipe)
 
+        if self.words > 1:
+            def comp_of(share, rows):
+                _, rc_v, qc_v = on_device[share.key]
+                return (rc_v[rows], qc_v) if comp_on else (None, None)
+
+            def launch(r0, r1):
+                return self._split(r0, r1,
+                                   lambda share: on_device[share.key][0],
+                                   comp_of, cutoff)
+        else:
+            def cross(eng, a, b):
+                q, rc_v, qc_v = on_device[(eng.device, 0)]
+                return eng.cross_block(q, a, b, rc_v, qc_v, cutoff)
+
+            def launch(r0, r1):
+                return self._launch(r0, r1, cross)
         stream_blocks(out, ref_names, query_names, row_range, self.tile,
-                      lambda r0, r1: self._launch(r0, r1, cross), emit)
+                      launch, emit)
 
 
 class ShardedKnnEngine:
@@ -247,8 +665,9 @@ class ShardedKnnEngine:
                  col_tile: int = 8192):
         self.ms = ms
         self.n = ms.number_samples_loaded()
-        self.slots = DeviceSlots(devices, lambda d: DeviceKnnEngine(
-            ms, d, row_tile=row_tile, col_tile=col_tile))
+        self.slots = DeviceSlots(_rows_only(devices), lambda d, w:
+                                 DeviceKnnEngine(ms, d, row_tile=row_tile,
+                                                 col_tile=col_tile))
 
     def _rows(self, lo: int, hi: int, fn) -> SparseKnnRows:
         """fn(engine, block) on each slot's block of [lo, hi), joined."""
@@ -311,7 +730,8 @@ class ShardedKnnEngine:
         if knn < 1:
             return _no_neighbours(lo, hi, dist_type, retain_unmatched)
         signs = precluster_signs(self.ms, inverted, skq_bins)
-        packed = {dev: pack_signs(signs, dev) for dev in self.slots.engines}
+        packed = {dev: pack_signs(signs, dev)
+                  for dev in self.slots.distinct_devices()}
         comp = (np.asarray(completeness_vec, dtype=np.float64)
                 if completeness_vec is not None else None)
         return self._rows(lo, hi, lambda eng, rows: eng.precluster_rows(
@@ -331,8 +751,11 @@ class ShardedInvertedEngine:
 
     def __init__(self, sign_matrix: np.ndarray, devices=None):
         self.n = int(sign_matrix.shape[0])
+        mesh = as_mesh(devices)
+        if mesh.shape["words"] != 1:
+            raise ValueError("sharded inverted engine needs words=1")
         self.slots = DeviceSlots(
-            devices, lambda d: DeviceInvertedEngine(sign_matrix, d))
+            mesh, lambda d, w: DeviceInvertedEngine(sign_matrix, d))
 
     def any_shared_bin_count(self, row_range: slice | None = None) -> int:
         lo, hi = (row_range.start, row_range.stop) if row_range else (0, self.n)

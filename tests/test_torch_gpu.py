@@ -1445,3 +1445,139 @@ def test_reads_backend_prefilter_on_card_matches_cpu(cuda, monkeypatch,
         for g, w in zip(got, want):
             assert np.array_equal(g.usigs, w.usigs)
             assert g.seq_length == w.seq_length
+
+
+# --- the words axis: K4's distance epilogue, K2's chain, the grids --------
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in units in the last place between non-negative
+    f32 values."""
+    return int((got.view(torch.int32).long()
+                - want.view(torch.int32).long()).abs().max())
+
+
+# s64 = 16 (the main path), 625 (-s 40000) and 1600 (102,400 bins, the
+# axis's size); ragged tiles; rows read in place from strided k-planes
+@pytest.mark.parametrize("s64,na,nb", [(16, 70, 130), (625, 65, 33),
+                                       (1600, 1, 129), (1600, 97, 63)])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_samebits_dist_kernel_matches_twin(cuda, s64, na, nb, with_base):
+    from sketchtpu_torch.dist.jaccard_torch import jaccard_dist_block
+    from sketchtpu_torch.dist.samebits_kernels import (
+        samebits_dist,
+        samebits_dist_ref,
+    )
+
+    w = _words(max(na, nb), s64, 20 + s64, cuda)
+    a, b = w[:na, 1], w[:nb, 1]  # samples i and j related when i = j mod 3
+    cut = s64 // 3 * 14 if with_base else a.shape[1]
+    base = samebits_full(a[:, cut:], b[:, cut:]) if with_base else None
+    for ani in (False, True):
+        got = samebits_dist(a[:, :cut], b[:, :cut], s64, k=21.0, ani=ani,
+                            base=base)
+        torch.cuda.synchronize()
+        want = samebits_dist_ref(a[:, :cut], b[:, :cut], s64, k=21.0,
+                                 ani=ani, base=base)
+        if ani:
+            assert _ulps(got, want) <= 2  # logf against torch's log
+        else:
+            assert torch.equal(got, want)
+        assert torch.equal(got, jaccard_dist_block(a, b, s64, k=21.0,
+                                                   ani=ani))
+        assert ((got > 0) & (got < 1)).any()
+    same = jaccard_dist_block(a[:1], a[:1], s64, k=21.0, ani=True)
+    assert float(same) == 1.0
+    far = jaccard_dist_block(a[:1], ~a[:1], s64, k=21.0, ani=True)
+    assert float(far) == 0.0
+
+
+@pytest.mark.parametrize("nk", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("with_comp", [False, True])
+def test_coreacc_chain_kernel_equals_k2(cuda, nk, with_comp):
+    """K2's chain on summed per-range samebits gives K2's (core, acc) bit
+    for bit, and its twin's."""
+    from sketchtpu_torch.dist.coreacc_kernels import (
+        coreacc_chain,
+        coreacc_chain_ref,
+    )
+
+    kmers = tuple(range(15, 15 + 2 * nk, 2))
+    w = _kwords(230, kmers, 16, 40 + nk, cuda)
+    a, b = w[:97], w[60:230]
+    c1 = c2 = None
+    if with_comp:
+        c = _comp(230, nk, cuda)
+        c1, c2 = c[:97].contiguous(), c[60:230].contiguous()
+    want = coreacc(a, b, kmers, 1024, c1, c2)
+    sb = sum(torch.stack([samebits_full(a[:, ki, r], b[:, ki, r])
+                          for ki in range(nk)])
+             for r in (slice(0, 5 * 14), slice(5 * 14, 16 * 14)))
+    got = coreacc_chain(sb, kmers, 1024, 16, c1, c2)
+    torch.cuda.synchronize()
+    for g, x, t in zip(got, want, coreacc_chain_ref(sb, kmers, 1024, 16,
+                                                    c1, c2)):
+        assert torch.equal(g, x) and torch.equal(g, t)
+    if nk < 3:  # fewer than three k: the fit's n < 3 branch
+        assert (got[0] == 1).all() and (got[1] == 1).all()
+    else:
+        assert ((want[0] > 0) & (want[0] < 1)).sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["slots", "distinct"])
+def test_words_grids_equal_unsplit(cuda, kind):
+    """The words grids (1 x 2, 2 x 2, 1 x 4) on slots of the card, or on
+    every GPU: samebits, distances, core/acc steps and the dense engine
+    bit-equal to the unsplit kernels and the one-device engine."""
+    import io
+
+    from sketchtpu_torch.dist.coreacc_torch import DeviceCoreAccEngine
+    from sketchtpu_torch.dist.jaccard_torch import jaccard_dist_block
+    from sketchtpu_torch.shard import mesh
+
+    if kind == "slots":
+        devs = [cuda] * 4
+    else:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+        if len(devs) < 2:
+            pytest.skip("needs two GPUs")
+    ms, _ = _ms_pair(300, 81)
+    n, names = 300, [f"g{i}" for i in range(300)]
+    t = torch.from_numpy(
+        ms.sketch_bins.reshape(n, 3, -1).view(np.int64)).to(cuda)
+    comp = _comp(n, 82, cuda)
+    grids = [(r, len(devs) // r) for r in (1, 2) if len(devs) // r >= 2]
+    if kind == "slots":
+        grids = [(1, 2), (2, 2), (1, 4)]
+    for rows, words in grids:
+        grid = mesh.make_mesh(rows, words, devices=devs)
+        assert torch.equal(mesh.sharded_samebits(t[:, 1], t[:150, 1], 16,
+                                                 grid).to(cuda),
+                           samebits_full(t[:, 1], t[:150, 1]))
+        for ani in (False, True):
+            assert torch.equal(
+                mesh.sharded_dist_step(t[:, 0], t[:150, 0], 16, grid, 17.0,
+                                       ani).to(cuda),
+                jaccard_dist_block(t[:, 0], t[:150, 0], 16, k=17.0, ani=ani))
+        for c in (None, comp):
+            got = mesh.sharded_coreacc_step(
+                t, t[:150], 16, grid, (17, 21, 25), 1024,
+                c1=c, c2=c[:150] if c is not None else None)
+            core, acc = coreacc(t, t[:150], (17, 21, 25), 1024, c,
+                                c[:150].contiguous() if c is not None
+                                else None)
+            assert torch.equal(got.to(cuda),
+                               torch.stack([core, acc], dim=-1))
+            cv = c.cpu().numpy() if c is not None else None
+            sh = mesh.ShardedCoreAccEngine(ms, grid, tile=128,
+                                           completeness_vec=cv)
+            one = DeviceCoreAccEngine(ms, cuda, tile=128,
+                                      completeness_vec=cv)
+            assert np.array_equal(sh.tile_dists(slice(7, 290), slice(0, n)),
+                                  one.tile_dists(slice(7, 290), slice(0, n)))
+            texts = []
+            for eng in (sh, one):
+                out = io.StringIO()
+                eng.stream_self_dense(out, names)
+                texts.append(out.getvalue())
+            assert texts[0] and texts[0] == texts[1]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""signeq's count / any / all, aahash_bin_multi, K2, K3's masked selection
-and the reads prefilter's step of two checkouts, timed in turns on one
-NVIDIA GPU.
+"""signeq's count / any / all, aahash_bin_multi, K1 / K4, K2, K3's masked
+selection and the reads prefilter's step of two checkouts, timed in turns
+on one NVIDIA GPU.
 
     python3 tools/kernel_ab.py OTHER_ROOT [GROUP ...]   # from a checkout
 
@@ -14,6 +14,10 @@ The groups (all by default):
 - aahash: aahash_bin_multi at chip_smoke.py's phase 2 shape (16 x 1.2 M
   residues, k = 6, 9, 12, 1024 bins), its registers and SASS atomics (the
   SASS to kernel_ab_<turn>_aahash.sass in the output directory);
+- samebits: K1 (the int16 strip) and K4 at phase 2's shapes through each
+  checkout's own chip_smoke.py phase2_samebits, and the -Xptxas -v
+  registers, static shared memory and spills of every instantiation of
+  the samebits and core/accessory kernels;
 - coreacc: K2 (plain, and masked key mode) and K3's masked selection at
   phase 2's shapes through each checkout's own chip_smoke.py functions;
 - prefilter: the reads prefilter's step, one row of signs to its keep
@@ -40,7 +44,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-GROUPS = ("signeq", "aahash", "coreacc", "prefilter")
+GROUPS = ("signeq", "aahash", "samebits", "coreacc", "prefilter")
 PF_GENOME, PF_COVERAGE = 2_000_000, 25
 PF_K, PF_MIN_COUNT, PF_BINS = 17, 5, 1024
 
@@ -209,6 +213,43 @@ def measure_coreacc(C, label: str, gpu: str, lib_path) -> list:
                                    "2048 x 8192, nk 7, S = 1000"))]
 
 
+def ptxas_records(lib_path, label: str, gpu: str) -> list:
+    """Registers, static shared memory and spill stores of every samebits
+    and core/accessory kernel instantiation, from the build's -Xptxas -v
+    log."""
+    lines = lib_path.with_suffix(".log").read_text().splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and ("samebits_kernel" in ln
+                                        or "coreacc_" in ln):
+            text = " ".join(lines[i + 1 : i + 4])
+            smem = text.split(" bytes smem")[0].split()[-1] \
+                if " bytes smem" in text else "0"
+            out.append(dict(
+                tree=label, ptxas=ln.split("'")[1],
+                registers=int(text.split("Used ")[1].split(" registers")[0]),
+                smem_bytes=int(smem),
+                spill_store_bytes=int(text.split("bytes stack frame, ")[1]
+                                      .split(" bytes spill")[0]),
+                gpu=gpu))
+    return out
+
+
+def measure_samebits(C, label: str, gpu: str, lib_path) -> list:
+    """K1 (i) and K4 (iii) at phase 2's shapes (every entry held against
+    its twin there first), and the kernels' ptxas records."""
+    results: dict = {}
+    words = C.derived_words(16384, C.SEED)
+    big = C.derived_words(C.N_KNN, C.SEED + 2, kmers=(17,))[:, 0]
+    C.phase2_samebits(words, big, results, lib_path)
+    return [dict(tree=label, kernel=kernel, shape=shape,
+                 ms=results[kernel]["ms"], gpu=gpu)
+            for kernel, shape in (
+                ("samebits", "(i) int16 tri row0 4096, 2048 x 16384"),
+                ("samebits_full", "(iii) 2048 x 16384"))] \
+        + ptxas_records(lib_path, label, gpu)
+
+
 def measure(root: Path, label: str, groups) -> list:
     """Times of the checkout at root, with its own chip_smoke helpers."""
     sys.path.insert(0, str(root))
@@ -224,6 +265,8 @@ def measure(root: Path, label: str, groups) -> list:
         out += measure_aahash(C, label, gpu, lib_path)
     if "signeq" in groups:
         out += measure_signeq(C, label, gpu)
+    if "samebits" in groups:
+        out += measure_samebits(C, label, gpu, lib_path)
     if "coreacc" in groups:
         out += measure_coreacc(C, label, gpu, lib_path)
     if "prefilter" in groups:

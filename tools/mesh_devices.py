@@ -4,6 +4,7 @@ GPU, in one process.
 
     python3 tools/mesh_devices.py [--turns N]   # from the root of a checkout
     python3 tools/mesh_devices.py --rehearse    # small sizes on CPU slots
+    python3 tools/mesh_devices.py --words [--rehearse]   # the words axis
 
 Builds the kernels and makes chip_smoke.py's data at its full sizes: 8
 synthetic 2 Mb assemblies (k = 17..29 step 2, -s 1000), 8192 and 100,000
@@ -17,6 +18,14 @@ cards' names and power limits, one JSON line a run, and writes them all
 to chiprun_out/mesh_devices.json. Needs two GPUs or more; --rehearse
 runs the same steps at small sizes with CPU slots ([cpu] against
 [cpu] * 3, the kernels' plain twins).
+
+--words runs only the words axis of shard/mesh.py, chip_smoke.py's phase
+10, with slot i of each grid on GPU i % count: on four GPUs the 1 x 2,
+2 x 2 and 1 x 4 grids put every words slot on a GPU of its own, so each
+slot holds only its share of the 4096 x 7 k x 102,400-bin words and its
+partials cross to the lead GPU; every result is checked against one
+GPU's unsplit kernels bit for bit, each grid's walls printed beside the
+unsplit ones (then the dry run's 4 x 2 grid).
 """
 
 from __future__ import annotations
@@ -146,12 +155,42 @@ def run_turn(C, cli_main, label: str, devs, paths, size, digests, records,
             p.unlink()
 
 
+def words_axis(C, build, rehearse: bool) -> int:
+    """chip_smoke.py's phase 10 on every GPU (or, rehearsing, on CPU slots
+    at 96 samples and s64 = 8)."""
+    import torch
+
+    if rehearse:
+        os.environ["SKETCHTPU_TORCH_BACKEND"] = "cpu"
+        C.phase10("CPU slots (rehearsal: no device numbers)", n=96, s64=8,
+                  device="cpu")
+        return 0
+    if not torch.cuda.is_available():
+        print("mesh_devices: torch sees no GPU", file=sys.stderr)
+        return 2
+    os.environ["SKETCHTPU_TORCH_BACKEND"] = "cuda"
+    gpu = "; ".join(C.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"]).strip().splitlines())
+    print(gpu)
+    t0 = time.time()
+    build.build()
+    print(f"built the kernels in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    C.phase10(gpu)
+    print(f"the words axis on {torch.cuda.device_count()} GPUs: every "
+          f"result bit-equal to one GPU's unsplit kernels in "
+          f"{time.time() - t0:.1f} s; {gpu}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--turns", type=int, default=1,
                     help="repeats of the turns one, all, all, one")
     ap.add_argument("--rehearse", action="store_true",
                     help="small sizes on CPU slots (no GPU needed)")
+    ap.add_argument("--words", action="store_true",
+                    help="only the words axis (chip_smoke.py phase 10)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -159,6 +198,9 @@ def main() -> int:
     import chip_smoke as C
     from sketchtpu_torch import _build
     from sketchtpu_torch.cli import main as cli_main
+
+    if args.words:
+        return words_axis(C, _build, args.rehearse)
 
     if args.rehearse:
         os.environ["SKETCHTPU_TORCH_BACKEND"] = "cpu"
