@@ -170,6 +170,10 @@ SOURCES = {
                       "sketchtpu/dist/jaccard_jax.py:435"),
     "coreacc_chain": ("sketchtpu_torch/csrc/coreacc.cu",
                       "sketchtpu/dist/coreacc_jax.py:32"),
+    "samebits_stack": ("sketchtpu_torch/csrc/samebits.cu",
+                       "sketchtpu/dist/pallas_kernels.py:265"),
+    "samebits_finish": ("sketchtpu_torch/csrc/samebits.cu",
+                        "sketchtpu/shard/mesh.py:851"),
 }
 DENSE_PATH = ("samebits", "coreacc", "nthash_bin_multi", "samebits_full")
 # knn_keys: K3's tile mode, the route of `dist --knn` past MAX_KNN = 1024
@@ -181,8 +185,11 @@ INVERTED_PATH = ("nthash_signs", "nthash_bin_multi", "signeq_count",
 # amino acids and 3Di: sketch, append, then dense -k, core/acc and --knn
 AA_PATH = ("aahash_bin_multi", "samebits", "coreacc", "knn_select")
 # the words axis of shard/mesh.py (library surface, phase 10): each words
-# slot's K4 partial, then samebits_dist or coreacc_chain at the lead
-WORDS_PATH = ("samebits_full", "samebits_dist", "coreacc_chain")
+# slot's K4 partial (samebits_stack for every k in one launch), the
+# lead's finish (samebits_finish or coreacc_chain over the partials), and
+# the unsplit jaccard_dist_block (samebits_dist)
+WORDS_PATH = ("samebits_full", "samebits_stack", "samebits_finish",
+              "coreacc_chain", "samebits_dist")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
 # the 32-bit non-tensor rate, which bounds the 32-bit integer logic and
@@ -245,7 +252,9 @@ def kernel_wrappers() -> dict:
     from sketchtpu_torch.dist.samebits_kernels import (
         samebits,
         samebits_dist,
+        samebits_finish,
         samebits_full,
+        samebits_stack,
     )
     from sketchtpu_torch.hash.aahash_torch import aahash_bin_multi
     from sketchtpu_torch.hash.nthash_torch import nthash_bin_multi, nthash_signs
@@ -266,7 +275,9 @@ def kernel_wrappers() -> dict:
             "aahash_bin_multi": Count(aahash_bin_multi),
             "sign_prefilter": Count(sign_prefilter_flags),
             "samebits_dist": Count(samebits_dist),
-            "coreacc_chain": Count(coreacc_chain)}
+            "coreacc_chain": Count(coreacc_chain),
+            "samebits_stack": Count(samebits_stack),
+            "samebits_finish": Count(samebits_finish)}
 
 
 @contextlib.contextmanager
@@ -718,21 +729,39 @@ def device_words(n: int, s64: int, seed: int, kmers=KMERS,
     return out
 
 
-def dist_bound(na: int, nb: int, chunks: int, base: bool) -> dict:
+def dist_bound(na: int, nb: int, chunks: int) -> dict:
     """samebits_dist's least time: the samebits work of its chunks, or its
-    bytes (both operands, the base when given, the f32 output)."""
+    bytes (both operands, the f32 output)."""
     return bound(na * nb * chunks * SB_OPS,
-                 (na + nb) * chunks * 14 * 8 + na * nb * (8 if base else 4))
+                 (na + nb) * chunks * 14 * 8 + na * nb * 4)
+
+
+def ulps_apart(got, want) -> int:
+    """The largest distance in units in the last place between
+    non-negative f32 values."""
+    import torch
+
+    return int((got.view(torch.int32).long()
+                - want.view(torch.int32).long()).abs().max())
 
 
 def phase2_words(results, lib_path: Path):
-    """samebits_dist and coreacc_chain at phase 10's shapes, each against
-    its twin: the lead slot of a 2 x 2 grid over 4096 samples at s64 =
-    1600 (rows 2048, its 800 chunks, the other slot's summed partial as
-    base; Jaccard bit-equal, ANI within 2 ulp) and the chain on the
-    summed (7, 2048, 4096) samebits stack (bit-equal to K2 and to the
-    twin, with and without completeness); then jaccard_dist_block at
+    """The words axis's kernels at phase 10's shapes (4096 samples at s64
+    = 1600; a 2 x 2 grid's slot: rows 2048, 800 of the 1600 chunks), each
+    against its twin: samebits_dist there (its unsplit use; Jaccard
+    bit-equal, ANI within 2 ulp); samebits_stack, the slot's 7 per-k
+    partials in one launch, bit-equal to 7 samebits_full launches and
+    timed beside them and their torch.stack (the previous partial);
+    samebits_finish of the lead's two partials (Jaccard bit-equal to the
+    twin, ANI within 2 ulp, both bit-equal to jaccard_dist_block of the
+    whole chunks; the count mode equal to K4); coreacc_chain over the
+    slabs of w = 2 and 4 slots (bit-equal to K2 and to the twin, with and
+    without completeness), timed beside the previous path (the slabs
+    summed by torch adds, then the chain); then jaccard_dist_block at
     __graft_entry__.entry()'s tile, 128 x 128 at s64 = 16, k = 21."""
+    import functools
+    import operator
+
     import torch
 
     from sketchtpu_torch.dist.coreacc_kernels import (
@@ -744,43 +773,45 @@ def phase2_words(results, lib_path: Path):
     from sketchtpu_torch.dist.samebits_kernels import (
         samebits_dist,
         samebits_dist_ref,
+        samebits_finish,
+        samebits_finish_ref,
         samebits_full,
+        samebits_stack,
+        samebits_stack_ref,
     )
+    from sketchtpu_torch.shard.mesh import word_ranges
 
-    ptx = ptxas_report(lib_path, "coreacc_chain_kernel", {"": "chain"})
-    print(f"phase2 coreacc_chain kernel: {ptx['chain']['registers']} "
-          f"registers, {ptx['chain']['spill_store_bytes']} bytes spilled")
-    check(ptx["chain"]["spill_store_bytes"] == 0, "coreacc_chain: spills")
+    for kernel, modes in (("coreacc_chain_kernel", {"": "chain"}),
+                          ("samebits_finish_kernel",
+                           {"ILb0E": "count", "ILb1E": "distance"})):
+        for mode, info in sorted(ptxas_report(lib_path, kernel,
+                                              modes).items()):
+            print(f"phase2 {kernel} {mode}: {info['registers']} registers, "
+                  f"{info['spill_store_bytes']} bytes spilled")
+            check(info["spill_store_bytes"] == 0, f"{kernel} {mode}: spills")
     w = device_words(N_WORDS, S64_WORDS, SEED + 4)
-    na, half = N_WORDS // 2, S64_WORDS // 2 * 14
+    na, half, nk = N_WORDS // 2, S64_WORDS // 2 * 14, len(KMERS)
     a, b = w[:na, 0, :half], w[:, 0, :half]
-    base = samebits_full(w[:na, 0, half:], w[:, 0, half:])
     worst, times = 0.0, {}
     for ani in (False, True):
-        got = samebits_dist(a, b, S64_WORDS, k=17.0, ani=ani, base=base)
+        got = samebits_dist(a, b, S64_WORDS, k=17.0, ani=ani)
         want, plain = timed_once(lambda: samebits_dist_ref(
-            a, b, S64_WORDS, k=17.0, ani=ani, base=base))
-        ulps = int((got.view(torch.int32).long()
-                    - want.view(torch.int32).long()).abs().max())
+            a, b, S64_WORDS, k=17.0, ani=ani))
+        ulps = ulps_apart(got, want)
         check(ulps <= (2 if ani else 0),
               f"samebits_dist ani={ani}: {ulps} ulp from the twin")
-        whole = jaccard_dist_block(w[:na, 0], w[:, 0], S64_WORDS, k=17.0,
-                                   ani=ani)
-        check(torch.equal(got, whole), f"samebits_dist ani={ani}: the split "
-              f"lead differs from jaccard_dist_block")
-        fitted = int(((got > 0) & (got < 1)).sum())
-        check(fitted > 0, "samebits_dist: no pair between 0 and 1")
+        check(int(((got > 0) & (got < 1)).sum()) > 0,
+              "samebits_dist: no pair between 0 and 1")
         worst = max(worst, float((got - want).abs().max()))
-        del got, want, whole
-        ms = cuda_ms(lambda: samebits_dist(a, b, S64_WORDS, k=17.0, ani=ani,
-                                           base=base), reps=5)
+        del got, want
+        ms = cuda_ms(lambda: samebits_dist(a, b, S64_WORDS, k=17.0, ani=ani),
+                     reps=5)
         times[ani] = (ms, plain)
         print(f"phase2 samebits_dist ({'ANI' if ani else 'Jaccard'}) "
-              f"({na}, {N_WORDS}) {S64_WORDS // 2} of {S64_WORDS} chunks + "
-              f"base: {'within 2 ulp of' if ani else 'equal to'} the twin "
-              f"({ulps} ulp, {fitted} pairs in (0, 1)), equal to the unsplit "
-              f"jaccard_dist_block; kernel {ms:.4f} ms, twin {plain:.2f} ms")
-    bd = dist_bound(na, N_WORDS, S64_WORDS // 2, True)
+              f"({na}, {N_WORDS}) {S64_WORDS // 2} of {S64_WORDS} chunks: "
+              f"{'within 2 ulp of' if ani else 'equal to'} the twin ({ulps} "
+              f"ulp); kernel {ms:.4f} ms, twin {plain:.2f} ms")
+    bd = dist_bound(na, N_WORDS, S64_WORDS // 2)
     ms, plain = times[False]
     print(f"phase2 samebits_dist bound {bd['bound_ms']:.4f} ms "
           f"({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%; "
@@ -788,42 +819,120 @@ def phase2_words(results, lib_path: Path):
           f"{integer_floor_ms(na * N_WORDS * S64_WORDS // 2):.4f} ms")
     results["samebits_dist"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
                                     library_ms=None, **bd)
-    del base
 
-    nk = len(KMERS)
-    sb = torch.stack([samebits_full(w[:na, ki], w[:, ki])
-                      for ki in range(nk)])
+    sa, sb = w[:na, :, :half], w[:, :, :half]
+
+    def seven():
+        return torch.stack([samebits_full(sa[:, ki], sb[:, ki])
+                            for ki in range(nk)])
+
+    got = samebits_stack(sa, sb)
+    check(torch.equal(got, seven()), "samebits_stack != 7 samebits_full")
+    twin, plain = timed_once(lambda: samebits_stack_ref(sa, sb))
+    check(torch.equal(got, twin), "samebits_stack != its twin")
+    del got, twin
+    ms = cuda_ms(lambda: samebits_stack(sa, sb), reps=3)
+    prev = cuda_ms(seven, reps=3)
+    pair_chunks = nk * na * N_WORDS * (S64_WORDS // 2)
+    bd = bound(pair_chunks * SB_OPS,
+               (na + N_WORDS) * nk * half * 8 + nk * na * N_WORDS * 4)
+    print(f"phase2 samebits_stack ({nk}, {na}, {N_WORDS}) {S64_WORDS // 2} of "
+          f"{S64_WORDS} chunks: equal to {nk} samebits_full launches and to "
+          f"the twin; one launch {ms:.4f} ms, {nk} launches + torch.stack "
+          f"(the previous partial) {prev:.4f} ms, twin {plain:.2f} ms; bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}): kernel at "
+          f"{100 * bd['bound_ms'] / ms:.1f}%; integer-issue floor "
+          f"{integer_floor_ms(pair_chunks):.4f} ms")
+    results["samebits_stack"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                     library_ms=None, **bd)
+
+    parts = [samebits_full(w[:na, 0, :half], w[:, 0, :half]),
+             samebits_full(w[:na, 0, half:], w[:, 0, half:])]
+    got = samebits_finish(parts)
+    check(torch.equal(got, samebits_full(w[:na, 0], w[:, 0])),
+          "samebits_finish count mode != K4 over the whole chunks")
+    worst, times = 0.0, {}
+    for ani in (False, True):
+        got = samebits_finish(parts, S64_WORDS, k=17.0, ani=ani)
+        want, plain = timed_once(lambda: samebits_finish_ref(
+            parts, S64_WORDS, k=17.0, ani=ani))
+        ulps = ulps_apart(got, want)
+        check(ulps <= (2 if ani else 0),
+              f"samebits_finish ani={ani}: {ulps} ulp from the twin")
+        whole = jaccard_dist_block(w[:na, 0], w[:, 0], S64_WORDS, k=17.0,
+                                   ani=ani)
+        check(torch.equal(got, whole), f"samebits_finish ani={ani}: != the "
+              f"unsplit jaccard_dist_block (samebits_dist)")
+        fitted = int(((got > 0) & (got < 1)).sum())
+        check(fitted > 0, "samebits_finish: no pair between 0 and 1")
+        worst = max(worst, float((got - want).abs().max()))
+        del got, want, whole
+        ms = cuda_ms(lambda: samebits_finish(parts, S64_WORDS, k=17.0,
+                                             ani=ani), reps=20)
+        times[ani] = (ms, plain)
+        agree = "within 2 ulp of" if ani else "equal to"
+        print(f"phase2 samebits_finish ({'ANI' if ani else 'Jaccard'}) 2 "
+              f"partials ({na}, {N_WORDS}): {agree} the twin ({ulps} ulp, "
+              f"{fitted} pairs in (0, 1)), equal to the unsplit "
+              f"jaccard_dist_block; kernel {ms:.4f} ms, twin {plain:.2f} ms")
+    ms, plain = times[False]
+    bd = bound(3 * na * N_WORDS * 8, 3 * na * N_WORDS * 4)
+    print(f"phase2 samebits_finish bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%")
+    results["samebits_finish"] = dict(max_abs_err=worst, ms=ms,
+                                      plain_ms=plain, library_ms=None, **bd)
+    del parts
+
     comp = torch.linspace(0.6, 1.0, N_WORDS, device=w.device)
     comp = comp[torch.randperm(N_WORDS, device=w.device)]
-    times = {}
-    for label, c1, c2 in (("plain", None, None),
-                          ("completeness", comp[:na], comp)):
-        got = coreacc_chain(sb, KMERS, S64_WORDS * 64, S64_WORDS, c1, c2)
-        want = coreacc(w[:na], w, KMERS, S64_WORDS * 64, c1, c2)
-        twin, plain = timed_once(lambda: coreacc_chain_ref(
-            sb, KMERS, S64_WORDS * 64, S64_WORDS, c1, c2))
-        for g, x, t in zip(got, want, twin):
-            check(torch.equal(g, x), f"coreacc_chain {label}: != K2")
-            check(torch.equal(g, t), f"coreacc_chain {label}: != its twin")
-        fitted = int(((got[0] > 0) & (got[0] < 1)).sum())
-        check(fitted > 0, f"coreacc_chain {label}: no pair reached the fit")
-        del got, want, twin
-        ms = cuda_ms(lambda: coreacc_chain(sb, KMERS, S64_WORDS * 64,
-                                           S64_WORDS, c1, c2), reps=10)
-        times[label] = (ms, plain)
-        print(f"phase2 coreacc_chain {label} ({nk}, {na}, {N_WORDS}): equal "
-              f"to K2 on the whole words and to the twin on every pair "
-              f"({fitted} fitted); kernel {ms:.4f} ms, twin {plain:.2f} ms")
-    ms, plain = times["plain"]
-    # about 30 f32 operations a pair and k (the bias correction, logf, the
-    # early break and the sums); bytes: the int32 stack read, core and acc
-    # written
-    cb = bound(na * N_WORDS * nk * 30, na * N_WORDS * (nk * 4 + 8))
-    print(f"phase2 coreacc_chain bound {cb['bound_ms']:.4f} ms "
-          f"({cb['bound_by']}): kernel at {100 * cb['bound_ms'] / ms:.1f}%")
-    results["coreacc_chain"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                                    library_ms=None, **cb)
-    del sb, w, a, b
+    cases = (("plain", None, None), ("completeness", comp[:na], comp))
+    want = {label: coreacc(w[:na], w, KMERS, S64_WORDS * 64, c1, c2)
+            for label, c1, c2 in cases}
+    chain_bytes = na * N_WORDS * 8  # core and acc written
+    for n_slabs in (2, 4):
+        slabs = [samebits_stack(w[:na, :, r], w[:, :, r])
+                 for r in word_ranges(S64_WORDS, n_slabs)]
+        times = {}
+        for label, c1, c2 in cases:
+            got = coreacc_chain(slabs, KMERS, S64_WORDS * 64, S64_WORDS, c1,
+                                c2)
+            twin, plain = timed_once(lambda: coreacc_chain_ref(
+                slabs, KMERS, S64_WORDS * 64, S64_WORDS, c1, c2))
+            for g, x, t in zip(got, want[label], twin):
+                check(torch.equal(g, x), f"coreacc_chain {label} w={n_slabs}: "
+                      f"!= K2")
+                check(torch.equal(g, t), f"coreacc_chain {label} w={n_slabs}: "
+                      f"!= its twin")
+            fitted = int(((got[0] > 0) & (got[0] < 1)).sum())
+            check(fitted > 0, f"coreacc_chain {label}: no pair reached the "
+                  f"fit")
+            del got, twin
+            ms = cuda_ms(lambda: coreacc_chain(slabs, KMERS, S64_WORDS * 64,
+                                               S64_WORDS, c1, c2), reps=10)
+            prev = cuda_ms(lambda: coreacc_chain(
+                functools.reduce(operator.add, slabs), KMERS, S64_WORDS * 64,
+                S64_WORDS, c1, c2), reps=10)
+            times[label] = (ms, plain)
+            print(f"phase2 coreacc_chain {label} over {n_slabs} slabs of ({nk}, "
+                  f"{na}, {N_WORDS}): equal to K2 on the whole words and to "
+                  f"the twin on every pair ({fitted} fitted); kernel "
+                  f"{ms:.4f} ms, the previous path ({n_slabs - 1} torch adds, "
+                  f"then the chain) {prev:.4f} ms, twin {plain:.2f} ms")
+        ms, plain = times["plain"]
+        # bytes: the slabs read, core and acc written; operations: about 30
+        # f32 operations a pair and k (the bias correction, logf, the early
+        # break and the sums)
+        cb = bound(na * N_WORDS * nk * 30,
+                   n_slabs * nk * na * N_WORDS * 4 + chain_bytes)
+        print(f"phase2 coreacc_chain w={n_slabs} bound {cb['bound_ms']:.4f} "
+              f"ms ({cb['bound_by']}): kernel at "
+              f"{100 * cb['bound_ms'] / ms:.1f}%")
+        if n_slabs == 2:
+            results["coreacc_chain"] = dict(max_abs_err=0.0, ms=ms,
+                                            plain_ms=plain, library_ms=None,
+                                            **cb)
+        del slabs
+    del want, w, a, b, sa, sb
     torch.cuda.empty_cache()
 
     # __graft_entry__.entry(): 128 x 128 random words, s64 = 16, k = 21
@@ -837,7 +946,7 @@ def phase2_words(results, lib_path: Path):
     check(torch.equal(got, samebits_dist_ref(ea, eb, 16, k=21.0)),
           "jaccard_dist_block at entry()'s tile: != the twin")
     ms = cuda_ms(lambda: jaccard_dist_block(ea, eb, 16, k=21.0), reps=100)
-    eb_ = dist_bound(128, 128, 16, False)
+    eb_ = dist_bound(128, 128, 16)
     print(f"phase2 jaccard_dist_block at entry()'s tile (128, 128) s64=16 "
           f"k=21: equal to the twin; {ms:.4f} ms a call (launch-bound; "
           f"bound {eb_['bound_ms']:.6f} ms, {eb_['bound_by']})")
@@ -3202,6 +3311,40 @@ def words_ms(words, kmers=KMERS):
     return ms
 
 
+def show_timeline(label: str, spans: list[dict]) -> None:
+    """One line a slot of a words step (mesh.timeline): each span's start
+    and end, ms from the step's start on one time axis for every GPU."""
+    by_slot: dict = {}
+    for sp in spans:
+        by_slot.setdefault((sp["device"], sp["slot"]), []).append(sp)
+    for (dev, slot), sps in sorted(by_slot.items()):
+        print(f"phase10 timeline {label} {dev} {slot}: " + ", ".join(
+            f"{sp['what']} {sp['start_ms']:.2f}-{sp['end_ms']:.2f}"
+            for sp in sorted(sps, key=lambda sp: sp["start_ms"])))
+
+
+def lead_runs_first(label: str, spans: list[dict]) -> None:
+    """Print the step's timeline, and fail unless each lead's stream holds
+    only its own work, its own partial first, and its finish begins after
+    every partial of its row block has ended."""
+    show_timeline(label, spans)
+    partials = [sp for sp in spans if sp["what"] == "partial"]
+    for lead in (sp for sp in partials if sp["slot"].endswith("w0")):
+        on_it = [sp for sp in spans if sp["stream"] == lead["stream"]
+                 and sp["device"] == lead["device"]]
+        check(on_it[0] is lead and {sp["slot"] for sp in on_it}
+              == {lead["slot"]}, f"phase10 {label}: {lead['slot']}'s stream "
+              f"runs {[(sp['slot'], sp['what']) for sp in on_it]}")
+        block = lead["slot"][:-1]  # "r<i>w"
+        finish = next(sp for sp in on_it if sp["what"] == "finish")
+        # one device's times compare exactly; two GPUs' to within the
+        # microseconds between their origins (a transfer takes longer)
+        check(all(finish["start_ms"] >= sp["end_ms"] - (
+            0 if sp["device"] == lead["device"] else 0.5) for sp in partials
+                  if sp["slot"].startswith(block)),
+              f"phase10 {label}: {lead['slot']} finished before a partial")
+
+
 def phase10_slots(device: str):
     """Eight device slots: on one card all of it; with several GPUs slot i
     on GPU i % count (4 distinct GPUs make the 1 x 4 and 2 x 2 grids' slots
@@ -3265,10 +3408,12 @@ def phase10(gpu: str, n: int = N_WORDS, s64: int = S64_WORDS,
     print(f"phase10 made {n} x {len(KMERS)} k x {s64} chunks "
           f"({w.numel() * 8 / 1e9:.2f} GB) in {time.time() - t0:.1f} s; "
           f"{kind}; {gpu}")
+    # the unsplit jaccard_dist_block is the axis's library entry point too
+    # (samebits_dist's launches on this path); K4 and K2 are references
+    want_d = {ani: timed(lambda: jaccard_dist_block(
+        plane, plane, s64, k=17.0, ani=ani)) for ani in (False, True)}
     with uncounted():
         (want_sb, t_sb) = timed(lambda: samebits_full(plane, plane))
-        want_d = {ani: timed(lambda: jaccard_dist_block(
-            plane, plane, s64, k=17.0, ani=ani)) for ani in (False, True)}
         want_ca = {}
         for label, c in (("plain", None), ("completeness", comp)):
             ca, wall = timed(lambda: coreacc(w, w, KMERS, s64 * 64, c, c))
@@ -3286,16 +3431,22 @@ def phase10(gpu: str, n: int = N_WORDS, s64: int = S64_WORDS,
         check(np.array_equal(got, want_host),
               f"phase10 {rows}x{words} matrix != K4")
         for ani in (False, True):
-            got, walls[f"dist ani={ani}"] = timed(
-                lambda: mesh.sharded_dist_step(plane, plane, s64, grid,
-                                               17.0, ani))
+            with mesh.timeline() as tl:
+                got, walls[f"dist ani={ani}"] = timed(
+                    lambda: mesh.sharded_dist_step(plane, plane, s64, grid,
+                                                   17.0, ani))
+            if not ani:
+                lead_runs_first(f"{rows} x {words} dist", tl.read())
             check(torch.equal(got.to(first), want_d[ani][0]),
                   f"phase10 {rows}x{words} dist ani={ani} != "
                   f"jaccard_dist_block")
         for label, c in (("plain", None), ("completeness", comp)):
-            got, walls[f"coreacc {label}"] = timed(
-                lambda: mesh.sharded_coreacc_step(w, w, s64, grid, KMERS,
-                                                  s64 * 64, c1=c, c2=c))
+            with mesh.timeline() as tl:
+                got, walls[f"coreacc {label}"] = timed(
+                    lambda: mesh.sharded_coreacc_step(w, w, s64, grid, KMERS,
+                                                      s64 * 64, c1=c, c2=c))
+            if c is None:
+                lead_runs_first(f"{rows} x {words} coreacc", tl.read())
             check(torch.equal(got.to(first), want_ca[label][0]),
                   f"phase10 {rows}x{words} coreacc {label} != K2")
         del got

@@ -57,12 +57,16 @@ _SIGNATURES = {
     ),
     "stpu_coreacc_blocks_per_sm": (_I,),
     "stpu_coreacc_chain": (
-        _P, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P,
+        _P, _I, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P,
+    ),
+    "stpu_samebits_planes": (
+        _P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _I, _P,
     ),
     "stpu_samebits_dist": (
-        _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _P, _LL, _F, _F, _F, _F, _I,
-        _P,
+        _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _F, _F, _F, _F, _I, _P,
     ),
+    "stpu_samebits_finish": (_P, _I, _LL, _P, _I, _F, _F, _F, _F, _I, _P),
+    "stpu_copy2d": (_P, _LL, _P, _LL, _LL, _LL, _I, _P),
     "stpu_nthash_multi": (
         _P, _LL, _P, _I, _I, _I, _P, _I, _ULL, _I, _I, _I, _I, _I, _P, _P,
     ),

@@ -54,16 +54,20 @@
 // modes; with 112,000 bytes of dynamic shared memory each, 2 blocks of 256
 // threads are resident per SM. chip_smoke.py prints all three.
 //
-// coreacc_chain: the same chain from an int32 (nk, na, nb) stack of whole
-// samebits counts, the port of the regression chain of
+// coreacc_chain: the same chain from the words slots' int32 (nk, na, nb)
+// slabs of partial samebits counts, the port of the regression chain of
 // sketchtpu/dist/coreacc_jax.py coreacc_tile after its psum over the mesh's
 // words axis (an XLA program; coreacc_jax.py:73-82 applies completeness
 // after the sum). A words split computes each slot's partial samebits with
-// K4 and sums them; this kernel then runs K2's chain on the sums, through
+// K4 (one multi-plane launch a slot); this kernel takes the w slabs as they
+// stand (a by-value array of at most MAX_WORDS_SLOTS pointers), sums each pair's
+// count at each k in registers, and runs K2's chain on the sums, through
 // the same device functions (chain_y, chain_add, chain_finish) and the same
-// KTable, so a split core/acc is K2's bit for bit. One thread a pair, its
-// chain state in registers. Bound: bytes (nk * 4 read and 8 written a
-// pair against a few dozen float operations a pair and k).
+// KTable, so a split core/acc is K2's bit for bit; no summed slab is
+// written. One thread a pair, its chain state in registers. Bound: bytes
+// (w * nk * 4 read and 8 written a pair); its f32 chain (two IEEE
+// divisions and a logf a pair and k, without FMA) keeps it from that
+// bound.
 #include <math.h>
 #include <string.h>
 
@@ -351,11 +355,11 @@ __global__ void __launch_bounds__(NT, 2)
 }
 
 // coreacc_chain: one thread a pair of the (na, nb) plane, the chain over
-// the nk planes of sb (plane stride na * nb) in registers.
+// the nk planes (plane stride na * nb) of the summed slabs in registers.
 constexpr int CHAIN_NT = 256;
 
 __global__ void __launch_bounds__(CHAIN_NT)
-    coreacc_chain_kernel(const int* __restrict__ sb, int na, int nb, int nk,
+    coreacc_chain_kernel(const WordsParts sb, int na, int nb, int nk,
                          const __grid_constant__ KTable kt,
                          const float* __restrict__ c1,
                          const float* __restrict__ c2, const Chain ch,
@@ -369,7 +373,13 @@ __global__ void __launch_bounds__(CHAIN_NT)
   int ninc = 0;
   float ys = 0.f, xy = 0.f, yy = 0.f;
   for (int ki = 0; ki < nk; ++ki) {
-    const float y = chain_y(sb[ki * plane + p], ch, comp, c1p, c2p);
+    const long long at = ki * plane + p;
+    int cnt = 0;
+#pragma unroll
+    for (int s = 0; s < MAX_WORDS_SLOTS; ++s) {
+      if (s < sb.n) cnt += __ldg(sb.p[s] + at);
+    }
+    const float y = chain_y(cnt, ch, comp, c1p, c2p);
     chain_add(ninc, ys, xy, yy, ki, kt.kf[ki], y, ch.tolerance);
   }
   float cd, ad;
@@ -488,26 +498,33 @@ extern "C" int stpu_coreacc_blocks_per_sm(int keys) {
   return err == cudaSuccess ? n : -1;
 }
 
-// coreacc_chain: core and acc (na, nb) f32 from sb, an int32 (nk, na, nb)
-// stack of whole samebits counts; c1 (na) / c2 (nb) f32 completeness or
-// null; ktable as for stpu_coreacc; the constants are the whole sketch's.
-extern "C" int stpu_coreacc_chain(const void* sb, int na, int nb, int nk,
+// coreacc_chain: core and acc (na, nb) f32 from the sum of nslabs int32
+// (nk, na, nb) slabs of partial samebits counts (slabs: a host array of
+// device pointers); c1 (na) / c2 (nb) f32 completeness or null; ktable as
+// for stpu_coreacc; the constants are the whole sketch's.
+extern "C" int stpu_coreacc_chain(const void* const* slabs, int nslabs,
+                                  int na, int nb, int nk,
                                   const float* ktable, const void* c1,
                                   const void* c2, float cutoff,
                                   float expected, float maxnbits, float denom,
                                   float tolerance, void* core, void* acc,
                                   void* stream) {
-  if (nk < 1 || nk > MAX_NK) return static_cast<int>(cudaErrorInvalidValue);
+  if (nk < 1 || nk > MAX_NK || nslabs < 1 || nslabs > MAX_WORDS_SLOTS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   KTable kt;
   memcpy(&kt, ktable, sizeof kt);
+  WordsParts sb{};
+  for (int s = 0; s < nslabs; ++s) sb.p[s] = static_cast<const int*>(slabs[s]);
+  sb.n = nslabs;
   const long long blocks = ((long long)na * nb + CHAIN_NT - 1) / CHAIN_NT;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
   const Chain ch{expected, maxnbits, denom, tolerance, cutoff};
   coreacc_chain_kernel<<<(unsigned)blocks, CHAIN_NT, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(sb), na, nb, nk, kt,
-      static_cast<const float*>(c1), static_cast<const float*>(c2), ch,
-      static_cast<float*>(core), static_cast<float*>(acc));
+      sb, na, nb, nk, kt, static_cast<const float*>(c1),
+      static_cast<const float*>(c2), ch, static_cast<float*>(core),
+      static_cast<float*>(acc));
   return static_cast<int>(cudaGetLastError());
 }

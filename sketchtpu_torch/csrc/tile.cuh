@@ -121,4 +121,14 @@ __device__ __forceinline__ bool tile_below_diagonal(int i0, int j0, int tj,
   return last_col <= row0 + i0;
 }
 
+// The partial samebits a words split's finish sums (samebits_finish,
+// coreacc_chain): 1 to MAX_WORDS_SLOTS int32 arrays of one shape, their
+// pointers passed by value (dist/samebits_kernels.py's MAX_WORDS_SLOTS).
+constexpr int MAX_WORDS_SLOTS = 8;
+
+struct WordsParts {
+  const int* p[MAX_WORDS_SLOTS];
+  int n;
+};
+
 }  // namespace stpu

@@ -16,10 +16,10 @@ Two entry points launch the one kernel (one launch count, coreacc.launches):
   share no sign of the index is not a candidate.
 
 coreacc_chain() launches the second kernel of csrc/coreacc.cu: K2's chain
-on a stack of whole per-k samebits counts, which a words split of the
-sketch sums from its slots' partials (coreacc_jax.coreacc_tile after its
-psum). It shares K2's chain code, so its (core, acc) are K2's bit for bit;
-its twin coreacc_chain_ref is the second half of coreacc_ref.
+on the sum of the words slots' per-k partial samebits, taken as the slabs
+stand (coreacc_jax.coreacc_tile after its psum). It shares K2's chain
+code, so its (core, acc) are K2's bit for bit; its twin coreacc_chain_ref
+is the second half of coreacc_ref.
 """
 
 from __future__ import annotations
@@ -34,7 +34,13 @@ from .. import _build
 from ..constants import BBITS
 from .knn_kernels import (_NO_SIG, COLMASK64, SignMask, pack_keys,
                           scalar_divisors)
-from .samebits_kernels import _check_words, _tri_mask_, samebits_ref
+from .samebits_kernels import (
+    _check_words,
+    _tri_mask_,
+    check_parts,
+    samebits_stack_ref,
+    sum_parts_ref,
+)
 
 MAX_NK = 255  # k values per launch: the kernel's by-value k table
 _MAX_TILES = (1 << 31) - 1  # one-dimensional grid of 64 x 64 pair tiles
@@ -56,11 +62,13 @@ def k_centre(kmers) -> float:
     return float(kmers[len(kmers) // 2])
 
 
-def coreacc_chain_ref(sb: torch.Tensor, kmers, sketch_size: int, s64: int,
+def coreacc_chain_ref(sb, kmers, sketch_size: int, s64: int,
                       c1=None, c2=None, cutoff: float = 0.64
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of coreacc_chain(): (core, acc) f32 (na, nb) of
-    the int32 (nk, na, nb) samebits stack sb of a sketch of s64 chunks."""
+    the sum of sb, int32 (nk, na, nb) samebits slabs (a tensor, or a
+    sequence of them) of a sketch of s64 chunks."""
+    sb = sum_parts_ref(_chain_slabs(sb, len(kmers)))
     maxnbits, expected, tolerance = chain_constants(s64, sketch_size)
     shape = tuple(sb.shape[1:])
     dev = sb.device
@@ -112,13 +120,6 @@ def coreacc_chain_ref(sb: torch.Tensor, kmers, sketch_size: int, s64: int,
     core = torch.where(bad, one, core)
     acc = torch.where(bad, one, acc)
     return core, acc
-
-
-def samebits_stack_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The int32 (nk, na, nb) samebits of each k-plane of a (na, nk, W)
-    and b (nb, nk, W)."""
-    return torch.stack([samebits_ref(a[:, ki], b[:, ki])
-                        for ki in range(a.shape[1])])
 
 
 def coreacc_ref(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
@@ -253,46 +254,58 @@ def coreacc_keys(a: torch.Tensor, b: torch.Tensor, kmers, sketch_size: int,
     return out
 
 
-def coreacc_chain(sb: torch.Tensor, kmers, sketch_size: int, s64: int,
-                  c1=None, c2=None, cutoff: float = 0.64
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(core, acc) f32 (na, nb) from sb, the int32 (nk, na, nb) stack of
-    whole samebits counts of a sketch of s64 chunks at each k (ascending):
-    K2's chain and fit, with c1 (na,) / c2 (nb,) f32 completeness applied
-    after the sum where c1*c2 >= cutoff. CUDA tensors launch the chain
-    kernel (at most MAX_NK k values), CPU tensors run the twin."""
+def _chain_slabs(sb, nk: int) -> list[torch.Tensor]:
+    """sb (a tensor, or a sequence of them) as the list of its int32 (nk,
+    na, nb) slabs."""
+    slabs = check_parts(sb, f"coreacc_chain: sb must be int32 ({nk}, na, nb) "
+                        f"stacks")
+    if slabs[0].dim() != 3 or slabs[0].shape[0] != nk:
+        raise ValueError(f"coreacc_chain: sb must be int32 ({nk}, na, nb) "
+                         f"stacks, got {tuple(slabs[0].shape)}")
+    return slabs
+
+
+def coreacc_chain(sb, kmers, sketch_size: int, s64: int, c1=None, c2=None,
+                  cutoff: float = 0.64) -> tuple[torch.Tensor, torch.Tensor]:
+    """(core, acc) f32 (na, nb) from sb, the int32 (nk, na, nb) partial
+    samebits slabs of a words split's slots (a tensor, or a sequence of 1
+    to MAX_WORDS_SLOTS of them, taken as they stand), whose sum is the
+    whole samebits count of a sketch of s64 chunks at each k (ascending):
+    K2's chain and fit on the sums, with c1 (na,) / c2 (nb,) f32
+    completeness applied after the sum where c1*c2 >= cutoff. No summed
+    slab is made. CUDA tensors launch the chain kernel (at most MAX_NK k
+    values), CPU tensors run the twin."""
     nk = len(kmers)
-    if (sb.dtype != torch.int32 or sb.dim() != 3 or sb.shape[0] != nk
-            or not sb.is_contiguous()):
-        raise ValueError(f"sb must be a contiguous int32 ({nk}, na, nb) "
-                         f"stack, got {sb.dtype} {tuple(sb.shape)}")
+    slabs = _chain_slabs(sb, nk)
     if nk < 1 or list(kmers) != sorted(kmers):
         raise ValueError("kmers must be ascending")
     if (c1 is None) != (c2 is None):
         raise ValueError("pass both c1 and c2, or neither")
+    dev, (_, na, nb) = slabs[0].device, slabs[0].shape
     if c1 is not None:
-        for name, c, m in (("c1", c1, sb.shape[1]), ("c2", c2, sb.shape[2])):
+        for name, c, m in (("c1", c1, na), ("c2", c2, nb)):
             if (c.dtype != torch.float32 or c.shape != (m,)
-                    or c.device != sb.device or not c.is_contiguous()):
+                    or c.device != dev or not c.is_contiguous()):
                 raise ValueError(f"{name} must be contiguous f32 ({m},)")
-    if sb.device.type == "cpu":
-        return coreacc_chain_ref(sb, kmers, sketch_size, s64, c1, c2, cutoff)
-    if sb.device.type != "cuda":
-        raise ValueError(f"unsupported device {sb.device}")
+    if dev.type == "cpu":
+        return coreacc_chain_ref(slabs, kmers, sketch_size, s64, c1, c2,
+                                 cutoff)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if nk > MAX_NK:
         raise ValueError(f"coreacc_chain: {nk} k values exceed the kernel's "
                          f"limit of {MAX_NK} (MAX_NK in csrc/coreacc.cu)")
-    na, nb = sb.shape[1:]
     if -(-na * nb // _CHAIN_NT) > _MAX_TILES:
         raise ValueError(f"coreacc_chain: {na} x {nb} pairs exceed one launch")
-    core = torch.empty((na, nb), dtype=torch.float32, device=sb.device)
+    core = torch.empty((na, nb), dtype=torch.float32, device=dev)
     acc = torch.empty_like(core)
     if core.numel() == 0:
         return core, acc
     maxnbits, expected, tolerance = chain_constants(s64, sketch_size)
+    ptrs = (ctypes.c_void_p * len(slabs))(*[t.data_ptr() for t in slabs])
     _build.launch(
-        sb.device, "stpu_coreacc_chain",
-        sb.data_ptr(), na, nb, nk, _k_table(tuple(kmers)),
+        dev, "stpu_coreacc_chain",
+        ptrs, len(slabs), na, nb, nk, _k_table(tuple(kmers)),
         c1.data_ptr() if c1 is not None else None,
         c2.data_ptr() if c2 is not None else None,
         cutoff, expected, maxnbits, maxnbits - expected, tolerance,

@@ -1,17 +1,21 @@
 """K1, exact samebits: the CUDA kernel csrc/samebits.cu and its plain
-PyTorch twin; K4 (samebits_full), and samebits_dist, K4 with an f32
-distance epilogue.
+PyTorch twin; K4 (samebits_full, and samebits_stack: K4 at every k-plane
+in one launch); samebits_dist, K4 with an f32 distance epilogue; and
+samebits_finish, the finish of a words split (the slots' partial counts
+summed, as int32 or as f32 distances).
 
 Replaces sketchtpu/dist/pallas_kernels.py::samebits_strip_fused and
 samebits_pallas, and gives sketchtpu/dist/jaccard_jax.py's
-jaccard_dist_block (an XLA program) its kernel. Sketch words stay in the
-.skd order ([row][chunk][plane], u64 bit patterns held in int64 tensors)
-with no TPU relayout: the kernel reads rows through their stride, so a
-k-plane of a (n, nk, W) database tensor, or a range of its chunks, is used
-in place.
+jaccard_dist_block and sharded_dist_step's tile after its psum (XLA
+programs) their kernels. Sketch words stay in the .skd order
+([row][chunk][plane], u64 bit patterns held in int64 tensors) with no TPU
+relayout: the kernel reads rows through their stride, so a k-plane of a
+(n, nk, W) database tensor, or a range of its chunks, is used in place.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -20,6 +24,9 @@ from .. import _build
 from ..constants import BBITS
 
 INT16_MAX_BINS = 32767
+# partial samebits a words split's finish sums (samebits_finish,
+# coreacc_chain): the kernels' MAX_WORDS_SLOTS in csrc/tile.cuh
+MAX_WORDS_SLOTS = 8
 # twin working set: elements of one broadcast (rows, cols, s64) temporary
 _REF_ELEMS = 1 << 24
 
@@ -186,21 +193,59 @@ def _launch_samebits(a, b, out_dtype, tri, row0) -> torch.Tensor:
     return out
 
 
+def samebits_stack_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of samebits_stack(): the int32 (nk, na, nb)
+    samebits of each k-plane of a (na, nk, W) and b (nb, nk, W)."""
+    return torch.stack([samebits_ref(a[:, ki], b[:, ki])
+                        for ki in range(a.shape[1])])
+
+
+def samebits_stack(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4 at every k-plane in one launch: the int32 (nk, na, nb) samebits
+    of a (na, nk, W) and b (nb, nk, W), each plane written in place in the
+    slab (a words slot's partials for coreacc_chain). Rows and k-planes are
+    read through their strides (each (row, k) run of W words contiguous),
+    so a range of a database tensor's chunks is used as it stands. CUDA
+    tensors launch the kernel, CPU tensors run the twin."""
+    _check_words("a", a, 3)
+    _check_words("b", b, 3)
+    if a.shape[1:] != b.shape[1:] or a.device != b.device:
+        raise ValueError("a and b need the same (nk, W) and device")
+    if a.device.type == "cpu":
+        return samebits_stack_ref(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    (na, nk, w), nb = a.shape, b.shape[0]
+    if nk > 65535:
+        raise ValueError(f"samebits_stack: {nk} k-planes exceed one launch")
+    out = torch.empty((nk, na, nb), dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
+    _build.launch(
+        a.device, "stpu_samebits_planes",
+        a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(), b.stride(0),
+        b.stride(1), out.data_ptr(), na, nb, w // BBITS, nk,
+        what="samebits_stack",
+    )
+    samebits_stack.launches += 1
+    return out
+
+
+samebits_stack.launches = 0
+
+
 def dist_constants(s64: int) -> tuple[float, float]:
     """(maxnbits, expected) of the whole sketch's Jaccard bias correction."""
     return float(s64 * 64), float(int(s64 * 64) >> BBITS)
 
 
-def samebits_dist_ref(a: torch.Tensor, b: torch.Tensor, s64: int,
-                      k: float = 0.0, ani: bool = False,
-                      base: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch twin of samebits_dist(), op for op
-    (jaccard_jax.jaccard_dist_block's chain)."""
-    sb = samebits_ref(a, b)
-    if base is not None:
-        sb = sb + base
+def dist_from_samebits_ref(sb: torch.Tensor, s64: int, k: float = 0.0,
+                           ani: bool = False) -> torch.Tensor:
+    """The f32 distances of whole-sketch samebits counts sb (int32), op
+    for op as the kernels' dist_value (jaccard_jax.jaccard_dist_block's
+    chain)."""
     maxnbits, expected = dist_constants(s64)
-    denom, mnb = scalar_divisors(a.device, maxnbits - expected, maxnbits)
+    denom, mnb = scalar_divisors(sb.device, maxnbits - expected, maxnbits)
     diff = torch.clamp_min(sb.to(torch.float32) - expected, 0.0)
     j = (diff * maxnbits / denom) / mnb
     if not ani:
@@ -209,15 +254,18 @@ def samebits_dist_ref(a: torch.Tensor, b: torch.Tensor, s64: int,
                            0.0)
 
 
+def samebits_dist_ref(a: torch.Tensor, b: torch.Tensor, s64: int,
+                      k: float = 0.0, ani: bool = False) -> torch.Tensor:
+    """Plain PyTorch twin of samebits_dist()."""
+    return dist_from_samebits_ref(samebits_ref(a, b), s64, k, ani)
+
+
 def samebits_dist(a: torch.Tensor, b: torch.Tensor, s64: int,
-                  k: float = 0.0, ani: bool = False,
-                  base: torch.Tensor | None = None) -> torch.Tensor:
+                  k: float = 0.0, ani: bool = False) -> torch.Tensor:
     """(na, nb) f32 distances from the samebits of a (na, W) and b (nb, W):
     1 - j, or with ani the ANI max(0, 1 + (1/k) ln(2j / (1 + j))), where j
-    is the bias-corrected Jaccard of a sketch of s64 chunks. The rows may
-    hold only a range of the sketch's chunks (W <= s64 * BBITS): base, int32
-    (na, nb), adds the other chunks' samebits first (a words split's summed
-    partials). The constants come from s64, not from W. CUDA tensors launch
+    is the bias-corrected Jaccard of a sketch of s64 chunks (W <= s64 *
+    BBITS; the constants come from s64, not from W). CUDA tensors launch
     K4 with its distance epilogue, CPU tensors run the twin."""
     _check_words("a", a, 2)
     _check_words("b", b, 2)
@@ -227,13 +275,8 @@ def samebits_dist(a: torch.Tensor, b: torch.Tensor, s64: int,
         raise ValueError(f"rows of {a.shape[1] // BBITS} chunks exceed the "
                          f"sketch's s64 = {s64}")
     shape = (a.shape[0], b.shape[0])
-    if base is not None and (base.dtype != torch.int32 or base.shape != shape
-                             or base.device != a.device
-                             or base.stride(-1) != 1):
-        raise ValueError(f"base must be int32 {shape} with contiguous rows "
-                         f"on {a.device}")
     if a.device.type == "cpu":
-        return samebits_dist_ref(a, b, s64, k, ani, base)
+        return samebits_dist_ref(a, b, s64, k, ani)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     if 0 in shape:
@@ -245,8 +288,6 @@ def samebits_dist(a: torch.Tensor, b: torch.Tensor, s64: int,
         a.device, "stpu_samebits_dist",
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         out.data_ptr(), shape[1], shape[0], shape[1], a.shape[1] // BBITS,
-        base.data_ptr() if base is not None else None,
-        base.stride(0) if base is not None else 0,
         expected, maxnbits, maxnbits - expected, inv_k, int(ani),
         what="samebits_dist",
     )
@@ -255,3 +296,69 @@ def samebits_dist(a: torch.Tensor, b: torch.Tensor, s64: int,
 
 
 samebits_dist.launches = 0
+
+
+def check_parts(parts, what: str) -> list[torch.Tensor]:
+    """The partial samebits of a words split's slots as a list: 1 to
+    MAX_WORDS_SLOTS contiguous int32 tensors of one shape on one device."""
+    parts = [parts] if isinstance(parts, torch.Tensor) else list(parts)
+    if not 1 <= len(parts) <= MAX_WORDS_SLOTS:
+        raise ValueError(f"{what}: {len(parts)} partials; a finish sums 1 to "
+                         f"{MAX_WORDS_SLOTS} (MAX_WORDS_SLOTS)")
+    first = parts[0]
+    for p in parts:
+        if (p.dtype != torch.int32 or p.shape != first.shape
+                or p.device != first.device or not p.is_contiguous()):
+            raise ValueError(f"{what}: partials must be contiguous int32 "
+                             f"tensors of one shape on one device, got "
+                             f"{p.dtype} {tuple(p.shape)} on {p.device}")
+    return parts
+
+
+def sum_parts_ref(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The int32 sum of the partials (a new tensor; exact)."""
+    sb = parts[0].clone()
+    for p in parts[1:]:
+        sb += p
+    return sb
+
+
+def samebits_finish_ref(parts, s64: int | None = None, k: float = 0.0,
+                        ani: bool = False) -> torch.Tensor:
+    """Plain PyTorch twin of samebits_finish()."""
+    sb = sum_parts_ref(check_parts(parts, "samebits_finish"))
+    return sb if s64 is None else dist_from_samebits_ref(sb, s64, k, ani)
+
+
+def samebits_finish(parts, s64: int | None = None, k: float = 0.0,
+                    ani: bool = False) -> torch.Tensor:
+    """The finish of a words split: the sum of `parts`, the slots' partial
+    samebits (1 to MAX_WORDS_SLOTS contiguous int32 tensors of one shape
+    on one device, the lead's own and the received ones as they stand), as
+    int32 (s64 None), or as the f32 distances of a sketch of s64 chunks: 1
+    - j, or with ani the ANI at k, samebits_dist's values of the whole
+    sketch bit for bit. CUDA tensors launch the finish kernel, CPU tensors
+    run the twin."""
+    parts = check_parts(parts, "samebits_finish")
+    dev = parts[0].device
+    if dev.type == "cpu":
+        return samebits_finish_ref(parts, s64, k, ani)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    dtype = torch.int32 if s64 is None else torch.float32
+    out = torch.empty(parts[0].shape, dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    maxnbits, expected = dist_constants(s64 or 1)
+    ptrs = (ctypes.c_void_p * len(parts))(*[p.data_ptr() for p in parts])
+    _build.launch(
+        dev, "stpu_samebits_finish", ptrs, len(parts), out.numel(),
+        out.data_ptr(), int(s64 is not None), expected, maxnbits,
+        maxnbits - expected, 1.0 / k if ani else 0.0, int(ani),
+        what="samebits_finish",
+    )
+    samebits_finish.launches += 1
+    return out
+
+
+samebits_finish.launches = 0

@@ -160,6 +160,12 @@ class MultiSketch:
             f"{file_prefix}.skd", read_indices, self.sample_stride
         )
 
+    def get_sketch_slice(self, sketch_idx: int, k_idx: int) -> np.ndarray:
+        """The usigs (kmer_stride u64 words) of loaded sample sketch_idx at
+        k index k_idx, a view of the loaded bins."""
+        start = sketch_idx * self.sample_stride + k_idx * self.kmer_stride
+        return self.sketch_bins[start : start + self.kmer_stride]
+
     def bins_matrix(self, k_idx: int) -> np.ndarray:
         """All loaded samples' usigs at one k as a (n, kmer_stride) matrix."""
         n = self.number_samples_loaded()
@@ -167,6 +173,11 @@ class MultiSketch:
         return mat[:, k_idx * self.kmer_stride : (k_idx + 1) * self.kmer_stride]
 
     # --- compat / lifecycle (multisketch.rs:222-348) ---
+
+    def is_compatible_with(self, other: "MultiSketch") -> bool:
+        """Whether the two databases can merge: the same k-mer lengths,
+        sketch size and hash type."""
+        return not self.incompatibilities(other)
 
     def incompatibilities(self, other: "MultiSketch") -> list[str]:
         """Human-readable list of the properties that differ (the checks of

@@ -18,16 +18,23 @@ bit.
 The words axis (the JAX package's psum over 'words'): the sketch's s64
 64-bin chunks split into n_words contiguous ranges, and word slot w holds
 only range w of every operand (only that slice is uploaded: on distinct
-GPUs, holding a share of each sketch is the axis's point). Each slot
-computes its partial samebits with K4 (samebits_full) in place; the
-partials go to the row block's lead slot (words slot 0), which sums them
-and finishes: samebits_dist with the sum as its base (the f32
-distances), or coreacc_chain (K2's regression chain on the summed per-k
-samebits). The counts are exact, so a split result equals the unsplit one
-bit for bit. A partial made on another GPU is copied after an event
-recorded on its producer's stream. A sketch whose chunks do not split
-evenly over the words slots is refused, as the JAX mesh cannot shard it
-either.
+GPUs, holding a share of each sketch is the axis's point). Every slot of
+a row block, its lead (words slot 0) too, computes its partial samebits
+with K4 (samebits_full, or samebits_stack for every k in one launch) on a
+stream of its own; the lead enqueues its own partial before it waits for
+anything, receives the others on its receive stream (a partial made on
+another GPU is copied on a stream of that GPU after an event recorded on
+its producer's stream) and finishes once they are in: samebits_finish
+(the sum as int32, or the f32 distances) or coreacc_chain (K2's
+regression chain on the per-k sums), each taking the partials as they
+stand. A slot's share of an operand held on another GPU is moved by the
+copy engines (one 2-D memcpy on a stream of the slot's GPU, after
+events the step records on the streams of every GPU its operands are
+on), so it does not queue behind the other GPU's compute. The counts are
+exact, so a split result equals the unsplit one bit for bit. A sketch
+whose chunks do not split evenly over the words slots is refused, as the
+JAX mesh cannot shard it either. mesh.timeline() records each slot's
+spans (set-up copies, partial, transfers, finish) by CUDA events.
 
 No CLI flag, environment variable or runtime selection reaches the words
 axis: the runtime passes the engines a list of devices. make_mesh, the
@@ -39,12 +46,14 @@ steps refuse words != 1, as the JAX ones do.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .._transfer import HostCopy
+from .._transfer import HostCopy, copy_pitched, pitch_of
 from ..constants import BBITS
 from ..dist.coreacc_kernels import coreacc, coreacc_chain
 from ..dist.coreacc_torch import (
@@ -64,7 +73,9 @@ from ..dist.knn_torch import (
 from ..dist.output import emit_coreacc_cross_block, emit_coreacc_self_block
 from ..dist.samebits_kernels import (
     samebits_dist,
+    samebits_finish,
     samebits_full,
+    samebits_stack,
     to_device_words,
     words_to_device,
 )
@@ -78,7 +89,7 @@ class Mesh:
     mesh reports it."""
 
     def __init__(self, grid):
-        self.grid = [[torch.device(d) for d in row] for row in grid]
+        self.grid = [[_resolved(d) for d in row] for row in grid]
         if not self.grid or not self.grid[0] or any(
                 len(row) != len(self.grid[0]) for row in self.grid):
             raise ValueError("a mesh needs a non-empty rectangular grid of "
@@ -92,6 +103,15 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.grid})"
+
+
+def _resolved(device) -> torch.device:
+    """A device with its index: "cuda" is the current CUDA device, so that
+    slots compare equal to the devices their tensors report."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def make_mesh(n_rows: int | None = None, n_words: int = 1,
@@ -163,10 +183,14 @@ class DeviceSlots:
     """The device slots of an engine or a step over a Mesh: one
     single-device engine per distinct (device, words slot), made by
     make(device, w), and a thread for each slot that runs its work with
-    its device current."""
+    its device current. `sources` are the devices of the operands the
+    slots read (a GPU outside the grid too): the slots' work on every GPU,
+    and the copies of shares from it, comes after what the caller queued
+    there before."""
 
-    def __init__(self, devices, make):
+    def __init__(self, devices, make, sources=()):
         self.mesh = as_mesh(devices)
+        self.sources = list(sources)
         grid = self.mesh.grid
         self.rows, self.words = self.mesh.shape["rows"], self.mesh.shape["words"]
         self._pool = ThreadPoolExecutor(max_workers=self.rows * self.words,
@@ -174,7 +198,9 @@ class DeviceSlots:
         # the engines are made (their data uploaded) at once
         keys = list(dict.fromkeys((d, w) for row in grid
                                   for w, d in enumerate(row)))
-        made = [self._pool.submit(_on, d, make, d, w) for d, w in keys]
+        after = _marks([d for d, _ in keys] + self.sources)
+        made = [self._pool.submit(_on, d, make, d, w, slot=f"w{w}",
+                                  after=after) for d, w in keys]
         self.engines = dict(zip(keys, [f.result() for f in _wait_all(made)]))
 
     def __len__(self) -> int:
@@ -183,13 +209,16 @@ class DeviceSlots:
     def distinct_devices(self) -> list[torch.device]:
         return list(dict.fromkeys(d for d, _ in self.engines))
 
-    def submit(self, slot, fn, *args):
+    def submit(self, slot, fn, *args, after=None, own=False):
         """A future of fn(engine of the slot, *args), run on the slot's
         thread with its device current; slot is (row, words slot), or a row
-        (its lead slot)."""
+        (its lead slot). On the slot's own stream of the device (own) or on
+        the device's current stream, which first waits for the events
+        `after`."""
         r, w = slot if isinstance(slot, tuple) else (slot, 0)
         dev = self.mesh.grid[r][w]
-        return self._pool.submit(_on, dev, fn, self.engines[(dev, w)], *args)
+        return self._pool.submit(_on, dev, fn, self.engines[(dev, w)], *args,
+                                 slot=f"r{r}w{w}", after=after, own=own)
 
     def map(self, fn, items) -> list:
         """[fn(engine, item) on row slot i for the i-th item], run at once;
@@ -199,32 +228,81 @@ class DeviceSlots:
 
     def split_words(self, lo: int, hi: int, partial, finish) -> list:
         """Futures, one a row block of [lo, hi) in order, of finish(lead
-        engine, rows, base) on the block's lead slot, where base is the sum
-        on the lead's device of partial(engine, rows) (a tensor) of the
-        block's other words slots, or None on a rows-only grid. Each
-        lead is submitted after the partials it waits for, so the lead
-        threads never hold up a partial."""
+        engine, rows, parts) on the block's lead slot. On a rows-only grid
+        parts is None. With words slots, every slot of the block, the lead
+        too, runs partial(engine, rows) (a tensor) on a stream of its own,
+        and parts holds them on the lead's device, its own first: the lead
+        enqueues its own partial before it waits for anything, receives
+        the others on its receive stream (a partial of another GPU copied
+        on a stream of that GPU after its producer's event), and only the
+        finish waits for them. Each lead is submitted after the partials
+        it waits for, so the lead threads never hold up a partial."""
+        after = _marks(self.distinct_devices() + self.sources)
+        if self.words == 1:
+            return [self.submit(r, _whole, finish, rows, after=after)
+                    for r, rows in enumerate(split_rows(lo, hi, self.rows))]
         futures = []
         for r, rows in enumerate(split_rows(lo, hi, self.rows)):
-            parts = [self.submit((r, w), _produce, partial, rows)
+            parts = [(f"r{r}w{w}", self.submit((r, w), _produce, partial,
+                                               rows, after=after, own=True))
                      for w in range(1, self.words)]
-            futures.append(self.submit((r, 0), _finish, finish, rows, parts))
+            futures.append(self.submit((r, 0), _finish, partial, finish, rows,
+                                       parts, after=after, own=True))
         return futures
 
     def close(self) -> None:
         self._pool.shutdown(wait=True)
 
 
+def _whole(eng, finish, rows):
+    with _span("finish", eng.device):
+        return finish(eng, rows, None)
+
+
 def _produce(eng, partial, rows):
-    return _ready(partial(eng, rows))
+    with _span("partial", eng.device):
+        out = partial(eng, rows)
+    return _ready(out)
 
 
-def _finish(eng, finish, rows, parts):
-    base = None
-    for f in _wait_all(parts):
-        (part,) = _fetch(f.result(), eng.device)
-        base = part if base is None else base + part
-    return finish(eng, rows, base)
+def _finish(eng, partial, finish, rows, parts):
+    """The lead's work: its own partial first, then the others received
+    (parts: (slot, future of a _ready() item)), then the finish, which
+    alone waits for them."""
+    dev = eng.device
+    with _span("partial", dev):
+        got = [partial(eng, rows)]
+    recv = _side(dev, f"recv {_this.slot}") if dev.type == "cuda" else None
+    for slot, f in parts:
+        got.append(_receive(f.result(), dev, recv, slot))
+    if recv is not None:
+        compute = torch.cuda.current_stream(dev)
+        compute.wait_stream(recv)
+        for t in got[1:]:
+            t.record_stream(compute)
+    with _span("finish", dev):
+        return finish(eng, rows, got)
+
+
+def _receive(item, device: torch.device, recv, slot: str) -> torch.Tensor:
+    """A partial of `slot` (a _ready() item) on the lead's `device`: from
+    the same device as it stands, the receive stream `recv` waiting for its
+    producer's event; from another GPU copied on a stream of that GPU after
+    the event, into memory of the receive stream. recv is None for the
+    CPU."""
+    (t,), done = item
+    if recv is None:
+        return t
+    if t.device == device:
+        recv.wait_event(done)
+        return t
+    send = _side(t.device, f"from {slot}")
+    send.wait_event(done)
+    with _span("transfer", t.device, send, slot), torch.cuda.stream(send), \
+            torch.cuda.stream(recv):
+        local = t.to(device)
+    t.record_stream(send)
+    return local
 
 
 def _ready(*ts: torch.Tensor):
@@ -241,10 +319,14 @@ def _ready(*ts: torch.Tensor):
 def _fetch(item, device: torch.device) -> tuple:
     """The tensors of a _ready() item on `device`: the reading stream (a
     copy's, which torch runs on the source device's current stream) waits
-    for the producer's event first."""
+    for the producer's event first, and the memory is not reused before
+    it has read."""
     ts, done = item
     if done is not None:
-        torch.cuda.current_stream(ts[0].device).wait_event(done)
+        reader = torch.cuda.current_stream(ts[0].device)
+        reader.wait_event(done)
+        for t in ts:
+            t.record_stream(reader)
     return tuple(t if t.device == device else t.to(device) for t in ts)
 
 
@@ -255,13 +337,162 @@ def _join(futures, device: torch.device) -> tuple:
     return tuple(torch.cat(parts) for parts in zip(*blocks))
 
 
-def _on(device: torch.device, fn, *args):
+def _marks(devices) -> list:
+    """Events on the calling thread's current stream of each CUDA device
+    (and on its default stream, where the slots' engines were made): work
+    that waits for them comes after everything queued there so far."""
+    marks = []
+    for d in dict.fromkeys(devices):
+        if d.type != "cuda":
+            continue
+        cur, default = torch.cuda.current_stream(d), torch.cuda.default_stream(d)
+        for stream in (cur,) if cur == default else (cur, default):
+            marks.append(torch.cuda.Event())
+            marks[-1].record(stream)
+    return marks
+
+
+_streams: dict = {}
+_streams_lock = threading.Lock()
+
+
+def _side(device: torch.device, name: str):
+    """The stream `name` of `device` (made once and kept), made to wait
+    first for the events this thread's task runs after."""
+    with _streams_lock:
+        stream = _streams.get((device.index, name))
+        if stream is None:
+            stream = torch.cuda.Stream(device=device)
+            _streams[(device.index, name)] = stream
+    return _wait(stream)
+
+
+def _wait(stream):
+    """`stream`, made to wait for the events this thread's task runs
+    after."""
+    for mark in _this.after:
+        stream.wait_event(mark)
+    return stream
+
+
+def _to(x: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
+    """x on `device`. From another GPU, x (a slot's share of an operand:
+    rows of words at a pitch) is copied by the copy engines in one 2-D
+    memcpy (copy_pitched) on a stream of `device` for this slot, after the
+    work queued before the slot's task (on x's GPU too: the step marks the
+    operands' devices); no kernel runs on either GPU, so the copy does not
+    wait behind x's GPU's compute. An x at no one pitch is first made
+    contiguous on x's GPU, and the copy waits for that. The current stream
+    of `device` waits for the copy."""
+    if x.device == device or "cpu" in (x.device.type, device.type):
+        return x.to(device)
+    gathered = None
+    if pitch_of(x) is None:
+        src = _wait(torch.cuda.current_stream(x.device))
+        x = x.contiguous()
+        gathered = torch.cuda.Event()
+        gathered.record(src)
+    side = _side(device, f"to {_this.slot}")
+    if gathered is not None:
+        side.wait_event(gathered)
+    with _span(what, device, side), torch.cuda.stream(side):
+        out = copy_pitched(x, device)
+    x.record_stream(side)
+    current = torch.cuda.current_stream(device)
+    current.wait_stream(side)
+    out.record_stream(current)
+    return out
+
+
+def _on(device: torch.device, fn, *args, slot: str = "", after=None,
+        own: bool = False):
     """fn(*args) with `device` current (a CUDA device; nothing to do for
-    the CPU)."""
+    the CPU), as the work of `slot` (the name a Timeline gives its spans),
+    after the events `after`: on the slot's own stream of the device (own)
+    or on its current stream."""
+    _this.slot, _this.after = slot, after or []
     if device.type != "cuda":
         return fn(*args)
     with torch.cuda.device(device):
-        return fn(*args)
+        if not own:
+            _wait(torch.cuda.current_stream(device))
+            return fn(*args)
+        with torch.cuda.stream(_side(device, f"slot {slot}")):
+            return fn(*args)
+
+
+class _Task(threading.local):
+    """The slot whose work this thread runs, and the events it runs
+    after."""
+    slot = ""
+    after = ()
+
+
+_this = _Task()
+_timeline = None  # the Timeline being recorded, or None
+
+
+class Timeline:
+    """The spans of words steps on the card, by CUDA events: the set-up
+    copy of a slot's share of each operand, its partial, each partial's
+    transfer to its lead, the lead's finish. Each span is timed on the
+    stream of its slot's device that runs it, from an origin event
+    recorded on every GPU at the start, so the spans of distinct GPUs
+    share one time axis (to the microseconds between those records)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._origin = {}
+        self._spans = []
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+            self._origin[i] = torch.cuda.Event(enable_timing=True)
+            self._origin[i].record(torch.cuda.current_stream(i))
+
+    def add(self, slot: str, what: str, stream, start, end) -> None:
+        with self._lock:
+            self._spans.append((slot, what, stream, start, end))
+
+    def read(self) -> list[dict]:
+        """Every span as {slot, what, device, stream (its handle),
+        start_ms, end_ms}, in the order they were enqueued (waits for every
+        GPU)."""
+        for i in self._origin:
+            torch.cuda.synchronize(i)
+        return [dict(slot=slot, what=what, device=str(st.device),
+                     stream=st.cuda_stream,
+                     start_ms=self._origin[st.device.index].elapsed_time(a),
+                     end_ms=self._origin[st.device.index].elapsed_time(b))
+                for slot, what, st, a, b in self._spans]
+
+
+@contextlib.contextmanager
+def timeline():
+    """Record the spans of the words steps run inside (a Timeline; one
+    at a time). Off, a span costs a global's None check."""
+    global _timeline
+    _timeline = Timeline()
+    try:
+        yield _timeline
+    finally:
+        _timeline = None
+
+
+@contextlib.contextmanager
+def _span(what: str, device: torch.device, stream=None, slot=None):
+    """Time the work enqueued inside on `stream` (default: the current
+    stream of `device`) as a span of `slot` (default: this thread's)."""
+    tl = _timeline
+    if tl is None or device.type != "cuda":
+        yield
+        return
+    stream = stream or torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    yield
+    end.record(stream)
+    tl.add(slot or _this.slot, what, stream, start, end)
 
 
 def _wait_all(futures):
@@ -292,12 +523,14 @@ def _join_rows(parts: list[SparseKnnRows]) -> SparseKnnRows:
                          np.concatenate([p.vals for p in parts]), valid)
 
 
-def _put(x, device, rows=slice(None), cols=slice(None)) -> torch.Tensor:
+def _put(x, device, rows: slice, cols: slice, what: str) -> torch.Tensor:
     """The rows `rows` and last-axis words `cols` of u64 sketch words x (a
-    numpy array, or an int64 tensor) on `device`: only that slice moves."""
+    numpy array, or an int64 tensor) on `device`: only that slice moves (a
+    tensor on the same device is used in place)."""
     if isinstance(x, torch.Tensor):
-        return x[rows][..., cols].to(device)
-    return words_to_device(np.asarray(x)[rows][..., cols], device)
+        return _to(x[rows][..., cols], device, what)
+    with _span(what, device):
+        return words_to_device(np.asarray(x)[rows][..., cols], device)
 
 
 def _vec(x, device, rows=slice(None)) -> torch.Tensor | None:
@@ -305,7 +538,8 @@ def _vec(x, device, rows=slice(None)) -> torch.Tensor | None:
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
-        return x[rows].to(device=device, dtype=torch.float32).contiguous()
+        return _to(x[rows], device, "setup c").to(
+            dtype=torch.float32).contiguous()
     return _f32(np.asarray(x)[rows], device)
 
 
@@ -322,25 +556,29 @@ class _Operands:
 
     def __init__(self, a, b, device, cols: slice, b_sig=None):
         self.a, self.cols, self.device = a, cols, device
-        self.b = _put(b, device, cols=cols)
+        self.b = _put(b, device, slice(None), cols, "setup b")
         self.b_sig = (pack_signs(b_sig, device) if b_sig is not None
                       else None)
 
     def rows(self, rows: slice) -> torch.Tensor:
-        return _put(self.a, self.device, rows, self.cols)
+        return _put(self.a, self.device, rows, self.cols, "setup a")
 
 
-def _step(a, b, s64: int, mesh, partial, finish, b_sig=None) -> tuple:
+def _step(a, b, s64: int, mesh, partial, finish, b_sig=None,
+          more=()) -> tuple:
     """The rows of a over the mesh's row blocks and the words of a and b
     over its words slots: finish at each lead (DeviceSlots.split_words),
-    the blocks joined on the grid's first slot."""
+    the blocks joined on the grid's first slot. `more`: the other operands
+    the finish reads (completeness values)."""
     mesh = as_mesh(mesh)
     ranges = word_ranges(s64, mesh.shape["words"])
     if a.shape[-1] != s64 * BBITS or b.shape[-1] != s64 * BBITS:
         raise ValueError(f"a and b need s64 * {BBITS} = {s64 * BBITS} words "
                          f"a row, got {a.shape[-1]} and {b.shape[-1]}")
+    sources = [x.device for x in (a, b, *more)
+               if isinstance(x, torch.Tensor)]
     slots = DeviceSlots(mesh, lambda d, w: _Operands(a, b, d, ranges[w],
-                                                     b_sig))
+                                                     b_sig), sources)
     try:
         return _join(slots.split_words(0, a.shape[0], partial, finish),
                      mesh.grid[0][0])
@@ -348,26 +586,20 @@ def _step(a, b, s64: int, mesh, partial, finish, b_sig=None) -> tuple:
         slots.close()
 
 
-def _samebits_stack(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K4's int32 (nk, na, nb) samebits of each k-plane of a (na, nk, W)
-    and b (nb, nk, W)."""
-    return torch.stack([samebits_full(a[:, ki], b[:, ki])
-                        for ki in range(a.shape[1])])
-
-
 def sharded_samebits(a, b, s64: int, mesh) -> torch.Tensor:
     """(na, nb) int32 samebits of the u64 sketch words a (na, W) and b
     (nb, W) (numpy arrays or int64 tensors in the .skd order, W = s64 *
     BBITS) over `mesh` (a Mesh, or a list of devices): the rows of a split
     over its rows, the chunks of both over its words slots, each slot's
-    K4 partial summed at its row block's lead. A tensor on the grid's
-    first slot, rows joined in order (the JAX _sharded_samebits)."""
+    K4 partial summed at its row block's lead by samebits_finish. A tensor
+    on the grid's first slot, rows joined in order (the JAX
+    _sharded_samebits)."""
     def partial(op, rows):
         return samebits_full(op.rows(rows), op.b)
 
-    def finish(op, rows, base):
-        sb = partial(op, rows)
-        return _ready(sb if base is None else sb + base)
+    def finish(op, rows, parts):
+        return _ready(partial(op, rows) if parts is None
+                      else samebits_finish(parts))
 
     return _step(a, b, s64, mesh, partial, finish)[0]
 
@@ -375,16 +607,19 @@ def sharded_samebits(a, b, s64: int, mesh) -> torch.Tensor:
 def sharded_dist_step(a, b, s64: int, mesh, k: float = 0.0,
                       ani: bool = False) -> torch.Tensor:
     """One sharded distance step, samebits to f32 distances, as
-    sharded_samebits lays it out: each row block's lead runs samebits_dist
-    on its own words range with the other words slots' summed partials as
-    its base, so the distances are jaccard_dist_block's bit for bit. (na,
-    nb) f32 1 - j, or with ani the ANI at k, on the grid's first slot."""
+    sharded_samebits lays it out: each words slot counts its range with
+    K4, and each row block's lead sums the counts and finishes
+    (samebits_finish), so the distances are jaccard_dist_block's bit for
+    bit; a rows-only grid runs samebits_dist on each row block. (na, nb)
+    f32 1 - j, or with ani the ANI at k, on the grid's first slot."""
     def partial(op, rows):
         return samebits_full(op.rows(rows), op.b)
 
-    def finish(op, rows, base):
-        return _ready(samebits_dist(op.rows(rows), op.b, s64, k=k, ani=ani,
-                                    base=base))
+    def finish(op, rows, parts):
+        if parts is None:
+            return _ready(samebits_dist(op.rows(rows), op.b, s64, k=k,
+                                        ani=ani))
+        return _ready(samebits_finish(parts, s64, k=k, ani=ani))
 
     return _step(a, b, s64, mesh, partial, finish)[0]
 
@@ -395,25 +630,27 @@ def sharded_coreacc_step(a_stack, b_stack, s64: int, mesh, kmers,
     """Multi-k core/accessory over `mesh`: a_stack (na, nk, W) and b_stack
     (nb, nk, W) u64 words (numpy or int64 tensors, the .skd order, k
     ascending). On a rows-only grid each row block runs K2; with words
-    slots each slot's per-k K4 partials are summed at the lead, which runs
-    coreacc_chain (K2's chain, bit for bit) with c1 (na,) / c2 (nb,) f32
-    completeness applied after the sum. (na, nb, 2) f32 (core, acc) on
-    the grid's first slot. The port's chain centres k (coreacc_kernels),
-    so values differ from the JAX step's within ~1e-5."""
+    slots each slot's per-k K4 partials (samebits_stack, one launch) go to
+    the lead, which runs coreacc_chain over them as they stand (K2's chain
+    on their sums, bit for bit) with c1 (na,) / c2 (nb,) f32 completeness
+    applied after the sum. (na, nb, 2) f32 (core, acc) on the grid's first
+    slot. The port's chain centres k (coreacc_kernels), so values differ
+    from the JAX step's within ~1e-5."""
     def partial(op, rows):
-        return _samebits_stack(op.rows(rows), op.b)
+        return samebits_stack(op.rows(rows), op.b)
 
-    def finish(op, rows, base):
+    def finish(op, rows, parts):
         v1, v2 = _vec(c1, op.device, rows), _vec(c2, op.device)
-        if base is None:
+        if parts is None:
             core, acc = coreacc(op.rows(rows), op.b, kmers, sketch_size, v1,
                                 v2, cutoff)
         else:
-            core, acc = coreacc_chain(partial(op, rows) + base, kmers,
-                                      sketch_size, s64, v1, v2, cutoff)
+            core, acc = coreacc_chain(parts, kmers, sketch_size, s64, v1, v2,
+                                      cutoff)
         return _ready(torch.stack([core, acc], dim=-1))
 
-    return _step(a_stack, b_stack, s64, mesh, partial, finish)[0]
+    return _step(a_stack, b_stack, s64, mesh, partial, finish,
+                 more=(c1, c2))[0]
 
 
 def _rows_only(mesh) -> Mesh:
@@ -449,7 +686,7 @@ def sharded_knn_step(a, b, s64: int, mesh, knn: int, n_real: int,
     c1, c2 = _host(c1), _host(c2)
     cols = _host(b_sig)[:n_real] if b_sig is not None else None
 
-    def finish(op, rows, base):
+    def finish(op, rows, parts):
         return _ready(*knn_scan_tensors(
             op.rows(rows), op.b, knn, exclude_self=exclude_self,
             comp_rows=c1[rows] if c1 is not None else None,
@@ -475,14 +712,15 @@ def sharded_knn_ca_step(a_stack, b_stack, s64: int, mesh, knn: int,
     _rows_only(mesh)
     cols = _host(b_sig)[:n_real] if b_sig is not None else None
 
-    def finish(op, rows, base):
+    def finish(op, rows, parts):
         return _ready(*scan_coreacc(
             op.rows(rows), op.b, kmers, sketch_size, knn, exclude_self,
             _vec(c1, op.device, rows),
             _vec(c2, op.device, slice(0, n_real)), cutoff,
             row_base + rows.start, _sign_mask(a_sig, rows, op)))
 
-    return _step(a_stack, b_stack[:n_real], s64, mesh, None, finish, cols)
+    return _step(a_stack, b_stack[:n_real], s64, mesh, None, finish, cols,
+                 (c1, c2))
 
 
 class ShardedSamebitsEngine:
@@ -549,17 +787,16 @@ class ShardedCoreAccEngine:
                cutoff: float) -> _JoinedCopy:
         """The (rows, cols, 2) core/accessory of the rows [r0, r1) against
         the words cols_of(share) of each words slot: per-k partials on
-        every slot, coreacc_chain of their sum at each row block's lead
-        with the completeness comp_of(share, rows) -> (c1, c2) or (None,
+        every slot, coreacc_chain over them at each row block's lead with
+        the completeness comp_of(share, rows) -> (c1, c2) or (None,
         None)."""
         def partial(share, rows):
-            return _samebits_stack(share.words[rows], cols_of(share))
+            return samebits_stack(share.words[rows], cols_of(share))
 
-        def finish(share, rows, base):
+        def finish(share, rows, parts):
             c1, c2 = comp_of(share, rows)
-            core, acc = coreacc_chain(partial(share, rows) + base,
-                                      self.kmers, self.sketch_size, self.s64,
-                                      c1, c2, cutoff)
+            core, acc = coreacc_chain(parts, self.kmers, self.sketch_size,
+                                      self.s64, c1, c2, cutoff)
             return HostCopy(torch.stack([core, acc], dim=-1))
 
         return _JoinedCopy(self.slots.split_words(r0, r1, partial, finish))

@@ -1462,22 +1462,32 @@ def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
                                        (1600, 1, 129), (1600, 97, 63)])
 @pytest.mark.parametrize("with_base", [False, True])
 def test_samebits_dist_kernel_matches_twin(cuda, s64, na, nb, with_base):
+    """samebits_dist (K4's f32 epilogue) against its twin; with_base, the
+    words split's finish pass (samebits_finish over two K4 partials, a
+    third of the chunks and the rest) against its twin and bit-equal to
+    the unsplit samebits_dist, in Jaccard and ANI."""
     from sketchtpu_torch.dist.jaccard_torch import jaccard_dist_block
     from sketchtpu_torch.dist.samebits_kernels import (
         samebits_dist,
         samebits_dist_ref,
+        samebits_finish,
+        samebits_finish_ref,
     )
 
     w = _words(max(na, nb), s64, 20 + s64, cuda)
     a, b = w[:na, 1], w[:nb, 1]  # samples i and j related when i = j mod 3
-    cut = s64 // 3 * 14 if with_base else a.shape[1]
-    base = samebits_full(a[:, cut:], b[:, cut:]) if with_base else None
+    cut = s64 // 3 * 14
+    parts = [samebits_full(a[:, :cut], b[:, :cut]),
+             samebits_full(a[:, cut:], b[:, cut:])]
     for ani in (False, True):
-        got = samebits_dist(a[:, :cut], b[:, :cut], s64, k=21.0, ani=ani,
-                            base=base)
-        torch.cuda.synchronize()
-        want = samebits_dist_ref(a[:, :cut], b[:, :cut], s64, k=21.0,
-                                 ani=ani, base=base)
+        if with_base:
+            got = samebits_finish(parts, s64, k=21.0, ani=ani)
+            torch.cuda.synchronize()
+            want = samebits_finish_ref(parts, s64, k=21.0, ani=ani)
+        else:
+            got = samebits_dist(a, b, s64, k=21.0, ani=ani)
+            torch.cuda.synchronize()
+            want = samebits_dist_ref(a, b, s64, k=21.0, ani=ani)
         if ani:
             assert _ulps(got, want) <= 2  # logf against torch's log
         else:
@@ -1491,15 +1501,65 @@ def test_samebits_dist_kernel_matches_twin(cuda, s64, na, nb, with_base):
     assert float(far) == 0.0
 
 
+# n = 1, a block's worth, ragged; 1 to 8 partials
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 70 * 130 + 3])
+@pytest.mark.parametrize("n_parts", [1, 2, 3, 8])
+def test_samebits_finish_count_mode_matches_twin(cuda, n, n_parts):
+    from sketchtpu_torch.dist.samebits_kernels import (
+        samebits_finish,
+        samebits_finish_ref,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(n * 10 + n_parts)
+    parts = [torch.randint(0, 1 << 20, (n,), generator=g, device=cuda,
+                           dtype=torch.int32) for _ in range(n_parts)]
+    got = samebits_finish(parts)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, samebits_finish_ref(parts))
+    assert torch.equal(got, torch.stack(parts).sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("s64,na,nb,nk", [(1, 1, 1, 1), (16, 70, 130, 7),
+                                          (625, 65, 33, 3), (16, 64, 64, 1),
+                                          (1600, 97, 63, 2)])
+def test_samebits_stack_kernel_equals_nk_launches(cuda, s64, na, nb, nk):
+    """K4 at every k-plane in one launch: bit-equal to nk samebits_full
+    launches and the twin, on whole words and on a range of chunks read in
+    place (plane and row strides of the full tensor)."""
+    from sketchtpu_torch.dist.samebits_kernels import (
+        samebits_stack,
+        samebits_stack_ref,
+    )
+
+    kmers = tuple(range(15, 15 + 2 * nk, 2))
+    w = _kwords(max(na, nb), kmers, s64, 60 + s64, cuda)
+    cut = max(1, s64 // 2) * 14
+    for r in (slice(None), slice(0, cut), slice(cut, None)):
+        a, b = w[:na, :, r], w[:nb, :, r]
+        if a.shape[-1] == 0:
+            continue
+        got = samebits_stack(a, b)
+        torch.cuda.synchronize()
+        want = torch.stack([samebits_full(a[:, ki], b[:, ki])
+                            for ki in range(nk)])
+        assert got.shape == (nk, na, nb) and torch.equal(got, want)
+        assert torch.equal(got, samebits_stack_ref(a, b))
+
+
 @pytest.mark.parametrize("nk", [2, 3, 4, 5, 6, 7])
 @pytest.mark.parametrize("with_comp", [False, True])
-def test_coreacc_chain_kernel_equals_k2(cuda, nk, with_comp):
-    """K2's chain on summed per-range samebits gives K2's (core, acc) bit
-    for bit, and its twin's."""
+@pytest.mark.parametrize("n_slabs", [1, 2, 4])
+def test_coreacc_chain_kernel_equals_k2(cuda, nk, with_comp, n_slabs):
+    """K2's chain over the partial samebits slabs of n_slabs word ranges
+    (one samebits_stack launch each, taken as they stand) gives K2's
+    (core, acc) bit for bit, and its twin's."""
     from sketchtpu_torch.dist.coreacc_kernels import (
         coreacc_chain,
         coreacc_chain_ref,
     )
+    from sketchtpu_torch.dist.samebits_kernels import samebits_stack
+    from sketchtpu_torch.shard.mesh import word_ranges
 
     kmers = tuple(range(15, 15 + 2 * nk, 2))
     w = _kwords(230, kmers, 16, 40 + nk, cuda)
@@ -1509,18 +1569,142 @@ def test_coreacc_chain_kernel_equals_k2(cuda, nk, with_comp):
         c = _comp(230, nk, cuda)
         c1, c2 = c[:97].contiguous(), c[60:230].contiguous()
     want = coreacc(a, b, kmers, 1024, c1, c2)
-    sb = sum(torch.stack([samebits_full(a[:, ki, r], b[:, ki, r])
-                          for ki in range(nk)])
-             for r in (slice(0, 5 * 14), slice(5 * 14, 16 * 14)))
-    got = coreacc_chain(sb, kmers, 1024, 16, c1, c2)
+    slabs = [samebits_stack(a[..., r], b[..., r])
+             for r in word_ranges(16, n_slabs)]
+    got = coreacc_chain(slabs, kmers, 1024, 16, c1, c2)
     torch.cuda.synchronize()
-    for g, x, t in zip(got, want, coreacc_chain_ref(sb, kmers, 1024, 16,
+    for g, x, t in zip(got, want, coreacc_chain_ref(slabs, kmers, 1024, 16,
                                                     c1, c2)):
         assert torch.equal(g, x) and torch.equal(g, t)
     if nk < 3:  # fewer than three k: the fit's n < 3 branch
         assert (got[0] == 1).all() and (got[1] == 1).all()
     else:
         assert ((want[0] > 0) & (want[0] < 1)).sum() > 0
+
+
+def test_copy_pitched_moves_a_slots_share(cuda):
+    """A words slot's share (a range of each sample's words at every k,
+    and of one k-plane) by one 2-D memcpy: equal to the view, on the card
+    and, where a host has two GPUs, onto the other."""
+    from sketchtpu_torch._transfer import copy_pitched
+
+    w = _kwords(200, (17, 21, 25), 16, 84, cuda)
+    targets = [torch.device("cuda", i)
+               for i in range(min(2, torch.cuda.device_count()))]
+    for view in (w[3:150][..., 70:140], w[:, 1][:, 14:42], w[5:9, 2]):
+        for dev in targets:
+            got = copy_pitched(view, dev)
+            torch.cuda.synchronize(dev)
+            assert got.is_contiguous() and got.device == dev
+            assert torch.equal(got.to(cuda), view)
+
+
+@pytest.mark.parametrize("kind", ["slots", "distinct"])
+@pytest.mark.parametrize("rows,words", [(1, 2), (2, 2), (1, 4)])
+def test_words_lead_runs_its_own_partial_first(cuda, kind, rows, words):
+    """On slots of the card, or with slot i on GPU i % count: each slot's
+    partial runs on a stream of its own; the first span on a lead's stream
+    is its own partial, no other slot's work is on it, and its finish
+    begins after every partial of its row block has ended
+    (mesh.timeline)."""
+    from sketchtpu_torch.shard import mesh
+
+    n = torch.cuda.device_count()
+    if kind == "distinct" and n < 2:
+        pytest.skip("needs two GPUs")
+    devs = [torch.device("cuda", i % n if kind == "distinct" else 0)
+            for i in range(rows * words)]
+    t = _kwords(300, (17, 21, 25), 16, 83, cuda)
+    grid = mesh.make_mesh(rows, words, devices=devs)
+    with mesh.timeline() as tl:
+        got = mesh.sharded_coreacc_step(t, t[:150], 16, grid, (17, 21, 25),
+                                        1024)
+    spans = tl.read()
+    want = torch.stack(coreacc(t, t[:150], (17, 21, 25), 1024), dim=-1)
+    assert torch.equal(got.to(cuda), want)
+    partials = [sp for sp in spans if sp["what"] == "partial"]
+    assert len(partials) == rows * words
+    assert len({(sp["device"], sp["stream"]) for sp in partials}) \
+        == rows * words
+    for r in range(rows):
+        lead = next(sp for sp in partials if sp["slot"] == f"r{r}w0")
+        on_it = [sp for sp in spans if sp["stream"] == lead["stream"]
+                 and sp["device"] == lead["device"]]
+        assert on_it[0]["what"] == "partial" and on_it[0]["slot"] == f"r{r}w0"
+        assert {sp["slot"] for sp in on_it} == {f"r{r}w0"}
+        finish = next(sp for sp in on_it if sp["what"] == "finish")
+        block = [sp for sp in partials if sp["slot"].startswith(f"r{r}w")]
+        assert len(block) == words
+        # times of one device compare exactly; across GPUs, to the origins'
+        assert all(finish["start_ms"] >= sp["end_ms"] - (
+            0 if sp["device"] == lead["device"] else 0.5) for sp in block)
+
+
+def _written_late(stream, *xs):
+    """Copies of xs (tensors of one GPU) whose values a copy on `stream`
+    (of that GPU) writes only after the stream has spun for ~0.1 s, with
+    no sync after: a reader not ordered after the writer reads zeros (or
+    what a reused block held)."""
+    dev = xs[0].device
+    outs = [torch.zeros_like(x) for x in xs]
+    torch.cuda.synchronize(dev)
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        torch.cuda._sleep(1 << 28)
+        for o, x in zip(outs, xs):
+            o.copy_(x)
+    return outs
+
+
+@pytest.mark.parametrize("grid_of", ["rows_distinct", "words_distinct",
+                                     "rows_outside", "words_outside"])
+def test_words_setup_copies_wait_for_the_operands_writer(cuda, grid_of):
+    """The row operand and c1 written on a stream of GPU 0 (the caller's
+    current stream there) just before a step, with no sync; the column
+    operand and c2 ready on GPU 1. On a rows-only grid of distinct GPUs,
+    a words grid of distinct GPUs, and grids that leave GPU 0 out, every
+    step's result equals the unsplit kernels' on the written values. The
+    completeness values are strided views (a column of a (n, 2) tensor),
+    which a slot on another GPU first gathers on their GPU."""
+    from sketchtpu_torch.dist.jaccard_torch import jaccard_dist_block
+    from sketchtpu_torch.shard import mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    grid = {"rows_distinct": lambda: mesh.as_mesh([d1, d0]),
+            "words_distinct": lambda: mesh.make_mesh(1, 2, [d1, d0]),
+            "rows_outside": lambda: mesh.as_mesh([d1]),
+            "words_outside": lambda: mesh.make_mesh(1, 2, [d1, d1])}[grid_of]()
+    kmers = (17, 21, 25)
+    steps = {
+        "samebits": lambda a, b, c1, c2: mesh.sharded_samebits(
+            a[:, 1], b[:, 1], 16, grid),
+        "dist": lambda a, b, c1, c2: mesh.sharded_dist_step(
+            a[:, 0], b[:, 0], 16, grid, 17.0),
+        "coreacc": lambda a, b, c1, c2: mesh.sharded_coreacc_step(
+            a, b, 16, grid, kmers, 1024, c1=c1, c2=c2),
+    }
+    t = _kwords(300, kmers, 16, 86, d0)
+    comp = _comp(300, 87, d0)
+    pair = torch.stack([comp, 1 - comp], dim=1)
+    b, b_pair = t[:150].to(d1), pair[:150].to(d1)
+    want = {"samebits": samebits_full(t[:, 1], t[:150, 1]),
+            "dist": jaccard_dist_block(t[:, 0], t[:150, 0], 16, k=17.0),
+            "coreacc": torch.stack(coreacc(t, t[:150], kmers, 1024, comp,
+                                           comp[:150].contiguous()), dim=-1)}
+    # built, and the allocator's blocks hold other values than the step's
+    other, other_pair = _kwords(300, kmers, 16, 88, d0), 1 - pair
+    for step in steps.values():
+        step(other, b, other_pair[:, 0], b_pair[:, 0])
+    torch.cuda.synchronize(d0)
+    torch.cuda.synchronize(d1)
+    writer = torch.cuda.Stream(device=d0)
+    for name, step in steps.items():
+        late_t, late_pair = _written_late(writer, t, pair)
+        with torch.cuda.stream(writer):
+            got = step(late_t, b, late_pair[:, 0], b_pair[:, 0])
+        torch.cuda.synchronize(got.device)
+        assert torch.equal(got.to(d0), want[name]), name
 
 
 @pytest.mark.parametrize("kind", ["slots", "distinct"])

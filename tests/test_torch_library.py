@@ -146,3 +146,77 @@ def test_root_distances_pick_the_cards_engine(dbs, monkeypatch):
     assert runtime.select_engine(ms) is None
     with pytest.raises(ValueError, match="K-mer size 19 not found"):
         st.set_k(ms, 19, False)
+
+
+def _both_multisketches(prefix: str, names=None):
+    """The JAX package's and the port's MultiSketch of one .skm/.skd, with
+    their bins (of the samples `names` only, when given)."""
+    out = []
+    for pkg in (jst, st):
+        ms = pkg.MultiSketch.load_metadata(prefix)
+        if names is None:
+            ms.read_sketch_data(prefix)
+        else:
+            ms.read_sketch_data_block(prefix, names)
+        out.append(ms)
+    return out
+
+
+@pytest.mark.parametrize("block", [False, True])
+def test_multisketch_get_sketch_slice(dbs, block):
+    """get_sketch_slice(sample, k index) on the same .skm/.skd: the JAX
+    package's words for every sample and k, of the whole database or of a
+    block read out of order."""
+    out, _, inputs = dbs
+    names = [inputs[i][0] for i in (4, 0, 2)] if block else None
+    jms, pms = _both_multisketches(out["jax"][0], names)
+    n = pms.number_samples_loaded()
+    assert n == jms.number_samples_loaded() == (3 if block else len(inputs))
+    for i in range(n):
+        for k_idx in range(len(KMERS)):
+            got = pms.get_sketch_slice(i, k_idx)
+            want = jms.get_sketch_slice(i, k_idx)
+            assert got.dtype == want.dtype and got.shape == (pms.kmer_stride,)
+            assert np.array_equal(got, want)
+    assert not np.array_equal(pms.get_sketch_slice(0, 0),
+                              pms.get_sketch_slice(1, 0))
+
+
+def test_multisketch_is_compatible_with(dbs):
+    """is_compatible_with against the JAX package's on the same databases,
+    and on copies that differ in k, sketch size or hash type."""
+    import copy
+
+    out, _, _ = dbs
+    jms, pms = _both_multisketches(out["jax"][0])
+    jother, pother = _both_multisketches(out["cpu"][0])
+    changes = [{}, {"kmer_lengths": [17, 21]}, {"sketch_size": 512},
+               {"hash_type": None}]
+    seen = []
+    for change in changes:
+        pair = []
+        for base, other in ((jms, jother), (pms, pother)):
+            other = copy.copy(other)
+            for attr, value in change.items():
+                setattr(other, attr, value)
+            pair.append((base.is_compatible_with(other),
+                         other.is_compatible_with(base)))
+        assert pair[1] == pair[0], change
+        seen.append(pair[1])
+    assert seen[0] == (True, True)
+    assert all(s == (False, False) for s in seen[1:])
+
+
+def test_multisketch_has_every_public_member_of_the_jax_class(dbs):
+    """Every public method and attribute of the JAX package's MultiSketch,
+    on the class and on a loaded instance, exists on the port's."""
+    out, _, _ = dbs
+    jms, pms = _both_multisketches(out["jax"][0])
+    public = {n for n in dir(jst.MultiSketch) if not n.startswith("_")}
+    assert public and public <= set(dir(st.MultiSketch)), \
+        sorted(public - set(dir(st.MultiSketch)))
+    for name in public:
+        assert callable(getattr(st.MultiSketch, name)) == callable(
+            getattr(jst.MultiSketch, name)), name
+    attrs = {n for n in vars(jms) if not n.startswith("_")}
+    assert attrs and attrs <= set(vars(pms)), sorted(attrs - set(vars(pms)))

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from sketchtpu_torch import _build
 from sketchtpu_torch import cli as port_cli
 from sketchtpu_torch import runtime
 from sketchtpu_torch.dist import coreacc_kernels, knn_kernels, samebits_kernels
@@ -234,6 +235,21 @@ def test_coreacc_k_limit_is_the_kernels():
     assert coreacc_kernels.MAX_NK <= 255
     table = coreacc_kernels._k_table((17, 19, 21))
     assert len(table) == 3 * coreacc_kernels.MAX_NK + 3
+
+
+def test_words_slots_limit_is_the_kernels():
+    """The wrappers' MAX_WORDS_SLOTS is the one bound csrc/tile.cuh sizes
+    the finish's and the chain's pointer array by, and neither kernel
+    source keeps a bound of its own."""
+    csrc = REPO / "sketchtpu_torch" / "csrc"
+    tile = (csrc / "tile.cuh").read_text()
+    assert (f"constexpr int MAX_WORDS_SLOTS = "
+            f"{samebits_kernels.MAX_WORDS_SLOTS};") in tile
+    assert "const int* p[MAX_WORDS_SLOTS];" in tile
+    for name in ("samebits.cu", "coreacc.cu"):
+        src = (csrc / name).read_text()
+        assert "const WordsParts " in src
+        assert "const int* p[" not in src
 
 
 def test_coreacc_engines_past_the_k_limit_stay_on_the_card(monkeypatch):
@@ -675,3 +691,41 @@ def test_devices_are_every_gpu_or_the_ranks_one(monkeypatch, local_rank):
     assert runtime.devices() == [torch.device("cpu")]
     monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "host")
     assert runtime.devices() is None and runtime.device() is None
+
+
+def _c_entry_points() -> dict:
+    """{name: [ctypes type of each parameter]} of every extern "C"
+    stpu_* function in csrc/*.cu, from its declaration."""
+    import ctypes
+    import re
+
+    def ctype(param: str):
+        if "*" in param:
+            return ctypes.c_void_p
+        for c_name, t in (("unsigned long long", ctypes.c_ulonglong),
+                          ("long long", ctypes.c_longlong),
+                          ("float", ctypes.c_float), ("int", ctypes.c_int)):
+            if c_name in param:
+                return t
+        raise AssertionError(f"unknown C parameter type: {param!r}")
+
+    found = {}
+    for src in _build.sources():
+        for m in re.finditer(r'extern "C"\s+[\w\s*]*?\b(stpu_\w+)\s*\(([^)]*)\)',
+                             src.read_text()):
+            params = [p for p in m.group(2).split(",")
+                      if p.strip() not in ("", "void")]
+            found[m.group(1)] = [ctype(p) for p in params]
+    return found
+
+
+def test_every_kernel_entry_point_is_bound_with_its_c_signature():
+    """The ctypes signature of each C entry point (_build._SIGNATURES)
+    matches its declaration in csrc/ parameter for parameter (pointers,
+    int, long long, float), and every stpu_* function but the error
+    string is bound: nothing compiles the sources here, and a wrong
+    binding would pass the wrong bytes without an error."""
+    declared = _c_entry_points()
+    assert set(declared) - set(_build._SIGNATURES) == {"stpu_error_string"}
+    for name, argtypes in _build._SIGNATURES.items():
+        assert list(argtypes) == declared[name], name

@@ -12,6 +12,7 @@ unsplit one."""
 
 import io
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from sketchtpu.dist import jaccard_jax
 from sketchtpu.dist import jaccard_np as jax_np
 from sketchtpu.shard import mesh as jax_mesh
 from sketchtpu_torch import runtime
+from sketchtpu_torch._transfer import pitch_of
 from sketchtpu_torch.dist import api
 from sketchtpu_torch.dist.coreacc_kernels import (
     coreacc_chain,
@@ -36,7 +38,15 @@ from sketchtpu_torch.dist.jaccard_np import samebits_matrix, samebits_pairs
 from sketchtpu_torch.dist.jaccard_torch import jaccard_dist_block
 from sketchtpu_torch.dist.knn_kernels import SignMask
 from sketchtpu_torch.dist.knn_torch import scan_coreacc
-from sketchtpu_torch.dist.samebits_kernels import samebits_dist, samebits_ref
+from sketchtpu_torch.dist.samebits_kernels import (
+    MAX_WORDS_SLOTS,
+    samebits_dist,
+    samebits_finish,
+    samebits_finish_ref,
+    samebits_full,
+    samebits_ref,
+    samebits_stack,
+)
 from sketchtpu_torch.formats import skd
 from sketchtpu_torch.formats.skm import MultiSketch
 from sketchtpu_torch.dist.sign_words import pack_signs
@@ -237,22 +247,22 @@ def test_jaccard_dist_block_at_the_entry_shape():
 
 
 def test_samebits_dist_base_adds_the_other_chunks(words):
-    """A chunk range with the other ranges' samebits as its base gives the
-    whole sketch's distances, bit for bit; widths past s64 and a bad base
-    are refused."""
+    """A chunk range's partial samebits and the other range's, summed by
+    the finish pass (samebits_finish), give the whole sketch's distances,
+    bit for bit; widths past s64 and a bad partial are refused."""
     t = torch.from_numpy(words["w"].view(np.int64))
     a, b = t[:NA, 2], t[NA:, 2]
     cut = 3 * 14
     base = samebits_ref(a[:, cut:], b[:, cut:])
+    own = samebits_ref(a[:, :cut], b[:, :cut])
     for ani in (False, True):
         assert torch.equal(
-            samebits_dist(a[:, :cut], b[:, :cut], S64, k=25.0, ani=ani,
-                          base=base),
+            samebits_finish([own, base], S64, k=25.0, ani=ani),
             jaccard_dist_block(a, b, S64, k=25.0, ani=ani))
     with pytest.raises(ValueError, match="exceed"):
         samebits_dist(a, b, S64 - 1)
-    with pytest.raises(ValueError, match="base"):
-        samebits_dist(a, b, S64, base=base.to(torch.int64))
+    with pytest.raises(ValueError, match="partials"):
+        samebits_finish([own, base.to(torch.int64)], S64)
 
 
 def _jax_coreacc_step(stack, rows, words_, comp):
@@ -291,6 +301,48 @@ def test_coreacc_step_on_grids(words, rows, words_, comp):
     assert fitted > NA  # pairs reached the fit
 
 
+@pytest.mark.parametrize("rows,words_", [(2, 1), (1, 2), (2, 2)])
+def test_set_up_copies_run_after_marks_of_the_operands_devices(
+        monkeypatch, words, rows, words_):
+    """Every set-up copy of a step (mesh._to: a slot's share of a, of b,
+    and the completeness values), a rows-only grid's too, runs in a task
+    that waits for marks (mesh._marks) recorded on the grid's devices and
+    on the device of every tensor operand, so that a copy from another
+    GPU comes after what the caller queued there."""
+    marked = []
+
+    def marks(devices):
+        marked.append(list(devices))
+        return [("mark", len(marked))]
+
+    seen = []
+    to = mesh._to
+
+    def spy(x, device, what):
+        seen.append((what, list(mesh._this.after)))
+        return to(x, device, what)
+
+    monkeypatch.setattr(mesh, "_marks", marks)
+    monkeypatch.setattr(mesh, "_to", spy)
+    t = torch.from_numpy(words["w"].view(np.int64))
+    c = torch.from_numpy(words["comp"]).to(torch.float64)
+    grid = mesh.make_mesh(rows, words_, devices=SLOTS)
+    got = mesh.sharded_coreacc_step(t[:NA], t[NA:], S64, grid, KMERS,
+                                    S64 * 64, c1=c[:NA], c2=c[NA:])
+    core, acc = coreacc_ref(t[:NA], t[NA:], KMERS, S64 * 64,
+                            c[:NA].float(), c[NA:].float())
+    assert torch.equal(got, torch.stack([core, acc], dim=-1))
+    # the slots' set-up, then the step, each marking the operands' devices
+    assert len(marked) == 2
+    assert all({t.device, c.device} <= set(m) for m in marked)
+    whats = [w for w, _ in seen]
+    assert whats.count("setup b") == words_
+    assert whats.count("setup a") == rows * words_
+    assert whats.count("setup c") == 2 * rows
+    for what, after in seen:
+        assert after == [("mark", 1 if what == "setup b" else 2)], what
+
+
 def test_coreacc_chain_twin_is_coreacc_refs_chain(words):
     """coreacc_chain_ref of summed per-range samebits equals coreacc_ref bit
     for bit, with and without completeness; coreacc_chain on CPU tensors
@@ -311,6 +363,144 @@ def test_coreacc_chain_twin_is_coreacc_refs_chain(words):
         coreacc_chain(split.to(torch.int64), KMERS, S64 * 64, S64)
     with pytest.raises(ValueError, match="both"):
         coreacc_chain(split, KMERS, S64 * 64, S64, c[:NA], None)
+
+
+@pytest.mark.parametrize("n_words", [1, 2, 4, 8])
+def test_chain_and_finish_over_slabs_against_the_jax_steps(words, n_words):
+    """coreacc_chain_ref over the n_words slots' partial (nk, NA, NB)
+    slabs (as samebits_stack makes them), and the distance finish's twin
+    over one k's partial counts, against the JAX package's
+    sharded_coreacc_step / sharded_dist_step on its 8-device CPU mesh with
+    that many words slots (f32 tolerances as in the grid tests), and bit
+    for bit against the port's unsplit twins; the count mode is exact."""
+    w, cv = words["w"], words["comp"]
+    t = torch.from_numpy(w.view(np.int64))
+    a, b = t[:NA], t[NA:]
+    rows = 8 // n_words
+    slabs = [samebits_stack(a[..., r], b[..., r])
+             for r in mesh.word_ranges(S64, n_words)]
+    assert len(slabs) == n_words
+    stack = np.ascontiguousarray(w.transpose(1, 0, 2)).view(np.uint32)
+    for comp in (False, True):
+        c1, c2 = ((torch.from_numpy(cv[:NA]), torch.from_numpy(cv[NA:]))
+                  if comp else (None, None))
+        got = torch.stack(coreacc_chain_ref(slabs, KMERS, S64 * 64, S64, c1,
+                                            c2), dim=-1)
+        unsplit = coreacc_ref(a, b, KMERS, S64 * 64, c1, c2)
+        assert torch.equal(got, torch.stack(unsplit, dim=-1))
+        assert all(torch.equal(g, x) for g, x in zip(
+            coreacc_chain(slabs, KMERS, S64 * 64, S64, c1, c2), unsplit))
+        want = _jax_coreacc_step(stack, rows, n_words, cv if comp else None)
+        jumps, pairs = _close_ca(got.numpy(), want)
+        assert jumps <= 0.02 * pairs
+    ki = 1
+    parts = [slab[ki] for slab in slabs]
+    pa, pb = (np.ascontiguousarray(w[:NA, ki]),
+              np.ascontiguousarray(w[NA:, ki]))
+    for ani in (False, True):
+        got = samebits_finish_ref(parts, S64, k=17.0, ani=ani)
+        assert torch.equal(got, samebits_finish(parts, S64, k=17.0, ani=ani))
+        assert torch.equal(got, jaccard_dist_block(a[:, ki], b[:, ki], S64,
+                                                   k=17.0, ani=ani))
+        _close_to_jax(got, _jax_dist_step(pa.view(np.uint32),
+                                          pb.view(np.uint32), rows, n_words,
+                                          17.0, ani), pa, pb, S64, 17.0, ani)
+    counts = samebits_finish_ref(parts)
+    assert counts.dtype == torch.int32
+    assert np.array_equal(counts.numpy(), samebits_matrix(pa, pb))
+    assert np.array_equal(counts.numpy(), jax_mesh.ShardedSamebitsEngine(
+        S64, jax_mesh.make_mesh(rows, n_words)).matrix(pa, pb))
+
+
+def test_finish_refuses_more_slabs_than_its_bound(words):
+    """The finish and the chain take 1 to MAX_WORDS_SLOTS partials."""
+    t = torch.from_numpy(words["w"].view(np.int64))
+    slab = samebits_stack(t[:4, :, :14], t[4:9, :, :14])
+    many = [slab] * (MAX_WORDS_SLOTS + 1)
+    for call in (lambda: coreacc_chain(many, KMERS, S64 * 64, S64),
+                 lambda: coreacc_chain_ref(many, KMERS, S64 * 64, S64),
+                 lambda: samebits_finish([x[0] for x in many], S64),
+                 lambda: samebits_finish_ref([x[0] for x in many]),
+                 lambda: samebits_finish([], S64)):
+        with pytest.raises(ValueError, match="partials"):
+            call()
+    with pytest.raises(ValueError, match="one shape"):
+        samebits_finish([slab[0], slab[1][:2]])
+    assert torch.equal(coreacc_chain([slab] * MAX_WORDS_SLOTS, KMERS,
+                                     S64 * 64 * MAX_WORDS_SLOTS,
+                                     S64 * MAX_WORDS_SLOTS)[0],
+                       coreacc_chain(slab * MAX_WORDS_SLOTS, KMERS,
+                                     S64 * 64 * MAX_WORDS_SLOTS,
+                                     S64 * MAX_WORDS_SLOTS)[0])
+
+
+def test_samebits_stack_is_nk_samebits_full_calls(words):
+    """The one-launch per-k partials equal nk samebits_full calls, on the
+    whole words and on a strided range of chunks read in place."""
+    t = torch.from_numpy(words["w"].view(np.int64))
+    a, b = t[:NA], t[NA:]
+    for r in (slice(None), mesh.word_ranges(S64, 4)[1]):
+        got = samebits_stack(a[..., r], b[..., r])
+        want = torch.stack([samebits_full(a[:, ki, r], b[:, ki, r])
+                            for ki in range(len(KMERS))])
+        assert got.dtype == torch.int32 and got.shape == (len(KMERS), NA, NB)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="dims"):
+        samebits_stack(a[:, 0], b[:, 0])
+    with pytest.raises(ValueError, match="same"):
+        samebits_stack(a[:, :2], b)
+
+
+def test_pitch_of_reads_a_slots_share_in_place(words):
+    """pitch_of gives a slot's share of an operand (a range of each
+    sample's words, of every k or of one k-plane) as rows at one pitch of
+    its base tensor, so copy_pitched's 2-D memcpy reads exactly the share;
+    views that are not such rows are refused (they are made contiguous
+    first)."""
+    t = torch.from_numpy(words["w"].view(np.int64))
+    for view in (t[3:20][..., mesh.word_ranges(S64, 4)[2]],
+                 t[:, 1][:, 14:42], t[5:9, 2], t[0], t[2:3, :, 14:28],
+                 t[7:8, 1, 28:42]):
+        rows, pitch = pitch_of(view)
+        read = torch.as_strided(t, (rows, view.shape[-1]), (pitch, 1),
+                                view.storage_offset())
+        assert torch.equal(read.reshape(view.shape), view)
+    assert pitch_of(t.transpose(0, 1)) is None
+    assert pitch_of(t[..., ::2]) is None
+
+
+@pytest.mark.parametrize("rows,words_", [g for g in GRIDS if g[1] > 1])
+def test_words_schedule_runs_the_leads_partial_first(rows, words_):
+    """DeviceSlots.split_words: each row block's lead runs its own partial
+    before it waits for anything (here every other slot's partial waits
+    until its lead's has begun: a lead that waited first would stall them,
+    caught by the timeout), and the finish gets every slot's partial, the
+    lead's first, on the lead's slot."""
+    import threading
+
+    blocks = mesh.split_rows(0, 20, rows)
+    begun = [threading.Event() for _ in blocks]
+
+    def partial(eng, rws):
+        r, w = blocks.index(rws), eng.w
+        if w == 0:
+            begun[r].set()
+        elif not begun[r].wait(timeout=10):
+            raise AssertionError(f"row block {r}: the lead waited first")
+        return torch.tensor([w, rws.start], dtype=torch.int32)
+
+    def finish(eng, rws, parts):
+        return eng.w, [p.tolist() for p in parts]
+
+    slots = mesh.DeviceSlots(mesh.make_mesh(rows, words_, devices=SLOTS),
+                             lambda d, w: SimpleNamespace(device=d, w=w))
+    try:
+        got = [f.result() for f in slots.split_words(0, 20, partial, finish)]
+    finally:
+        slots.close()
+    for (lead, parts), rws in zip(got, blocks):
+        assert lead == 0
+        assert parts == [[w, rws.start] for w in range(words_)]
 
 
 def _write_db(d: Path, name: str, words: np.ndarray, sketch_size: int):

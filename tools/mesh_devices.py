@@ -25,7 +25,10 @@ runs the same steps at small sizes with CPU slots ([cpu] against
 slot holds only its share of the 4096 x 7 k x 102,400-bin words and its
 partials cross to the lead GPU; every result is checked against one
 GPU's unsplit kernels bit for bit, each grid's walls printed beside the
-unsplit ones (then the dry run's 4 x 2 grid).
+unsplit ones, with each slot's timeline of the distance and core/acc
+steps (set-up copies, partial, transfers, finish, by CUDA events on one
+time axis; each lead's stream checked to run its own partial first), then
+the dry run's 4 x 2 grid.
 """
 
 from __future__ import annotations
