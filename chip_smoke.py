@@ -19,15 +19,18 @@
    a 2^24-window segment of phase 6's first sample at k = 17, --min-count
    5 (timed, kernel by kernel too, beside torch.sort of the same keys),
    and that sample's kept fraction is printed by segment length, every
-   segment and the whole row bit-equal.
+   segment and the whole row bit-equal. K2 (plain, key and masked key
+   mode) and coreacc_chain also run at 300 k (512 x 2048), past the k
+   table K2 takes by value, each bit-equal to its twin.
 3. Drives the two paths through the port's CLI and checks them against
    `python -m sketchtpu.cli` on its NumPy host oracle (run as a separate
    process): the dense path (`sketch` of 8 synthetic 2 Mb assemblies, then
    dense `dist` self and ref-vs-query: -k 17, --ani, --exact, f32
    core/accessory; .skd/.skm and the exact outputs byte for byte, f32
    core/accessory within 1e-5; the same assemblies sketched at 40,000
-   bins, where `dist -k 17` and `--exact` run on K4, byte for byte) and
-   the kNN path (`dist --knn 3`, self and cross, -k 17, --ani,
+   bins, where `dist -k 17` and `--exact` run on K4, byte for byte; 8
+   assemblies of 20 kb sketched at `--k-seq 15,314,1`, 300 k, then dense
+   and `--knn 3` core/accessory, self and cross) and the kNN path (`dist --knn 3`, self and cross, -k 17, --ani,
    core/accessory, each with and without completeness; byte for byte).
 4. Dense path at scale: dense dist on 8192 samples derived from those
    sketches (33.5 M pairs).
@@ -92,6 +95,12 @@
    beside the one-device wall, and whether the devices were distinct
    GPUs. Phase 3 also runs `--knn 0` (dist self and cross, precluster
    plain, bruteforce and singleton) against the host oracle.
+
+10. The words axis of shard/mesh.py (library surface): 4096 samples at
+   102,400 bins and 7 k on grids 1 x 2, 2 x 2, 1 x 4 and 1 x 16 (past the
+   finish's 8 partials: each lead folds them first), each step bit-equal
+   to the unsplit kernels, with each lead's timeline; the 2 x 2 dense
+   stream; the JAX dry run's 4 x 2 sequence.
 
 Each path's kernel launches are counted from 0 over its phases (in each
 rank's process for phase 8); the run fails if a kernel of a path was
@@ -612,18 +621,26 @@ def phase2_coreacc(words, results, lib_path: Path):
         coreacc_ref,
     )
 
-    ptx = ptxas_report(lib_path, "coreacc_kernel",
-                       {"ILb1ELb0E": "keys", "ILb0ELb0E": "plain",
-                        "ILb1ELb1E": "keys masked"})
+    # <KEYS, MASK, WIDE>: WIDE past MAX_NK_BY_VALUE k (the table in device
+    # memory, a 16-bit included-k count: one block an SM)
+    ptx = ptxas_report(lib_path, "coreacc_kernel", {
+        f"ILb{keys}ELb{mask}ELb{wide}E": f"{name}{' wide' if wide else ''}"
+        for keys, mask, name in ((0, 0, "plain"), (1, 0, "keys"),
+                                 (1, 1, "keys masked"))
+        for wide in (0, 1)})
     lib = _build.lib()
     for mode, info in sorted(ptx.items()):
+        wide = mode.endswith(" wide")
         info["blocks_per_sm"] = lib.stpu_coreacc_blocks_per_sm(
-            {"plain": 0, "keys": 1, "keys masked": 2}[mode])
+            {"plain": 0, "keys": 1, "keys masked": 2}[mode.removesuffix(
+                " wide")], int(wide))
         print(f"phase2 coreacc {mode} kernel: {info['registers']} registers, "
               f"{info['spill_store_bytes']} bytes spilled, "
               f"{info['blocks_per_sm']} resident 256-thread blocks per SM")
-        check(info["spill_store_bytes"] == 0 and info["blocks_per_sm"] >= 2,
-              f"coreacc {mode}: spills or fewer than two blocks per SM")
+        check(info["spill_store_bytes"] == 0
+              and info["blocks_per_sm"] >= (1 if wide else 2),
+              f"coreacc {mode}: spills or too few blocks per SM")
+    check(len(ptx) == 6, f"coreacc: instantiations {sorted(ptx)}")
     a, b = words[4096:6144], words
     comp = torch.linspace(0.6, 1.0, b.shape[0], device=b.device)
     comp = comp[torch.randperm(b.shape[0], device=b.device)]
@@ -685,7 +702,94 @@ def phase2_coreacc(words, results, lib_path: Path):
           f"{integer_floor_ms(na * bk.shape[0] * nk * S64):.4f} ms, "
           f"{na * bk.shape[0] / key_ms / 1e6:.3f} G pair/s")
     results["coreacc"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
-                              beta0_pairs=jumps, library_ms=None, **bd)
+                              beta0_pairs=jumps, library_ms=None,
+                              keys_ms=key_ms, **bd)
+    phase2_coreacc_many_k(results)
+
+
+NK_MANY = 300  # k = 15..314: past K2's by-value k table (MAX_NK_BY_VALUE)
+
+
+def phase2_coreacc_many_k(results):
+    """K2 at NK_MANY k (the WIDE instantiations: the k table in device
+    memory, a 16-bit included-k count), 512 x 2048 at s64 = 16: plain
+    with and without completeness, key mode, masked key mode (S = 1000)
+    and coreacc_chain over 2 slabs, each bit-equal to its twin on every
+    pair; times beside the twins' and the bound."""
+    import torch
+
+    from sketchtpu_torch.dist.coreacc_kernels import (
+        coreacc,
+        coreacc_chain,
+        coreacc_chain_ref,
+        coreacc_keys,
+        coreacc_keys_ref,
+        coreacc_ref,
+    )
+    from sketchtpu_torch.dist.knn_kernels import SignMask
+    from sketchtpu_torch.dist.samebits_kernels import samebits_stack
+    from sketchtpu_torch.shard.mesh import word_ranges
+
+    kmers = tuple(range(15, 15 + NK_MANY))
+    na, nb = 512, 2048
+    w = device_words(na + nb, S64, SEED + 11, kmers=kmers)
+    a, b = w[:na], w[na:]
+    comp = torch.linspace(0.6, 1.0, na + nb, device=w.device)
+    comp = comp[torch.randperm(na + nb, device=w.device)]
+    times = {}
+    for label, c1, c2 in (("plain", None, None),
+                          ("completeness", comp[:na], comp[na:])):
+        got = coreacc(a, b, kmers, S64 * 64, c1, c2)
+        want, plain = timed_once(
+            lambda: coreacc_ref(a, b, kmers, S64 * 64, c1, c2))
+        check(all(torch.equal(g, x) for g, x in zip(got, want)),
+              f"coreacc nk={NK_MANY} {label}: kernel != twin")
+        fitted = int(((want[0] > 0) & (want[0] < 1)).sum())
+        check(fitted > 0, f"coreacc nk={NK_MANY} {label}: no pair reached "
+              f"the fit")
+        slabs = [samebits_stack(a[..., r], b[..., r])
+                 for r in word_ranges(S64, 2)]
+        chain = coreacc_chain(slabs, kmers, S64 * 64, S64, c1, c2)
+        twin = coreacc_chain_ref(slabs, kmers, S64 * 64, S64, c1, c2)
+        check(all(torch.equal(g, x) and torch.equal(g, t)
+                  for g, x, t in zip(chain, got, twin)),
+              f"coreacc_chain nk={NK_MANY} {label}: != K2 or its twin")
+        del got, want, chain, twin
+        ms = cuda_ms(lambda: coreacc(a, b, kmers, S64 * 64, c1, c2), reps=5)
+        chain_ms = cuda_ms(lambda: coreacc_chain(slabs, kmers, S64 * 64, S64,
+                                                 c1, c2), reps=10)
+        del slabs
+        times[label] = (ms, plain)
+        print(f"phase2 coreacc nk={NK_MANY} {label} ({na}, {nb}): equal to "
+              f"twin on every pair ({fitted} fitted); kernel {ms:.4f} ms, "
+              f"twin {plain:.2f} ms; coreacc_chain over 2 slabs equal to K2 "
+              f"and its twin, {chain_ms:.4f} ms")
+        results.setdefault("coreacc_many_k", {})[label] = (ms, chain_ms)
+    sig_w, _ = masked_signs(na + nb, 1000, SEED + 12)
+    kw = dict(row0=0, col0=na, nb_real=na + nb, exclude_self=True)
+    for label, sig in (("keys", None),
+                       ("keys masked", SignMask(sig_w[:na], sig_w, 1000))):
+        got = coreacc_keys(a, b, kmers, S64 * 64, sig=sig, **kw)
+        want, plain = timed_once(
+            lambda: coreacc_keys_ref(a, b, kmers, S64 * 64, sig=sig, **kw))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"coreacc nk={NK_MANY} {label}: kernel != twin")
+        del got, want
+        ms = cuda_ms(lambda: coreacc_keys(a, b, kmers, S64 * 64, sig=sig,
+                                          **kw), reps=5)
+        print(f"phase2 coreacc nk={NK_MANY} {label} ({na}, {nb}): bit-equal "
+              f"to twin (keys and acc); kernel {ms:.4f} ms, twin "
+              f"{plain:.2f} ms")
+        results["coreacc_many_k"][label] = (ms, None)
+    ms, _ = times["plain"]
+    bd = bound(na * nb * NK_MANY * S64 * SB_OPS,
+               (na + nb) * NK_MANY * S64 * 14 * 8 + na * nb * 8)
+    print(f"phase2 coreacc nk={NK_MANY} plain bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%; "
+          f"integer-issue floor "
+          f"{integer_floor_ms(na * nb * NK_MANY * S64):.4f} ms")
+    del w, a, b
+    torch.cuda.empty_cache()
 
 
 # --- phase 2, the words axis's kernels -----------------------------------------
@@ -781,7 +885,8 @@ def phase2_words(results, lib_path: Path):
     )
     from sketchtpu_torch.shard.mesh import word_ranges
 
-    for kernel, modes in (("coreacc_chain_kernel", {"": "chain"}),
+    for kernel, modes in (("coreacc_chain_kernel",
+                           {"ILb0E": "chain", "ILb1E": "chain wide"}),
                           ("samebits_finish_kernel",
                            {"ILb0E": "count", "ILb1E": "distance"})):
         for mode, info in sorted(ptxas_report(lib_path, kernel,
@@ -851,6 +956,20 @@ def phase2_words(results, lib_path: Path):
     got = samebits_finish(parts)
     check(torch.equal(got, samebits_full(w[:na, 0], w[:, 0])),
           "samebits_finish count mode != K4 over the whole chunks")
+    twin, count_plain = timed_once(lambda: samebits_finish_ref(parts))
+    check(torch.equal(got, twin), "samebits_finish count mode != its twin")
+    check(torch.equal(got, torch.add(*parts)),
+          "samebits_finish count mode != torch.add of the partials")
+    del got, twin
+    count_ms = cuda_ms(lambda: samebits_finish(parts), reps=20)
+    # the one library call of the count mode's function over two partials
+    add_ms = cuda_ms(lambda: torch.add(*parts), reps=20)
+    count_bd = bound(na * N_WORDS, 3 * na * N_WORDS * 4)
+    print(f"phase2 samebits_finish (count) 2 partials ({na}, {N_WORDS}): "
+          f"equal to K4 over the whole chunks, the twin and torch.add; "
+          f"kernel {count_ms:.4f} ms, torch.add {add_ms:.4f} ms, twin "
+          f"{count_plain:.2f} ms, bound {count_bd['bound_ms']:.4f} ms "
+          f"({count_bd['bound_by']})")
     worst, times = 0.0, {}
     for ani in (False, True):
         got = samebits_finish(parts, S64_WORDS, k=17.0, ani=ani)
@@ -879,8 +998,12 @@ def phase2_words(results, lib_path: Path):
     bd = bound(3 * na * N_WORDS * 8, 3 * na * N_WORDS * 4)
     print(f"phase2 samebits_finish bound {bd['bound_ms']:.4f} ms "
           f"({bd['bound_by']}): kernel at {100 * bd['bound_ms'] / ms:.1f}%")
-    results["samebits_finish"] = dict(max_abs_err=worst, ms=ms,
-                                      plain_ms=plain, library_ms=None, **bd)
+    # the record's row is the count mode (the words axis's fold, and the
+    # mode one library call computes); the distance mode's times print above
+    results["samebits_finish"] = dict(max_abs_err=0.0, ms=count_ms,
+                                      plain_ms=count_plain,
+                                      library_ms=add_ms, dist_ms=ms,
+                                      **count_bd)
     del parts
 
     comp = torch.linspace(0.6, 1.0, N_WORDS, device=w.device)
@@ -2187,6 +2310,61 @@ def phase3_k4(cli_main, p3: Path) -> None:
           f"at a time")
 
 
+# past K2's by-value k table (MAX_NK_BY_VALUE): 300 k, on assemblies short
+# enough for the host oracle's hashing (~0.7 Mbase-k/s on one core)
+MANY_K_SEQ = "15,314,1"
+MANY_K_LENGTH = 20_000
+MANY_K_MODES = {"coreacc": [], "knn_coreacc": ["--knn", "3"]}
+
+
+def phase3_many_k(cli_main) -> None:
+    """`sketch --k-seq 15,314,1` (300 k) of phase 3's 8 synthetic
+    assemblies at 20 kb each (its generator and seed; the last 3 the
+    query), then dense core/acc and core/acc `--knn 3` dist, self and
+    ref-vs-query, on K2's WIDE instantiations: .skd/.skm and the kNN output
+    byte for byte against the host oracle, dense core/acc within 1e-5 of
+    its f64 chain."""
+    from sketchtpu_torch.synth import related_assemblies
+
+    d = WORK / "p3many"
+    rfile = related_assemblies(d / "fa", 8, MANY_K_LENGTH, SEED)
+    lines = rfile.read_text().splitlines()
+    rfile_q = d / "rfile_q.txt"
+    rfile_q.write_text("\n".join(lines[5:]) + "\n")
+
+    def sketches(prefix: Path):
+        return [["sketch", "-f", str(f), "-o", f"{prefix}{db}", "--k-seq",
+                 MANY_K_SEQ, "-s", str(SKETCH_SIZE), "--quiet"]
+                for f, db in ((rfile, "db"), (rfile_q, "q"))]
+
+    k2 = kernel_wrappers()["coreacc"]
+    before = k2.launches
+    port_s, host_s = run_port_and_host(
+        cli_main,
+        sketches(d / "port_") + dist_commands(d / "port_", MANY_K_MODES),
+        sketches(d / "host_"), dist_commands(d / "host_", MANY_K_MODES))
+    launches = k2.launches - before
+    check(launches > 0, f"--k-seq {MANY_K_SEQ}: no K2 launch")
+    for db in ("db", "q"):
+        for ext in (".skd", ".skm"):
+            check(same_bytes(d / f"port_{db}{ext}", d / f"host_{db}{ext}"),
+                  f"--k-seq {MANY_K_SEQ}: {db}{ext} differs from the host "
+                  f"oracle")
+    for side in ("self", "cross"):
+        check(same_bytes(d / f"port_{side}_knn_coreacc.txt",
+                         d / f"host_{side}_knn_coreacc.txt"),
+              f"--k-seq {MANY_K_SEQ} dist {side} --knn 3 differs from the "
+              f"host oracle")
+        compare_coreacc(f"phase3 --k-seq {MANY_K_SEQ} {side} vs host",
+                        d / f"port_{side}_coreacc.txt",
+                        d / f"host_{side}_coreacc.txt")
+    print(f"phase3 --k-seq {MANY_K_SEQ} (300 k) 8 x {MANY_K_LENGTH} b: "
+          f".skd/.skm and core/acc --knn 3, self and cross, byte-identical; "
+          f"{launches} K2 launches; port {sum(port_s):.2f} s (sketch "
+          f"{port_s[0]:.2f} s), host oracle {sum(host_s):.2f} process-s, "
+          f"{HOST_JOBS} at a time")
+
+
 # --- phase 3, reads and the inverted index ---------------------------------
 
 def run_cli_stdout(cli_main, argv, path: Path) -> None:
@@ -3292,7 +3470,8 @@ def phase9(cli_main, gpu: str) -> None:
 
 # --- phase 10: the words axis (library surface) -------------------------------
 
-WORDS_GRIDS = ((1, 2), (2, 2), (1, 4))
+# 1 x 16: past the finish's MAX_WORDS_SLOTS, each lead folds its partials
+WORDS_GRIDS = ((1, 2), (2, 2), (1, 4), (1, 16))
 N_WORDS_STREAM = 1024  # samples of the 2 x 2 stream_self_dense check
 
 
@@ -3345,16 +3524,16 @@ def lead_runs_first(label: str, spans: list[dict]) -> None:
               f"phase10 {label}: {lead['slot']} finished before a partial")
 
 
-def phase10_slots(device: str):
-    """Eight device slots: on one card all of it; with several GPUs slot i
-    on GPU i % count (4 distinct GPUs make the 1 x 4 and 2 x 2 grids' slots
-    distinct)."""
+def phase10_slots(device: str, count: int = 8):
+    """`count` device slots: on one card all of it; with several GPUs slot
+    i on GPU i % count (4 distinct GPUs make the 1 x 4 and 2 x 2 grids'
+    slots distinct)."""
     import torch
 
     if device != "cuda":
-        return [torch.device(device)] * 8, "CPU slots"
+        return [torch.device(device)] * count, "CPU slots"
     n = torch.cuda.device_count()
-    slots = [torch.device("cuda", i % n) for i in range(8)]
+    slots = [torch.device("cuda", i % n) for i in range(count)]
     return slots, (f"{n} distinct GPUs (slot i on GPU i % {n})" if n > 1
                    else "slots of one card: the split, sums and joins, "
                    "not distinct GPUs")
@@ -3364,7 +3543,8 @@ def phase10(gpu: str, n: int = N_WORDS, s64: int = S64_WORDS,
             device: str = "cuda") -> None:
     """The words axis of shard/mesh.py at the width it exists for: 4096
     samples at s = 102,400 bins (s64 = 1600) and 7 k, 5.1 GB of words made
-    on the card. Grids 1 x 2, 2 x 2 and 1 x 4 (phase10_slots) run
+    on the card. Grids 1 x 2, 2 x 2, 1 x 4 and 1 x 16 (phase10_slots; past
+    MAX_WORDS_SLOTS the leads fold their partials) run
     ShardedSamebitsEngine.matrix, sharded_dist_step (Jaccard and ANI) and
     sharded_coreacc_step (plain and completeness), each bit-equal to the
     unsplit K4, jaccard_dist_block or K2 (run uncounted); then
@@ -3424,7 +3604,8 @@ def phase10(gpu: str, n: int = N_WORDS, s64: int = S64_WORDS,
           f"{want_d[True][1]:.3f} s, K2 {want_ca['plain'][1]:.3f} / "
           f"completeness {want_ca['completeness'][1]:.3f} s")
     for rows, words in WORDS_GRIDS:
-        grid = mesh.make_mesh(rows, words, devices=slots)
+        grid = mesh.make_mesh(rows, words, devices=phase10_slots(
+            device, max(len(slots), rows * words))[0])
         walls = {}
         got, walls["matrix"] = timed(lambda: mesh.ShardedSamebitsEngine(
             s64, grid).matrix(host, host))
@@ -3898,11 +4079,13 @@ def main() -> int:
                         lambda: phase7_aa(cli_main, smi))
         print(f"aa path phases 3, 7: {time.time() - t0:.1f} s")
         t0 = time.time()
-        dense, (p3, _, _) = counted(
+        dense, (p3, _, _, _) = counted(
             "dense", DENSE_PATH, lambda: phase3_dense(cli_main),
             lambda: phase3_k4(cli_main, WORK / "p3"),
+            lambda: phase3_many_k(cli_main),
             lambda: phase4(cli_main, WORK / "p3" / "port_db", smi))
-        print(f"dense path phases 3 (with the 40,000-bin K4 runs) and 4: "
+        print(f"dense path phases 3 (with the 40,000-bin K4 runs and "
+              f"300 k) and 4: "
               f"{time.time() - t0:.1f} s")
         t0 = time.time()
         knn, (_, _, p5) = counted(

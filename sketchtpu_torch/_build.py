@@ -52,12 +52,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "stpu_samebits": (_P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _I, _LL, _P),
     "stpu_coreacc": (
-        _P, _LL, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _F, _F, _F,
-        _F, _F, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P, _P, _I, _LL, _I, _P,
+        _P, _LL, _P, _LL, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _F, _F,
+        _F, _F, _F, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P, _P, _I, _LL, _I,
+        _P,
     ),
-    "stpu_coreacc_blocks_per_sm": (_I,),
+    "stpu_coreacc_blocks_per_sm": (_I, _I),
     "stpu_coreacc_chain": (
-        _P, _I, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P,
+        _P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _F, _F, _F, _F, _P, _P, _P,
     ),
     "stpu_samebits_planes": (
         _P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _I, _P,

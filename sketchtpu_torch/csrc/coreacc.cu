@@ -46,13 +46,21 @@
 //   k: only the 16 samebits counts and the AND chains stay in registers.
 // - The centred k values and their prefix sums (sum x and sum x^2 over
 //   the first n included k, which the early break makes a prefix) come by
-//   value in a __grid_constant__ table (3 KB of the 4 KB parameter space),
-//   at most MAX_NK = 255 k values; the wrapper raises above it.
+//   value in a __grid_constant__ table (3 KB of the 4 KB parameter space)
+//   for up to MAX_NK_BY_VALUE = 255 k values, with the included-k count a
+//   byte. Past that (up to MAX_NK = 65535 k) the WIDE instantiations read
+//   the same table from device memory, copied there by the wrapper at each
+//   launch (the words slots launch on several streams at once, so no
+//   __constant__ table can be shared between launches), and keep the count
+//   in 16 bits: 4096 more bytes of shared memory a block, which leave one
+//   block an SM. The bits are the same: the table holds the same floats,
+//   and the chain runs the same operations in the same order.
 // - One-dimensional grid with row tiles fastest, so the blocks resident
 //   together share their column tiles in L2.
 // ptxas (-Xptxas -v, sm_90a, nvcc 12.9): 128 registers, no spills, in both
 // modes; with 112,000 bytes of dynamic shared memory each, 2 blocks of 256
-// threads are resident per SM. chip_smoke.py prints all three.
+// threads are resident per SM (WIDE: 116,096 bytes, 1 block). chip_smoke.py
+// prints all six instantiations'.
 //
 // coreacc_chain: the same chain from the words slots' int32 (nk, na, nb)
 // slabs of partial samebits counts, the port of the regression chain of
@@ -63,7 +71,8 @@
 // stand (a by-value array of at most MAX_WORDS_SLOTS pointers), sums each pair's
 // count at each k in registers, and runs K2's chain on the sums, through
 // the same device functions (chain_y, chain_add, chain_finish) and the same
-// KTable, so a split core/acc is K2's bit for bit; no summed slab is
+// k table (by value, or WIDE in device memory), so a split core/acc is
+// K2's bit for bit; no summed slab is
 // written. One thread a pair, its chain state in registers. Bound: bytes
 // (w * nk * 4 read and 8 written a pair); its f32 chain (two IEEE
 // divisions and a logf a pair and k, without FMA) keeps it from that
@@ -85,11 +94,12 @@ constexpr int NSLOT = RM * RN;
 constexpr int LDS = RING_LDS;  // words per staged plane
 constexpr int G = RING_G;      // chunks per stage
 constexpr int STAGES = RING_STAGES;
-constexpr int MAX_NK = 255;  // s_n, the included-k count, is a byte
+// k values of a launch whose table comes by value (s_n, the included-k
+// count, a byte), and of any launch (past MAX_NK_BY_VALUE: WIDE, s_n 16
+// bits)
+constexpr int MAX_NK_BY_VALUE = 255;
+constexpr int MAX_NK = 65535;
 constexpr int OPERAND_STAGE = G * RING_CHUNK;  // words of one operand's stage
-constexpr int SMEM_BYTES = 2 * STAGES * OPERAND_STAGE * 8  // staged words
-                           + NSLOT * NT * (3 * 4 + 1)       // chain state
-                           + (TI + TJ) * 4;                 // completeness
 static_assert(TI == RING_ROWS && TJ == RING_ROWS,
               "the ring stages 64 rows of each operand");
 static_assert(SIG_STAGE_WORDS * 4 <= STAGES * OPERAND_STAGE * 8,
@@ -109,13 +119,45 @@ struct SignArgs {
 // The k table, passed by value: kf[q] = k_q - kc; xs[n] and xq[n] are the
 // f32 sums, in order, of kf[q] and kf[q] * kf[q] over q < n.
 struct KTable {
-  float kf[MAX_NK];
-  float xs[MAX_NK + 1];
-  float xq[MAX_NK + 1];
+  float kf[MAX_NK_BY_VALUE];
+  float xs[MAX_NK_BY_VALUE + 1];
+  float xq[MAX_NK_BY_VALUE + 1];
   float kc;
 };
-static_assert(sizeof(KTable) == (3 * MAX_NK + 3) * sizeof(float),
+static_assert(sizeof(KTable) == (3 * MAX_NK_BY_VALUE + 3) * sizeof(float),
               "KTable is a flat float array on the host side");
+
+// Past MAX_NK_BY_VALUE k, the same table of nk values in device memory:
+// kf, xs and xq point at nk, nk + 1 and nk + 1 floats.
+struct KTableDev {
+  const float* kf;
+  const float* xs;
+  const float* xq;
+  float kc;
+};
+
+// The table and the included-k count's type of a launch: by value and a
+// byte, or (WIDE) in device memory and 16 bits.
+template <bool WIDE>
+struct KWidth {
+  typedef KTable Table;
+  typedef unsigned char Count;
+};
+template <>
+struct KWidth<true> {
+  typedef KTableDev Table;
+  typedef unsigned short Count;
+};
+
+// K2's dynamic shared memory: the staged words, the chain state (three
+// floats and the included-k count a pair and thread) and the completeness
+// values.
+template <bool WIDE>
+constexpr int smem_bytes() {
+  return 2 * STAGES * OPERAND_STAGE * 8
+         + NSLOT * NT * (3 * 4 + (int)sizeof(typename KWidth<WIDE>::Count))
+         + (TI + TJ) * 4;
+}
 
 // The chain's constants: the whole sketch's Jaccard bias correction, the
 // early break's tolerance and the completeness cutoff.
@@ -158,10 +200,11 @@ __device__ __forceinline__ void chain_add(N& n, float& ys, float& xy,
 }
 
 // The closed-form fit of the ninc included k and its branches:
-// coreacc_jax.coreacc_tile's core and acc.
+// coreacc_jax.coreacc_tile's core and acc (KT: KTable or KTableDev).
+template <typename KT>
 __device__ __forceinline__ void chain_finish(int ninc, float ysum,
                                              float xysum, float yysum,
-                                             const KTable& kt, float& cd,
+                                             const KT& kt, float& cd,
                                              float& ad) {
   const float xsum = kt.xs[ninc], xsq = kt.xq[ninc];
   const float n = (float)ninc;
@@ -182,12 +225,13 @@ __device__ __forceinline__ int ordered_bits(float v) {
   return b < 0 ? b ^ 0x7FFFFFFF : b;
 }
 
-template <bool KEYS, bool MASK>
+template <bool KEYS, bool MASK, bool WIDE>
 __global__ void __launch_bounds__(NT, 2)
     coreacc_kernel(const u64* __restrict__ a, long long lda,
                    const u64* __restrict__ b, long long ldb,
                    long long kstride, int na, int nb, int ncols, int s64,
-                   int nk, const __grid_constant__ KTable kt,
+                   int nk,
+                   const __grid_constant__ typename KWidth<WIDE>::Table kt,
                    const float* __restrict__ c1,
                    const float* __restrict__ c2, float cutoff,
                    float expected, float maxnbits, float denom,
@@ -203,7 +247,8 @@ __global__ void __launch_bounds__(NT, 2)
   float* s_yy = s_xy + NSLOT * NT;
   float* s_c1 = s_yy + NSLOT * NT;
   float* s_c2 = s_c1 + TI;
-  unsigned char* s_n = reinterpret_cast<unsigned char*>(s_c2 + TJ);
+  typedef typename KWidth<WIDE>::Count Count;
+  Count* s_n = reinterpret_cast<Count*>(s_c2 + TJ);
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
@@ -358,9 +403,11 @@ __global__ void __launch_bounds__(NT, 2)
 // the nk planes (plane stride na * nb) of the summed slabs in registers.
 constexpr int CHAIN_NT = 256;
 
+template <bool WIDE>
 __global__ void __launch_bounds__(CHAIN_NT)
     coreacc_chain_kernel(const WordsParts sb, int na, int nb, int nk,
-                         const __grid_constant__ KTable kt,
+                         const __grid_constant__
+                         typename KWidth<WIDE>::Table kt,
                          const float* __restrict__ c1,
                          const float* __restrict__ c2, const Chain ch,
                          float* __restrict__ core, float* __restrict__ acc) {
@@ -388,22 +435,90 @@ __global__ void __launch_bounds__(CHAIN_NT)
   acc[p] = ad;
 }
 
-template <bool KEYS, bool MASK>
-cudaError_t configure() {
+// at every launch and query: the attributes belong to the current device
+// only, and the caller makes the tensors' device current
+template <bool KEYS, bool MASK, bool WIDE>
+cudaError_t configured() {
   cudaError_t err = cudaFuncSetAttribute(
-      coreacc_kernel<KEYS, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      coreacc_kernel<KEYS, MASK, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<WIDE>());
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(coreacc_kernel<KEYS, MASK>,
+  return cudaFuncSetAttribute(coreacc_kernel<KEYS, MASK, WIDE>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// at every launch and query: the attributes belong to the current device
-// only, and the caller makes the tensors' device current
-template <bool KEYS, bool MASK>
-cudaError_t configured() {
-  return configure<KEYS, MASK>();
+// The arguments of a K2 launch but its k table (out: core f32, or keys
+// int64 in key mode).
+struct K2Args {
+  const u64* a;
+  long long lda;
+  const u64* b;
+  long long ldb, kstride;
+  int na, nb, ncols, s64, nk;
+  const float* c1;
+  const float* c2;
+  float cutoff, expected, maxnbits, denom, tolerance;
+  void* out;
+  float* acc;
+  long long ldo;
+  int tiles_i, tri;
+  long long row0, col0;
+  int exclude_self;
+  SignArgs sg;
+};
+
+template <bool KEYS, bool MASK, bool WIDE>
+cudaError_t launch_k2(const K2Args& g,
+                      const typename KWidth<WIDE>::Table& kt,
+                      unsigned tiles, cudaStream_t st) {
+  const cudaError_t err = configured<KEYS, MASK, WIDE>();
+  if (err != cudaSuccess) return err;
+  constexpr int smem = smem_bytes<WIDE>();
+  coreacc_kernel<KEYS, MASK, WIDE><<<tiles, NT, smem, st>>>(
+      g.a, g.lda, g.b, g.ldb, g.kstride, g.na, g.nb, g.ncols, g.s64, g.nk,
+      kt, g.c1, g.c2, g.cutoff, g.expected, g.maxnbits, g.denom, g.tolerance,
+      KEYS ? nullptr : static_cast<float*>(g.out),
+      KEYS ? static_cast<long long*>(g.out) : nullptr, g.acc, g.ldo,
+      g.tiles_i, KEYS ? 0 : g.tri, g.row0, g.col0, g.exclude_self, g.sg);
+  return cudaGetLastError();
+}
+
+// key mode 0 plain, 1 keys, 2 masked keys
+template <bool WIDE>
+cudaError_t launch_mode(int mode, const K2Args& g,
+                        const typename KWidth<WIDE>::Table& kt,
+                        unsigned tiles, cudaStream_t st) {
+  if (mode == 2) return launch_k2<true, true, WIDE>(g, kt, tiles, st);
+  if (mode == 1) return launch_k2<true, false, WIDE>(g, kt, tiles, st);
+  return launch_k2<false, false, WIDE>(g, kt, tiles, st);
+}
+
+template <bool KEYS, bool MASK, bool WIDE>
+int blocks_per_sm() {
+  int n = 0;
+  cudaError_t err = configured<KEYS, MASK, WIDE>();
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, coreacc_kernel<KEYS, MASK, WIDE>, NT, smem_bytes<WIDE>());
+  }
+  return err == cudaSuccess ? n : -1;
+}
+
+// The table of nk k values as the kernels take it: by value (up to
+// MAX_NK_BY_VALUE k; ktable holds 3 * MAX_NK_BY_VALUE + 3 floats) or in
+// device memory (ktable_dev: kf, xs, xq of nk, nk + 1, nk + 1 floats, then
+// kc; ktable the same on the host).
+KTable table_by_value(const float* ktable) {
+  KTable kt;
+  memcpy(&kt, ktable, sizeof kt);
+  return kt;
+}
+
+KTableDev table_on_device(const float* ktable, const void* ktable_dev,
+                          int nk) {
+  const float* base = static_cast<const float*>(ktable_dev);
+  return KTableDev{base, base + nk, base + 2 * nk + 1, ktable[3 * nk + 2]};
 }
 
 }  // namespace
@@ -411,109 +526,100 @@ cudaError_t configured() {
 // keys 0: plain mode, out = core (f32); keys 1: key mode, out = int64
 // keys, masked when asig is not null (asig: na rows, bsig: nb rows of
 // swords packed sign words at row stride sld; sodd: odd sign count).
-// ktable: the KTable as 3 * MAX_NK + 3 floats (host memory).
+// ktable: the k table (host memory) as 3 * w + 3 floats, w = nk past
+// MAX_NK_BY_VALUE k and MAX_NK_BY_VALUE else; ktable_dev: past
+// MAX_NK_BY_VALUE k, the same floats in device memory (else ignored).
 // ncols: the real columns (plain mode: nb). Rows are a (na) and b (nb)
 // with row strides lda / ldb words and k-plane stride kstride words.
 extern "C" int stpu_coreacc(const void* a, long long lda, const void* b,
                             long long ldb, long long kstride, int na, int nb,
                             int ncols, int s64, int nk, const float* ktable,
-                            const void* c1, const void* c2, float cutoff,
-                            float expected, float maxnbits, float denom,
-                            float tolerance, void* out, void* acc,
-                            long long ldo, int keys, int tri, long long row0,
-                            long long col0, int exclude_self, const void* asig,
+                            const void* ktable_dev, const void* c1,
+                            const void* c2, float cutoff, float expected,
+                            float maxnbits, float denom, float tolerance,
+                            void* out, void* acc, long long ldo, int keys,
+                            int tri, long long row0, long long col0,
+                            int exclude_self, const void* asig,
                             const void* bsig, int swords, long long sld,
                             int sodd, void* stream) {
-  if (nk < 1 || nk > MAX_NK || s64 < 1) {
+  const bool wide = nk > MAX_NK_BY_VALUE;
+  if (nk < 1 || nk > MAX_NK || s64 < 1 ||
+      (long long)nk * s64 > 0x7FFFFFFFLL || (wide && ktable_dev == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  KTable kt;
-  memcpy(&kt, ktable, sizeof kt);
   const int tiles_i = (na + TI - 1) / TI;
   const long long tiles = (long long)tiles_i * ((nb + TJ - 1) / TJ);
   if (tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const K2Args g{static_cast<const u64*>(a),
+                 lda,
+                 static_cast<const u64*>(b),
+                 ldb,
+                 kstride,
+                 na,
+                 nb,
+                 ncols,
+                 s64,
+                 nk,
+                 static_cast<const float*>(c1),
+                 static_cast<const float*>(c2),
+                 cutoff,
+                 expected,
+                 maxnbits,
+                 denom,
+                 tolerance,
+                 out,
+                 static_cast<float*>(acc),
+                 ldo,
+                 tiles_i,
+                 tri,
+                 row0,
+                 col0,
+                 exclude_self,
+                 SignArgs{static_cast<const unsigned*>(asig),
+                          static_cast<const unsigned*>(bsig), swords, sld,
+                          sodd}};
+  const int mode = keys ? (asig != nullptr ? 2 : 1) : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const u64* pa = static_cast<const u64*>(a);
-  const u64* pb = static_cast<const u64*>(b);
-  const float* pc1 = static_cast<const float*>(c1);
-  const float* pc2 = static_cast<const float*>(c2);
-  const SignArgs sg{static_cast<const unsigned*>(asig),
-                    static_cast<const unsigned*>(bsig), swords, sld, sodd};
-  cudaError_t err;
-  if (keys && asig != nullptr) {
-    if ((err = configured<true, true>()) != cudaSuccess) {
-      return static_cast<int>(err);
-    }
-    coreacc_kernel<true, true><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
-        pa, lda, pb, ldb, kstride, na, nb, ncols, s64, nk, kt, pc1, pc2,
-        cutoff, expected, maxnbits, denom, tolerance, nullptr,
-        static_cast<long long*>(out), static_cast<float*>(acc), ldo, tiles_i,
-        0, row0, col0, exclude_self, sg);
-  } else if (keys) {
-    if ((err = configured<true, false>()) != cudaSuccess) {
-      return static_cast<int>(err);
-    }
-    coreacc_kernel<true, false><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
-        pa, lda, pb, ldb, kstride, na, nb, ncols, s64, nk, kt, pc1, pc2,
-        cutoff, expected, maxnbits, denom, tolerance, nullptr,
-        static_cast<long long*>(out), static_cast<float*>(acc), ldo, tiles_i,
-        0, row0, col0, exclude_self, sg);
-  } else {
-    if ((err = configured<false, false>()) != cudaSuccess) {
-      return static_cast<int>(err);
-    }
-    coreacc_kernel<false, false><<<(unsigned)tiles, NT, SMEM_BYTES, st>>>(
-        pa, lda, pb, ldb, kstride, na, nb, ncols, s64, nk, kt, pc1, pc2,
-        cutoff, expected, maxnbits, denom, tolerance,
-        static_cast<float*>(out), nullptr, static_cast<float*>(acc), ldo,
-        tiles_i, tri, row0, col0, exclude_self, sg);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err =
+      wide ? launch_mode<true>(mode, g,
+                               table_on_device(ktable, ktable_dev, nk),
+                               (unsigned)tiles, st)
+           : launch_mode<false>(mode, g, table_by_value(ktable),
+                                (unsigned)tiles, st);
+  return static_cast<int>(err);
 }
 
 // Resident blocks per SM of the kernel at its launch configuration, or -1:
-// keys 0 plain mode, 1 key mode, 2 masked key mode.
-extern "C" int stpu_coreacc_blocks_per_sm(int keys) {
-  int n = 0;
-  cudaError_t err;
-  if (keys == 2) {
-    err = configured<true, true>();
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, coreacc_kernel<true, true>, NT, SMEM_BYTES);
-    }
-  } else if (keys == 1) {
-    err = configured<true, false>();
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, coreacc_kernel<true, false>, NT, SMEM_BYTES);
-    }
-  } else {
-    err = configured<false, false>();
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, coreacc_kernel<false, false>, NT, SMEM_BYTES);
-    }
+// keys 0 plain mode, 1 key mode, 2 masked key mode; wide 1: the
+// instantiation past MAX_NK_BY_VALUE k.
+extern "C" int stpu_coreacc_blocks_per_sm(int keys, int wide) {
+  if (wide) {
+    if (keys == 2) return blocks_per_sm<true, true, true>();
+    if (keys == 1) return blocks_per_sm<true, false, true>();
+    return blocks_per_sm<false, false, true>();
   }
-  return err == cudaSuccess ? n : -1;
+  if (keys == 2) return blocks_per_sm<true, true, false>();
+  if (keys == 1) return blocks_per_sm<true, false, false>();
+  return blocks_per_sm<false, false, false>();
 }
 
 // coreacc_chain: core and acc (na, nb) f32 from the sum of nslabs int32
 // (nk, na, nb) slabs of partial samebits counts (slabs: a host array of
-// device pointers); c1 (na) / c2 (nb) f32 completeness or null; ktable as
-// for stpu_coreacc; the constants are the whole sketch's.
+// device pointers); c1 (na) / c2 (nb) f32 completeness or null; ktable and
+// ktable_dev as for stpu_coreacc; the constants are the whole sketch's.
 extern "C" int stpu_coreacc_chain(const void* const* slabs, int nslabs,
                                   int na, int nb, int nk,
-                                  const float* ktable, const void* c1,
-                                  const void* c2, float cutoff,
-                                  float expected, float maxnbits, float denom,
+                                  const float* ktable, const void* ktable_dev,
+                                  const void* c1, const void* c2,
+                                  float cutoff, float expected,
+                                  float maxnbits, float denom,
                                   float tolerance, void* core, void* acc,
                                   void* stream) {
-  if (nk < 1 || nk > MAX_NK || nslabs < 1 || nslabs > MAX_WORDS_SLOTS) {
+  const bool wide = nk > MAX_NK_BY_VALUE;
+  if (nk < 1 || nk > MAX_NK || nslabs < 1 || nslabs > MAX_WORDS_SLOTS ||
+      (wide && ktable_dev == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  KTable kt;
-  memcpy(&kt, ktable, sizeof kt);
   WordsParts sb{};
   for (int s = 0; s < nslabs; ++s) sb.p[s] = static_cast<const int*>(slabs[s]);
   sb.n = nslabs;
@@ -521,10 +627,17 @@ extern "C" int stpu_coreacc_chain(const void* const* slabs, int nslabs,
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
   const Chain ch{expected, maxnbits, denom, tolerance, cutoff};
-  coreacc_chain_kernel<<<(unsigned)blocks, CHAIN_NT, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      sb, na, nb, nk, kt, static_cast<const float*>(c1),
-      static_cast<const float*>(c2), ch, static_cast<float*>(core),
-      static_cast<float*>(acc));
+  const float* pc1 = static_cast<const float*>(c1);
+  const float* pc2 = static_cast<const float*>(c2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    coreacc_chain_kernel<true><<<(unsigned)blocks, CHAIN_NT, 0, st>>>(
+        sb, na, nb, nk, table_on_device(ktable, ktable_dev, nk), pc1, pc2,
+        ch, static_cast<float*>(core), static_cast<float*>(acc));
+  } else {
+    coreacc_chain_kernel<false><<<(unsigned)blocks, CHAIN_NT, 0, st>>>(
+        sb, na, nb, nk, table_by_value(ktable), pc1, pc2, ch,
+        static_cast<float*>(core), static_cast<float*>(acc));
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,12 @@ on the sum of the words slots' per-k partial samebits, taken as the slabs
 stand (coreacc_jax.coreacc_tile after its psum). It shares K2's chain
 code, so its (core, acc) are K2's bit for bit; its twin coreacc_chain_ref
 is the second half of coreacc_ref.
+
+Both kernels take up to MAX_NK k values. Up to MAX_NK_BY_VALUE the k table
+(_k_table) goes to the launch by value; past it the wrapper copies the
+table to the card on the launch's stream and the kernels' WIDE
+instantiations read it there (csrc/coreacc.cu), with the same floats, so
+the bits do not depend on the route.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from .samebits_kernels import (
     sum_parts_ref,
 )
 
-MAX_NK = 255  # k values per launch: the kernel's by-value k table
+MAX_NK = 65535  # k values per launch: K2's 16-bit included-k count
+MAX_NK_BY_VALUE = 255  # past it the k table goes through device memory
 _MAX_TILES = (1 << 31) - 1  # one-dimensional grid of 64 x 64 pair tiles
 _TILE = 64
 _CHAIN_NT = 256  # pairs a block of the chain kernel
@@ -303,9 +310,11 @@ def coreacc_chain(sb, kmers, sketch_size: int, s64: int, c1=None, c2=None,
         return core, acc
     maxnbits, expected, tolerance = chain_constants(s64, sketch_size)
     ptrs = (ctypes.c_void_p * len(slabs))(*[t.data_ptr() for t in slabs])
+    table, on_card = _k_table_args(tuple(kmers), dev)
     _build.launch(
         dev, "stpu_coreacc_chain",
-        ptrs, len(slabs), na, nb, nk, _k_table(tuple(kmers)),
+        ptrs, len(slabs), na, nb, nk, table,
+        on_card.data_ptr() if on_card is not None else None,
         c1.data_ptr() if c1 is not None else None,
         c2.data_ptr() if c2 is not None else None,
         cutoff, expected, maxnbits, maxnbits - expected, tolerance,
@@ -319,21 +328,36 @@ coreacc_chain.launches = 0
 
 
 @functools.lru_cache(maxsize=64)
-def _k_table(kmers: tuple) -> ctypes.Array:
-    """The kernel's KTable as MAX_NK centred k values, the f32 prefix sums
-    of x and x*x (the twin's sums over the included k, which the early
-    break makes a prefix, added in the same order) and kc."""
+def _k_table(kmers: tuple) -> np.ndarray:
+    """The kernels' k table as f32: w centred k values, the prefix sums of
+    x and x*x (w + 1 each: the twin's sums over the included k, which the
+    early break makes a prefix, added in the same order) and kc, where w =
+    MAX_NK_BY_VALUE (KTable, by value; zeros past the k) or, past it, the
+    number of k (the table in device memory). Read only."""
     kc = k_centre(kmers)
-    kf = np.zeros(MAX_NK, dtype=np.float32)
-    xs = np.zeros(MAX_NK + 1, dtype=np.float32)
-    xq = np.zeros(MAX_NK + 1, dtype=np.float32)
+    w = max(len(kmers), MAX_NK_BY_VALUE)
+    kf = np.zeros(w, dtype=np.float32)
+    xs = np.zeros(w + 1, dtype=np.float32)
+    xq = np.zeros(w + 1, dtype=np.float32)
     for q, k in enumerate(kmers):
         x = float(k) - kc
         kf[q] = x
         xs[q + 1] = xs[q] + np.float32(x)
         xq[q + 1] = xq[q] + np.float32(x * x)
     flat = np.concatenate([kf, xs, xq, np.float32([kc])])
-    return (ctypes.c_float * flat.size)(*flat.tolist())
+    flat.flags.writeable = False
+    return flat
+
+
+def _k_table_args(kmers: tuple, device) -> tuple[int, torch.Tensor | None]:
+    """The launch's k table arguments: the host table's address, and past
+    MAX_NK_BY_VALUE k its copy on `device`, made on the device's current
+    stream (the launch's), so its memory is not reused before the kernel
+    has read it; else None."""
+    table = _k_table(kmers)
+    if len(kmers) <= MAX_NK_BY_VALUE:
+        return table.ctypes.data, None
+    return table.ctypes.data, torch.from_numpy(table.copy()).to(device)
 
 
 def _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0,
@@ -356,10 +380,12 @@ def _launch_coreacc(a, b, kmers, sketch_size, c1, c2, cutoff, tri, row0,
     else:
         out = torch.empty((na, nb), dtype=torch.int64, device=a.device)
         col0, ncols, exclude_self = keys
+    table, on_card = _k_table_args(tuple(kmers), a.device)
     _build.launch(
         a.device, "stpu_coreacc",
         a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), w, na, nb,
-        ncols, s64, nk, _k_table(tuple(kmers)),
+        ncols, s64, nk, table,
+        on_card.data_ptr() if on_card is not None else None,
         c1.data_ptr() if c1 is not None else None,
         c2.data_ptr() if c2 is not None else None,
         cutoff, expected, maxnbits, maxnbits - expected, tolerance,

@@ -27,10 +27,14 @@ another GPU is copied on a stream of that GPU after an event recorded on
 its producer's stream) and finishes once they are in: samebits_finish
 (the sum as int32, or the f32 distances) or coreacc_chain (K2's
 regression chain on the per-k sums), each taking the partials as they
-stand. A slot's share of an operand held on another GPU is moved by the
-copy engines (one 2-D memcpy on a stream of the slot's GPU, after
-events the step records on the streams of every GPU its operands are
-on), so it does not queue behind the other GPU's compute. The counts are
+stand. A finish sums at most MAX_WORDS_SLOTS partials, so a wider row
+block's lead first folds its partials in groups of that many with
+samebits_finish's count mode (_fold; int32 sums are exact), and a grid
+may have as many words slots as the sketch has chunks. A slot's share of
+an operand held on another GPU is moved by the copy engines (one 2-D
+memcpy on a stream of the slot's GPU, after events the step records on
+the streams of every GPU its operands are on), so it does not queue
+behind the other GPU's compute. The counts are
 exact, so a split result equals the unsplit one bit for bit. A sketch
 whose chunks do not split evenly over the words slots is refused, as the
 JAX mesh cannot shard it either. mesh.timeline() records each slot's
@@ -72,6 +76,7 @@ from ..dist.knn_torch import (
 )
 from ..dist.output import emit_coreacc_cross_block, emit_coreacc_self_block
 from ..dist.samebits_kernels import (
+    MAX_WORDS_SLOTS,
     samebits_dist,
     samebits_finish,
     samebits_full,
@@ -231,11 +236,12 @@ class DeviceSlots:
         engine, rows, parts) on the block's lead slot. On a rows-only grid
         parts is None. With words slots, every slot of the block, the lead
         too, runs partial(engine, rows) (a tensor) on a stream of its own,
-        and parts holds them on the lead's device, its own first: the lead
-        enqueues its own partial before it waits for anything, receives
-        the others on its receive stream (a partial of another GPU copied
-        on a stream of that GPU after its producer's event), and only the
-        finish waits for them. Each lead is submitted after the partials
+        and parts holds them on the lead's device, its own first (past
+        MAX_WORDS_SLOTS folded by _fold): the lead enqueues its own
+        partial before it waits for anything, receives the others on its
+        receive stream (a partial of another GPU copied on a stream of
+        that GPU after its producer's event), and only the finish waits
+        for them. Each lead is submitted after the partials
         it waits for, so the lead threads never hold up a partial."""
         after = _marks(self.distinct_devices() + self.sources)
         if self.words == 1:
@@ -281,7 +287,18 @@ def _finish(eng, partial, finish, rows, parts):
         for t in got[1:]:
             t.record_stream(compute)
     with _span("finish", dev):
-        return finish(eng, rows, got)
+        return finish(eng, rows, _fold(got))
+
+
+def _fold(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The slots' partials, as at most MAX_WORDS_SLOTS of them, for a
+    finish: past that bound, summed in groups of MAX_WORDS_SLOTS in order
+    by samebits_finish's count mode (exact int32) until they are few
+    enough."""
+    while len(parts) > MAX_WORDS_SLOTS:
+        parts = [samebits_finish(parts[i:i + MAX_WORDS_SLOTS])
+                 for i in range(0, len(parts), MAX_WORDS_SLOTS)]
+    return parts
 
 
 def _receive(item, device: torch.device, recv, slot: str) -> torch.Tensor:

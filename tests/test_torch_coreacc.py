@@ -1,6 +1,8 @@
 """K2 core/accessory: the port's twin (and its wrapper on CPU tensors)
 against the Pallas kernel in interpret mode, the XLA tile, and the f64
-host chain, on related sketches at several divergences."""
+host chain, on related sketches at several divergences; the kernels' k
+table at any number of k; and the port's CLI at 260 k against the JAX
+package's."""
 
 import numpy as np
 import pytest
@@ -15,13 +17,18 @@ from sketchtpu.dist.jaccard_np import (
     jaccard_from_samebits,
     samebits_matrix,
 )
+from sketchtpu import cli as jax_cli
+from sketchtpu_torch.cli import main as port_cli
 from sketchtpu_torch.dist.coreacc_kernels import (
     KEY_INVALID,
+    MAX_NK_BY_VALUE,
+    _k_table,
     coreacc,
     coreacc_keys,
     coreacc_ref,
+    k_centre,
 )
-from sketchtpu_torch.synth import derive_words
+from sketchtpu_torch.synth import derive_words, related_assemblies
 
 KMERS = (17, 19, 21, 23, 25, 27, 29)
 ATOL = 1e-5  # f32 chain vs f32 chain, and vs the f64 oracle
@@ -196,3 +203,70 @@ def test_coreacc_keys_twin_packs_coreacc_ref(with_comp, tr, tc, row0, col0,
         core_i = core_r.numpy()[i]
         want_order = real[np.lexsort((cols[real], core_i[real]))]
         np.testing.assert_array_equal(got_order, want_order)
+
+
+@pytest.mark.parametrize("nk", [3, 7, MAX_NK_BY_VALUE, MAX_NK_BY_VALUE + 1,
+                                300])
+def test_k_table_is_the_twins_centred_k_and_prefix_sums(nk):
+    """The kernels' k table (by value up to MAX_NK_BY_VALUE k, in device
+    memory past it, csrc/coreacc.cu): w = max(nk, MAX_NK_BY_VALUE) centred
+    k values, then w + 1 prefix sums of x and of x * x, then kc; each sum
+    the f32 value the twin's chain accumulates over the first n k, bit for
+    bit, and zeros past the k."""
+    kmers = tuple(range(15, 15 + 2 * nk, 2))
+    table = _k_table(kmers)
+    w = max(nk, MAX_NK_BY_VALUE)
+    assert table.dtype == np.float32 and table.shape == (3 * w + 3,)
+    kf, xs, xq = table[:w], table[w:2 * w + 1], table[2 * w + 1:3 * w + 2]
+    kc = k_centre(kmers)
+    assert table[-1] == np.float32(kc) == kmers[nk // 2]
+    x = torch.tensor([float(k) - kc for k in kmers], dtype=torch.float32)
+    assert np.array_equal(kf[:nk], x.numpy()) and not kf[nk:].any()
+    xsum = torch.zeros((), dtype=torch.float32)
+    xsq = torch.zeros((), dtype=torch.float32)
+    assert xs[0] == 0 and xq[0] == 0
+    for q, k in enumerate(kmers):  # coreacc_chain_ref's sums, in its order
+        k_fl = float(k) - kc
+        xsum = xsum + torch.tensor(k_fl, dtype=torch.float32)
+        xsq = xsq + torch.tensor(k_fl * k_fl, dtype=torch.float32)
+        assert xs[q + 1].tobytes() == xsum.numpy().tobytes(), q
+        assert xq[q + 1].tobytes() == xsq.numpy().tobytes(), q
+    assert not xs[nk + 1:].any() and not xq[nk + 1:].any()
+
+
+def test_cli_at_260_k_matches_the_jax_package(tmp_path, monkeypatch):
+    """`sketch --k-seq 15,274,1` (260 k, past K2's by-value k table) of 3
+    related genomes, then dense core/accessory `dist` and `dist --knn 2`:
+    the port's CLI in cpu mode writes the JAX package's .skd/.skm bytes
+    (its host oracle), its f32 core/acc is within ATOL of the f64 chain,
+    and its core/acc kNN (f32 selection, f64 values) is byte-identical."""
+    rfile = related_assemblies(tmp_path / "fa", 3, 4000, seed=16,
+                               n_ancestors=1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the twins of 260 k, under parallel workers
+    try:
+        for main, who, env in ((port_cli, "port", "SKETCHTPU_TORCH_BACKEND"),
+                               (jax_cli.main, "host", "SKETCHTPU_BACKEND")):
+            monkeypatch.setenv(env, "cpu" if who == "port" else "host")
+            p = str(tmp_path / who)
+            for argv in (["sketch", "-f", str(rfile), "-o", p, "--k-seq",
+                          "15,274,1", "-s", "128", "--quiet"],
+                         ["dist", p, "-o", f"{p}_ca.txt", "--quiet"],
+                         ["dist", p, "--knn", "2", "-o", f"{p}_knn.txt",
+                          "--quiet"]):
+                assert main(argv) == 0, (who, argv)
+    finally:
+        torch.set_num_threads(threads)
+    for ext in (".skd", ".skm"):
+        port = (tmp_path / f"port{ext}").read_bytes()
+        assert port and port == (tmp_path / f"host{ext}").read_bytes()
+    tables = []
+    for who in ("port", "host"):
+        rows = [ln.split("\t") for ln in
+                (tmp_path / f"{who}_ca.txt").read_text().splitlines()]
+        tables.append(np.array([[float(v) for v in r[2:]] for r in rows]))
+    assert tables[0].shape == tables[1].shape == (3, 2)
+    assert ((tables[1][:, 0] > 0) & (tables[1][:, 0] < 1)).all()  # fitted
+    np.testing.assert_allclose(tables[0], tables[1], atol=ATOL, rtol=0)
+    knn = (tmp_path / "port_knn.txt").read_bytes()
+    assert knn and knn == (tmp_path / "host_knn.txt").read_bytes()

@@ -15,6 +15,7 @@ from sketchtpu_torch.dist.api import DistType
 from sketchtpu_torch.dist.coreacc_kernels import (
     KEY_INVALID,
     MAX_NK,
+    MAX_NK_BY_VALUE,
     coreacc,
     coreacc_keys,
     coreacc_keys_ref,
@@ -183,9 +184,11 @@ def test_coreacc_kernel_matches_twin(cuda, na, nb, with_comp):
 
 
 # s64 that the kernel's 2-chunk stages do not divide; nk < 3 takes the
-# n < 3 branch; the k-planes are a strided selection (row stride > nk*W)
+# n < 3 branch; past MAX_NK_BY_VALUE the k table is read from device
+# memory; the k-planes are a strided selection (row stride > nk*W)
 @pytest.mark.parametrize("s64", [1, 3, 5, 16])
-@pytest.mark.parametrize("nk", [1, 2, 3, 7, MAX_NK])
+@pytest.mark.parametrize("nk", [1, 2, 3, 7, MAX_NK_BY_VALUE,
+                                MAX_NK_BY_VALUE + 1, 300])
 @pytest.mark.parametrize("with_comp", [False, True])
 def test_coreacc_kernel_matches_twin_across_s64_and_nk(cuda, s64, nk,
                                                         with_comp):
@@ -1765,3 +1768,123 @@ def test_words_grids_equal_unsplit(cuda, kind):
                 eng.stream_self_dense(out, names)
                 texts.append(out.getvalue())
             assert texts[0] and texts[0] == texts[1]
+
+
+@pytest.mark.parametrize("nk", [MAX_NK_BY_VALUE, MAX_NK_BY_VALUE + 1, 300])
+def test_coreacc_modes_and_chain_around_the_by_value_table(cuda, nk):
+    """K2's plain, key and masked key modes and coreacc_chain at nk k
+    values (k = 15, 16, ...) on either side of the by-value table's bound
+    (past it the table is read from device memory and the included-k
+    count is 16 bits): bit-equal to their twins, with and without
+    completeness, where close pairs include every k in the fit."""
+    from sketchtpu_torch.dist.coreacc_kernels import (
+        coreacc_chain,
+        coreacc_chain_ref,
+    )
+    from sketchtpu_torch.dist.knn_kernels import SignMask
+    from sketchtpu_torch.dist.samebits_kernels import samebits_stack
+    from sketchtpu_torch.shard.mesh import word_ranges
+
+    kmers = tuple(range(15, 15 + nk))
+    w = _kwords(200, kmers, 4, 90 + nk, cuda)
+    a, b = w[:70], w[30:200]
+    comp = _comp(200, nk, cuda)
+    full = _mask(cuda, 200, 100, nk)
+    for c1, c2 in ((None, None),
+                   (comp[:70].contiguous(), comp[30:200].contiguous())):
+        got = coreacc(a, b, kmers, 256, c1, c2)
+        want = coreacc_ref(a, b, kmers, 256, c1, c2)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+        assert ((want[0] > 0) & (want[0] < 1)).sum() > 0
+        kw = dict(row0=0, col0=30, nb_real=190, exclude_self=True)
+        for sig in (None, SignMask(full.cols[:70], full.cols, 100)):
+            keys, acc = coreacc_keys(a, b, kmers, 256, c1, c2, sig=sig, **kw)
+            want_k, want_a = coreacc_keys_ref(a, b, kmers, 256, c1, c2,
+                                              sig=sig, **kw)
+            assert torch.equal(keys, want_k) and torch.equal(acc, want_a)
+        slabs = [samebits_stack(a[..., r], b[..., r])
+                 for r in word_ranges(4, 2)]
+        chain = coreacc_chain(slabs, kmers, 256, 4, c1, c2)
+        twin = coreacc_chain_ref(slabs, kmers, 256, 4, c1, c2)
+        for g, x, t in zip(chain, got, twin):
+            assert torch.equal(g, x) and torch.equal(g, t)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_words_grid_of_16_slots_on_the_card(cuda, rows):
+    """rows x 16 grids of slots of the card, past MAX_WORDS_SLOTS (each
+    lead folds its partials in two groups of 8 before its finish):
+    samebits, distances, core/acc steps and the two engines' words grids
+    bit-equal to the unsplit kernels and the one-device engine."""
+    from sketchtpu_torch.dist.coreacc_torch import DeviceCoreAccEngine
+    from sketchtpu_torch.dist.jaccard_torch import jaccard_dist_block
+    from sketchtpu_torch.shard import mesh
+
+    ms, _ = _ms_pair(300, 92)
+    t = torch.from_numpy(
+        ms.sketch_bins.reshape(300, 3, -1).view(np.int64)).to(cuda)
+    comp = _comp(300, 93, cuda)
+    grid = mesh.make_mesh(rows, 16, devices=[cuda] * (16 * rows))
+    host = ms.sketch_bins.reshape(300, 3, -1)[:, 1]
+    assert np.array_equal(
+        mesh.ShardedSamebitsEngine(16, grid).matrix(host, host[:150]),
+        samebits_full(t[:, 1], t[:150, 1]).cpu().numpy())
+    for ani in (False, True):
+        assert torch.equal(
+            mesh.sharded_dist_step(t[:, 0], t[:150, 0], 16, grid, 17.0, ani),
+            jaccard_dist_block(t[:, 0], t[:150, 0], 16, k=17.0, ani=ani))
+    for c in (None, comp):
+        c2 = c[:150].contiguous() if c is not None else None
+        got = mesh.sharded_coreacc_step(t, t[:150], 16, grid, (17, 21, 25),
+                                        1024, c1=c, c2=c2)
+        want = coreacc(t, t[:150], (17, 21, 25), 1024, c, c2)
+        assert torch.equal(got, torch.stack(want, dim=-1))
+        cv = c.cpu().numpy() if c is not None else None
+        sh = mesh.ShardedCoreAccEngine(ms, grid, tile=128,
+                                       completeness_vec=cv)
+        one = DeviceCoreAccEngine(ms, cuda, tile=128, completeness_vec=cv)
+        assert np.array_equal(sh.tile_dists(slice(7, 290), slice(0, 300)),
+                              one.tile_dists(slice(7, 290), slice(0, 300)))
+
+
+def test_words_setup_copy_waits_for_a_strided_operands_gather(cuda):
+    """A strided c1 (a column of an (n, 2) tensor) is the only operand on
+    GPU 1, written there by the caller's stream after a ~0.1 s spin with
+    no sync; a, b and c2 are ready on GPU 0, and the grid's slots are on
+    GPU 0 (and GPU 2 where there is one). The slot first gathers c1 on GPU
+    1; its copy to GPU 0 must wait for that gather: every core/acc step
+    equals the one with the contiguous c1, bit for bit."""
+    from sketchtpu_torch.shard import mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two GPUs")
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    kmers = (17, 21, 25)
+    t = _kwords(300, kmers, 16, 94, d0)
+    comp = _comp(300, 95, d0)
+    pair = torch.stack([comp, 1 - comp], dim=1).to(d1)
+    c2 = comp[:150].contiguous()
+    want = torch.stack(coreacc(t, t[:150], kmers, 1024, comp, c2), dim=-1)
+    grids = [mesh.as_mesh([d0]), mesh.make_mesh(1, 2, [d0, d0]),
+             mesh.make_mesh(2, 1, [d0, d0])]
+    if n > 2:
+        grids.append(mesh.make_mesh(1, 2, [d0, torch.device("cuda", 2)]))
+    # built, and the allocator's blocks hold other values than the step's
+    for grid in grids:
+        mesh.sharded_coreacc_step(t, t[:150], 16, grid, kmers, 1024,
+                                  c1=(1 - pair)[:, 0], c2=c2)
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    writer = torch.cuda.Stream(device=d1)
+    for grid in grids:
+        (late,) = _written_late(writer, pair)
+        assert late[:, 0].stride() == (2,)
+        with torch.cuda.stream(writer):
+            got = mesh.sharded_coreacc_step(t, t[:150], 16, grid, kmers,
+                                            1024, c1=late[:, 0], c2=c2)
+        torch.cuda.synchronize(got.device)
+        assert torch.equal(got.to(d0), want), grid
+        torch.cuda.synchronize(d1)

@@ -228,13 +228,20 @@ def test_coreacc_rejects_more_k_than_the_kernel_takes_on_cuda():
 
 
 def test_coreacc_k_limit_is_the_kernels():
-    """The wrapper's MAX_NK is the one csrc/coreacc.cu sizes its k table
-    and byte-wide included-k count by."""
+    """The wrapper's MAX_NK and MAX_NK_BY_VALUE are the bounds
+    csrc/coreacc.cu sizes its 16-bit included-k count and its by-value k
+    table (and byte-wide count) by; the table the wrapper builds has the
+    kernel's layout on either side of the by-value bound."""
     src = (REPO / "sketchtpu_torch" / "csrc" / "coreacc.cu").read_text()
     assert f"constexpr int MAX_NK = {coreacc_kernels.MAX_NK};" in src
-    assert coreacc_kernels.MAX_NK <= 255
+    assert (f"constexpr int MAX_NK_BY_VALUE = "
+            f"{coreacc_kernels.MAX_NK_BY_VALUE};") in src
+    assert coreacc_kernels.MAX_NK <= 65535
+    assert coreacc_kernels.MAX_NK_BY_VALUE <= 255
     table = coreacc_kernels._k_table((17, 19, 21))
-    assert len(table) == 3 * coreacc_kernels.MAX_NK + 3
+    assert len(table) == 3 * coreacc_kernels.MAX_NK_BY_VALUE + 3
+    wide = tuple(range(3, 4 + coreacc_kernels.MAX_NK_BY_VALUE))
+    assert len(coreacc_kernels._k_table(wide)) == 3 * len(wide) + 3
 
 
 def test_words_slots_limit_is_the_kernels():

@@ -8,7 +8,11 @@ its f64 oracle, and within 5e-6 of its XLA program); f32
 core/accessory within 1e-5 of it (the port centres k; pairs on the
 regression's beta == 0 discontinuity counted and held rare, as in
 tests/test_torch_mesh.py); every split result bit-equal to the port's
-unsplit one."""
+unsplit one. Grids of 16 words slots (1 x 16, 2 x 16; past the finish's
+MAX_WORDS_SLOTS, so each lead folds its partials first) run at s64 = 16
+and are held against the port's 1 x 1 grid bit for bit and against the
+JAX package's unsplit functions on its 1 x 1 mesh (its 8-device mesh
+cannot hold 16 slots)."""
 
 import io
 from pathlib import Path
@@ -57,8 +61,11 @@ from sketchtpu_torch.synth import derive_signs, derive_words
 CPU = torch.device("cpu")
 SLOTS = [CPU] * 8
 GRIDS = [(8, 1), (4, 2), (2, 4), (1, 8)]
+# past MAX_WORDS_SLOTS: on 32 CPU slots, at S64_WIDE
+GRIDS_WIDE = [(1, 16), (2, 16)]
 KMERS = (17, 21, 25)
 S64 = 8  # 512 bins: whole chunks for every words slot up to 8
+S64_WIDE = 16  # 1024 bins: one chunk a slot of a 16-wide grid
 NA, NB = 37, 23
 ATOL_DIST, ATOL_CA = 1e-6, 1e-5
 # ANI against the JAX package's XLA program: XLA:CPU may lower f32 log to a
@@ -69,16 +76,36 @@ ATOL_DIST, ATOL_CA = 1e-6, 1e-5
 ATOL_ANI_XLA = 5e-6
 
 
+def _related_words(s64: int, seed: int) -> dict:
+    """(NA + NB, nk, s64 * 14) u64 words of related samples (3 families)
+    and completeness values."""
+    rng = np.random.default_rng(seed)
+    parents = rng.integers(0, 2**64, (3, len(KMERS), s64, 14),
+                           dtype=np.uint64)
+    w = derive_words(parents, NA + NB, KMERS, seed + 1)
+    return {"w": w.reshape(NA + NB, len(KMERS), s64 * 14),
+            "comp": rng.uniform(0.6, 1.0, NA + NB).astype(np.float32),
+            "s64": s64}
+
+
 @pytest.fixture(scope="module")
 def words():
-    """(NA + NB, nk, S64 * 14) u64 words of related samples (3 families)
-    and completeness values."""
-    rng = np.random.default_rng(141)
-    parents = rng.integers(0, 2**64, (3, len(KMERS), S64, 14),
-                           dtype=np.uint64)
-    w = derive_words(parents, NA + NB, KMERS, 142)
-    return {"w": w.reshape(NA + NB, len(KMERS), S64 * 14),
-            "comp": rng.uniform(0.6, 1.0, NA + NB).astype(np.float32)}
+    return _related_words(S64, 141)
+
+
+@pytest.fixture(scope="module")
+def words_wide():
+    return _related_words(S64_WIDE, 151)
+
+
+def _grid_case(request, rows: int, words_: int):
+    """A grid's case: (words fixture, its s64, the port's device slots,
+    the JAX mesh's (rows, words): the grid's own where its 8 devices hold
+    it, else 1 x 1, the unsplit functions)."""
+    if rows * words_ <= 8:
+        return request.getfixturevalue("words"), S64, SLOTS, (rows, words_)
+    return (request.getfixturevalue("words_wide"), S64_WIDE,
+            [CPU] * (rows * words_), (1, 1))
 
 
 def _jax_put(x, grid, spec):
@@ -143,19 +170,22 @@ def test_uneven_words_split_is_refused(words):
                                        P("rows", "words")))
 
 
-@pytest.mark.parametrize("rows,words_", GRIDS)
-def test_samebits_engine_on_grids(words, rows, words_):
+@pytest.mark.parametrize("rows,words_", GRIDS + GRIDS_WIDE)
+def test_samebits_engine_on_grids(request, rows, words_):
+    words, s64, slots, jax_shape = _grid_case(request, rows, words_)
     w = words["w"]
     a, b = np.ascontiguousarray(w[:NA, 1]), np.ascontiguousarray(w[NA:, 1])
     want = jax_mesh.ShardedSamebitsEngine(
-        S64, jax_mesh.make_mesh(rows, words_)).matrix(a, b)
-    grid = mesh.make_mesh(rows, words_, devices=SLOTS)
-    got = mesh.ShardedSamebitsEngine(S64, grid).matrix(a, b)
+        s64, jax_mesh.make_mesh(*jax_shape)).matrix(a, b)
+    grid = mesh.make_mesh(rows, words_, devices=slots)
+    got = mesh.ShardedSamebitsEngine(s64, grid).matrix(a, b)
     assert got.dtype == np.int32 and np.array_equal(got, want)
     assert np.array_equal(got, samebits_matrix(a, b))
+    assert np.array_equal(got, mesh.ShardedSamebitsEngine(
+        s64, mesh.make_mesh(1, 1, devices=[CPU])).matrix(a, b))
     # int64 tensors give the same counts, on the grid's first slot
     t = mesh.sharded_samebits(torch.from_numpy(a.view(np.int64)),
-                              torch.from_numpy(b.view(np.int64)), S64, grid)
+                              torch.from_numpy(b.view(np.int64)), s64, grid)
     assert t.device == CPU and np.array_equal(t.numpy(), want)
 
 
@@ -177,30 +207,33 @@ def _close_to_jax(got: torch.Tensor, xla: np.ndarray, a, b, s64, k, ani):
                                atol=ATOL_DIST)
 
 
-def _jax_dist_step(a32, b32, rows, words_, k, ani):
+def _jax_dist_step(a32, b32, rows, words_, k, ani, s64=S64):
     grid = jax_mesh.make_mesh(rows, words_)
     out = jax_mesh.sharded_dist_step(
         _jax_put(_pad(a32, rows), grid, P("rows", "words")),
-        _jax_put(b32, grid, P(None, "words")), S64, grid, k, ani)
+        _jax_put(b32, grid, P(None, "words")), s64, grid, k, ani)
     return np.asarray(out)[: a32.shape[0]]
 
 
 @pytest.mark.parametrize("ani", [False, True])
-@pytest.mark.parametrize("rows,words_", [(4, 2), (2, 4)])
-def test_dist_step_on_grids(words, rows, words_, ani):
+@pytest.mark.parametrize("rows,words_", [(4, 2), (2, 4)] + GRIDS_WIDE)
+def test_dist_step_on_grids(request, rows, words_, ani):
+    words, s64, slots, jax_shape = _grid_case(request, rows, words_)
     w = words["w"]
     a, b = np.ascontiguousarray(w[:NA, 0]), np.ascontiguousarray(w[NA:, 0])
-    want = _jax_dist_step(a.view(np.uint32), b.view(np.uint32), rows,
-                          words_, 17.0, ani)
-    got = mesh.sharded_dist_step(a, b, S64,
-                                 mesh.make_mesh(rows, words_, devices=SLOTS),
+    want = _jax_dist_step(a.view(np.uint32), b.view(np.uint32), *jax_shape,
+                          17.0, ani, s64)
+    got = mesh.sharded_dist_step(a, b, s64,
+                                 mesh.make_mesh(rows, words_, devices=slots),
                                  17.0, ani)
     assert got.dtype == torch.float32 and got.shape == (NA, NB)
-    _close_to_jax(got, want, a, b, S64, 17.0, ani)
+    _close_to_jax(got, want, a, b, s64, 17.0, ani)
     whole = jaccard_dist_block(torch.from_numpy(a.view(np.int64)),
-                               torch.from_numpy(b.view(np.int64)), S64,
+                               torch.from_numpy(b.view(np.int64)), s64,
                                k=17.0, ani=ani)
     assert torch.equal(got, whole)
+    assert torch.equal(got, mesh.sharded_dist_step(
+        a, b, s64, mesh.make_mesh(1, 1, devices=[CPU]), 17.0, ani))
     assert ((got > 0.0) & (got < 1.0)).sum() > NA  # related pairs
 
 
@@ -265,7 +298,7 @@ def test_samebits_dist_base_adds_the_other_chunks(words):
         samebits_finish([own, base.to(torch.int64)], S64)
 
 
-def _jax_coreacc_step(stack, rows, words_, comp):
+def _jax_coreacc_step(stack, rows, words_, comp, s64=S64):
     """The JAX step on (nk, n, W2) u32 stacks: rows NA of a, all of b."""
     grid = jax_mesh.make_mesh(rows, words_)
     a = _jax_put(_pad(stack[:, :NA], rows, 1), grid, P(None, "rows", "words"))
@@ -274,29 +307,34 @@ def _jax_coreacc_step(stack, rows, words_, comp):
     if comp is not None:
         kw = dict(c1=_jax_put(_pad(comp[:NA], rows), grid, P("rows")),
                   c2=_jax_put(comp[NA:], grid, P(None)), cutoff=0.64)
-    out = jax_mesh.sharded_coreacc_step(a, b, S64, grid, KMERS, S64 * 64, **kw)
+    out = jax_mesh.sharded_coreacc_step(a, b, s64, grid, KMERS, s64 * 64, **kw)
     return np.asarray(out)[:NA]
 
 
 @pytest.mark.parametrize("comp", [False, True])
-@pytest.mark.parametrize("rows,words_", [(8, 1), (4, 2), (2, 4)])
-def test_coreacc_step_on_grids(words, rows, words_, comp):
+@pytest.mark.parametrize("rows,words_", [(8, 1), (4, 2), (2, 4)]
+                         + GRIDS_WIDE)
+def test_coreacc_step_on_grids(request, rows, words_, comp):
+    words, s64, slots, jax_shape = _grid_case(request, rows, words_)
     w, cv = words["w"], words["comp"] if comp else None
     stack = np.ascontiguousarray(w.transpose(1, 0, 2)).view(np.uint32)
-    want = _jax_coreacc_step(stack, rows, words_, cv)
-    grid = mesh.make_mesh(rows, words_, devices=SLOTS)
-    got = mesh.sharded_coreacc_step(
-        w[:NA], w[NA:], S64, grid, KMERS, S64 * 64,
-        c1=cv[:NA] if comp else None, c2=cv[NA:] if comp else None)
+    want = _jax_coreacc_step(stack, *jax_shape, cv, s64)
+    c1, c2 = (cv[:NA], cv[NA:]) if comp else (None, None)
+    grid = mesh.make_mesh(rows, words_, devices=slots)
+    got = mesh.sharded_coreacc_step(w[:NA], w[NA:], s64, grid, KMERS,
+                                    s64 * 64, c1=c1, c2=c2)
     assert got.shape == (NA, NB, 2) and got.dtype == torch.float32
     jumps, pairs = _close_ca(got.numpy(), want)
     assert jumps <= 0.02 * pairs
     t = torch.from_numpy(w.view(np.int64))
     c = torch.from_numpy(cv) if comp else None
-    core, acc = coreacc_ref(t[:NA], t[NA:], KMERS, S64 * 64,
+    core, acc = coreacc_ref(t[:NA], t[NA:], KMERS, s64 * 64,
                             c[:NA] if comp else None,
                             c[NA:] if comp else None)
     assert torch.equal(got, torch.stack([core, acc], dim=-1))
+    assert torch.equal(got, mesh.sharded_coreacc_step(
+        w[:NA], w[NA:], s64, mesh.make_mesh(1, 1, devices=[CPU]), KMERS,
+        s64 * 64, c1=c1, c2=c2))
     fitted = ((core > 0) & (core < 1)).sum()
     assert fitted > NA  # pairs reached the fit
 
@@ -434,6 +472,23 @@ def test_finish_refuses_more_slabs_than_its_bound(words):
                                      S64 * MAX_WORDS_SLOTS)[0])
 
 
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 17, 64, 65])
+def test_fold_leaves_a_finish_at_most_its_bound(n):
+    """mesh._fold: the partials of n words slots as 1 to MAX_WORDS_SLOTS
+    int32 tensors with the same (exact) sum, by samebits_finish's count
+    mode over groups in order; up to MAX_WORDS_SLOTS they stand as they
+    are."""
+    rng = np.random.default_rng(n)
+    parts = [torch.from_numpy(rng.integers(0, 1 << 24, (5, 7), dtype=np.int32))
+             for _ in range(n)]
+    got = mesh._fold(parts)
+    assert 1 <= len(got) <= MAX_WORDS_SLOTS
+    if n <= MAX_WORDS_SLOTS:
+        assert all(g is p for g, p in zip(got, parts)) and len(got) == n
+    want = torch.from_numpy(sum(p.numpy().astype(np.int64) for p in parts))
+    assert torch.equal(samebits_finish(got).to(torch.int64), want)
+
+
 def test_samebits_stack_is_nk_samebits_full_calls(words):
     """The one-launch per-k partials equal nk samebits_full calls, on the
     whole words and on a strided range of chunks read in place."""
@@ -515,25 +570,36 @@ def _write_db(d: Path, name: str, words: np.ndarray, sketch_size: int):
     return ms, names
 
 
-@pytest.fixture(scope="module")
-def dbs(words, tmp_path_factory):
-    d = tmp_path_factory.mktemp("torch_words")
-    w = words["w"]
-    ms, names = _write_db(d, "r", w[:NA], S64 * 64)
-    qms, qnames = _write_db(d, "q", w[NA:], S64 * 64)
+def _dbs(words, d: Path):
+    w, s64 = words["w"], words["s64"]
+    ms, names = _write_db(d, "r", w[:NA], s64 * 64)
+    qms, qnames = _write_db(d, "q", w[NA:], s64 * 64)
     return ms, names, qms, qnames
 
 
+@pytest.fixture(scope="module")
+def dbs(words, tmp_path_factory):
+    return _dbs(words, tmp_path_factory.mktemp("torch_words"))
+
+
+@pytest.fixture(scope="module")
+def dbs_wide(words_wide, tmp_path_factory):
+    return _dbs(words_wide, tmp_path_factory.mktemp("torch_words_wide"))
+
+
 @pytest.mark.parametrize("comp", [False, True])
-@pytest.mark.parametrize("rows,words_", [(2, 2), (1, 4), (4, 2)])
-def test_words_grid_coreacc_engine(words, dbs, rows, words_, comp):
+@pytest.mark.parametrize("rows,words_", [(2, 2), (1, 4), (4, 2)]
+                         + GRIDS_WIDE)
+def test_words_grid_coreacc_engine(request, rows, words_, comp):
     """tile_dists, stream_self_dense and stream_cross_dense over a words
     grid: the one-device engine's bytes, and within 2e-4 of the host f64
     chain (the JAX sharding tests' tolerance)."""
-    ms, names, qms, qnames = dbs
+    words, _, slots, _ = _grid_case(request, rows, words_)
+    ms, names, qms, qnames = request.getfixturevalue(
+        "dbs" if words_ <= 8 else "dbs_wide")
     cv = words["comp"][:NA].astype(np.float64) if comp else None
     qc = words["comp"][NA:].astype(np.float64) if comp else None
-    grid = mesh.make_mesh(rows, words_, devices=SLOTS)
+    grid = mesh.make_mesh(rows, words_, devices=slots)
     port = mesh.ShardedCoreAccEngine(ms, grid, tile=16, completeness_vec=cv)
     one = DeviceCoreAccEngine(ms, CPU, tile=16, completeness_vec=cv)
     got = port.tile_dists(slice(3, 30), slice(0, NA))

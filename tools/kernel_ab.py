@@ -19,7 +19,10 @@ The groups (all by default):
   registers, static shared memory and spills of every instantiation of
   the samebits and core/accessory kernels;
 - coreacc: K2 (plain, and masked key mode) and K3's masked selection at
-  phase 2's shapes through each checkout's own chip_smoke.py functions;
+  phase 2's shapes through each checkout's own chip_smoke.py functions,
+  then K2's key mode at phase 2's kNN tile and coreacc_chain over a 2 x 2
+  lead's two (7, 2048, 4096) slabs (phase 2's words shape) through its
+  modules;
 - prefilter: the reads prefilter's step, one row of signs to its keep
   flags (sign_prefilter.keep_flags), and with the gather
   (prefilter_signs), on a 2^24-window segment and a whole 50 M-window row
@@ -198,19 +201,43 @@ def measure_signeq(C, label: str, gpu: str) -> list:
 
 def measure_coreacc(C, label: str, gpu: str, lib_path) -> list:
     """K2 (plain, key and masked key mode) and K3's masked selection at
-    phase 2's shapes, each held against its twin there first."""
+    phase 2's shapes, each held against its twin there first; K2's key
+    mode and coreacc_chain (held against their twins in phase 2) timed
+    alone."""
+    from sketchtpu_torch.dist.coreacc_kernels import (
+        coreacc_chain,
+        coreacc_keys,
+    )
+    from sketchtpu_torch.dist.samebits_kernels import samebits_stack
+    from sketchtpu_torch.shard.mesh import word_ranges
+
     results: dict = {}
     words = C.derived_words(16384, C.SEED)
     C.phase2_coreacc(words, results, lib_path)
     C.phase2_knn_masked(words, results, lib_path)
     C.phase2_coreacc_masked(words, results)
+    a, bk = words[4096:6144], words[:8192]
+    kw = dict(row0=4096, col0=0, nb_real=words.shape[0], exclude_self=True)
+    results["coreacc_keys"] = {"ms": C.cuda_ms(lambda: coreacc_keys(
+        a, bk, C.KMERS, C.S64 * 64, **kw), reps=10)}
+    del words, a, bk
+    w = C.device_words(C.N_WORDS, C.S64_WORDS, C.SEED + 4)
+    na = C.N_WORDS // 2
+    slabs = [samebits_stack(w[:na, :, r], w[:, :, r])
+             for r in word_ranges(C.S64_WORDS, 2)]
+    del w
+    results["coreacc_chain"] = {"ms": C.cuda_ms(lambda: coreacc_chain(
+        slabs, C.KMERS, C.S64_WORDS * 64, C.S64_WORDS), reps=10)}
     return [dict(tree=label, kernel=kernel, shape=shape,
                  ms=results[kernel]["ms"], gpu=gpu)
             for kernel, shape in (("coreacc", "plain, nk 7, 2048 x 16384"),
+                                  ("coreacc_keys", "nk 7, 2048 x 8192"),
                                   ("knn_select_masked",
                                    "2048 x 8192, S = 1000"),
                                   ("coreacc_keys_masked",
-                                   "2048 x 8192, nk 7, S = 1000"))]
+                                   "2048 x 8192, nk 7, S = 1000"),
+                                  ("coreacc_chain",
+                                   "2 slabs (7, 2048, 4096)"))]
 
 
 def ptxas_records(lib_path, label: str, gpu: str) -> list:

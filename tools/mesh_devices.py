@@ -160,12 +160,12 @@ def run_turn(C, cli_main, label: str, devs, paths, size, digests, records,
 
 def words_axis(C, build, rehearse: bool) -> int:
     """chip_smoke.py's phase 10 on every GPU (or, rehearsing, on CPU slots
-    at 96 samples and s64 = 8)."""
+    at 96 samples and s64 = 16)."""
     import torch
 
     if rehearse:
         os.environ["SKETCHTPU_TORCH_BACKEND"] = "cpu"
-        C.phase10("CPU slots (rehearsal: no device numbers)", n=96, s64=8,
+        C.phase10("CPU slots (rehearsal: no device numbers)", n=96, s64=16,
                   device="cpu")
         return 0
     if not torch.cuda.is_available():
