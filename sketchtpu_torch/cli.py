@@ -6,7 +6,8 @@ and --knn), merge, append, delete, info (.skm and .ski), inverted build /
 query / precluster / serve, and warmup (builds the kernels). sketch, dist
 and inverted build / query / precluster run as several ranks, under
 torchrun or by --process-id/--n-processes (shard/distributed.py);
---jax-profile writes a torch.profiler trace. A k past the card's hash
+--jax-profile writes a torch.profiler trace, the host stages' spans
+(spans.py) among its events. A k past the card's hash
 kernel (MAX_K_CUDA for DNA, MAX_K_AA_CUDA for --seq-type aa|pdb) is
 refused at argument parsing in cuda mode, as is a jax.distributed
 coordinator (JAX_COORDINATOR_ADDRESS) without torchrun's variables.
@@ -21,6 +22,8 @@ import sys
 import time
 
 import numpy as np
+
+from . import spans
 
 log = logging.getLogger("sketchtpu")
 
@@ -39,7 +42,9 @@ def _add_common(p):
         metavar="DIR",
         help="Write a PyTorch profiler trace of the run (torch.profiler, "
         "CPU and CUDA activities) into DIR as a Chrome trace, one file per "
-        "rank; the flag keeps the JAX package's name",
+        "rank, with the host stages (load, engine, upload, scan, values, "
+        "write) as record_function ranges; the flag keeps the JAX "
+        "package's name",
     )
 
 
@@ -395,8 +400,10 @@ def _start_profile(args) -> None:
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    spans.annotate(True)  # this profiler is the program's own
 
     def stop():
+        spans.annotate(False)
         prof.stop()
         os.makedirs(args.jax_profile, exist_ok=True)
         prof.export_chrome_trace(path)
@@ -415,7 +422,8 @@ def main(argv=None) -> int:
     if args.jax_profile:
         _start_profile(args)
     try:
-        return _run(args, start)
+        with spans.span(f"cli.{args.command}"):
+            return _run(args, start)
     finally:
         window = os.environ.get("SKETCHTPU_COMPUTE_WINDOW_FILE")
         if window:
@@ -578,14 +586,15 @@ def _dist_main(args, start: float) -> None:
                  args.output)
     out = open(args.output, "w") if args.output else sys.stdout
     ref_name = strip_sketch_extension(args.ref_db)
-    references = MultiSketch.load_metadata(ref_name)
-    log.info("Loading sketch data from %s.skd", ref_name)
-    if args.subset:
-        references.read_sketch_data_block(
-            ref_name, io_inputs.read_subset_names(args.subset)
-        )
-    else:
-        references.read_sketch_data(ref_name)
+    with spans.span("load"):
+        references = MultiSketch.load_metadata(ref_name)
+        log.info("Loading sketch data from %s.skd", ref_name)
+        if args.subset:
+            references.read_sketch_data_block(
+                ref_name, io_inputs.read_subset_names(args.subset)
+            )
+        else:
+            references.read_sketch_data(ref_name)
     n = references.number_samples_loaded()
     ref_comp = (
         io_inputs.read_completeness_file(args.ref_completeness_file, references)
@@ -659,16 +668,18 @@ def _dist_main(args, start: float) -> None:
         log_pair_rate(len(row_names) * n)
     else:
         query_name = strip_sketch_extension(args.query_db)
-        queries = MultiSketch.load_metadata(query_name)
-        if multiproc and args.knn is not None:
-            # kNN rows are queries: this rank loads only its block of them
-            from .shard.distributed import process_slice
+        with spans.span("load"):
+            queries = MultiSketch.load_metadata(query_name)
+            if multiproc and args.knn is not None:
+                # kNN rows are queries: this rank loads only its block
+                from .shard.distributed import process_slice
 
-            all_q = [m.name for m in queries.sketch_metadata]
-            queries.read_sketch_data_block(
-                query_name, all_q[process_slice(len(all_q), proc_id, n_proc)])
-        else:
-            queries.read_sketch_data(query_name)
+                all_q = [m.name for m in queries.sketch_metadata]
+                queries.read_sketch_data_block(
+                    query_name,
+                    all_q[process_slice(len(all_q), proc_id, n_proc)])
+            else:
+                queries.read_sketch_data(query_name)
         q_comp = (
             io_inputs.read_completeness_file(args.query_completeness_file, queries)
             if args.query_completeness_file
@@ -1010,7 +1021,8 @@ def _precluster_main(args) -> None:
     if args.count and args.core_acc:
         raise SystemExit("--core-acc needs --skd, not --count")
     input_prefix = strip_sketch_extension(args.ski)
-    inv = Inverted.load(input_prefix)
+    with spans.span("load"):
+        inv = Inverted.load(input_prefix)
     if not args.count and not args.skd:
         raise SystemExit("one of --skd or --count is required")
     proc_id, n_proc, multiproc = _resolve_ranks(args)
@@ -1024,10 +1036,11 @@ def _precluster_main(args) -> None:
         log.info("Multi-process precluster: rank %d/%d writing %s", proc_id,
                  n_proc, args.output)
     out = _ostream(args.output)
-    skq_bins = skd_io.read_all_skq(f"{input_prefix}.skq")
     ref_name = strip_sketch_extension(args.skd)
-    references = MultiSketch.load_metadata(ref_name)
-    references.read_sketch_data(ref_name)
+    with spans.span("load"):
+        skq_bins = skd_io.read_all_skq(f"{input_prefix}.skq")
+        references = MultiSketch.load_metadata(ref_name)
+        references.read_sketch_data(ref_name)
     n = references.number_samples_loaded()
     knn = args.knn
     if knn >= n:
@@ -1094,18 +1107,23 @@ def _count_main(inv, proc_id: int, n_proc: int, multiproc: bool) -> None:
                  if multiproc else None)
     count = inv.any_shared_bin_count(engine=select_inverted_engine(inv),
                                      row_range=row_range)
+    line = None
     if not multiproc:
-        print(f"Identified {count} prefilter pairs from a max of "
-              f"{n * (n - 1) // 2}")
+        line = (f"Identified {count} prefilter pairs from a max of "
+                f"{n * (n - 1) // 2}")
     elif distributed.spans(n_proc):
         count = distributed.allgather_sum(count)
         if proc_id == 0:
-            print(f"Identified {count} prefilter pairs from a max of "
-                  f"{n * (n - 1) // 2}")
+            line = (f"Identified {count} prefilter pairs from a max of "
+                    f"{n * (n - 1) // 2}")
     else:
-        print(f"Identified {count} prefilter pairs in rows "
-              f"[{row_range.start}, {row_range.stop}) of {n} (rank "
-              f"{proc_id}/{n_proc} partial; sum ranks for the total)")
+        line = (f"Identified {count} prefilter pairs in rows "
+                f"[{row_range.start}, {row_range.stop}) of {n} (rank "
+                f"{proc_id}/{n_proc} partial; sum ranks for the total)")
+    if line is not None:
+        with spans.span("write"):
+            print(line)
+            spans.count("bytes", len(line) + 1)
 
 
 def _info_main(args) -> None:

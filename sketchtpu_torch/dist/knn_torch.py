@@ -30,8 +30,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
 from ..constants import BBITS
-from .coreacc_kernels import KEY_INVALID, coreacc_keys
+from .coreacc_kernels import KEY_INVALID, coreacc, coreacc_keys
 from .coreacc_torch import _f32
 from .jaccard_np import ani_pois, core_acc_from_jaccards, jaccard_from_samebits
 from .sign_words import pack_signs
@@ -42,6 +43,10 @@ from .samebits_kernels import popcount64, to_device_words
 _NEG = -0x7FFFFFFF  # samebits of a missing candidate
 _NO_COL = 0x7FFFFFFF  # column of a missing candidate
 _PAIR_CHUNK = 1 << 16  # selected pairs per gather of their words
+# the kernels whose launches a scan span counts: K3 (selection and tile
+# keys), K2 (key tiles count in coreacc.launches)
+_K3 = (knn_select, knn_keys)
+_K2 = (coreacc,)
 
 
 class SparseKnnRows:
@@ -124,6 +129,7 @@ def precluster_signs(ms, inverted, skq_bins: np.ndarray) -> np.ndarray:
     return skq_bins.reshape(-1, inverted.sketch_size)[ski_of_skd]
 
 
+@spans.spanned("values")
 def rows_from_samebits(sb: np.ndarray, idx: np.ndarray, dist_type, s64: int,
                        c1_rows: np.ndarray | None = None,
                        c2_all: np.ndarray | None = None,
@@ -135,6 +141,7 @@ def rows_from_samebits(sb: np.ndarray, idx: np.ndarray, dist_type, s64: int,
     apply the completeness correction (c2 gathered by the selected
     columns)."""
     na, knn = sb.shape
+    spans.count("pairs", sb.size)
     if c1_rows is not None:
         c1 = np.repeat(np.asarray(c1_rows, dtype=np.float64), knn)
         c2 = np.asarray(c2_all, dtype=np.float64)[
@@ -172,6 +179,7 @@ def pair_samebits(a_words: torch.Tensor, b_words: torch.Tensor,
     return out
 
 
+@spans.spanned("values")
 def exact_ca_values(kmers, sketch_size: int, s64: int, idx: np.ndarray,
                     core_f32: np.ndarray, acc_f32: np.ndarray,
                     a_words: torch.Tensor, b_words: torch.Tensor,
@@ -183,6 +191,7 @@ def exact_ca_values(kmers, sketch_size: int, s64: int, idx: np.ndarray,
     (idx == _NO_COL) sort last. Result row i is row i of a_words. Returns
     (core, acc, idx)."""
     vr, vc = np.nonzero(idx != _NO_COL)
+    spans.count("pairs", vr.size)
     if vr.size:
         dev = a_words.device
         b_idx = idx[vr, vc].astype(np.int64)
@@ -252,6 +261,7 @@ def select_keys(rows, cols, knn, *, row0=0, nb_real=None,
                       exclude_self=exclude_self, comp=comp, sig=sig)
 
 
+@spans.spanned("scan", _K3)
 def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
              exclude_self: bool, comp_rows=None, comp_cols=None,
              cutoff: float = 0.64, row0: int = 0,
@@ -400,6 +410,7 @@ class DeviceKnnEngine:
 
     # --- multi-k core/accessory ---
 
+    @spans.spanned("scan", _K2)
     def _scan_coreacc(self, rows: torch.Tensor, knn: int, exclude_self: bool,
                       c1=None, c2=None, cutoff: float = 0.64, row0: int = 0,
                       sig: SignMask | None = None):

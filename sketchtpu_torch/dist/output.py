@@ -19,6 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .. import spans
 from .._native import get_lib
 
 # lines per native-formatting chunk (bounds the host buffer)
@@ -152,16 +153,17 @@ def _native_lines(
             write(chunk)
         else:
             out.write(chunk.decode("utf-8"))
+        spans.count("bytes", len(chunk))
 
     # threaded runs shrink the chunk so total in-flight buffer bytes stay
     # at the serial path's level (~64B/value per chunk, _WORKERS+2 live)
     step = _CHUNK if _WORKERS == 1 else max(1 << 17, _CHUNK // _WORKERS)
-    spans = [
+    chunks = [
         (s, min(s + step, rows.size))
         for s in range(0, rows.size, step)
     ]
-    if _WORKERS == 1 or len(spans) == 1:
-        for s, e in spans:
+    if _WORKERS == 1 or len(chunks) == 1:
+        for s, e in chunks:
             emit(fmt(s, e))
     else:
         # the native call releases the GIL: format up to _WORKERS chunks
@@ -169,7 +171,7 @@ def _native_lines(
         # in-flight buffers
         pool = _pool()
         futures = []
-        for s, e in spans:
+        for s, e in chunks:
             if len(futures) >= _WORKERS + 1:
                 emit(futures.pop(0).result())
             futures.append(pool.submit(fmt, s, e))
@@ -180,6 +182,7 @@ def _native_lines(
     return True
 
 
+@spans.spanned("write")
 def write_dense_self(out, names, dists, coreacc: bool,
                      row_range: slice | None = None):
     """Upper-triangle long form. dists: (n_pairs,) or (n_pairs, 2).
@@ -234,6 +237,7 @@ def _write_dense_self_py(out, names, dists, coreacc: bool,
                 idx += 1
 
 
+@spans.spanned("write")
 def write_dense_cross(out, ref_names, query_names, dists, coreacc: bool):
     """Rectangular long form, ref-major."""
     nr, nq = len(ref_names), len(query_names)
@@ -274,6 +278,7 @@ def write_dense_cross(out, ref_names, query_names, dists, coreacc: bool):
                 idx += 1
 
 
+@spans.spanned("write")
 def write_sparse(out, row_names, ref_names, rows, coreacc: bool):
     """Sparse kNN output; rows is a list (per row) of item lists, or an
     array-backed container from the device engines (knn_torch.SparseKnnRows).

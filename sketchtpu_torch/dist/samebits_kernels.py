@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, spans
 from ..constants import BBITS
 
 INT16_MAX_BINS = 32767
@@ -44,12 +44,14 @@ def scalar_divisors(device, *values: float) -> tuple[torch.Tensor, ...]:
                  for v in values)
 
 
+@spans.spanned("upload")
 def words_to_device(words: np.ndarray, device) -> torch.Tensor:
     """u64 sketch words (any shape) as an int64 tensor on `device` holding
     the same bit patterns."""
     words = np.ascontiguousarray(words, dtype=np.uint64).view(np.int64)
     if not words.flags.writeable:
         words = words.copy()
+    spans.count("bytes", words.nbytes)
     return torch.from_numpy(words).to(device)
 
 

@@ -13,9 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
+
 _REF_ELEMS = 1 << 24  # twin working set: elements of one (rows, cols, S) temporary
 
 
+@spans.spanned("upload")
 def pack_signs(signs, device) -> torch.Tensor:
     """(n, S) u16 signs (numpy) as the (n, ceil(S / 2)) int32 words of the
     kernels on `device`."""
@@ -24,6 +27,7 @@ def pack_signs(signs, device) -> torch.Tensor:
     if s % 2:
         signs = np.concatenate([signs, np.zeros((n, 1), np.uint16)], axis=1)
     words = np.ascontiguousarray(signs).view("<u4").view(np.int32)
+    spans.count("bytes", words.nbytes)
     return torch.from_numpy(words.copy()).to(device)
 
 

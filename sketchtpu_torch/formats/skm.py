@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import spans
 from ..constants import BBITS, num_bins
 from ..sketchcore.sketch import HashType, Sketch
 from . import cbor, snappy, skd
@@ -72,9 +73,12 @@ class MultiSketch:
         os.replace(tmp, f"{file_prefix}.skm")
 
     @classmethod
+    @spans.spanned("load.skm")
     def load_metadata(cls, file_prefix: str) -> "MultiSketch":
         with open(f"{file_prefix}.skm", "rb") as f:
-            payload = snappy.frame_decompress(f.read())
+            raw = f.read()
+        spans.count("bytes", len(raw))
+        payload = snappy.frame_decompress(raw)
         obj = cbor.loads(payload)
         sketch_size = obj["sketch_size"]
         sketchsize64 = obj.get("sketchsize64", 0)
@@ -141,9 +145,12 @@ class MultiSketch:
         except ValueError:
             return None
 
+    @spans.spanned("load.skd")
     def read_sketch_data(self, file_prefix: str) -> None:
         self.sketch_bins = skd.read_all_skd(f"{file_prefix}.skd")
+        spans.count("bytes", self.sketch_bins.nbytes)
 
+    @spans.spanned("load.skd")
     def read_sketch_data_block(self, file_prefix: str, names: list[str]) -> None:
         block_reindex = []
         read_indices = []
@@ -159,6 +166,7 @@ class MultiSketch:
         self.sketch_bins = skd.read_skd_batch(
             f"{file_prefix}.skd", read_indices, self.sample_stride
         )
+        spans.count("bytes", self.sketch_bins.nbytes)
 
     def get_sketch_slice(self, sketch_idx: int, k_idx: int) -> np.ndarray:
         """The usigs (kmer_stride u64 words) of loaded sample sketch_idx at

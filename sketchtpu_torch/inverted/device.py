@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, spans
 from ..dist.sign_words import (
     any_mask_ref,
     check_signs,
@@ -212,6 +212,7 @@ class DeviceInvertedEngine:
         self.n, self.nsigns = (int(x) for x in sign_matrix.shape)
         self._m = pack_signs(sign_matrix, self.device)
 
+    @spans.spanned("scan", (pair_count,))
     def any_shared_bin_count(self, row_range: slice | None = None) -> int:
         """Pairs (i < j) sharing >= 1 bin, with i restricted to row_range
         when given (each pair counts at its smaller index, so partials over

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import spans
 from ..formats import msgpack, roaring, skd, snappy
 from ..formats.skm import FORMAT_VERSION
 from ..sketchcore.sketch import HashType
@@ -312,10 +313,22 @@ class Inverted:
         return out, pos
 
     @classmethod
+    @spans.spanned("load.ski")
     def load(cls, file_prefix: str) -> "Inverted":
-        with open(f"{file_prefix}.ski", "rb") as f:
-            payload = snappy.frame_decompress(f.read())
+        with spans.span("read"):
+            with open(f"{file_prefix}.ski", "rb") as f:
+                raw = f.read()
+            spans.count("bytes", len(raw))
+        with spans.span("snappy"):
+            payload = snappy.frame_decompress(raw)
+            spans.count("bytes", len(payload))
+        del raw
+        with spans.span("parse"):
+            return cls._parse(payload)
 
+    @classmethod
+    def _parse(cls, payload: bytes) -> "Inverted":
+        """The index of a .ski's decompressed MessagePack payload."""
         native = cls._load_index_native(payload)
         if native is not None:
             bins, pos = native

@@ -17,7 +17,8 @@ A selector never falls back. The only None results outside host mode are
 the JAX package's own routes to the exact host chain (fewer than two k for
 core/accessory, more than 32767 bins for the int16 strip engines). Unlike
 the JAX package, no selector picks the host by sample count: in cuda mode
-every engine runs on the card at any n.
+every engine runs on the card at any n. Each engine selector runs inside
+the span "engine" (spans.py), its engine's set-up and upload included.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import os
 import torch
 
 from .dist.samebits_kernels import INT16_MAX_BINS
+from .spans import spanned
 
 log = logging.getLogger("sketchtpu")
 
@@ -89,6 +91,7 @@ def select_backend(seq_type, n_samples: int):
     return DeviceSketchBackend(devs)
 
 
+@spanned("engine")
 def select_coreacc_engine(ms, completeness_vec=None,
                           completeness_cutoff: float = 0.64,
                           exact: bool = False):
@@ -127,6 +130,7 @@ def select_coreacc_engine(ms, completeness_vec=None,
     )
 
 
+@spanned("engine")
 def select_dense_stream_engine(ms, dist_type):
     """Streaming single-k dense engine (exact samebits on the card, the
     f64 chain on the host), on the first device, as in the JAX package."""
@@ -140,6 +144,7 @@ def select_dense_stream_engine(ms, dist_type):
     return DeviceDenseStreamEngine(ms, dist_type.k_idx, dev)
 
 
+@spanned("engine")
 def select_knn_engine(ms, dist_type):
     """Sparse kNN engine (dist --knn): K3 keys for single-k, K2 tiles for
     core/accessory, at any n; fewer than two k for core/accessory take the
@@ -156,6 +161,7 @@ def select_knn_engine(ms, dist_type):
     return DeviceKnnEngine(ms, devs[0])
 
 
+@spanned("engine")
 def select_engine(ms):
     """samebits engine for the host distance functions (rows split over
     the devices when there are several), or None."""
@@ -171,6 +177,7 @@ def select_engine(ms):
     return DeviceSamebitsEngine(ms.sketchsize64, devs[0]).matrix
 
 
+@spanned("engine")
 def select_inverted_engine(inv):
     """Inverted-index query and `precluster --count` engine (csrc/signeq.cu
     on the card, split over the devices when there are several), at any

@@ -38,7 +38,8 @@ behind the other GPU's compute. The counts are
 exact, so a split result equals the unsplit one bit for bit. A sketch
 whose chunks do not split evenly over the words slots is refused, as the
 JAX mesh cannot shard it either. mesh.timeline() records each slot's
-spans (set-up copies, partial, transfers, finish) by CUDA events.
+spans (set-up copies, partial, transfers, finish) by CUDA events, as
+device spans of spans.py on its host clock.
 
 No CLI flag, environment variable or runtime selection reaches the words
 axis: the runtime passes the engines a list of devices. make_mesh, the
@@ -57,6 +58,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import spans
 from .._transfer import HostCopy, copy_pitched, pitch_of
 from ..constants import BBITS
 from ..dist.coreacc_kernels import coreacc, coreacc_chain
@@ -446,70 +448,43 @@ class _Task(threading.local):
 
 
 _this = _Task()
-_timeline = None  # the Timeline being recorded, or None
-
-
 class Timeline:
-    """The spans of words steps on the card, by CUDA events: the set-up
-    copy of a slot's share of each operand, its partial, each partial's
-    transfer to its lead, the lead's finish. Each span is timed on the
-    stream of its slot's device that runs it, from an origin event
-    recorded on every GPU at the start, so the spans of distinct GPUs
-    share one time axis (to the microseconds between those records)."""
+    """The spans of words steps on the card: the set-up copy of a slot's
+    share of each operand, its partial, each partial's transfer to its
+    lead, the lead's finish. Each is a device span (spans.device_span),
+    timed on the stream of its slot's device that runs it and placed on
+    time.time_ns() by the origin event the recording took on every GPU,
+    so the spans of distinct GPUs share one time axis (to the
+    microseconds between an origin's record and its clock reading)."""
 
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._origin = {}
-        self._spans = []
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
-            self._origin[i] = torch.cuda.Event(enable_timing=True)
-            self._origin[i].record(torch.cuda.current_stream(i))
-
-    def add(self, slot: str, what: str, stream, start, end) -> None:
-        with self._lock:
-            self._spans.append((slot, what, stream, start, end))
+    def __init__(self, clock):
+        self._clock = clock
 
     def read(self) -> list[dict]:
         """Every span as {slot, what, device, stream (its handle),
-        start_ms, end_ms}, in the order they were enqueued (waits for every
-        GPU)."""
-        for i in self._origin:
-            torch.cuda.synchronize(i)
-        return [dict(slot=slot, what=what, device=str(st.device),
-                     stream=st.cuda_stream,
-                     start_ms=self._origin[st.device.index].elapsed_time(a),
-                     end_ms=self._origin[st.device.index].elapsed_time(b))
-                for slot, what, st, a, b in self._spans]
+        start_ms, end_ms} (from the recording's start), in the order they
+        were enqueued (waits for each span's end)."""
+        t0 = self._clock.start_ns
+        return [dict(slot=s.where["slot"], what=s.name,
+                     device=str(s.where["stream"].device),
+                     stream=s.where["stream"].cuda_stream,
+                     start_ms=(s.start_ns - t0) / 1e6,
+                     end_ms=(s.end_ns - t0) / 1e6)
+                for s in self._clock.read()]
 
 
 @contextlib.contextmanager
 def timeline():
     """Record the spans of the words steps run inside (a Timeline; one
     at a time). Off, a span costs a global's None check."""
-    global _timeline
-    _timeline = Timeline()
-    try:
-        yield _timeline
-    finally:
-        _timeline = None
+    with spans.device_spans() as clock:
+        yield Timeline(clock)
 
 
-@contextlib.contextmanager
 def _span(what: str, device: torch.device, stream=None, slot=None):
     """Time the work enqueued inside on `stream` (default: the current
     stream of `device`) as a span of `slot` (default: this thread's)."""
-    tl = _timeline
-    if tl is None or device.type != "cuda":
-        yield
-        return
-    stream = stream or torch.cuda.current_stream(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record(stream)
-    yield
-    end.record(stream)
-    tl.add(slot or _this.slot, what, stream, start, end)
+    return spans.device_span(what, device, stream, slot or _this.slot)
 
 
 def _wait_all(futures):

@@ -132,7 +132,8 @@ def _profiled(tmp_path, argv, env=None):
 def test_jax_profile_writes_a_trace_in_cpu_mode(tmp_path):
     """--jax-profile DIR writes a Chrome trace of the run at exit (CPU
     activity here; CUDA too where torch sees a card): one file, and one
-    per rank for a rank of a multi-process run."""
+    per rank for a rank of a multi-process run, with the host stages'
+    spans among its events."""
     rfile = related_assemblies(tmp_path / "fa", 3, 5000, 31, max_contigs=2)
     _profiled(tmp_path, ["sketch", "-f", str(rfile), "-o", "db", "-k",
                          "17,21", "-s", "64"])
@@ -143,6 +144,10 @@ def test_jax_profile_writes_a_trace_in_cpu_mode(tmp_path):
     for name in traces:
         events = json.loads((tmp_path / "trace" / name).read_text())
         assert events["traceEvents"], name
+    dist = json.loads((tmp_path / "trace" / traces[0]).read_text())
+    names = {ev.get("name") for ev in dist["traceEvents"]}
+    assert {"cli.dist", "load", "load.skd", "engine", "scan", "values",
+            "write"} <= names
     assert (tmp_path / "out.part1").read_text().count("\n") == 1
 
 
