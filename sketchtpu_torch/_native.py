@@ -57,6 +57,9 @@ _SIGNATURES = {
                                 _P, _P, _P, _I64, _P, _I64]),
     "stpu_ski_bin_msgpack": (_I64, [_P, _P, _P, _I64, _P, _I64]),
     "stpu_ski_bin_unpack": (_I64, [_P, _I64, _P, _P, _I64, _P]),
+    "stpu_skm_decode": (_P, [ctypes.c_char_p, _I64, _P]),
+    "stpu_skm_columns": (None, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "stpu_skm_free": (None, [_P]),
 }
 
 

@@ -674,7 +674,8 @@ def _dist_main(args, start: float) -> None:
                 # kNN rows are queries: this rank loads only its block
                 from .shard.distributed import process_slice
 
-                all_q = [m.name for m in queries.sketch_metadata]
+                all_q = [queries.sketch_name(i) for i in
+                         range(queries.number_samples_loaded())]
                 queries.read_sketch_data_block(
                     query_name,
                     all_q[process_slice(len(all_q), proc_id, n_proc)])

@@ -4,8 +4,8 @@
 // result depends on read order (src/sketch/mod.rs:198-208 with
 // src/hashing/bloom_filter.rs), the bin minimum of the host sketch oracle,
 // f32 text formatting with the reference's digits, the DNA and AA fastx
-// parsers, and the .ski index codec (one bin's msgpack map of roaring
-// bitmaps).
+// parsers, the .ski index codec (one bin's msgpack map of roaring
+// bitmaps), and the .skm metadata decoder (its CBOR into columns).
 //
 // Formats are implemented from their public specifications
 // (https://github.com/google/snappy/blob/main/format_description.txt).
@@ -18,6 +18,9 @@
 #include <cmath>
 #include <cstring>
 #include <cstddef>
+#include <memory>
+#include <string>
+#include <string_view>
 #include <unordered_map>
 #include <vector>
 
@@ -918,5 +921,325 @@ int64_t stpu_ski_bin_unpack(const uint8_t* buf, int64_t len,
     *n_out = no;
     return pos;
 }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// .skm metadata: the decompressed payload, CBOR (RFC 8949) of a serde
+// struct map (sketchlib.rust src/sketch/multisketch.rs), with its two
+// per-sample values decoded straight into columns: sketch_metadata (one
+// map a sample, src/sketch/mod.rs's Sketch fields) and name_map. Every
+// other top-level value is left as a byte span for formats/cbor.py.
+// Only the subset ciborium writes for this schema is decoded here: an
+// indefinite length, a tag, another type in a field, an unknown record
+// key, a missing name, invalid UTF-8 or a truncated payload makes
+// stpu_skm_decode return NULL, and the caller decodes the whole payload in
+// Python (which then raises whatever error it raises).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// a record's fields in serde order; bit i of its mask: field i present
+// (index: present and not null, as from_serde's .get("index") reads it)
+enum SkmField {
+    F_NAME, F_INDEX, F_RC, F_READS, F_SEQ_LENGTH, F_DENSIFIED, F_ACGT,
+    F_NON_ACGT, F_COUNT
+};
+const std::string_view kSkmFields[F_COUNT] = {
+    "name", "index", "rc", "reads", "seq_length", "densified", "acgt",
+    "non_acgt"};
+
+struct CborIn {
+    const uint8_t* p;
+    int64_t len;
+    int64_t pos;
+
+    // the head of the next item; false past the end, for an indefinite
+    // length or for reserved additional information
+    bool head(int& major, int& info, uint64_t& arg) {
+        if (pos >= len) return false;
+        uint8_t b = p[pos++];
+        major = b >> 5;
+        info = b & 31;
+        if (info < 24) { arg = info; return true; }
+        if (info > 27) return false;
+        int64_t w = int64_t(1) << (info - 24);
+        if (w > len - pos) return false;
+        arg = 0;
+        for (int64_t i = 0; i < w; i++) arg = (arg << 8) | p[pos++];
+        return true;
+    }
+
+    bool text(std::string_view& s) {
+        int major, info;
+        uint64_t n;
+        if (!head(major, info, n) || major != 3 || n > uint64_t(len - pos))
+            return false;
+        s = std::string_view(reinterpret_cast<const char*>(p + pos), n);
+        pos += int64_t(n);
+        return true;
+    }
+
+    bool uint(uint64_t& v) {
+        int major, info;
+        return head(major, info, v) && major == 0;
+    }
+
+    bool boolean(uint8_t& v) {
+        int major, info;
+        uint64_t arg;
+        if (!head(major, info, arg) || major != 7 || (info != 20 && info != 21))
+            return false;
+        v = info == 21;
+        return true;
+    }
+
+    // one whole item, of the items formats/cbor.py decodes without tags
+    // or indefinite lengths
+    bool skip() {
+        uint64_t todo = 1;
+        while (todo) {
+            todo--;
+            int major, info;
+            uint64_t arg;
+            if (!head(major, info, arg)) return false;
+            switch (major) {
+            case 0: case 1: break;
+            case 2: case 3:
+                if (arg > uint64_t(len - pos)) return false;
+                pos += int64_t(arg);
+                break;
+            case 4: case 5:
+                // each item takes a byte at least
+                if (arg > uint64_t(len - pos)) return false;
+                todo += major == 4 ? arg : 2 * arg;
+                break;
+            case 7:
+                if (info == 24) return false;  // cbor.py rejects it
+                break;
+            default: return false;  // a tag
+            }
+        }
+        return true;
+    }
+};
+
+// strict UTF-8, as Python's bytes.decode("utf-8") takes it
+bool utf8_valid(std::string_view s) {
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(s.data());
+    size_t n = s.size(), i = 0;
+    while (i < n) {
+        uint8_t c = p[i];
+        if (c < 0x80) { i++; continue; }
+        size_t k;
+        uint8_t lo = 0x80, hi = 0xBF;
+        if (c >= 0xC2 && c <= 0xDF) k = 1;
+        else if (c == 0xE0) { k = 2; lo = 0xA0; }
+        else if (c >= 0xE1 && c <= 0xEF) { k = 2; if (c == 0xED) hi = 0x9F; }
+        else if (c == 0xF0) { k = 3; lo = 0x90; }
+        else if (c >= 0xF1 && c <= 0xF3) k = 3;
+        else if (c == 0xF4) { k = 3; hi = 0x8F; }
+        else return false;
+        if (k > n - i - 1 || p[i + 1] < lo || p[i + 1] > hi) return false;
+        for (size_t j = 2; j <= k; j++)
+            if ((p[i + j] & 0xC0) != 0x80) return false;
+        i += k + 1;
+    }
+    return true;
+}
+
+struct SkmColumns {
+    std::vector<std::string_view> names, keys;  // into the payload
+    std::vector<uint64_t> nums;  // a record: index, seq_length, non_acgt, acgt[4]
+    std::vector<uint8_t> flags;  // a record: rc, reads, densified, mask
+    std::vector<uint64_t> values;  // name_map's, in its order
+    std::vector<int64_t> other;  // an entry: key offset, key length, value offset
+};
+
+bool skm_records(CborIn& in, SkmColumns& c) {
+    int major, info;
+    uint64_t n;
+    if (!in.head(major, info, n) || major != 4 || n > uint64_t(in.len - in.pos))
+        return false;
+    c.names.reserve(n);
+    c.nums.reserve(7 * n);
+    c.flags.reserve(4 * n);
+    for (uint64_t r = 0; r < n; r++) {
+        uint64_t nf;
+        if (!in.head(major, info, nf) || major != 5) return false;
+        std::string_view name;
+        uint64_t num[7] = {0, 0, 0, 0, 0, 0, 0};
+        uint8_t fl[4] = {0, 0, 0, 0};
+        for (uint64_t f = 0; f < nf; f++) {
+            std::string_view key;
+            if (!in.text(key)) return false;
+            int field = 0;
+            while (field < F_COUNT && kSkmFields[field] != key) field++;
+            bool ok = true, present = true;
+            uint64_t arg;
+            switch (field) {
+            case F_NAME: ok = in.text(name) && utf8_valid(name); break;
+            case F_INDEX:
+                ok = in.head(major, info, arg);
+                if (ok && major == 7 && (info == 22 || info == 23))
+                    present = false;  // null or undefined: None
+                else if (ok && major == 0) num[0] = arg;
+                else ok = false;
+                break;
+            case F_RC: ok = in.boolean(fl[0]); break;
+            case F_READS: ok = in.boolean(fl[1]); break;
+            case F_DENSIFIED: ok = in.boolean(fl[2]); break;
+            case F_SEQ_LENGTH: ok = in.uint(num[1]); break;
+            case F_NON_ACGT: ok = in.uint(num[2]); break;
+            case F_ACGT:
+                ok = in.head(major, info, arg) && major == 4 && arg == 4;
+                for (int b = 0; ok && b < 4; b++) ok = in.uint(num[3 + b]);
+                break;
+            default: ok = false;  // a key from_serde does not read
+            }
+            if (!ok) return false;
+            if (present) fl[3] |= uint8_t(1u << field);
+            else fl[3] &= uint8_t(~(1u << field));
+        }
+        if (!(fl[3] & (1u << F_NAME))) return false;
+        c.names.push_back(name);
+        c.nums.insert(c.nums.end(), num, num + 7);
+        c.flags.insert(c.flags.end(), fl, fl + 4);
+    }
+    return true;
+}
+
+bool skm_name_map(CborIn& in, SkmColumns& c) {
+    int major, info;
+    uint64_t n;
+    if (!in.head(major, info, n) || major != 5 || n > uint64_t(in.len - in.pos))
+        return false;
+    c.keys.reserve(n);
+    c.values.reserve(n);
+    for (uint64_t e = 0; e < n; e++) {
+        std::string_view key;
+        uint64_t v;
+        if (!in.text(key) || !utf8_valid(key) || !in.uint(v)) return false;
+        c.keys.push_back(key);
+        c.values.push_back(v);
+    }
+    return true;
+}
+
+// the strings, each followed by a 0 byte, and their offsets (n + 1);
+// whether none holds a 0 byte itself
+bool pack_strings(const std::vector<std::string_view>& s, uint8_t* blob,
+                  int64_t* off) {
+    bool plain = true;
+    int64_t o = 0;
+    for (size_t i = 0; i < s.size(); i++) {
+        off[i] = o;
+        std::memcpy(blob + o, s[i].data(), s[i].size());
+        plain = plain && std::memchr(s[i].data(), 0, s[i].size()) == nullptr;
+        o += int64_t(s[i].size());
+        blob[o++] = 0;
+    }
+    off[s.size()] = o;
+    return plain;
+}
+
+// set(keys) == set(names): every key is a name, and every distinct name
+// is a key (an open-addressing table of the names, FNV-1a)
+bool same_set(const std::vector<std::string_view>& names,
+              const std::vector<std::string_view>& keys) {
+    size_t cap = 16;
+    while (cap < 2 * names.size()) cap *= 2;
+    std::vector<int64_t> slot(cap, -1);  // a name's index
+    std::vector<uint8_t> seen(cap, 0);   // 1 a name, 2 a name that is a key
+    auto find = [&](std::string_view s) {
+        uint64_t h = 14695981039346656037ull;
+        for (unsigned char ch : s) h = (h ^ ch) * 1099511628211ull;
+        size_t i = h & (cap - 1);
+        while (slot[i] >= 0 && names[slot[i]] != s) i = (i + 1) & (cap - 1);
+        return i;
+    };
+    size_t distinct = 0, matched = 0;
+    for (size_t j = 0; j < names.size(); j++) {
+        size_t i = find(names[j]);
+        if (slot[i] < 0) { slot[i] = int64_t(j); seen[i] = 1; distinct++; }
+    }
+    for (auto k : keys) {
+        size_t i = find(k);
+        if (slot[i] < 0) return false;
+        if (seen[i] == 1) { seen[i] = 2; matched++; }
+    }
+    return matched == distinct;
+}
+
+int64_t packed_size(const std::vector<std::string_view>& s) {
+    int64_t n = 0;
+    for (auto v : s) n += int64_t(v.size()) + 1;
+    return n;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode a .skm payload (its top-level map) into columns. Returns a
+// handle for stpu_skm_columns and stpu_skm_free, or NULL when the payload
+// is not of the subset above. sizes (5): records, their names' packed
+// bytes, name_map entries, its keys' packed bytes, other top-level entries.
+void* stpu_skm_decode(const uint8_t* buf, int64_t len, int64_t* sizes) {
+    auto c = std::make_unique<SkmColumns>();
+    CborIn in{buf, len, 0};
+    int major, info;
+    uint64_t n;
+    if (!in.head(major, info, n) || major != 5 || n > uint64_t(len)) return nullptr;
+    bool meta = false, map = false;
+    for (uint64_t e = 0; e < n; e++) {
+        std::string_view key;
+        if (!in.text(key)) return nullptr;
+        if (key == "sketch_metadata") {
+            if (meta || !skm_records(in, *c)) return nullptr;
+            meta = true;
+        } else if (key == "name_map") {
+            if (map || !skm_name_map(in, *c)) return nullptr;
+            map = true;
+        } else {
+            int64_t at = in.pos;
+            if (!in.skip()) return nullptr;
+            c->other.insert(c->other.end(),
+                            {int64_t(reinterpret_cast<const uint8_t*>(key.data()) - buf),
+                             int64_t(key.size()), at});
+        }
+    }
+    if (!meta || !map) return nullptr;
+    sizes[0] = int64_t(c->names.size());
+    sizes[1] = packed_size(c->names);
+    sizes[2] = int64_t(c->keys.size());
+    sizes[3] = packed_size(c->keys);
+    sizes[4] = int64_t(c->other.size() / 3);
+    return c.release();
+}
+
+// Copy a decoded payload's columns out (the sizes stpu_skm_decode gave):
+// names packed with offsets; nums (n, 7) index, seq_length, non_acgt,
+// acgt; flags (n, 4) rc, reads, densified, the field mask; name_map's keys
+// packed with offsets and its values; other (m, 3) key offset, key
+// length, value offset in the payload. bits: 1 no name, 2 no key holds a
+// 0 byte; 4 the set of keys equals the set of names. The handle reads the
+// payload it decoded, which must outlive it.
+void stpu_skm_columns(void* handle, uint8_t* names, int64_t* name_off,
+                      uint64_t* nums, uint8_t* flags, uint8_t* keys,
+                      int64_t* key_off, uint64_t* values, int64_t* other,
+                      int64_t* bits) {
+    const SkmColumns& c = *static_cast<const SkmColumns*>(handle);
+    int64_t b = pack_strings(c.names, names, name_off) ? 1 : 0;
+    b |= pack_strings(c.keys, keys, key_off) ? 2 : 0;
+    std::memcpy(nums, c.nums.data(), c.nums.size() * sizeof(uint64_t));
+    std::memcpy(flags, c.flags.data(), c.flags.size());
+    std::memcpy(values, c.values.data(), c.values.size() * sizeof(uint64_t));
+    std::memcpy(other, c.other.data(), c.other.size() * sizeof(int64_t));
+    if (same_set(c.names, c.keys)) b |= 4;
+    *bits = b;
+}
+
+void stpu_skm_free(void* handle) { delete static_cast<SkmColumns*>(handle); }
 
 }  // extern "C"

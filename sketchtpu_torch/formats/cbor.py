@@ -170,6 +170,7 @@ def _decode(data: bytes, pos: int):
     raise ValueError(f"unsupported CBOR item {initial:#x}")
 
 
-def loads(data: bytes) -> Any:
-    obj, pos = _decode(data, 0)
+def loads(data: bytes, pos: int = 0) -> Any:
+    """The item that starts at byte pos of data."""
+    obj, _end = _decode(data, pos)
     return obj

@@ -7,20 +7,117 @@ back-compatibility shim for the sketchsize64 field.
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 
 from .. import spans
+from .._native import get_lib
 from ..constants import BBITS, num_bins
 from ..sketchcore.sketch import HashType, Sketch
 from . import cbor, snappy, skd
 
 FORMAT_VERSION = "0.3.0"  # sketch file format version we are compatible with
 
+# a record's fields as the native decoder numbers them (bit i of its mask)
+_FIELDS = ("name", "index", "rc", "reads", "seq_length", "densified", "acgt",
+           "non_acgt")
+_ALL_FIELDS = (1 << len(_FIELDS)) - 1
+
+
+def _strings(blob: bytes, off: np.ndarray, plain: bool) -> list[str]:
+    """The UTF-8 strings packed in blob, each followed by a 0 byte, at
+    offsets off (n + 1); plain: none holds a 0 byte itself."""
+    if len(off) == 1:
+        return []
+    if plain:
+        return blob[:-1].decode("utf-8").split("\0")
+    o = off.tolist()
+    return [blob[a : b - 1].decode("utf-8") for a, b in zip(o, o[1:])]
+
+
+class SkmColumns:
+    """A .skm payload's sketch_metadata and name_map as the native decoder
+    gave them (csrc/host/native.cpp, stpu_skm_decode): the names as one
+    list, the other fields as arrays, and the payload's other top-level
+    values decoded by formats/cbor.py (`rest`). Sketch objects and the
+    name map are built from them only when asked for."""
+
+    def __init__(self, payload: bytes, lib, handle, sizes: list[int]):
+        n, names_bytes, m, keys_bytes, n_other = sizes
+        names = np.empty(names_bytes, np.uint8)
+        name_off = np.empty(n + 1, np.int64)
+        self.nums = np.empty((n, 7), np.uint64)
+        self.flags = np.empty((n, 4), np.uint8)
+        keys = np.empty(keys_bytes, np.uint8)
+        self._key_off = np.empty(m + 1, np.int64)
+        self._values = np.empty(m, np.uint64)
+        other = np.empty((n_other, 3), np.int64)
+        bits = np.zeros(1, np.int64)
+        lib.stpu_skm_columns(
+            handle, names.ctypes.data, name_off.ctypes.data,
+            self.nums.ctypes.data, self.flags.ctypes.data, keys.ctypes.data,
+            self._key_off.ctypes.data, self._values.ctypes.data,
+            other.ctypes.data, bits.ctypes.data)
+        bits = int(bits[0])
+        self.names = _strings(names.tobytes(), name_off, bool(bits & 1))
+        self._keys = keys.tobytes()
+        self._keys_plain = bool(bits & 2)
+        # set(name_map) == {names}, as a Python dict's keys would compare
+        self.consistent = bool(bits & 4)
+        self.rest = {
+            payload[ko : ko + kn].decode("utf-8"): cbor.loads(payload, vo)
+            for ko, kn, vo in other.tolist()
+        }
+
+    @classmethod
+    def decode(cls, payload: bytes) -> "SkmColumns | None":
+        """The columns of a decompressed .skm payload, or None where the
+        native decoder is absent or the payload is not of the subset it
+        takes (the caller then decodes it with cbor.loads)."""
+        lib = get_lib()
+        if lib is None:
+            return None
+        sizes = np.zeros(5, np.int64)
+        handle = lib.stpu_skm_decode(payload, len(payload), sizes.ctypes.data)
+        if not handle:
+            return None
+        try:
+            return cls(payload, lib, handle, sizes.tolist())
+        finally:
+            lib.stpu_skm_free(handle)
+
+    def sketches(self) -> list[Sketch]:
+        """Each record's Sketch, as Sketch.from_serde builds it."""
+        index, seq_length, non_acgt = self.nums[:, :3].T.tolist()
+        acgt = list(map(tuple, self.nums[:, 3:].tolist()))
+        rc, reads, densified = self.flags[:, :3].astype(bool).T.tolist()
+        out = []
+        for i, mask in enumerate(self.flags[:, 3].tolist()):
+            row = (self.names[i], index[i], rc[i], reads[i], seq_length[i],
+                   densified[i], acgt[i], non_acgt[i])
+            if mask == _ALL_FIELDS:
+                out.append(Sketch(*row))
+            else:  # absent fields take from_serde's defaults
+                out.append(Sketch.from_serde(
+                    {f: v for b, (f, v) in enumerate(zip(_FIELDS, row))
+                     if mask >> b & 1}))
+        return out
+
+    def index(self, i: int) -> int | None:
+        """Record i's index (None where absent or null)."""
+        return int(self.nums[i, 0]) if self.flags[i, 3] & 2 else None
+
+    def name_map(self) -> dict[str, int]:
+        """name_map as stored (the later of two equal keys wins)."""
+        keys = _strings(self._keys, self._key_off, self._keys_plain)
+        return dict(zip(keys, self._values.tolist()))
+
 
 class MultiSketch:
     def __init__(
         self,
-        sketches: list[Sketch],
+        sketches: list[Sketch] | SkmColumns,
         sketch_size: int,
         kmer_lengths: list[int],
         hash_type: HashType,
@@ -32,10 +129,16 @@ class MultiSketch:
         self.sketch_size = sketch_size
         self.sketchsize64, _signs, usigs_size = num_bins(sketch_size)
         self.kmer_lengths = list(kmer_lengths)
-        self.sketch_metadata = sketches
-        if name_map is None:
-            name_map = {s.name: s.index for s in sketches}
-        self.name_map = name_map
+        # decoded columns: the Sketch list and the name map are built from
+        # them on first access, and the list then holds the samples
+        self._columns = None
+        if isinstance(sketches, SkmColumns):
+            self._columns, self._sketches = sketches, None
+        else:
+            self._sketches = sketches
+            if name_map is None:
+                name_map = {s.name: s.index for s in sketches}
+        self._name_map = name_map
         self.bin_stride = 1
         self.kmer_stride = usigs_size
         self.sample_stride = self.kmer_stride * len(kmer_lengths)
@@ -72,14 +175,43 @@ class MultiSketch:
             f.write(snappy.frame_compress(payload))
         os.replace(tmp, f"{file_prefix}.skm")
 
+    @property
+    def sketch_metadata(self) -> list[Sketch]:
+        if self._sketches is None:
+            self._sketches = self._columns.sketches()
+        return self._sketches
+
+    @sketch_metadata.setter
+    def sketch_metadata(self, sketches: list[Sketch]) -> None:
+        self._sketches = sketches
+
+    @property
+    def name_map(self) -> dict[str, int]:
+        if self._name_map is None:
+            self._name_map = self._columns.name_map()
+        return self._name_map
+
+    @name_map.setter
+    def name_map(self, name_map: dict[str, int]) -> None:
+        self._name_map = name_map
+
     @classmethod
     @spans.spanned("load.skm")
     def load_metadata(cls, file_prefix: str) -> "MultiSketch":
         with open(f"{file_prefix}.skm", "rb") as f:
             raw = f.read()
         spans.count("bytes", len(raw))
-        payload = snappy.frame_decompress(raw)
-        obj = cbor.loads(payload)
+        with spans.span("snappy"):
+            payload = snappy.frame_decompress(raw)
+            spans.count("bytes", len(payload))
+        with spans.span("decode"):
+            return cls._from_payload(payload)
+
+    @classmethod
+    def _from_payload(cls, payload: bytes) -> "MultiSketch":
+        cols = SkmColumns.decode(payload)
+        spans.count("native", 0 if cols is None else len(cols.names))
+        obj = cbor.loads(payload) if cols is None else cols.rest
         sketch_size = obj["sketch_size"]
         sketchsize64 = obj.get("sketchsize64", 0)
         if not sketchsize64:
@@ -88,12 +220,18 @@ class MultiSketch:
             sketchsize64 = sketch_size
             sketch_size = sketch_size * 64
         ms = cls(
-            sketches=[Sketch.from_serde(s) for s in obj["sketch_metadata"]],
+            sketches=(
+                [Sketch.from_serde(s) for s in obj["sketch_metadata"]]
+                if cols is None else cols
+            ),
             sketch_size=sketch_size,
             kmer_lengths=list(obj["kmer_lengths"]),
             hash_type=HashType.from_serde(obj["hash_type"]),
             sketch_version=obj.get("sketch_version", ""),
-            name_map={k: v for k, v in obj["name_map"].items()},
+            name_map=(
+                {k: v for k, v in obj["name_map"].items()}
+                if cols is None else None
+            ),
         )
         ms.sketchsize64 = sketchsize64
         ms.bin_stride = obj.get("bin_stride", 1)
@@ -106,35 +244,45 @@ class MultiSketch:
         # can carry entries for deleted samples / out-of-range positions.
         # Rebuild from the metadata when the keys disagree (our own delete
         # writes a consistent map).
-        names = {s.name for s in ms.sketch_metadata}
-        if set(ms.name_map) != names:
-            import logging
-
+        if cols is not None:
+            consistent = cols.consistent
+        else:
+            consistent = set(ms.name_map) == {s.name for s in ms.sketch_metadata}
+        if not consistent:
             logging.getLogger(__name__).warning(
                 ".skm name_map is inconsistent with its sketch metadata "
                 "(a database deleted by sketchlib.rust?); rebuilding"
             )
-            ms.name_map = {
-                s.name: i for i, s in enumerate(ms.sketch_metadata)
-            }
+            ms.name_map = {name: i for i, name in enumerate(ms._names())}
         return ms
 
     # --- data access ---
 
+    def _names(self) -> list[str]:
+        """Every sample's name, in the metadata's order."""
+        if self._sketches is None:
+            return self._columns.names
+        return [s.name for s in self._sketches]
+
     def number_samples_loaded(self) -> int:
         if self.block_reindex is not None:
             return len(self.block_reindex)
-        return len(self.sketch_metadata)
+        if self._sketches is None:
+            return len(self._columns.names)
+        return len(self._sketches)
 
     def sketch_name(self, index: int) -> str:
         if self.block_reindex is not None:
-            return self.sketch_metadata[self.block_reindex[index]].name
-        return self.sketch_metadata[index].name
+            index = self.block_reindex[index]
+        if self._sketches is None:
+            return self._columns.names[index]
+        return self._sketches[index].name
 
     def get_sample_index(self, name: str):
         if self.block_reindex is not None:
+            names = self._names()
             for logical, meta_idx in enumerate(self.block_reindex):
-                if self.sketch_metadata[meta_idx].name == name:
+                if names[meta_idx] == name:
                     return logical
             return None
         return self.name_map.get(name)
@@ -160,7 +308,9 @@ class MultiSketch:
                 raise ValueError(
                     f"Could not find requested sample {name} in sketch metadata"
                 )
-            read_indices.append(self.sketch_metadata[idx].index)
+            read_indices.append(self._columns.index(idx)
+                                if self._sketches is None
+                                else self._sketches[idx].index)
             block_reindex.append(idx)
         self.block_reindex = block_reindex
         self.sketch_bins = skd.read_skd_batch(
@@ -229,7 +379,7 @@ class MultiSketch:
             f"sketch_version={self.sketch_version}\n"
             f"sequence_type={self.hash_type.debug_str()}\n"
             f"sketch_size={self.sketch_size}\n"
-            f"n_samples={len(self.sketch_metadata)}\n"
+            f"n_samples={len(self._names())}\n"
             f"kmers={kmers}\ninverted=false"
         )
 

@@ -15,7 +15,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from sketchtpu_torch import cli as port_cli
 from sketchtpu_torch import spans
-from sketchtpu_torch.formats import skd
+from sketchtpu_torch.formats import skd, skm, snappy
 from sketchtpu_torch.formats.skm import MultiSketch
 from sketchtpu_torch.sketchcore.sketch import HashType, Sketch
 from sketchtpu_torch.synth import derive_signs, derive_words
@@ -207,12 +207,34 @@ def test_dist_knn_records_its_stages(db, tmp_path, monkeypatch, mode):
     assert got[("load", "load.skd")][0].counts == {"bytes": skd_bytes}
     assert got[("load", "load.skm")][0].counts == {
         "bytes": (db / "db.skm").stat().st_size}
+    assert {p for p in got if len(p) == 3} == {
+        ("load", "load.skm", "snappy"), ("load", "load.skm", "decode")}
+    assert got[("load", "load.skm", "decode")][0].counts == {"native": 60}
     assert got[("engine", "upload")][0].counts == {"bytes": skd_bytes}
     assert got[("values",)][0].counts == {"pairs": 60 * 5}
     assert got[("write",)][0].counts == {"bytes": out.stat().st_size}
     assert got[("scan",)][0].counts == {"launches": 0}  # the CPU twins
     # one engine span for the samebits engine, one for the kNN engine
     assert len(got[("engine",)]) == 2
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_load_skm_records_snappy_and_decode(db, monkeypatch, native):
+    """load.skm holds snappy (bytes: the payload) and decode (native: the
+    records the native decoder produced, 0 without the host library)."""
+    if not native:
+        monkeypatch.setattr(skm, "get_lib", lambda: None)
+    before = len(spans.recorded())
+    with _cpu_profile():
+        ms = MultiSketch.load_metadata(str(db / "db"))
+    got = _new(before)
+    (load,) = [s for s in got if s.name == "load.skm"]
+    assert ms.number_samples_loaded() == 60
+    assert load.counts == {"bytes": (db / "db.skm").stat().st_size}
+    payload = snappy.frame_decompress((db / "db.skm").read_bytes())
+    assert sorted((s.name, s.counts) for s in got if s.parent == load.id) == [
+        ("decode", {"native": 60 if native else 0}),
+        ("snappy", {"bytes": len(payload)})]
 
 
 def test_precluster_count_records_its_stages(db, monkeypatch, capsys):
