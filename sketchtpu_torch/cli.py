@@ -1039,7 +1039,9 @@ def _precluster_main(args) -> None:
     out = _ostream(args.output)
     ref_name = strip_sketch_extension(args.skd)
     with spans.span("load"):
-        skq_bins = skd_io.read_all_skq(f"{input_prefix}.skq")
+        with spans.span("load.skq"):
+            skq_bins = skd_io.read_all_skq(f"{input_prefix}.skq")
+            spans.count("bytes", skq_bins.nbytes)
         references = MultiSketch.load_metadata(ref_name)
         references.read_sketch_data(ref_name)
     n = references.number_samples_loaded()

@@ -266,7 +266,9 @@ def knn_scan(rows: torch.Tensor, cols: torch.Tensor, knn: int, *,
              exclude_self: bool, comp_rows=None, comp_cols=None,
              cutoff: float = 0.64, row0: int = 0,
              sig: SignMask | None = None):
-    """knn_scan_tensors() as (sb, idx) int32 numpy arrays."""
+    """knn_scan_tensors() as (sb, idx) int32 numpy arrays. The span
+    "scan" holds the whole selection: in precluster, all the work of
+    finding and scoring the candidates runs inside it."""
     return tuple(t.cpu().numpy() for t in knn_scan_tensors(
         rows, cols, knn, exclude_self=exclude_self, comp_rows=comp_rows,
         comp_cols=comp_cols, cutoff=cutoff, row0=row0, sig=sig))
@@ -415,7 +417,9 @@ class DeviceKnnEngine:
                       c1=None, c2=None, cutoff: float = 0.64, row0: int = 0,
                       sig: SignMask | None = None):
         """scan_coreacc() of the (na, nk, W) words `rows` against every
-        sample, as numpy arrays."""
+        sample, as numpy arrays. The span "scan" holds the whole
+        selection: in precluster, all the work of finding and scoring the
+        candidates runs inside it."""
         return tuple(t.cpu().numpy() for t in scan_coreacc(
             rows, self._words, self.kmers, self.ms.sketch_size, knn,
             exclude_self, c1, c2, cutoff, row0, sig, self.row_tile,
@@ -482,12 +486,17 @@ class DeviceKnnEngine:
         Single-k rows hold knn (column, f32 value) entries, padded with
         (row, 1.0); core/accessory rows (an extension: the reference
         leaves it unimplemented) hold their candidates' (column, core,
-        acc). Rows with no candidate follow retain_unmatched."""
+        acc). Rows with no candidate follow retain_unmatched.
+
+        Spans: "signs" (the .ski -> .skd reorder and the upload), then
+        "scan", "values" and "rows" (the rows with no candidate, counted
+        as "unmatched", and their fill)."""
         lo, hi = (row_range.start, row_range.stop) if row_range else (0, self.n)
         if knn < 1:
             return _no_neighbours(lo, hi, dist_type, retain_unmatched)
-        sig_all = pack_signs(precluster_signs(self.ms, inverted, skq_bins),
-                             self.device)
+        with spans.span("signs"):
+            sig_all = pack_signs(precluster_signs(self.ms, inverted, skq_bins),
+                                 self.device)
         comp = (np.asarray(completeness_vec, dtype=np.float64)
                 if completeness_vec is not None else None)
         return self.precluster_rows(sig_all, inverted.sketch_size, knn,
@@ -514,35 +523,38 @@ class DeviceKnnEngine:
                                       cutoff=completeness_cutoff)
 
         res = values(sb, idx, comp[lo:hi] if comp is not None else None)
-        idx, vals, valid = res.idx.copy(), res.vals.copy(), res.valid.copy()
-        # rows with no candidate (valid entries come first in a row)
-        empty = np.flatnonzero(~valid[:, 0])
-        if empty.size and retain_unmatched == "bruteforce":
-            sb2, idx2 = self._pc_scan_subset(dist_type, lo + empty,
-                                             min(knn + 1, n), comp,
-                                             completeness_cutoff)
-            # self exclusion by hand: the scan's exclude_self keys on the
-            # row id, which a gathered subset does not carry
-            for bi, r_loc in enumerate(empty):
-                keep = idx2[bi] != lo + r_loc
-                row = values(sb2[bi][keep][:knn][None, :],
-                             idx2[bi][keep][:knn][None, :],
-                             comp[lo + r_loc : lo + r_loc + 1]
-                             if comp is not None else None)
-                m = int(row.valid[0].sum())
-                idx[r_loc, :m] = row.idx[0, :m]
-                vals[r_loc, :m] = row.vals[0, :m]
-                valid[r_loc, :m] = True
-        # singleton and padding entries are raw 0.0 / 1.0 whatever the ANI
-        # mode (distance_matrix.rs:377-380; the printer skips (row, 1.0)
-        # self entries); indices are global
-        own = np.broadcast_to((lo + np.arange(hi - lo))[:, None], idx.shape)
-        if retain_unmatched == "singleton" and empty.size:
-            idx[empty, 0] = lo + empty
-            vals[empty, 0] = 0.0
-            valid[empty, 0] = True
-        idx = np.where(valid, idx, own).astype(np.int32)
-        vals = np.where(valid, vals, np.float32(1.0)).astype(np.float32)
+        with spans.span("rows"):
+            idx, vals, valid = res.idx.copy(), res.vals.copy(), res.valid.copy()
+            # rows with no candidate (valid entries come first in a row)
+            empty = np.flatnonzero(~valid[:, 0])
+            spans.count("unmatched", empty.size)
+            if empty.size and retain_unmatched == "bruteforce":
+                sb2, idx2 = self._pc_scan_subset(dist_type, lo + empty,
+                                                 min(knn + 1, n), comp,
+                                                 completeness_cutoff)
+                # self exclusion by hand: the scan's exclude_self keys on
+                # the row id, which a gathered subset does not carry
+                for bi, r_loc in enumerate(empty):
+                    keep = idx2[bi] != lo + r_loc
+                    row = values(sb2[bi][keep][:knn][None, :],
+                                 idx2[bi][keep][:knn][None, :],
+                                 comp[lo + r_loc : lo + r_loc + 1]
+                                 if comp is not None else None)
+                    m = int(row.valid[0].sum())
+                    idx[r_loc, :m] = row.idx[0, :m]
+                    vals[r_loc, :m] = row.vals[0, :m]
+                    valid[r_loc, :m] = True
+            # singleton and padding entries are raw 0.0 / 1.0 whatever the
+            # ANI mode (distance_matrix.rs:377-380; the printer skips (row,
+            # 1.0) self entries); indices are global
+            own = np.broadcast_to((lo + np.arange(hi - lo))[:, None],
+                                  idx.shape)
+            if retain_unmatched == "singleton" and empty.size:
+                idx[empty, 0] = lo + empty
+                vals[empty, 0] = 0.0
+                valid[empty, 0] = True
+            idx = np.where(valid, idx, own).astype(np.int32)
+            vals = np.where(valid, vals, np.float32(1.0)).astype(np.float32)
         return SparseKnnRows(idx, vals, None)
 
     def _pc_scan(self, dist_type, lo, hi, sig, knn, comp, cutoff):
@@ -579,23 +591,25 @@ class DeviceKnnEngine:
 
     def _pc_coreacc(self, sig, knn, lo, hi, retain_unmatched, comp, cutoff):
         res = self._pc_ca(lo, hi, sig, knn, comp, cutoff)
-        idx, vals = res.idx.copy(), res.vals.copy()
-        ok = np.isfinite(vals[:, :, 0]) & (idx != _NO_COL)  # a row's prefix
-        empty = np.flatnonzero(~ok.any(axis=1))
-        if empty.size and retain_unmatched == "bruteforce":
-            res2 = self._pc_ca_subset(lo + empty, min(knn + 1, self.n), comp,
-                                      cutoff)
-            for bi, r_loc in enumerate(empty):
-                # self exclusion by hand, as in the single-k path
-                keep = np.flatnonzero((res2.idx[bi] != lo + r_loc)
-                                      & np.isfinite(res2.vals[bi, :, 0])
-                                      & (res2.idx[bi] != _NO_COL))[:knn]
-                m = keep.size
-                idx[r_loc, :m] = res2.idx[bi, keep]
-                vals[r_loc, :m] = res2.vals[bi, keep]
-                ok[r_loc, :m] = True
-        if retain_unmatched == "singleton" and empty.size:
-            idx[empty, 0] = lo + empty
-            vals[empty, 0] = 0.0
-            ok[empty, 0] = True
+        with spans.span("rows"):
+            idx, vals = res.idx.copy(), res.vals.copy()
+            ok = np.isfinite(vals[:, :, 0]) & (idx != _NO_COL)  # a row's prefix
+            empty = np.flatnonzero(~ok.any(axis=1))
+            spans.count("unmatched", empty.size)
+            if empty.size and retain_unmatched == "bruteforce":
+                res2 = self._pc_ca_subset(lo + empty, min(knn + 1, self.n),
+                                          comp, cutoff)
+                for bi, r_loc in enumerate(empty):
+                    # self exclusion by hand, as in the single-k path
+                    keep = np.flatnonzero((res2.idx[bi] != lo + r_loc)
+                                          & np.isfinite(res2.vals[bi, :, 0])
+                                          & (res2.idx[bi] != _NO_COL))[:knn]
+                    m = keep.size
+                    idx[r_loc, :m] = res2.idx[bi, keep]
+                    vals[r_loc, :m] = res2.vals[bi, keep]
+                    ok[r_loc, :m] = True
+            if retain_unmatched == "singleton" and empty.size:
+                idx[empty, 0] = lo + empty
+                vals[empty, 0] = 0.0
+                ok[empty, 0] = True
         return SparseKnnRows(idx, vals, ok)
