@@ -4,7 +4,8 @@ g++ compiles it at first use into `_build/` under a name keyed by a hash of
 the source, so a stale build is never loaded; concurrent processes wait
 for one compile (`_build.build_lock`). If compilation fails, or
 SKETCHTPU_NO_NATIVE is set, get_lib() returns None and callers use their
-pure-Python implementations (identical output, slower).
+pure-Python implementations (identical output, slower). run_split runs
+a helper's call over ranges of its work on threads.
 """
 
 from __future__ import annotations
@@ -14,12 +15,17 @@ import hashlib
 import os
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc" / "host" / "native.cpp"
 _BUILD_DIR = _PKG / "_build"
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
+# threads for the helper's calls that split their work (a ctypes call
+# releases the GIL): dist/output.py's text, the snappy frame, the .ski bins
+WORKERS = min(8, os.cpu_count() or 1)
 
 _lock = threading.Lock()
 _lib = None
@@ -56,7 +62,15 @@ _SIGNATURES = {
                                [ctypes.c_char_p, _P, ctypes.c_char_p, _P, _P,
                                 _P, _P, _P, _I64, _P, _I64]),
     "stpu_ski_bin_msgpack": (_I64, [_P, _P, _P, _I64, _P, _I64]),
-    "stpu_ski_bin_unpack": (_I64, [_P, _I64, _P, _P, _I64, _P]),
+    "stpu_crc32c_table": (ctypes.c_uint32,
+                          [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32]),
+    "stpu_snappy_frame_scan": (_I64, [_P, _I64, _P, _P]),
+    "stpu_snappy_frame_chunks": (_I64, [_P, _P, _I64, _I64, ctypes.c_char_p,
+                                        ctypes.c_int]),
+    "stpu_ski_bins_scan": (_I64, [_P, _I64, _P, _I64]),
+    "stpu_ski_bins_fill": (_I64, [_P, _P, _I64, _I64, _I64, _P]),
+    "stpu_transpose_u16": (None, [_P, _I64, _I64, _P, _I64, _I64]),
+    "stpu_msgpack_strs": (_I64, [_P, _I64, _I64, _P, _P, _P]),
     "stpu_skm_decode": (_P, [ctypes.c_char_p, _I64, _P]),
     "stpu_skm_columns": (None, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "stpu_skm_free": (None, [_P]),
@@ -112,3 +126,16 @@ def get_lib():
             fn.argtypes = argtypes
         _lib = lib
         return _lib
+
+
+def run_split(call, n: int, workers: int | None = None, least: int = 1) -> list:
+    """call(lo, hi) over [0, n) in contiguous ranges of `least` items or
+    more, at most `workers` of them (default WORKERS), each range on a
+    thread of its own; the results in the ranges' order."""
+    parts = max(1, min(WORKERS if workers is None else workers, n // least))
+    bounds = [n * i // parts for i in range(parts + 1)]
+    ranges = list(zip(bounds, bounds[1:]))
+    if parts == 1:
+        return [call(*ranges[0])]
+    with ThreadPoolExecutor(parts) as pool:
+        return list(pool.map(lambda r: call(*r), ranges))

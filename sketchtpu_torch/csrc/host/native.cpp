@@ -1,11 +1,12 @@
-// Host helpers of sketchtpu_torch: CRC32C and the Snappy raw block codec
-// (.skm files are snappy-framed CBOR, sketchlib.rust
-// src/sketch/multisketch.rs:80-103), the FASTQ k-mer count filter, whose
-// result depends on read order (src/sketch/mod.rs:198-208 with
-// src/hashing/bloom_filter.rs), the bin minimum of the host sketch oracle,
-// f32 text formatting with the reference's digits, the DNA and AA fastx
-// parsers, the .ski index codec (one bin's msgpack map of roaring
-// bitmaps), and the .skm metadata decoder (its CBOR into columns).
+// Host helpers of sketchtpu_torch: CRC32C, the Snappy raw block codec and
+// the framed stream's decoder (.skm and .ski files are snappy-framed,
+// sketchlib.rust src/sketch/multisketch.rs:80-103), the FASTQ k-mer count
+// filter, whose result depends on read order (src/sketch/mod.rs:198-208
+// with src/hashing/bloom_filter.rs), the bin minimum of the host sketch
+// oracle, f32 text formatting with the reference's digits, the DNA and AA
+// fastx parsers, the .ski index codec (one bin's msgpack map of roaring
+// bitmaps written; every bin read into the sign matrix, and the name
+// lists), and the .skm metadata decoder (its CBOR into columns).
 //
 // Formats are implemented from their public specifications
 // (https://github.com/google/snappy/blob/main/format_description.txt).
@@ -13,6 +14,7 @@
 // sketchtpu_torch/_native.py builds it with
 //   g++ -O3 -std=c++17 -shared -fPIC -o <lib>.so native.cpp
 
+#include <algorithm>
 #include <cstdint>
 #include <charconv>
 #include <cmath>
@@ -27,14 +29,14 @@
 extern "C" {
 
 // ---------------------------------------------------------------------------
-// CRC32C (Castagnoli), slice-by-8 software implementation.
+// CRC32C (Castagnoli): the SSE4.2 crc32 instruction where the CPU has it
+// (checked at run time; the function alone is built for SSE4.2), else a
+// slice-by-8 table.
 // ---------------------------------------------------------------------------
 
 static uint32_t crc32c_table[8][256];
-static bool crc32c_init_done = false;
 
-static void crc32c_init() {
-    if (crc32c_init_done) return;
+static bool crc32c_init() {
     const uint32_t poly = 0x82F63B78u;  // reflected CRC32C polynomial
     for (uint32_t i = 0; i < 256; i++) {
         uint32_t crc = i;
@@ -49,12 +51,13 @@ static void crc32c_init() {
             crc32c_table[s][i] = crc;
         }
     }
-    crc32c_init_done = true;
+    return true;
 }
 
-uint32_t stpu_crc32c(const uint8_t* data, size_t len, uint32_t seed) {
-    crc32c_init();
-    uint32_t crc = ~seed;
+// the register form (no pre- or post-inversion) of either implementation
+static uint32_t crc32c_sw(const uint8_t* data, size_t len, uint32_t crc) {
+    static const bool ready = crc32c_init();  // once, thread-safe
+    (void)ready;
     size_t i = 0;
     while (len - i >= 8) {
         uint32_t lo, hi;
@@ -69,7 +72,45 @@ uint32_t stpu_crc32c(const uint8_t* data, size_t len, uint32_t seed) {
     }
     for (; i < len; i++)
         crc = crc32c_table[0][(crc ^ data[i]) & 0xFF] ^ (crc >> 8);
-    return ~crc;
+    return crc;
+}
+
+#if defined(__x86_64__)
+__attribute__((target("sse4.2")))
+static uint32_t crc32c_hw(const uint8_t* data, size_t len, uint32_t crc) {
+    uint64_t c = crc;
+    size_t i = 0;
+    for (; len - i >= 8; i += 8) {
+        uint64_t v;
+        memcpy(&v, data + i, 8);
+        c = __builtin_ia32_crc32di(c, v);
+    }
+    uint32_t c32 = (uint32_t)c;
+    for (; i < len; i++) c32 = __builtin_ia32_crc32qi(c32, data[i]);
+    return c32;
+}
+
+static bool crc32c_have_hw() {
+    __builtin_cpu_init();
+    return __builtin_cpu_supports("sse4.2");
+}
+#endif
+
+static uint32_t crc32c(const uint8_t* data, size_t len, uint32_t seed) {
+#if defined(__x86_64__)
+    static const bool hw = crc32c_have_hw();
+    if (hw) return ~crc32c_hw(data, len, ~seed);
+#endif
+    return ~crc32c_sw(data, len, ~seed);
+}
+
+uint32_t stpu_crc32c(const uint8_t* data, size_t len, uint32_t seed) {
+    return crc32c(data, len, seed);
+}
+
+// Software only: the tests hold the instruction against it.
+uint32_t stpu_crc32c_table(const uint8_t* data, size_t len, uint32_t seed) {
+    return ~crc32c_sw(data, len, ~seed);
 }
 
 // ---------------------------------------------------------------------------
@@ -280,12 +321,21 @@ size_t stpu_snappy_decompress(const uint8_t* in, size_t n, uint8_t* out,
         shift += 7;
     }
     if (ulen > out_cap) return (size_t)-1;
+    // Writes stay below ulen: a frame's chunks share one buffer. Away
+    // from either end, a short literal moves 16 bytes and a copy whole
+    // 8-byte words (the bytes past its length are written over next)
     size_t op = 0;
     while (ip < n) {
         uint8_t tag = in[ip++];
         uint32_t kind = tag & 3;
         if (kind == 0) {  // literal
             size_t len = (tag >> 2) + 1;
+            if (len <= 16 && n - ip >= 16 && ulen - op >= 16) {
+                memcpy(out + op, in + ip, 16);
+                ip += len;
+                op += len;
+                continue;
+            }
             if (len > 60) {
                 size_t extra = len - 60;
                 if (ip + extra > n) return (size_t)-1;
@@ -317,14 +367,108 @@ size_t stpu_snappy_decompress(const uint8_t* in, size_t n, uint8_t* out,
                 ip += 4;
             }
             if (offset == 0 || offset > op || op + len > ulen) return (size_t)-1;
-            // byte-by-byte copy handles overlapping (RLE) copies
-            for (size_t i = 0; i < len; i++) {
-                out[op] = out[op - offset];
-                op++;
+            uint8_t* d = out + op;
+            const uint8_t* src = d - offset;
+            op += len;
+            // with offset >= 8 a word never reads bytes this copy writes;
+            // an overlapping (RLE) copy goes byte by byte
+            if (offset >= 8 && ulen - op >= 8) {
+                for (size_t i = 0; i < len; i += 8) memcpy(d + i, src + i, 8);
+                continue;
             }
+            size_t i = 0;
+            if (offset >= 8)
+                for (; i + 8 <= len; i += 8) memcpy(d + i, src + i, 8);
+            for (; i < len; i++) d[i] = src[i];
         }
     }
     return op == ulen ? op : (size_t)-1;
+}
+
+// ---------------------------------------------------------------------------
+// Snappy framing format (framing_format.txt), the whole stream at once:
+// stpu_snappy_frame_scan walks the chunk headers and gives each data
+// chunk's place in the input and in one output buffer, and
+// stpu_snappy_frame_chunks decodes a range of them into it (ranges on
+// threads of their own). Chunk types as formats/snappy.py takes them:
+// compressed and uncompressed data, padding and the skippable 0x80-0xFD,
+// a repeated stream identifier; anything else, a chunk past the end, a
+// malformed block or a checksum mismatch is left to the Python path,
+// which raises its own error.
+// ---------------------------------------------------------------------------
+
+static const uint8_t kStreamIdentifier[10] = {0xff, 0x06, 0x00, 0x00, 's',
+                                              'N',  'a',  'P',  'p',  'Y'};
+
+// With info NULL, count the data chunks and their uncompressed bytes
+// (*total); with info, also write each one's (body offset, body length,
+// output offset, uncompressed length). Returns the data chunks, or -1.
+int64_t stpu_snappy_frame_scan(const uint8_t* in, int64_t n, int64_t* info,
+                               int64_t* total) {
+    if (n < 10 || memcmp(in, kStreamIdentifier, 10) != 0) return -1;
+    int64_t pos = 10, chunks = 0, out = 0;
+    while (pos < n) {
+        if (n - pos < 4) return -1;
+        uint8_t type = in[pos];
+        int64_t len = in[pos + 1] | (in[pos + 2] << 8) | (in[pos + 3] << 16);
+        int64_t body = pos + 4;
+        if (len > n - body) return -1;
+        pos = body + len;
+        if (type == 0xFF || type >= 0x80) continue;  // skippable
+        if (type > 0x01 || len < 4) return -1;
+        int64_t ulen = len - 4;
+        if (type == 0x00) {
+            // the block's uncompressed length; a block expands 64 / 3
+            // times at most (a 3-byte copy element of 64 bytes)
+            uint64_t v = 0;
+            int64_t p = body + 4;
+            for (int shift = 0;; shift += 7) {
+                if (p >= pos || shift > 63) return -1;
+                uint8_t b = in[p++];
+                v |= (uint64_t)(b & 0x7F) << shift;
+                if (!(b & 0x80)) break;
+            }
+            if (v > 22 * (uint64_t)len) return -1;
+            ulen = (int64_t)v;
+        }
+        if (info) {
+            int64_t* e = info + 4 * chunks;
+            e[0] = body;
+            e[1] = len;
+            e[2] = out;
+            e[3] = ulen;
+        }
+        chunks++;
+        out += ulen;
+    }
+    *total = out;
+    return chunks;
+}
+
+// Decode data chunks [lo, hi) of a scanned stream into out, checking each
+// chunk's masked CRC-32C when verify. Returns 0, or -1.
+int64_t stpu_snappy_frame_chunks(const uint8_t* in, const int64_t* info,
+                                 int64_t lo, int64_t hi, uint8_t* out,
+                                 int verify) {
+    for (int64_t c = lo; c < hi; c++) {
+        const int64_t* e = info + 4 * c;
+        const uint8_t* body = in + e[0];
+        uint8_t* dst = out + e[2];
+        size_t got = (size_t)e[3];
+        if (body[-4] == 0x00)  // compressed: exactly the length scanned
+            got = stpu_snappy_decompress(body + 4, (size_t)(e[1] - 4), dst,
+                                         got);
+        else
+            memcpy(dst, body + 4, got);
+        if (got == (size_t)-1) return -1;
+        if (verify) {
+            uint32_t crc = body[0] | (body[1] << 8) | (body[2] << 16) |
+                           ((uint32_t)body[3] << 24);
+            uint32_t c32 = crc32c(dst, got, 0);
+            if ((((c32 >> 15) | (c32 << 17)) + 0xA282EAD8u) != crc) return -1;
+        }
+    }
+    return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -829,97 +973,183 @@ int64_t stpu_ski_bin_msgpack(const uint16_t* signs, const int64_t* ent_off,
     return o;
 }
 
-// Parse one bin's msgpack map and emit (member, sign) pairs.
-// Returns bytes consumed (>0) and sets *n_out, or a negative code on any
-// unsupported encoding (the caller then decodes it in Python).
-int64_t stpu_ski_bin_unpack(const uint8_t* buf, int64_t len,
-                            uint32_t* members, uint16_t* signs,
-                            int64_t out_cap, int64_t* n_out) {
-    int64_t pos = 0, no = 0;
-    if (pos >= len) return -1;
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// .ski index reading: the decompressed payload's per-bin maps straight into
+// the (n_samples, S) u16 sign matrix. stpu_ski_bins_scan finds where each
+// bin's map starts; stpu_ski_bins_fill writes bins [lo, hi) as rows of a
+// bin-major (S, n) matrix (ranges on threads of their own); and
+// stpu_transpose_u16 gives rows [lo, hi) of the row-major one. The
+// subset: a top-level array of 9, an array of bin maps, uint keys up to
+// 0xFFFF, bin8/16/32 values holding no-run roaring bitmaps (cookie 12346)
+// of members below n. Anything else (a run container, a larger key, a
+// member past n, a truncated payload) returns -1, and the caller decodes
+// the whole payload in Python.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+inline int64_t be_uint(const uint8_t* p, int w) {
+    int64_t v = 0;
+    for (int i = 0; i < w; i++) v = (v << 8) | p[i];
+    return v;
+}
+
+// a msgpack array or map header at buf[pos] (map: 0x80), its length into
+// *n; false for another type or past len
+bool mp_header(const uint8_t* buf, int64_t len, int64_t& pos, uint8_t fix,
+               int64_t* n) {
+    if (pos >= len) return false;
     uint8_t b = buf[pos++];
-    int64_t n_entries;
-    if ((b & 0xF0) == 0x80) n_entries = b & 0x0F;
-    else if (b == 0xDE) {
-        if (pos + 2 > len) return -1;
-        n_entries = ((int64_t)buf[pos] << 8) | buf[pos + 1]; pos += 2;
-    } else if (b == 0xDF) {
-        if (pos + 4 > len) return -1;
-        n_entries = ((int64_t)buf[pos] << 24) | ((int64_t)buf[pos+1] << 16) |
-                    ((int64_t)buf[pos+2] << 8) | buf[pos+3]; pos += 4;
-    } else return -2;
-    for (int64_t e = 0; e < n_entries; e++) {
-        if (pos >= len) return -1;
-        uint8_t kb = buf[pos++];
-        uint32_t sign;
-        if (kb < 0x80) sign = kb;
-        else if (kb == 0xCC) { if (pos + 1 > len) return -1; sign = buf[pos]; pos += 1; }
-        else if (kb == 0xCD) {
-            if (pos + 2 > len) return -1;
-            sign = ((uint32_t)buf[pos] << 8) | buf[pos + 1]; pos += 2;
-        } else if (kb == 0xCE) {
-            if (pos + 4 > len) return -1;
-            sign = ((uint32_t)buf[pos] << 24) | ((uint32_t)buf[pos+1] << 16) |
-                   ((uint32_t)buf[pos+2] << 8) | buf[pos+3]; pos += 4;
-        } else return -3;
-        if (sign > 0xFFFF) return -3;
-        if (pos >= len) return -1;
-        uint8_t vb = buf[pos++];
-        int64_t blen;
-        if (vb == 0xC4) { if (pos + 1 > len) return -1; blen = buf[pos]; pos += 1; }
-        else if (vb == 0xC5) {
-            if (pos + 2 > len) return -1;
-            blen = ((int64_t)buf[pos] << 8) | buf[pos + 1]; pos += 2;
-        } else if (vb == 0xC6) {
-            if (pos + 4 > len) return -1;
-            blen = ((int64_t)buf[pos] << 24) | ((int64_t)buf[pos+1] << 16) |
-                   ((int64_t)buf[pos+2] << 8) | buf[pos+3]; pos += 4;
-        } else return -4;
-        if (pos + blen > len) return -1;
-        const uint8_t* blob = buf + pos;
-        // roaring: accept only the no-run cookie; run containers -> Python
-        if (blen < 8) return -5;
-        uint32_t cookie = blob[0] | (blob[1] << 8) | (blob[2] << 16) |
-                          ((uint32_t)blob[3] << 24);
-        if ((cookie & 0xFFFF) == 12347) return -6;
-        if (cookie != 12346) return -5;
-        int64_t nc = blob[4] | (blob[5] << 8) | (blob[6] << 16) |
-                     ((int64_t)blob[7] << 24);
-        int64_t dpos = 8 + 4 * nc + 4 * nc;  // skip descriptors + offsets
-        const uint8_t* desc = blob + 8;
-        for (int64_t c = 0; c < nc; c++) {
-            uint32_t key = desc[0] | (desc[1] << 8);
-            int64_t card = (int64_t)(desc[2] | (desc[3] << 8)) + 1;
-            desc += 4;
-            if (card <= 4096) {
-                if (dpos + card * 2 > blen || no + card > out_cap) return -1;
-                for (int64_t t = 0; t < card; t++) {
-                    uint32_t lo = blob[dpos] | (blob[dpos + 1] << 8);
-                    dpos += 2;
-                    members[no] = (key << 16) | lo;
-                    signs[no] = (uint16_t)sign;
-                    no++;
-                }
+    int w;
+    if ((b & 0xF0) == fix) { *n = b & 0x0F; return true; }
+    if (b == (fix == 0x90 ? 0xDC : 0xDE)) w = 2;
+    else if (b == (fix == 0x90 ? 0xDD : 0xDF)) w = 4;
+    else return false;
+    if (len - pos < w) return false;
+    *n = be_uint(buf + pos, w);
+    pos += w;
+    return true;
+}
+
+// one bin map entry at buf[pos]: its u16 sign and its bin's span
+bool ski_entry(const uint8_t* buf, int64_t end, int64_t& pos, uint16_t* sign,
+               int64_t* blob, int64_t* blen) {
+    if (pos >= end) return false;
+    uint8_t kb = buf[pos++];
+    int64_t key;
+    if (kb < 0x80) key = kb;
+    else if (kb >= 0xCC && kb <= 0xCE) {
+        int w = 1 << (kb - 0xCC);
+        if (end - pos < w) return false;
+        key = be_uint(buf + pos, w);
+        pos += w;
+    } else return false;
+    if (key > 0xFFFF || pos >= end) return false;
+    uint8_t vb = buf[pos++];
+    if (vb < 0xC4 || vb > 0xC6) return false;
+    int w = 1 << (vb - 0xC4);
+    if (end - pos < w) return false;
+    int64_t n = be_uint(buf + pos, w);
+    pos += w;
+    if (n > end - pos) return false;
+    *sign = (uint16_t)key;
+    *blob = pos;
+    *blen = n;
+    pos += n;
+    return true;
+}
+
+inline uint32_t le_u32(const uint8_t* p) {
+    return p[0] | (p[1] << 8) | (p[2] << 16) | ((uint32_t)p[3] << 24);
+}
+
+// a roaring bitmap's members (below n) set to sign in row
+bool roaring_fill(const uint8_t* blob, int64_t blen, uint16_t sign, int64_t n,
+                  uint16_t* row) {
+    if (blen < 8 || le_u32(blob) != 12346u) return false;
+    int64_t nc = le_u32(blob + 4);
+    if (nc > (blen - 8) / 8) return false;
+    const uint8_t* desc = blob + 8;
+    int64_t dpos = 8 + 8 * nc;  // past descriptors and offsets
+    for (int64_t c = 0; c < nc; c++, desc += 4) {
+        int64_t base = (int64_t)(desc[0] | (desc[1] << 8)) << 16;
+        int64_t card = (int64_t)(desc[2] | (desc[3] << 8)) + 1;
+        if (card <= 4096) {
+            if (card * 2 > blen - dpos) return false;
+            const uint8_t* a = blob + dpos;
+            if (base + 0xFFFF < n) {  // every low half is in range
+                for (int64_t t = 0; t < card; t++)
+                    row[base + (a[2 * t] | (a[2 * t + 1] << 8))] = sign;
             } else {
-                if (dpos + 8192 > blen) return -1;
-                for (int64_t w = 0; w < 8192; w++) {
-                    uint8_t byte = blob[dpos + w];
-                    while (byte) {
-                        int bit = __builtin_ctz(byte);
-                        byte &= byte - 1;
-                        if (no >= out_cap) return -1;
-                        members[no] = (key << 16) | (uint32_t)(w * 8 + bit);
-                        signs[no] = (uint16_t)sign;
-                        no++;
-                    }
+                for (int64_t t = 0; t < card; t++) {
+                    int64_t m = base + (a[2 * t] | (a[2 * t + 1] << 8));
+                    if (m >= n) return false;
+                    row[m] = sign;
                 }
-                dpos += 8192;
             }
+            dpos += card * 2;
+        } else {
+            if (8192 > blen - dpos) return false;
+            for (int64_t w = 0; w < 1024; w++) {
+                uint64_t word;
+                memcpy(&word, blob + dpos + 8 * w, 8);
+                while (word) {
+                    int64_t m = base + w * 64 + __builtin_ctzll(word);
+                    word &= word - 1;
+                    if (m >= n) return false;
+                    row[m] = sign;
+                }
+            }
+            dpos += 8192;
         }
-        pos += blen;
     }
-    *n_out = no;
-    return pos;
+    return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The payload's bin count. starts (cap entries): with cap > bins, each
+// bin map's offset and, last, the offset past the index list, where the
+// sample count begins. Returns -1 outside the subset.
+int64_t stpu_ski_bins_scan(const uint8_t* buf, int64_t len, int64_t* starts,
+                           int64_t cap) {
+    int64_t pos = 0, top, s;
+    if (!mp_header(buf, len, pos, 0x90, &top) || top != 9 ||
+        !mp_header(buf, len, pos, 0x90, &s) || s > len - pos)
+        return -1;
+    if (cap <= s) return s;
+    for (int64_t b = 0; b < s; b++) {
+        starts[b] = pos;
+        int64_t entries;
+        if (!mp_header(buf, len, pos, 0x80, &entries)) return -1;
+        for (int64_t e = 0; e < entries; e++) {
+            uint16_t sign;
+            int64_t blob, blen;
+            if (!ski_entry(buf, len, pos, &sign, &blob, &blen)) return -1;
+        }
+    }
+    starts[s] = pos;
+    return s;
+}
+
+// Bins [lo, hi) of the scanned payload as rows of the (S, n) bin-major
+// matrix out: 0xFFFF, then each entry's sign at its members, in the
+// map's order. Returns 0, or -1 outside the subset.
+int64_t stpu_ski_bins_fill(const uint8_t* buf, const int64_t* starts,
+                           int64_t lo, int64_t hi, int64_t n, uint16_t* out) {
+    for (int64_t b = lo; b < hi; b++) {
+        uint16_t* row = out + b * n;
+        std::fill(row, row + n, (uint16_t)0xFFFF);
+        int64_t pos = starts[b], end = starts[b + 1], entries;
+        if (!mp_header(buf, end, pos, 0x80, &entries)) return -1;
+        for (int64_t e = 0; e < entries; e++) {
+            uint16_t sign;
+            int64_t blob, blen;
+            if (!ski_entry(buf, end, pos, &sign, &blob, &blen) ||
+                !roaring_fill(buf + blob, blen, sign, n, row))
+                return -1;
+        }
+    }
+    return 0;
+}
+
+// Rows [lo, hi) of dst (n, s) = src (s, n) transposed, in 64 x 64 tiles.
+void stpu_transpose_u16(const uint16_t* src, int64_t s, int64_t n,
+                        uint16_t* dst, int64_t lo, int64_t hi) {
+    const int64_t T = 64;
+    for (int64_t i0 = lo; i0 < hi; i0 += T) {
+        int64_t i1 = std::min(i0 + T, hi);
+        for (int64_t b0 = 0; b0 < s; b0 += T) {
+            int64_t b1 = std::min(b0 + T, s);
+            for (int64_t i = i0; i < i1; i++)
+                for (int64_t b = b0; b < b1; b++)
+                    dst[i * s + b] = src[b * n + i];
+        }
+    }
 }
 
 }  // extern "C"
@@ -1241,5 +1471,42 @@ void stpu_skm_columns(void* handle, uint8_t* names, int64_t* name_off,
 }
 
 void stpu_skm_free(void* handle) { delete static_cast<SkmColumns*>(handle); }
+
+// A msgpack array of str at buf[pos] (a .ski's sample names, metadata or
+// labels): with blob NULL, info = (count, packed bytes, offset past the
+// array); with blob, the strings packed as pack_strings packs them into
+// blob and off (count + 1). Returns 1 if no string holds a 0 byte, else
+// 0; -1 for another type, invalid UTF-8 or a truncated payload.
+int64_t stpu_msgpack_strs(const uint8_t* buf, int64_t len, int64_t pos,
+                          uint8_t* blob, int64_t* off, int64_t* info) {
+    int64_t n;
+    if (!mp_header(buf, len, pos, 0x90, &n) || n > len - pos) return -1;
+    std::vector<std::string_view> strs;
+    strs.reserve(n);
+    for (int64_t i = 0; i < n; i++) {
+        if (pos >= len) return -1;
+        uint8_t b = buf[pos++];
+        int64_t sn;
+        if ((b & 0xE0) == 0xA0) sn = b & 0x1F;
+        else if (b >= 0xD9 && b <= 0xDB) {
+            int w = 1 << (b - 0xD9);
+            if (len - pos < w) return -1;
+            sn = be_uint(buf + pos, w);
+            pos += w;
+        } else return -1;
+        if (sn > len - pos) return -1;
+        std::string_view str(reinterpret_cast<const char*>(buf + pos), sn);
+        if (!utf8_valid(str)) return -1;
+        strs.push_back(str);
+        pos += sn;
+    }
+    if (blob) return pack_strings(strs, blob, off) ? 1 : 0;
+    info[0] = n;
+    info[1] = packed_size(strs);
+    info[2] = pos;
+    for (auto v : strs)
+        if (std::memchr(v.data(), 0, v.size())) return 0;
+    return 1;
+}
 
 }  // extern "C"

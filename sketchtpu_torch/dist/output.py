@@ -14,20 +14,19 @@ fallback.
 from __future__ import annotations
 
 import ctypes
-import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from .. import spans
-from .._native import get_lib
+from .._native import WORKERS, get_lib
 
 # lines per native-formatting chunk (bounds the host buffer)
 _CHUNK = 1 << 21
 # formatting threads: ctypes CDLL calls release the GIL, so chunks format
 # in parallel in the native helper while writes stay in order. One worker
 # on a single-core host degenerates to the serial path.
-_WORKERS = min(8, os.cpu_count() or 1)
+_WORKERS = WORKERS
 _POOL: ThreadPoolExecutor | None = None
 
 

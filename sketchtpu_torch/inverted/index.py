@@ -10,11 +10,14 @@ encoding (snappy-framed MessagePack with roaring bitmaps).
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 
 from .. import spans
+from .._native import get_lib, run_split
 from ..formats import msgpack, roaring, skd, snappy
-from ..formats.skm import FORMAT_VERSION
+from ..formats.skm import FORMAT_VERSION, _strings
 from ..sketchcore.sketch import HashType
 from ..sketchcore.signs import (
     bin_minima,
@@ -36,13 +39,30 @@ def _msgpack_list_header(n: int) -> bytes:
     return b"\xdd" + n.to_bytes(4, "big")
 
 
-def _decode_tail(payload: bytes, pos: int):
-    """Decode the 8 top-level fields following the index list."""
-    out = []
-    for _ in range(8):
-        value, pos = msgpack._decode(payload, pos)
-        out.append(value)
-    return tuple(out), pos
+def _value_at(payload: bytes, pos: int):
+    """(the msgpack value at pos, the offset past it), or None where the
+    payload is cut or malformed there (msgpack.py reads a cut str short,
+    past the end)."""
+    try:
+        value, end = msgpack._decode(payload, pos)
+    except (IndexError, ValueError, struct.error):
+        return None
+    return (value, end) if end <= len(payload) else None
+
+
+def _str_list(lib, base: int, size: int, pos: int):
+    """(the msgpack array of str at pos, the offset past it), decoded by
+    the host helper, or None for another value."""
+    info = np.zeros(3, np.int64)
+    if lib.stpu_msgpack_strs(base, size, pos, None, None,
+                             info.ctypes.data) < 0:
+        return None
+    count, nbytes, end = info.tolist()
+    blob = np.empty(nbytes, np.uint8)
+    off = np.empty(count + 1, np.int64)
+    plain = lib.stpu_msgpack_strs(base, size, pos, blob.ctypes.data,
+                                  off.ctypes.data, info.ctypes.data)
+    return _strings(blob.tobytes(), off, bool(plain)), end
 
 
 class Inverted:
@@ -250,69 +270,6 @@ class Inverted:
         os.replace(tmp, f"{file_prefix}.ski")
 
     @classmethod
-    def _load_index_native(cls, payload: bytes):
-        """((bin, members, signs) per-bin arrays, resume_pos) via the C++
-        parser, or None to fall back (no lib / unsupported encodings, e.g.
-        run-container roaring from a foreign writer)."""
-        import ctypes
-
-        from .._native import get_lib
-
-        lib = get_lib()
-        if lib is None:
-            return None
-        # top-level array header, then the index list header (python-side)
-        try:
-            pos = 0
-            b = payload[pos]
-            pos += 1
-            if (b & 0xF0) != 0x90:
-                if b == 0xDC:
-                    pos += 2
-                elif b == 0xDD:
-                    pos += 4
-                else:
-                    return None
-            lb = payload[pos]
-            pos += 1
-            if (lb & 0xF0) == 0x90:
-                s = lb & 0x0F
-            elif lb == 0xDC:
-                s = int.from_bytes(payload[pos : pos + 2], "big")
-                pos += 2
-            elif lb == 0xDD:
-                s = int.from_bytes(payload[pos : pos + 4], "big")
-                pos += 4
-            else:
-                return None
-        except IndexError:
-            return None
-        cap = len(payload) // 2 + 16
-        members = np.empty(cap, dtype=np.uint32)
-        signs = np.empty(cap, dtype=np.uint16)
-        n_out = ctypes.c_int64()
-        out = []
-        # pass base pointer + offset: slicing bytes would copy the tail per
-        # bin (O(bins * payload) memory traffic)
-        pbuf = np.frombuffer(payload, dtype=np.uint8)
-        base = pbuf.ctypes.data
-        for b_idx in range(s):
-            consumed = lib.stpu_ski_bin_unpack(
-                base + pos,
-                len(payload) - pos,
-                members.ctypes.data,
-                signs.ctypes.data,
-                cap,
-                ctypes.byref(n_out),
-            )
-            if consumed <= 0:
-                return None
-            k = n_out.value
-            out.append((members[:k].copy(), signs[:k].copy()))
-            pos += consumed
-        return out, pos
-
-    @classmethod
     @spans.spanned("load.ski")
     def load(cls, file_prefix: str) -> "Inverted":
         with spans.span("read"):
@@ -324,41 +281,87 @@ class Inverted:
             spans.count("bytes", len(payload))
         del raw
         with spans.span("parse"):
-            return cls._parse(payload)
+            inv = cls._parse_native(payload)
+            native = 0 if inv is None else inv.sketch_size
+            if inv is None:
+                inv = cls._parse(payload)
+        # the bins the host helper decoded (0: the Python path)
+        spans.count("native", native)
+        return inv
+
+    @classmethod
+    def _parse_native(cls, payload: bytes, workers: int | None = None):
+        """The index of a .ski's decompressed payload as the host helper
+        decodes it (csrc/host/native.cpp, stpu_ski_bins_*): every bin's
+        signs into a bin-major matrix, its bins split over `workers`
+        threads (default _native.WORKERS), then transposed; the names,
+        and the metadata and labels when lists of str, into packed
+        strings. None where the helper is absent or the payload is
+        outside its subset: the caller then decodes it with _parse."""
+        lib = get_lib()
+        if lib is None:
+            return None
+        buf = np.frombuffer(payload, np.uint8)
+        base, size = buf.ctypes.data, buf.size
+        with spans.span("bins"):
+            s = lib.stpu_ski_bins_scan(base, size, None, 0)
+            if s < 0:
+                return None
+            starts = np.empty(s + 1, np.int64)
+            if lib.stpu_ski_bins_scan(base, size, starts.ctypes.data,
+                                      s + 1) < 0:
+                return None
+            head = _value_at(payload, int(starts[s]))
+            if head is None or type(head[0]) is not int or head[0] < 0:
+                return None
+            n_samples, pos = head
+            by_bin = np.empty((s, n_samples), np.uint16)
+            filled = run_split(
+                lambda lo, hi: lib.stpu_ski_bins_fill(
+                    base, starts.ctypes.data, lo, hi, n_samples,
+                    by_bin.ctypes.data) == 0,
+                s, workers)
+            if not all(filled):
+                return None
+            mat = np.empty((n_samples, s), np.uint16)
+            run_split(
+                lambda lo, hi: lib.stpu_transpose_u16(
+                    by_bin.ctypes.data, s, n_samples, mat.ctypes.data, lo,
+                    hi),
+                n_samples, workers, least=4096)
+            del by_bin
+        with spans.span("tail"):
+            # the names (a list of str, by the helper alone), the metadata
+            # and labels (by the helper where lists of str, else by
+            # msgpack.py), then the scalars
+            tail = []
+            for field in range(7):
+                got = _str_list(lib, base, size, pos) if field < 3 else None
+                if got is None and field > 0:
+                    got = _value_at(payload, pos)
+                if got is None:
+                    return None
+                value, pos = got
+                tail.append(value)
+        (sample_names, metadata, labels, kmer_size, sketch_version, rc,
+         hash_type) = tail
+        inv = cls(
+            sign_matrix=mat,
+            sample_names=sample_names,
+            kmer_size=kmer_size,
+            rc=rc,
+            hash_type=HashType.from_serde(hash_type),
+            metadata=metadata,
+            labels=labels,
+            sketch_version=sketch_version,
+        )
+        inv.n_samples = n_samples
+        return inv
 
     @classmethod
     def _parse(cls, payload: bytes) -> "Inverted":
-        """The index of a .ski's decompressed MessagePack payload."""
-        native = cls._load_index_native(payload)
-        if native is not None:
-            bins, pos = native
-            (
-                n_samples,
-                sample_names,
-                metadata,
-                labels,
-                kmer_size,
-                sketch_version,
-                rc,
-                hash_type,
-            ), pos = _decode_tail(payload, pos)
-            sketch_size = len(bins)
-            mat = np.full((n_samples, sketch_size), _U16_MAX, dtype=np.uint16)
-            for b, (mem, sg) in enumerate(bins):
-                mat[mem, b] = sg
-            inv = cls(
-                sign_matrix=mat,
-                sample_names=list(sample_names),
-                kmer_size=kmer_size,
-                rc=rc,
-                hash_type=HashType.from_serde(hash_type),
-                metadata=metadata,
-                labels=labels,
-                sketch_version=sketch_version,
-            )
-            inv.n_samples = n_samples
-            return inv
-
+        """The index of a .ski's decompressed MessagePack payload, decoded
+        in Python."""
         obj = msgpack.loads(payload)
         (
             index,

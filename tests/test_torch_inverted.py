@@ -58,7 +58,8 @@ from sketchtpu_torch.dist.knn_kernels import (
     knn_select_ref,
 )
 from sketchtpu_torch.dist.knn_torch import DeviceKnnEngine, knn_scan
-from sketchtpu_torch.formats import msgpack, roaring, skd
+from sketchtpu_torch import cli as port_cli
+from sketchtpu_torch.formats import msgpack, roaring, skd, snappy
 from sketchtpu_torch.formats.skm import MultiSketch
 from sketchtpu_torch.inverted import device
 from sketchtpu_torch.inverted.device import (
@@ -175,11 +176,60 @@ def test_native_ski_reader_equals_python_reader(tmp_path, monkeypatch):
     mat = _signs(3000, 9, 4, 4)  # bitset containers
     _inv(Inverted, HashType, mat).save(str(tmp_path / "a"))
     native = Inverted.load(str(tmp_path / "a"))
-    monkeypatch.setattr(Inverted, "_load_index_native", classmethod(
+    monkeypatch.setattr(Inverted, "_parse_native", classmethod(
         lambda cls, payload: None))
     python = Inverted.load(str(tmp_path / "a"))
     assert np.array_equal(native.sign_matrix, python.sign_matrix)
     assert np.array_equal(native.sign_matrix, mat)
+
+
+@pytest.fixture(scope="module")
+def small_index(tmp_path_factory):
+    """An index the port's CLI built from 6 assemblies, with species names
+    and metadata, and its rfile."""
+    d = tmp_path_factory.mktemp("ski_reader")
+    rfile = related_assemblies(d / "fa", 6, 8000, seed=23, max_contigs=2)
+    names = [ln.split("\t")[0] for ln in rfile.read_text().splitlines()]
+    (d / "species.txt").write_text("".join(
+        f"{nm}\tsp{i % 2}\n" for i, nm in enumerate(names)))
+    (d / "meta.txt").write_text("".join(f"{nm}\tmé{i}\n"
+                                        for i, nm in enumerate(names)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+        assert port_cli.main([
+            "inverted", "build", "-f", str(rfile), "-o", str(d / "inv"),
+            "-s", "100", "-k", "17", "--species-names",
+            str(d / "species.txt"), "--metadata", str(d / "meta.txt"),
+            "--quiet"]) == 0
+    return d, rfile
+
+
+@pytest.mark.parametrize("argv", [
+    ["info", "{d}/inv.ski"],
+    ["info", "{d}/inv.ski", "--sample-info"],
+    ["inverted", "precluster", "{d}/inv.ski", "--count", "--quiet"],
+    ["inverted", "query", "{d}/inv.ski", "-f", "{rfile}", "--query-type",
+     "match-count", "--quiet"],
+    ["inverted", "query", "{d}/inv.ski", "-f", "{rfile}", "--query-type",
+     "any-bins", "--quiet"],
+], ids=["info", "info_samples", "count", "match_count", "any_bins"])
+def test_native_ski_reader_equals_python_reader_through_cli(
+        small_index, argv, monkeypatch, capsys):
+    """info, precluster --count and inverted query print the same bytes
+    whether the .ski goes through the host helper or the Python path."""
+    d, rfile = small_index
+    argv = [a.format(d=d, rfile=rfile) for a in argv]
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    outs = []
+    for native in (True, False):
+        with monkeypatch.context() as mp:
+            if not native:
+                mp.setattr(Inverted, "_parse_native", classmethod(
+                    lambda cls, payload: None))
+                mp.setattr(snappy, "get_lib", lambda: None)
+            assert port_cli.main(argv) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] and outs[0] == outs[1]
 
 
 # --- signeq: the twin against the XLA programs --------------------------------

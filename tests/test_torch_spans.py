@@ -220,8 +220,9 @@ def test_dist_knn_records_its_stages(db, tmp_path, monkeypatch, mode):
 
 @pytest.mark.parametrize("native", [True, False])
 def test_load_skm_records_snappy_and_decode(db, monkeypatch, native):
-    """load.skm holds snappy (bytes: the payload) and decode (native: the
-    records the native decoder produced, 0 without the host library)."""
+    """load.skm holds snappy (bytes: the payload; native: the frame's
+    data chunks the host helper decoded) and decode (native: the records
+    the native decoder produced, 0 without the host library)."""
     if not native:
         monkeypatch.setattr(skm, "get_lib", lambda: None)
     before = len(spans.recorded())
@@ -234,7 +235,8 @@ def test_load_skm_records_snappy_and_decode(db, monkeypatch, native):
     payload = snappy.frame_decompress((db / "db.skm").read_bytes())
     assert sorted((s.name, s.counts) for s in got if s.parent == load.id) == [
         ("decode", {"native": 60 if native else 0}),
-        ("snappy", {"bytes": len(payload)})]
+        ("snappy", {"bytes": len(payload),
+                    "native": -(-len(payload) // 65536)})]
 
 
 def test_precluster_count_records_its_stages(db, monkeypatch, capsys):
@@ -246,10 +248,14 @@ def test_precluster_count_records_its_stages(db, monkeypatch, capsys):
     assert {p for p in got if p} == {
         ("load",), ("load", "load.ski"), ("load", "load.ski", "read"),
         ("load", "load.ski", "snappy"), ("load", "load.ski", "parse"),
+        ("load", "load.ski", "parse", "bins"),
+        ("load", "load.ski", "parse", "tail"),
         ("engine",), ("engine", "upload"), ("scan",), ("write",)}
     read = got[("load", "load.ski", "read")][0].counts["bytes"]
     assert read == (db / "inv.ski").stat().st_size
     assert got[("load", "load.ski", "snappy")][0].counts["bytes"] > read
+    assert got[("load", "load.ski", "snappy")][0].counts["native"] >= 1
+    assert got[("load", "load.ski")][0].counts == {"native": 30}
     assert got[("engine", "upload")][0].counts == {"bytes": 60 * 15 * 4}
     assert got[("write",)][0].counts == {"bytes": len(line)}
 
