@@ -102,7 +102,7 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_lib = None
+_loaded = None
 
 
 def sources() -> list[Path]:
@@ -207,9 +207,9 @@ def _compile(out: Path) -> None:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _lib
+    global _loaded
     with _lock:
-        if _lib is None:
+        if _loaded is None:
             handle = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
@@ -217,8 +217,8 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             handle.stpu_error_string.argtypes = [ctypes.c_int]
             handle.stpu_error_string.restype = ctypes.c_char_p
-            _lib = handle
-        return _lib
+            _loaded = handle
+        return _loaded
 
 
 def check(err: int, what: str) -> None:

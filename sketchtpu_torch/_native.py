@@ -2,10 +2,10 @@
 
 g++ compiles it at first use into `_build/` under a name keyed by a hash of
 the source, so a stale build is never loaded; concurrent processes wait
-for one compile (`_build.build_lock`). If compilation fails, or
-SKETCHTPU_NO_NATIVE is set, get_lib() returns None and callers use their
-pure-Python implementations (identical output, slower). run_split runs
-a helper's call over ranges of its work on threads.
+for one compile (`_build.build_lock`). The port needs it as it needs its
+kernels: lib() raises with g++'s output when it does not build, as
+`_build.lib()` does with nvcc's. run_split runs a helper's call over
+ranges of its work on threads.
 """
 
 from __future__ import annotations
@@ -28,8 +28,7 @@ _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 WORKERS = min(8, os.cpu_count() or 1)
 
 _lock = threading.Lock()
-_lib = None
-_tried = False
+_loaded = None
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -51,7 +50,6 @@ _SIGNATURES = {
     "stpu_bin_signs": (None,
                        [_P, ctypes.c_size_t, ctypes.c_uint64, _P,
                         ctypes.c_size_t]),
-    "stpu_format_f32": (None, [_P, _I64, _P, _P]),
     "stpu_parse_dna": (ctypes.c_int,
                        [ctypes.c_char_p, _I64, ctypes.c_int, _P, ctypes.c_int,
                         _P, _P, _P, _P, _P, _P]),
@@ -83,49 +81,46 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libsketchtpu_host_{h.hexdigest()[:16]}.so"
 
 
-def _build(out: Path) -> bool:
-    # one g++ at a time across processes (the build directory's lock): a
-    # process that waited finds the library built. Compile to a
-    # process-unique temp path and os.replace into place, so that nothing
-    # ever CDLLs a half-linked file
+def _compile(out: Path) -> None:
+    """g++ the helper into `out` unless another process built it while
+    this one waited for the build directory's lock. It compiles to a
+    process-unique temp path and os.replace's it into place, so that
+    nothing ever CDLLs a half-linked file."""
     from ._build import build_lock
 
     with build_lock(_BUILD_DIR):
         if out.exists():
-            return True
+            return
         tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
         cmd = ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)]
         try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            os.replace(tmp, out)
-            return True
-        except (OSError, subprocess.SubprocessError):
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=120)
+        except (OSError, subprocess.SubprocessError) as e:
+            raise RuntimeError(f"g++ could not build the host helper "
+                               f"{_SRC}: {e}") from e
+        if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            return False
+            raise RuntimeError(f"g++ failed ({proc.returncode}) on the host "
+                               f"helper {_SRC}:\n{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
 
 
-def get_lib():
-    """Return the loaded native library, or None if unavailable."""
-    global _lib, _tried
+def lib() -> ctypes.CDLL:
+    """The loaded host helper (built on first call)."""
+    global _loaded
     with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if os.environ.get("SKETCHTPU_NO_NATIVE"):
-            return None
-        out = library_path()
-        if not out.exists() and not _build(out):
-            return None
-        try:
-            lib = ctypes.CDLL(str(out))
-        except OSError:
-            return None
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _lib = lib
-        return _lib
+        if _loaded is None:
+            out = library_path()
+            if not out.exists():
+                _compile(out)
+            handle = ctypes.CDLL(str(out))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _loaded = handle
+        return _loaded
 
 
 def run_split(call, n: int, workers: int | None = None, least: int = 1) -> list:

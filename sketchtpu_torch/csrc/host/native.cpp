@@ -609,13 +609,6 @@ static int fmt_f32_positional(float v, char* out) {
 
 extern "C" {
 
-// values -> fixed-stride (64B) char slots + lengths (for tests / columns).
-void stpu_format_f32(const float* values, int64_t n, char* out,
-                     int32_t* lens) {
-    for (int64_t i = 0; i < n; i++)
-        lens[i] = fmt_f32_positional(values[i], out + 64 * i);
-}
-
 // Bulk "row\tcol\tv1[\tv2]\n" line assembly.
 // names_r/off_r: row-name table (name i = bytes [off[i], off[i+1]));
 // names_c/off_c: column-name table; rows/cols: per-line indices;

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._native import get_lib
+from .. import spans
 from .._transfer import HostCopy
 from .coreacc_kernels import coreacc
 from .jaccard_np import core_acc_from_jaccards, jaccard_from_samebits
@@ -100,9 +100,8 @@ class DeviceCoreAccEngine:
         rc_v = _f32(rcomp, self.device) if comp_on else None
         qc_v = _f32(qcomp, self.device) if comp_on else None
 
-        def emit(block, r0, r1, tab_r, tab_q, pipe):
-            emit_coreacc_cross_block(out, ref_names, query_names, tab_r,
-                                     tab_q, block, r0, r1, nq, pipe=pipe)
+        def emit(pipe, tab_r, tab_q, block, r0, r1):
+            emit_coreacc_cross_block(pipe, tab_r, tab_q, block, r0, r1, nq)
 
         stream_blocks(out, ref_names, query_names, row_range, self.tile,
                       lambda r0, r1: self.cross_block(q, r0, r1, rc_v, qc_v,
@@ -117,9 +116,8 @@ class DeviceCoreAccEngine:
         rows."""
         n = len(names)
 
-        def emit(block, r0, r1, tab_r, tab_q, pipe):
-            emit_coreacc_self_block(out, names, tab_r, block, r0, r1, n,
-                                    pipe=pipe)
+        def emit(pipe, tab_r, tab_q, block, r0, r1):
+            emit_coreacc_self_block(pipe, tab_r, block, r0, r1, n)
 
         stream_blocks(out, names, names, row_range, self.tile,
                       self.self_block, emit)
@@ -129,33 +127,27 @@ def stream_blocks(out, ref_names, query_names, row_range, tile: int, launch,
                   emit) -> None:
     """Launch (tile x all columns) blocks over rows [lo, hi) (launch(r0,
     r1) returns a pending copy with .numpy()), each one before the
-    previous is written by emit(block, r0, r1, tab_r, tab_q, pipe)."""
+    previous is submitted to an OutputPipeline by emit(pipe, tab_r, tab_q,
+    block, r0, r1). The span "write" holds the whole stream, as in
+    jaccard_torch.stream_strips."""
     n = len(ref_names)
     lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
     starts = list(range(lo, hi, tile))
     if not starts:
         return
-    tab_r = tab_q = None
-    if get_lib() is not None:
-        tab_r = _name_table(ref_names)
-        tab_q = tab_r if query_names is ref_names else _name_table(query_names)
+    tab_r = _name_table(ref_names)
+    tab_q = tab_r if query_names is ref_names else _name_table(query_names)
 
     def span(r0: int):
         return r0, min(r0 + tile, hi)
 
-    blocks = [(span(starts[0]), launch(*span(starts[0])))]
-    pipe = None
-    if tab_r is not None:
-        pipe = OutputPipeline(out)
-    try:
+    with spans.span("write"), OutputPipeline(out) as pipe:
+        blocks = [(span(starts[0]), launch(*span(starts[0])))]
         for nxt in starts[1:] + [None]:
             (r0, r1), copy = blocks.pop(0)
             if nxt is not None:
                 blocks.append((span(nxt), launch(*span(nxt))))
-            emit(copy.numpy(), r0, r1, tab_r, tab_q, pipe)
-    finally:
-        if pipe is not None:
-            pipe.close()
+            emit(pipe, tab_r, tab_q, copy.numpy(), r0, r1)
 
 
 class DeviceCoreAccExactStreamEngine:

@@ -16,13 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._native import get_lib
+from .. import spans
 from .._transfer import HostCopy
 from .jaccard_np import ani_pois, jaccard_from_samebits
 from .opipe import OutputPipeline
 from .output import (
     _name_table,
-    fmt_f32,
     format_lines_bytes,
     row_spans,
     self_pair_indices,
@@ -69,52 +68,34 @@ def stream_strips(out, ref_names, query_names, n: int,
     dispatch(r0) launches a block's strips (a list of HostCopy of
     (tile, ncols) samebits); pairs(i0, i1) gives the (rows, cols) of rows
     [i0, i1); values(sbs, rows, cols) turns the samebits of those pairs
-    (one array per strip) into (v1, v2 or None) f32 columns. With the
-    native helper, blocks are cut into tasks of about TASK_PAIRS pairs
-    (pairs_per_row(r0) per row) that an OutputPipeline computes in
-    parallel and writes in order."""
+    (one array per strip) into (v1, v2 or None) f32 columns. Blocks are
+    cut into tasks of about TASK_PAIRS pairs (pairs_per_row(r0) per row)
+    that an OutputPipeline computes in parallel and writes in order. The
+    span "write" holds the whole stream (launches, values, text: they
+    overlap), its "bytes" the text written."""
     lo, hi = (row_range.start, row_range.stop) if row_range else (0, n)
     starts = list(range(lo, hi, tile))
     if not starts:
         return
-    tab_r = tab_q = None
-    if get_lib() is not None:
-        tab_r = _name_table(ref_names)
-        tab_q = tab_r if query_names is ref_names else _name_table(query_names)
+    tab_r = _name_table(ref_names)
+    tab_q = tab_r if query_names is ref_names else _name_table(query_names)
 
-    def lines(strips, sbase: int, i0: int, i1: int):
+    def chunk_task(strips, sbase: int, i0: int, i1: int) -> bytes:
         rows, cols = pairs(i0, i1)
         flat_idx = (rows - sbase).astype(np.int64) * strips[0].shape[1] + cols
         v1, v2 = values([s.reshape(-1)[flat_idx] for s in strips], rows, cols)
-        return rows, cols, v1, v2
+        return format_lines_bytes(tab_r, tab_q, rows, cols, v1, v2)
 
-    def chunk_task(strips, sbase: int, i0: int, i1: int) -> bytes:
-        return format_lines_bytes(tab_r, tab_q, *lines(strips, sbase, i0, i1))
-
-    pending = [(starts[0], dispatch(starts[0]))]
-    pipe = None
-    if tab_r is not None:
-        pipe = OutputPipeline(out)
-    try:
+    with spans.span("write"), OutputPipeline(out) as pipe:
+        pending = [(starts[0], dispatch(starts[0]))]
         for nxt in starts[1:] + [None]:
             r0, copies = pending.pop(0)
             if nxt is not None:
                 pending.append((nxt, dispatch(nxt)))
-            r1 = min(r0 + tile, hi)
             strips = [c.numpy() for c in copies]
-            if pipe is not None:
-                for i0, i1 in row_spans(r0, r1, pairs_per_row(r0)):
-                    pipe.submit(chunk_task, strips, r0, i0, i1)
-                continue
-            rows, cols, v1, v2 = lines(strips, r0, r0, r1)
-            out.write("".join(
-                f"{ref_names[i]}\t{query_names[j]}\t{fmt_f32(a)}"
-                + ("" if v2 is None else f"\t{fmt_f32(v2[x])}") + "\n"
-                for x, (i, j, a) in enumerate(zip(rows, cols, v1))
-            ))
-    finally:
-        if pipe is not None:
-            pipe.close()
+            for i0, i1 in row_spans(r0, min(r0 + tile, hi),
+                                    pairs_per_row(r0)):
+                pipe.submit(chunk_task, strips, r0, i0, i1)
 
 
 def jaccard_dist_block(a: torch.Tensor, b: torch.Tensor, s64: int,

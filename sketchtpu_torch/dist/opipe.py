@@ -7,11 +7,14 @@ is to format on every host core while one writer streams chunks to the
 sink in order (matching sketchlib.rust src/distances/distance_matrix.rs:
 175-209 byte for byte).
 
-Design: N pool workers run `fn(*args) -> bytes` tasks (index generation,
+Design: _native.WORKERS pool workers (the count the host helper's other
+threaded calls share) run `fn(*args) -> bytes` tasks (index generation,
 the f64/f32 distance math, and the GIL-releasing native line assembly);
 one writer thread consumes the futures strictly in submission order and
 writes to the output. Submission backpressure bounds in-flight chunks, so
-memory stays at O(workers * chunk bytes) regardless of run size.
+memory stays at O(workers * chunk bytes) regardless of run size. close()
+adds the bytes written to the count "bytes" of the caller's innermost
+open span (spans.count is per thread, so the writer thread cannot).
 
 The pipeline spans device strips: the stream engines submit row-chunk
 tasks per strip and immediately return to dispatching the next strip, so
@@ -20,23 +23,24 @@ device compute, host math/format, and the write stream all overlap.
 
 from __future__ import annotations
 
-import os
 import threading
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 
-_WORKERS = min(16, os.cpu_count() or 1)
+from .. import spans
+from .._native import WORKERS
 
 
 class OutputPipeline:
     """Ordered sink: tasks produce bytes in a pool, one thread writes them
-    in submission order. Use as a context manager or call close()."""
+    in submission order. Use as a context manager or call close().
+    `bytes`: the bytes written so far."""
 
     def __init__(self, out, workers: int | None = None,
                  max_pending: int | None = None):
         self._out = out
         self._write = out.buffer.write if hasattr(out, "buffer") else None
-        self._workers = workers if workers is not None else _WORKERS
+        self._workers = workers if workers is not None else WORKERS
         self._pool = ThreadPoolExecutor(max_workers=max(1, self._workers))
         # enough slack that workers never starve while the writer drains
         self._max_pending = max_pending or (self._workers + 4)
@@ -46,6 +50,7 @@ class OutputPipeline:
         self._error: BaseException | None = None
         self._writer = threading.Thread(target=self._drain, daemon=True)
         self._closed = False
+        self.bytes = 0
         self._writer.start()
 
     # -- writer side --
@@ -55,6 +60,7 @@ class OutputPipeline:
             self._write(chunk)
         else:
             self._out.write(chunk.decode("utf-8"))
+        self.bytes += len(chunk)
 
     def _drain(self) -> None:
         while True:
@@ -90,7 +96,8 @@ class OutputPipeline:
         self._ready.release()
 
     def close(self) -> None:
-        """Drain all pending chunks, flush, and re-raise any task error."""
+        """Drain all pending chunks, flush, count the bytes written, and
+        re-raise any task error."""
         if self._closed:
             if self._error is not None:
                 exc, self._error = self._error, None
@@ -102,6 +109,7 @@ class OutputPipeline:
         self._pool.shutdown(wait=True)
         if self._write is not None:
             self._out.buffer.flush()
+        spans.count("bytes", self.bytes)
         if self._error is not None:
             exc, self._error = self._error, None
             raise exc

@@ -11,8 +11,7 @@ import logging
 
 import numpy as np
 
-from .. import spans
-from .._native import get_lib
+from .. import _native, spans
 from ..constants import BBITS, num_bins
 from ..sketchcore.sketch import HashType, Sketch
 from . import cbor, snappy, skd
@@ -73,11 +72,9 @@ class SkmColumns:
     @classmethod
     def decode(cls, payload: bytes) -> "SkmColumns | None":
         """The columns of a decompressed .skm payload, or None where the
-        native decoder is absent or the payload is not of the subset it
-        takes (the caller then decodes it with cbor.loads)."""
-        lib = get_lib()
-        if lib is None:
-            return None
+        payload is not of the subset the native decoder takes (the caller
+        then decodes it with cbor.loads)."""
+        lib = _native.lib()
         sizes = np.zeros(5, np.int64)
         handle = lib.stpu_skm_decode(payload, len(payload), sizes.ctypes.data)
         if not handle:

@@ -6,8 +6,9 @@ src/sketch/multisketch.rs:84-95).
 Implemented here from the public format descriptions
 (google/snappy format_description.txt and framing_format.txt).
 
-A native C++ fast path is used when available; the pure-Python paths are
-complete and used as fallback.
+The host helper (csrc/host/native.cpp) does the codec's work; a framed
+stream it declines (a malformed one, whose error text is Python's) is
+walked chunk by chunk here.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import struct
 
 import numpy as np
 
-from .. import spans
-from .._native import get_lib, run_split
+from .. import _native, spans
+from .._native import run_split
 
 _STREAM_IDENTIFIER = b"\xff\x06\x00\x00sNaPpY"
 _CHUNK_COMPRESSED = 0x00
@@ -26,34 +27,10 @@ _CHUNK_UNCOMPRESSED = 0x01
 _CHUNK_PADDING = 0xFE
 _MAX_UNCOMPRESSED_CHUNK = 65536
 
-# --- CRC32C ---
-
-_crc_table = None
-
-
-def _crc32c_py(data: bytes) -> int:
-    global _crc_table
-    if _crc_table is None:
-        poly = 0x82F63B78
-        table = []
-        for i in range(256):
-            crc = i
-            for _ in range(8):
-                crc = (crc >> 1) ^ (poly if crc & 1 else 0)
-            table.append(crc)
-        _crc_table = table
-    crc = 0xFFFFFFFF
-    tab = _crc_table
-    for b in data:
-        crc = tab[(crc ^ b) & 0xFF] ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
-
 
 def crc32c(data: bytes) -> int:
-    lib = get_lib()
-    if lib is not None:
-        return lib.stpu_crc32c(data, len(data), 0)
-    return _crc32c_py(data)
+    lib = _native.lib()
+    return lib.stpu_crc32c(data, len(data), 0)
 
 
 def _masked_crc(data: bytes) -> int:
@@ -78,96 +55,26 @@ def _read_varint(data, pos):
             raise ValueError("varint too long")
 
 
-def _write_varint(v: int) -> bytes:
-    out = bytearray()
-    while v >= 0x80:
-        out.append((v & 0x7F) | 0x80)
-        v >>= 7
-    out.append(v)
-    return bytes(out)
-
-
 def decompress_raw(data: bytes) -> bytes:
     """Decompress a snappy raw block."""
     ulen, _pos = _read_varint(data, 0)
-    lib = get_lib()
-    if lib is not None:
-        out = ctypes.create_string_buffer(ulen) if ulen else ctypes.create_string_buffer(1)
-        n = lib.stpu_snappy_decompress(data, len(data), out, ulen)
-        if n == ctypes.c_size_t(-1).value:
-            raise ValueError("malformed snappy block")
-        return out.raw[:n]
-    return _decompress_raw_py(data)
-
-
-def _decompress_raw_py(data: bytes) -> bytes:
-    ulen, pos = _read_varint(data, 0)
-    out = bytearray()
-    n = len(data)
-    while pos < n:
-        tag = data[pos]
-        pos += 1
-        kind = tag & 3
-        if kind == 0:  # literal
-            length = (tag >> 2) + 1
-            if length > 60:
-                extra = length - 60
-                length = int.from_bytes(data[pos : pos + extra], "little") + 1
-                pos += extra
-            out += data[pos : pos + length]
-            pos += length
-        else:
-            if kind == 1:
-                length = ((tag >> 2) & 7) + 4
-                offset = ((tag >> 5) << 8) | data[pos]
-                pos += 1
-            elif kind == 2:
-                length = (tag >> 2) + 1
-                offset = int.from_bytes(data[pos : pos + 2], "little")
-                pos += 2
-            else:
-                length = (tag >> 2) + 1
-                offset = int.from_bytes(data[pos : pos + 4], "little")
-                pos += 4
-            if offset == 0 or offset > len(out):
-                raise ValueError("bad copy offset")
-            for _ in range(length):
-                out.append(out[-offset])
-    if len(out) != ulen:
-        raise ValueError("length mismatch in snappy block")
-    return bytes(out)
+    out = ctypes.create_string_buffer(max(ulen, 1))
+    lib = _native.lib()
+    n = lib.stpu_snappy_decompress(data, len(data), out, ulen)
+    if n == ctypes.c_size_t(-1).value:
+        raise ValueError("malformed snappy block")
+    return out.raw[:n]
 
 
 def compress_raw(data: bytes) -> bytes:
     """Compress to a snappy raw block."""
-    lib = get_lib()
-    if lib is not None:
-        cap = lib.stpu_snappy_max_compressed(len(data))
-        out = ctypes.create_string_buffer(cap)
-        n = lib.stpu_snappy_compress(data, len(data), out, cap)
-        if n != 0:
-            return out.raw[:n]
-    # Fallback: a valid all-literal block.
-    header = _write_varint(len(data))
-    out = bytearray(header)
-    pos = 0
-    while pos < len(data):
-        chunk = data[pos : pos + (1 << 24)]
-        length = len(chunk) - 1
-        if length < 60:
-            out.append(length << 2)
-        elif length < 1 << 8:
-            out.append(60 << 2)
-            out.append(length)
-        elif length < 1 << 16:
-            out.append(61 << 2)
-            out += length.to_bytes(2, "little")
-        else:
-            out.append(62 << 2)
-            out += length.to_bytes(3, "little")
-        out += chunk
-        pos += len(chunk)
-    return bytes(out)
+    lib = _native.lib()
+    cap = lib.stpu_snappy_max_compressed(len(data))
+    out = ctypes.create_string_buffer(cap)
+    n = lib.stpu_snappy_compress(data, len(data), out, cap)
+    if n == 0:  # cap is the format's bound
+        raise RuntimeError("snappy compression overflowed its buffer")
+    return out.raw[:n]
 
 
 # --- framing format ---
@@ -222,10 +129,9 @@ _new_bytes.argtypes = (ctypes.c_char_p, ctypes.c_ssize_t)
 
 
 def _frame_decompress_native(data, verify: bool, workers: int | None):
-    """(payload, data chunks) from the host helper, or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
+    """(payload, data chunks) from the host helper, or None where it
+    declines the stream."""
+    lib = _native.lib()
     buf = np.frombuffer(data, np.uint8)
     base = buf.ctypes.data
     total = ctypes.c_int64()

@@ -206,14 +206,12 @@ def _parse_dna_native(path: str, min_qual: int, threads: int = 1) -> tuple | Non
     record-aligned byte ranges parsed concurrently when threads > 1 (the
     reference's rayon parallelism is over samples only,
     nthash_iterator.rs:94-145 — one big file is single-core there).
-    Returns (codes, breaks, acgt, non_acgt) or None to fall back (no
-    native lib / malformed input, whose error messages come from the
-    Python parser)."""
-    from .._native import get_lib
+    Returns (codes, breaks, acgt, non_acgt) or None to fall back
+    (malformed input, whose error messages come from the Python
+    parser)."""
+    from .._native import lib as native_lib
 
-    lib = get_lib()
-    if lib is None:
-        return None
+    lib = native_lib()
     with open_maybe_gzip(path) as f:
         raw = f.read()
     first = raw[:1]
@@ -369,14 +367,14 @@ def _refuse_fastq(path: str):
 
 def _parse_aa_native(path: str) -> tuple | None:
     """(residues with invalid bytes -> SEQSEP, record end offsets, invalid
-    count) of one file via the C++ parser, or None to fall back."""
+    count) of one file via the C++ parser, or None to fall back
+    (malformed input, whose error messages come from the Python
+    parser)."""
     import ctypes
 
-    from .._native import get_lib
+    from .._native import lib as native_lib
 
-    lib = get_lib()
-    if lib is None:
-        return None
+    lib = native_lib()
     with open_maybe_gzip(path) as f:
         raw = f.read()
     if raw[:1] == b"@":

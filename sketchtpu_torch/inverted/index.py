@@ -14,8 +14,8 @@ import struct
 
 import numpy as np
 
-from .. import spans
-from .._native import get_lib, run_split
+from .. import _native, spans
+from .._native import run_split
 from ..formats import msgpack, roaring, skd, snappy
 from ..formats.skm import FORMAT_VERSION, _strings
 from ..sketchcore.sketch import HashType
@@ -165,42 +165,13 @@ class Inverted:
 
     # --- file IO (inverted.rs:194-225) ---
 
-    def _index_maps(self):
-        """Per-bin {sign: sorted sample index array} from the dense matrix."""
-        maps = []
-        mat = self.sign_matrix
-        for b in range(self.sketch_size):
-            col = mat[:, b]
-            order = np.argsort(col, kind="stable")
-            svals = col[order]
-            starts = (
-                np.flatnonzero(
-                    np.concatenate([[True], svals[1:] != svals[:-1]])
-                )
-                if svals.size
-                else np.zeros(0, dtype=np.int64)  # empty shard
-            )
-            bounds = np.append(starts, svals.shape[0])
-            bin_map = {}
-            for si in range(starts.shape[0]):
-                members = np.sort(order[bounds[si] : bounds[si + 1]]).astype(
-                    np.uint32
-                )
-                bin_map[int(svals[starts[si]])] = members
-            maps.append(bin_map)
-        return maps
-
     def _index_raw(self):
         """The per-bin {sign: roaring} index as a pre-encoded msgpack.Raw
-        list (C++ fast path; byte-identical to the Python encoder —
-        tests/test_native_ski.py), or None when the native lib is absent."""
+        list, encoded by the host helper (byte-identical to the JAX
+        package's msgpack + roaring encoder: tests/test_torch_inverted.py)."""
         import ctypes
 
-        from .._native import get_lib
-
-        lib = get_lib()
-        if lib is None:
-            return None
+        lib = _native.lib()
         mat = self.sign_matrix
         n, s = mat.shape
         parts = [_msgpack_list_header(s)]
@@ -230,24 +201,16 @@ class Inverted:
                 buf,
                 cap,
             )
-            if written < 0:
-                return None
+            if written < 0:  # cap is sufficient by construction
+                raise RuntimeError("the .ski bin encoder overflowed its "
+                                   "buffer")
             parts.append(ctypes.string_at(buf, written))
         return msgpack.Raw(b"".join(parts))
 
     def to_serde(self):
         """rmp-serde compact representation: struct as positional array."""
-        index = self._index_raw()
-        if index is None:
-            index = [
-                {
-                    sign: roaring.serialize(members)
-                    for sign, members in bin_map.items()
-                }
-                for bin_map in self._index_maps()
-            ]
         return [
-            index,
+            self._index_raw(),
             self.n_samples,
             self.sample_names,
             self.metadata,
@@ -296,11 +259,9 @@ class Inverted:
         signs into a bin-major matrix, its bins split over `workers`
         threads (default _native.WORKERS), then transposed; the names,
         and the metadata and labels when lists of str, into packed
-        strings. None where the helper is absent or the payload is
-        outside its subset: the caller then decodes it with _parse."""
-        lib = get_lib()
-        if lib is None:
-            return None
+        strings. None where the payload is outside the helper's subset:
+        the caller then decodes it with _parse."""
+        lib = _native.lib()
         buf = np.frombuffer(payload, np.uint8)
         base, size = buf.ctypes.data, buf.size
         with spans.span("bins"):

@@ -818,9 +818,8 @@ class ShardedCoreAccEngine:
         """The upper-triangle long-form output (DeviceCoreAccEngine's)."""
         n = len(names)
 
-        def emit(block, r0, r1, tab_r, tab_q, pipe):
-            emit_coreacc_self_block(out, names, tab_r, block, r0, r1, n,
-                                    pipe=pipe)
+        def emit(pipe, tab_r, tab_q, block, r0, r1):
+            emit_coreacc_self_block(pipe, tab_r, block, r0, r1, n)
 
         if self.words > 1:
             every = slice(0, n)
@@ -859,9 +858,8 @@ class ShardedCoreAccEngine:
                 _f32(qcomp, eng.device) if comp_on else None,
             )
 
-        def emit(block, r0, r1, tab_r, tab_q, pipe):
-            emit_coreacc_cross_block(out, ref_names, query_names, tab_r,
-                                     tab_q, block, r0, r1, nq, pipe=pipe)
+        def emit(pipe, tab_r, tab_q, block, r0, r1):
+            emit_coreacc_cross_block(pipe, tab_r, tab_q, block, r0, r1, nq)
 
         if self.words > 1:
             def comp_of(share, rows):

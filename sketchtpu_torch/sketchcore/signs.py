@@ -1,7 +1,7 @@
 """Sign extraction: hash -> mod 2^61-1 -> per-bin minima -> densify ->
-b-bit transpose. NumPy host implementations (the CPU oracle and the exact
-path for FASTQ count-filtering); the device backend (sketch_torch.py) calls
-densify and fill_usigs on its bin minima.
+b-bit transpose. Host implementations, NumPy and the host helper's (the CPU
+oracle and the exact path for FASTQ count-filtering); the device backend
+(sketch_torch.py) calls densify and fill_usigs on its bin minima.
 
 Mirrors sketchlib.rust src/sketch/mod.rs.
 """
@@ -12,7 +12,7 @@ import ctypes
 
 import numpy as np
 
-from .._native import get_lib
+from .. import _native
 from ..constants import BBITS, SIGN_MOD, universal_hash
 
 _U64 = np.uint64
@@ -36,19 +36,15 @@ def bin_minima(signs: np.ndarray, num_bins: int) -> np.ndarray:
     out = np.full(num_bins, _FULL, dtype=_U64)
     if signs.size == 0:
         return out
-    lib = get_lib()
-    if lib is not None:
-        signs = np.ascontiguousarray(signs, dtype=_U64)
-        lib.stpu_bin_signs(
-            signs.ctypes.data_as(ctypes.c_void_p),
-            signs.size,
-            _U64(bin_size(num_bins)),
-            out.ctypes.data_as(ctypes.c_void_p),
-            num_bins,
-        )
-        return out
-    bins = signs // _U64(bin_size(num_bins))
-    np.minimum.at(out, bins.astype(np.int64), signs)
+    signs = np.ascontiguousarray(signs, dtype=_U64)
+    lib = _native.lib()
+    lib.stpu_bin_signs(
+        signs.ctypes.data_as(ctypes.c_void_p),
+        signs.size,
+        _U64(bin_size(num_bins)),
+        out.ctypes.data_as(ctypes.c_void_p),
+        num_bins,
+    )
     return out
 
 
@@ -60,92 +56,22 @@ def bin_minima_filtered(
     The filter is stateful and consulted only for signs that would improve
     their bin at the moment of the observation, so the result depends on
     stream order (src/sketch/mod.rs:198-208 + hashing/bloom_filter.rs); this
-    is an inherently sequential loop and runs on the host (C++ when
-    available).
+    is an inherently sequential loop and runs in the host helper.
     """
     out = np.full(num_bins, _FULL, dtype=_U64)
     if signs.size == 0:
         return out
-    binsize = _U64(bin_size(num_bins))
-    lib = get_lib()
-    if lib is not None:
-        signs = np.ascontiguousarray(signs, dtype=_U64)
-        lib.stpu_filter_bin_signs(
-            signs.ctypes.data_as(ctypes.c_void_p),
-            signs.size,
-            np.uint16(min_count),
-            binsize,
-            out.ctypes.data_as(ctypes.c_void_p),
-            num_bins,
-        )
-        return out
-    _filter_bin_signs_py(signs, int(binsize), min_count, out)
+    signs = np.ascontiguousarray(signs, dtype=_U64)
+    lib = _native.lib()
+    lib.stpu_filter_bin_signs(
+        signs.ctypes.data_as(ctypes.c_void_p),
+        signs.size,
+        np.uint16(min_count),
+        _U64(bin_size(num_bins)),
+        out.ctypes.data_as(ctypes.c_void_p),
+        num_bins,
+    )
     return out
-
-
-class _PyKmerFilter:
-    """Pure-Python blocked bloom filter + count table, bit-compatible with
-    the reference KmerFilter (hashing/bloom_filter.rs:43-152). Slow; used
-    only when the native library is unavailable."""
-
-    BLOOM_WIDTH = 1 << 27
-    BITS_PER_ENTRY = 12
-
-    def __init__(self, min_count: int):
-        self.min_count = min_count
-        self.buf_size = round(self.BLOOM_WIDTH * (self.BITS_PER_ENTRY / 8.0) / 64.0)
-        self.buffer = (
-            np.zeros(self.buf_size, dtype=_U64) if min_count >= 2 else None
-        )
-        self.counts: dict[int, int] = {}
-
-    @staticmethod
-    def _cheap_mix(key: int) -> int:
-        return ((key ^ (key >> 31)) * 0x85D059AA333121CF) & 0xFFFFFFFFFFFFFFFF
-
-    @staticmethod
-    def _fingerprint(key: int) -> int:
-        return (
-            (1 << (key & 63))
-            | (1 << ((key >> 6) & 63))
-            | (1 << ((key >> 12) & 63))
-            | (1 << ((key >> 18) & 63))
-            | (1 << ((key >> 24) & 63))
-        )
-
-    def _bloom_add_and_check(self, key: int) -> bool:
-        loc = (self._cheap_mix(key) * self.buf_size) >> 64
-        fp = self._fingerprint(key)
-        val = int(self.buffer[loc])
-        if val & fp == fp:
-            return True
-        self.buffer[loc] = _U64(val | fp)
-        return False
-
-    def passes(self, hash_val: int) -> bool:
-        """True iff the reference filter() would return Ordering::Equal."""
-        mc = self.min_count
-        if mc <= 1:
-            return True
-        if mc == 2:
-            return self._bloom_add_and_check(hash_val)
-        if not self._bloom_add_and_check(hash_val):
-            return False
-        count = self.counts.get(hash_val)
-        count = 2 if count is None else min(count + 1, 0xFFFF)
-        self.counts[hash_val] = count
-        return count == mc
-
-
-def _filter_bin_signs_py(
-    signs: np.ndarray, binsize: int, min_count: int, out: np.ndarray
-) -> None:
-    filt = _PyKmerFilter(min_count)
-    nbins = out.shape[0]
-    for s in signs.tolist():
-        b = s // binsize
-        if b < nbins and s < int(out[b]) and filt.passes(s):
-            out[b] = _U64(s)
 
 
 def densify(signs: np.ndarray) -> bool:

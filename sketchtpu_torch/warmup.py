@@ -44,9 +44,7 @@ def run_warmup(args) -> dict:
     modes = parse_modes(args.modes)
     built = {}
     t0 = time.time()
-    if _native.get_lib() is None:
-        raise RuntimeError("warmup: the host helper (csrc/host/native.cpp) "
-                           "did not build (g++) or SKETCHTPU_NO_NATIVE is set")
+    _native.lib()
     built["host helper"] = (_native.library_path(), time.time() - t0)
     if mode() == "cuda":
         from . import _build

@@ -59,7 +59,7 @@ from sketchtpu_torch.dist.knn_kernels import (
 )
 from sketchtpu_torch.dist.knn_torch import DeviceKnnEngine, knn_scan
 from sketchtpu_torch import cli as port_cli
-from sketchtpu_torch.formats import msgpack, roaring, skd, snappy
+from sketchtpu_torch.formats import msgpack, roaring, skd
 from sketchtpu_torch.formats.skm import MultiSketch
 from sketchtpu_torch.inverted import device
 from sketchtpu_torch.inverted.device import (
@@ -226,7 +226,6 @@ def test_native_ski_reader_equals_python_reader_through_cli(
             if not native:
                 mp.setattr(Inverted, "_parse_native", classmethod(
                     lambda cls, payload: None))
-                mp.setattr(snappy, "get_lib", lambda: None)
             assert port_cli.main(argv) == 0
         outs.append(capsys.readouterr().out)
     assert outs[0] and outs[0] == outs[1]

@@ -5,7 +5,9 @@ replaces (formats/snappy.py's chunk loop, msgpack.loads and
 roaring.deserialize in Inverted._parse): the sign matrix, names, metadata,
 labels, k, version, rc and hash type, for one thread and for many; the
 fallback on every payload outside the helper's subset; the frame's chunk
-kinds and its errors; and the raw block's overlapping copies."""
+kinds and its errors; the raw block's overlapping copies and the checksum
+against the JAX package's pure-Python codec; and that a helper that does
+not build raises with the compiler's message."""
 
 import struct
 
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 
 from portbench.databases import index as bench_index
+from sketchtpu.formats import snappy as jax_snappy
 from sketchtpu_torch import _native
 from sketchtpu_torch.formats import msgpack, roaring, snappy
 from sketchtpu_torch.inverted.index import Inverted
@@ -24,10 +27,7 @@ ATTRS = ("sample_names", "metadata", "labels", "kmer_size", "sketch_version",
 
 
 def _lib():
-    lib = _native.get_lib()
-    if lib is None:
-        pytest.skip("no host helper library")
-    return lib
+    return _native.lib()
 
 
 def _signs(n, s, alphabet, seed):
@@ -247,16 +247,26 @@ def test_truncated_payload(cut):
     assert got[0] == want[0] == "raised" and got[1] == want[1]
 
 
-def test_no_helper_takes_the_python_path(tmp_path, monkeypatch):
-    inv = Inverted(_signs(500, 8, 20, 3), NAMES["utf8"](500), 17, True,
-                   HashType("dna"), labels=[f"l{i}" for i in range(500)])
+def test_helper_that_does_not_build_raises_with_the_compilers_message(
+        tmp_path, monkeypatch):
+    """The port needs its host helper as it needs its kernels: a source
+    g++ rejects makes lib() raise with g++'s own message, leaves no
+    library or temporary file, and a load of a .ski then raises too."""
+    inv = Inverted(_signs(50, 8, 20, 3), NAMES["utf8"](50), 17, True,
+                   HashType("dna"))
     inv.save(str(tmp_path / "a"))
-    native = Inverted.load(str(tmp_path / "a"))
-    monkeypatch.setattr("sketchtpu_torch.inverted.index.get_lib",
-                        lambda: None)
-    monkeypatch.setattr(snappy, "get_lib", lambda: None)
-    assert Inverted._parse_native(_payload(inv)) is None
-    _assert_same(native, Inverted.load(str(tmp_path / "a")))
+    src = tmp_path / "broken.cpp"
+    src.write_text('extern "C" int stpu_broken() { return undeclared_x; }\n')
+    monkeypatch.setattr(_native, "_SRC", src)
+    monkeypatch.setattr(_native, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_native, "_loaded", None)
+    with pytest.raises(RuntimeError, match="undeclared_x") as err:
+        _native.lib()
+    assert "g++ failed" in str(err.value) and "broken.cpp" in str(err.value)
+    assert not [p for p in (tmp_path / "build").iterdir()
+                if p.name != ".lock"]
+    with pytest.raises(RuntimeError, match="undeclared_x"):
+        Inverted.load(str(tmp_path / "a"))
 
 
 # --- the snappy frame ---------------------------------------------------------
@@ -294,15 +304,13 @@ def _frames():
 
 @pytest.mark.parametrize("workers", WORKERS)
 @pytest.mark.parametrize("case", sorted(_frames()))
-def test_frame_equals_python_path(case, workers, monkeypatch):
+def test_frame_equals_python_path(case, workers):
     _lib()
     framed, data = _frames()[case]
     got = snappy._frame_decompress_native(framed, True, workers)
     assert got is not None and got[0] == data and type(got[0]) is bytes
     assert snappy.frame_decompress(framed, workers=workers) == data
-    with monkeypatch.context() as mp:
-        mp.setattr(snappy, "get_lib", lambda: None)
-        assert snappy.frame_decompress(framed) == data
+    assert snappy._frame_decompress_py(framed, True) == data
 
 
 def _flip(framed: bytes, at: int) -> bytes:
@@ -352,7 +360,7 @@ def test_unverified_frame_skips_the_checksum():
 # --- the raw block and the checksum -------------------------------------------
 
 def _varint(v: int) -> bytes:
-    return snappy._write_varint(v)
+    return jax_snappy._write_varint(v)
 
 
 def _random_block(seed: int) -> bytes:
@@ -389,7 +397,7 @@ def _random_block(seed: int) -> bytes:
 def test_overlapping_copies_equal_python(seed):
     _lib()
     block = _random_block(seed)
-    want = snappy._decompress_raw_py(block)
+    want = jax_snappy._decompress_raw_py(block)
     assert snappy.decompress_raw(block) == want
     framed = (snappy._STREAM_IDENTIFIER
               + _chunk(0x00, struct.pack("<I", snappy._masked_crc(want))
@@ -401,7 +409,7 @@ def test_overlapping_copies_equal_python(seed):
 def test_crc32c_instruction_equals_table(n):
     lib = _lib()
     data = np.random.default_rng(n).bytes(n)
-    want = snappy._crc32c_py(data)
+    want = jax_snappy._crc32c_py(data)
     assert lib.stpu_crc32c(data, n, 0) == want
     assert lib.stpu_crc32c_table(data, n, 0) == want
     assert lib.stpu_crc32c(data, n, 0x1234) == \

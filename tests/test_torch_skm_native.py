@@ -4,7 +4,9 @@ read by formats/skm.py's SkmColumns) against the Python path it replaces
 name_map, kmer_lengths, sizes, strides, sketch_version and hash_type on
 the files the port and the benchmark write, on hand-made payloads at the
 edges of the schema, and the fallback on anything outside it; the CLI's
-output with either; and that a dist --knn run builds no Sketch object."""
+output with either; and that a dist --knn run builds no Sketch object.
+The Python path is reached by name: SkmColumns.decode declining, as it
+does for a payload outside the native decoder's subset."""
 
 import logging
 from pathlib import Path
@@ -15,7 +17,7 @@ import pytest
 from portbench.databases import sketches as bench_sketches
 from sketchtpu_torch import cli as port_cli
 from sketchtpu_torch.constants import BBITS
-from sketchtpu_torch.formats import cbor, skd, skm, snappy
+from sketchtpu_torch.formats import cbor, skd, snappy
 from sketchtpu_torch.formats.skm import MultiSketch, SkmColumns
 from sketchtpu_torch.sketchcore.sketch import HashType, Sketch
 from sketchtpu_torch.synth import (derive_words, related_assemblies,
@@ -29,9 +31,15 @@ def _payload(prefix) -> bytes:
     return snappy.frame_decompress(Path(f"{prefix}.skm").read_bytes())
 
 
+def _declined(mp) -> None:
+    """Make the native decoder decline every payload: _from_payload then
+    takes cbor.loads and MultiSketch's Python construction."""
+    mp.setattr(SkmColumns, "decode", classmethod(lambda cls, payload: None))
+
+
 def _python_path(payload: bytes, monkeypatch) -> MultiSketch:
     with monkeypatch.context() as mp:
-        mp.setattr(skm, "get_lib", lambda: None)
+        _declined(mp)
         return MultiSketch._from_payload(payload)
 
 
@@ -342,7 +350,6 @@ def test_utf8_taken_as_python_takes_it(monkeypatch):
     names = [bytes([lead, b]) + tail for lead in range(0x80, 0x100)
              for b in edges for tail in (b"", b"\x80", b"\xbf\x80", b"A")]
     names += [b"\xef\xbf\xbf", b"\xf4\x8f\xbf\xbf", b"\xe0\xa0\x80"]
-    lib = skm.get_lib()
     head = cbor.dumps(_serde([_record(0)]))
     for raw in names:
         try:
@@ -353,7 +360,6 @@ def test_utf8_taken_as_python_takes_it(monkeypatch):
         name = bytes([0x78, len(raw)]) + raw
         payload = head.replace(cbor.dumps("s0"), name)
         assert (SkmColumns.decode(payload) is not None) == valid, raw
-    assert lib is not None
 
 
 def test_invalid_utf8_raises_as_before(monkeypatch):
@@ -439,7 +445,7 @@ def test_cli_output_identical_and_dist_builds_no_sketch(small_db, monkeypatch,
             assert not built, argv
     native = _cli_outputs(small_db, "native", capsys)
     with monkeypatch.context() as mp:
-        mp.setattr(skm, "get_lib", lambda: None)
+        _declined(mp)
         python = _cli_outputs(small_db, "python", capsys)
     assert native.keys() == python.keys() and len(native) >= 12
     for name in native:

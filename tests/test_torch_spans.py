@@ -219,24 +219,58 @@ def test_dist_knn_records_its_stages(db, tmp_path, monkeypatch, mode):
 
 
 @pytest.mark.parametrize("native", [True, False])
-def test_load_skm_records_snappy_and_decode(db, monkeypatch, native):
+def test_load_skm_records_snappy_and_decode(db, tmp_path, native):
     """load.skm holds snappy (bytes: the payload; native: the frame's
     data chunks the host helper decoded) and decode (native: the records
-    the native decoder produced, 0 without the host library)."""
+    the native decoder produced, 0 for a payload it declines: here the
+    same map as one of indefinite length, which cbor.loads takes)."""
+    prefix = db / "db"
+    payload = snappy.frame_decompress((db / "db.skm").read_bytes())
     if not native:
-        monkeypatch.setattr(skm, "get_lib", lambda: None)
+        assert payload[0] >> 5 == 5 and payload[0] & 31 < 24  # a map head
+        payload = b"\xbf" + payload[1:] + b"\xff"
+        prefix = tmp_path / "declined"
+        (tmp_path / "declined.skm").write_bytes(snappy.frame_compress(payload))
     before = len(spans.recorded())
     with _cpu_profile():
-        ms = MultiSketch.load_metadata(str(db / "db"))
+        ms = MultiSketch.load_metadata(str(prefix))
     got = _new(before)
     (load,) = [s for s in got if s.name == "load.skm"]
     assert ms.number_samples_loaded() == 60
-    assert load.counts == {"bytes": (db / "db.skm").stat().st_size}
-    payload = snappy.frame_decompress((db / "db.skm").read_bytes())
+    assert ms.kmer_lengths == list(KMERS)
+    assert load.counts == {"bytes": prefix.with_suffix(".skm").stat().st_size}
     assert sorted((s.name, s.counts) for s in got if s.parent == load.id) == [
         ("decode", {"native": 60 if native else 0}),
         ("snappy", {"bytes": len(payload),
                     "native": -(-len(payload) // 65536)})]
+
+
+SELF, CROSS = 60 * 59 // 2, 60 * 60
+
+
+@pytest.mark.parametrize("backend,argv,lines", [
+    ("cpu", ["-k", "17"], SELF),
+    ("cpu", [], SELF),
+    ("cpu", ["--exact"], SELF),
+    ("cpu", ["{db}", "-k", "21"], CROSS),
+    ("cpu", ["{db}"], CROSS),
+    ("host", ["-k", "17"], SELF),
+    ("host", [], SELF),
+    ("host", ["{db}", "-k", "25"], CROSS),
+], ids=["stream_k17", "stream_coreacc", "stream_exact", "stream_cross_k21",
+        "stream_cross_coreacc", "host_k17", "host_coreacc", "host_cross_k25"])
+def test_dense_dist_write_counts_its_bytes(db, tmp_path, monkeypatch, backend,
+                                           argv, lines):
+    """A dense dist records one write span whose bytes are the output
+    file's size: the stream engines' strips and blocks (cpu) and the host
+    writers (host) all go through an OutputPipeline, which counts them."""
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", backend)
+    out = tmp_path / "out.txt"
+    argv = [a.format(db=db / "db") for a in argv]
+    got = _stages(["dist", str(db / "db"), *argv, "-o", str(out), "--quiet"])
+    (write,) = got[("write",)]
+    assert len(out.read_text().splitlines()) == lines
+    assert write.counts == {"bytes": out.stat().st_size}
 
 
 def test_precluster_count_records_its_stages(db, monkeypatch, capsys):

@@ -10,6 +10,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -27,6 +28,7 @@ _BUILD_AT_ONCE = {
     "host helper": """
 import subprocess, sys, time
 from pathlib import Path
+from types import SimpleNamespace
 from sketchtpu_torch import _native
 _native._BUILD_DIR = Path(sys.argv[1])
 real = subprocess.run
@@ -37,12 +39,13 @@ def logged(cmd, **kw):
 subprocess.run = logged
 while time.time() < float(sys.argv[3]):
     time.sleep(0.001)
-assert _native.get_lib() is not None
+_native.lib()
 print(_native.library_path())
 """,
     "kernels": """
 import sys, time
 from pathlib import Path
+from types import SimpleNamespace
 from sketchtpu_torch import _build
 _build.BUILD_DIR = Path(sys.argv[1])
 def compile_(out):  # nvcc's stand-in: slow, then the library appears
@@ -66,7 +69,6 @@ def test_concurrent_builds_compile_once(tmp_path, what):
     build_dir, log = tmp_path / "_build", tmp_path / "compiles.log"
     start = time.time() + 3.0
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    env.pop("SKETCHTPU_NO_NATIVE", None)
     procs = [subprocess.Popen(
         [sys.executable, "-c", _BUILD_AT_ONCE[what], str(build_dir), str(log),
          str(start)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -117,6 +119,20 @@ def test_warmup_builds_and_reports(monkeypatch, capsys, mode):
     assert calls == ([1] if mode == "cuda" else [])
     assert ("CUDA kernels: /lib/kernels.so" in err) == (mode == "cuda")
     assert "warmup complete for dense,knn,inverted" in err
+
+
+def test_warmup_fails_when_the_host_helper_does_not_build(tmp_path,
+                                                          monkeypatch):
+    """warmup builds the host helper as it builds the kernels: a source
+    g++ rejects fails the command with g++'s message."""
+    src = tmp_path / "native.cpp"
+    src.write_text("int stpu_x() { return not_declared_here; }\n")
+    monkeypatch.setenv("SKETCHTPU_TORCH_BACKEND", "cpu")
+    monkeypatch.setattr(_native, "_SRC", src)
+    monkeypatch.setattr(_native, "_BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_native, "_loaded", None)
+    with pytest.raises(RuntimeError, match="not_declared_here"):
+        warmup.run_warmup(SimpleNamespace(modes="dense"))
 
 
 def _profiled(tmp_path, argv, env=None):
